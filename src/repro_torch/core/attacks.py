@@ -1,0 +1,76 @@
+"""Byzantine attacks: ``(msgs (N, Q), byz_mask (N,)) -> transmitted (N, Q)``.
+
+The paper's sign-flip (coefficient -2) and the ALIE and IPM collusion
+attacks run through the attack kernel (``kernels/ops.py::attack``) on a
+CUDA tensor and through its plain version on the CPU. ``none``, ``zero``
+and ``label_shift`` are plain tensor code. ``gaussian`` draws noise inside
+the round and waits for a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.attacks import KERNEL_ATTACK_PARAMS
+
+Attack = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+__all__ = ["Attack", "AttackSpec", "make_attack", "sample_byzantine_mask"]
+
+
+def _zero(msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[:, None] > 0, torch.zeros_like(msgs), msgs)
+
+
+def _label_shift(msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Gradient-space proxy for label flipping: negate."""
+    return torch.where(mask[:, None] > 0, -1.0 * msgs, msgs)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttackSpec:
+    name: str = "sign_flip"
+    n_byz: int = 0
+    fixed_identity: bool = True  # B^t fixed across rounds vs resampled per round
+    coeff: float = -2.0  # sign_flip
+    std: float = 10.0  # gaussian
+    z: float = 1.5  # alie
+    eps: float = 0.5  # ipm
+
+    def make(self) -> Attack:
+        return make_attack(self)
+
+
+def make_attack(spec: AttackSpec) -> Attack:
+    """The corruption map of ``spec``."""
+    if spec.name in KERNEL_ATTACK_PARAMS:
+        name = spec.name
+        param = float(getattr(spec, KERNEL_ATTACK_PARAMS[name]))
+        return lambda msgs, mask: kernel_ops.attack(msgs, mask, name, param)
+    if spec.name == "none":
+        return lambda msgs, mask: msgs
+    if spec.name == "zero":
+        return _zero
+    if spec.name == "label_shift":
+        return _label_shift
+    if spec.name == "gaussian":
+        raise NotImplementedError("the gaussian attack is not ported yet (ROADMAP A.2)")
+    raise KeyError(f"unknown attack {spec.name!r}")
+
+
+def sample_byzantine_mask(
+    n: int, n_byz: int, fixed: bool = True, *,
+    generator: torch.Generator | None = None, device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """0/1 float mask of the Byzantine devices. ``fixed=True`` marks the first
+    ``n_byz`` devices; otherwise a uniformly random ``n_byz``-subset drawn
+    from ``generator``."""
+    if n_byz == 0 or fixed:
+        return (torch.arange(n, device=device) < n_byz).to(torch.float32)
+    if generator is None:
+        raise ValueError("a random Byzantine set needs a generator")
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    return (perm < n_byz).to(torch.float32)

@@ -1,0 +1,216 @@
+"""The LAD / Com-LAD protocol round (Algorithms 1 and 2).
+
+One round takes the gradient of every data subset and returns the server's
+aggregate: task assignment, eq.-(5) encode (the gather-combine kernel),
+compression, Byzantine attack (the attack kernel), robust aggregation (the
+CWTM kernel, after NNM mixing around the Gram kernel for ``-nnm`` rules).
+
+``method``:
+  * ``"lad"``   — Algorithm 1/2 (Com-LAD when compression is on);
+  * ``"plain"`` — the non-redundant baselines (VA / CWTM / CWTM-NNM /
+                  Com-TGN): LAD with d = 1.
+DRACO and partial participation are not ported yet.
+
+The round draws nothing itself: its random choices come in as a
+``RoundRandomness`` record, so a test can hand it the reference's own
+draws and production draws them from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core import aggregators as agg_lib
+from repro_torch.core import attacks as attack_lib
+from repro_torch.core import compression as comp_lib
+from repro_torch.core import task_matrix as tm
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+
+__all__ = [
+    "ProtocolConfig",
+    "RoundRandomness",
+    "sample_round_randomness",
+    "make_attack_fn",
+    "make_server_fn",
+    "protocol_round",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolConfig:
+    """One protocol condition.
+
+    Attributes:
+      n_devices: ``N``, logical devices == data subsets.
+      d: computational load, subsets per device per round (forced to 1 for
+        ``method="plain"``).
+      method: ``"lad"`` or ``"plain"``.
+      aggregator: ``mean``, ``cwtm`` or ``tgn``, optionally with ``-nnm``.
+      trim_frac: CWTM trim fraction (``f = int(trim_frac * N)`` per side).
+      n_byz: number of Byzantine devices ``N - H``.
+      attack: the corruption model.
+      compression: the Com-LAD wire compression.
+      participation: only ``"full"`` is ported.
+    """
+
+    n_devices: int
+    d: int = 1
+    method: str = "lad"
+    aggregator: str = "cwtm"
+    trim_frac: float = 0.1
+    n_byz: int = 0
+    attack: attack_lib.AttackSpec = dataclasses.field(
+        default_factory=lambda: attack_lib.AttackSpec(name="sign_flip")
+    )
+    compression: comp_lib.CompressionSpec = dataclasses.field(
+        default_factory=comp_lib.CompressionSpec
+    )
+    participation: str = "full"
+
+    def __post_init__(self):
+        if self.method == "draco":
+            raise NotImplementedError("method 'draco' is not ported yet (ROADMAP A.2)")
+        if self.method not in ("lad", "plain"):
+            raise ValueError(f"unknown method {self.method!r}")
+        if self.participation != "full":
+            raise NotImplementedError("partial participation is not ported yet (ROADMAP A.6)")
+
+    def make_aggregator(self):
+        return agg_lib.make_aggregator(
+            self.aggregator, n_byz=self.n_byz, trim_frac=self.trim_frac
+        )
+
+    def effective_d(self) -> int:
+        return 1 if self.method == "plain" else self.d
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundRandomness:
+    """Every random choice of one round.
+
+    Attributes:
+      task_index: ``(N,)`` the task-matrix row each device runs.
+      subset_perm: ``(N,)`` the data subset behind each column.
+      byz_mask: ``(N,)`` 0/1 float, the Byzantine devices.
+      keep_idx: ``(N, q_hat)`` each device's kept coordinates under sparse
+        compression, else ``None``.
+    """
+
+    task_index: torch.Tensor
+    subset_perm: torch.Tensor
+    byz_mask: torch.Tensor
+    keep_idx: torch.Tensor | None = None
+
+    def to(self, device: torch.device | str) -> "RoundRandomness":
+        return RoundRandomness(
+            task_index=self.task_index.to(device),
+            subset_perm=self.subset_perm.to(device),
+            byz_mask=self.byz_mask.to(device),
+            keep_idx=None if self.keep_idx is None else self.keep_idx.to(device),
+        )
+
+    def validate(self, n: int, q: int) -> None:
+        """Raise unless this is a well-formed round for ``N = n`` devices and
+        width ``q``: both assignment draws permutations of ``[0, n)``, a 0/1
+        mask of ``n`` devices, keep-indices in ``[0, q)``.
+
+        Reads the tensors on the host (a device sync when they lie on a
+        card); ``sample_round_randomness`` needs no check, a record built
+        anywhere else is checked once where it enters the trainer."""
+        ids = torch.arange(n)
+        for name in ("task_index", "subset_perm"):
+            t = getattr(self, name).cpu()
+            if t.shape != (n,) or not torch.equal(torch.sort(t.long()).values, ids):
+                raise ValueError(f"RoundRandomness.{name} is not a permutation of [0, {n})")
+        mask = self.byz_mask.cpu()
+        if mask.shape != (n,) or not bool(((mask == 0) | (mask == 1)).all()):
+            raise ValueError(f"RoundRandomness.byz_mask must be ({n},) 0/1")
+        if self.keep_idx is not None:
+            keep = self.keep_idx.cpu()
+            if keep.ndim != 2 or keep.shape[0] != n or (
+                    keep.numel() and (int(keep.min()) < 0 or int(keep.max()) >= q)):
+                raise ValueError(f"RoundRandomness.keep_idx must be ({n}, q_hat) ids in [0, {q})")
+
+
+def sample_round_randomness(cfg: ProtocolConfig, q: int, generator: torch.Generator) -> RoundRandomness:
+    """Draw one round's randomness from ``generator`` on its device."""
+    n = cfg.n_devices
+    ta = tm.sample_assignment(generator, n, cfg.effective_d())
+    mask = attack_lib.sample_byzantine_mask(
+        n, cfg.n_byz, fixed=cfg.attack.fixed_identity, generator=generator,
+        device=generator.device,
+    )
+    return RoundRandomness(
+        task_index=ta.task_index,
+        subset_perm=ta.subset_perm,
+        byz_mask=mask,
+        keep_idx=comp_lib.sample_keep_idx(cfg.compression, n, q, generator),
+    )
+
+
+def make_attack_fn(cfg: ProtocolConfig) -> attack_lib.Attack:
+    """The corruption map ``(msgs, mask) -> transmitted`` of ``cfg``."""
+    return dataclasses.replace(cfg.attack, n_byz=cfg.n_byz).make()
+
+
+def make_server_fn(cfg: ProtocolConfig) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The server ``(N, Q) -> (Q,)``; CWTM runs through its kernel and the
+    ``-nnm`` rules through the Gram kernel (see ``aggregators``)."""
+    return cfg.make_aggregator()
+
+
+def protocol_round(
+    cfg: ProtocolConfig,
+    subset_grads: torch.Tensor,
+    rand: RoundRandomness,
+    *,
+    device: torch.device | str | None = None,
+    attack_fn: attack_lib.Attack | None = None,
+    server_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    stage_hook: Callable[[str], None] | None = None,
+) -> torch.Tensor:
+    """One full protocol round.
+
+    Args:
+      cfg: protocol configuration.
+      subset_grads: ``(N, Q)`` fp32, the gradient of every data subset.
+      rand: this round's random choices, on the round's device.
+      device: where the round runs; ``cuda`` when not given (no CUDA then
+        raises). ``subset_grads`` must already lie there.
+      attack_fn / server_fn: overrides of ``make_attack_fn(cfg)`` /
+        ``make_server_fn(cfg)``.
+      stage_hook: called with ``"encode"``, ``"compress"``, ``"attack"`` and
+        ``"server"`` as each stage has been enqueued (for stage timing).
+
+    Returns:
+      ``(Q,)`` the aggregate ``g^t``.
+    """
+    dev = resolve_device(device)
+    n = cfg.n_devices
+    if subset_grads.device != dev:
+        raise ValueError(f"subset_grads lie on {subset_grads.device}, the round runs on {dev}")
+    if subset_grads.ndim != 2 or subset_grads.shape[0] != n:
+        raise ValueError(f"subset_grads must be ({n}, Q), got {tuple(subset_grads.shape)}")
+    hook = stage_hook or (lambda stage: None)
+
+    d = cfg.effective_d()
+    assign = tm.assignment_from(rand.task_index, rand.subset_perm, d)
+    w = torch.full((d,), 1.0 / d, dtype=torch.float32, device=dev)
+    coded = kernel_ops.gather_combine(subset_grads, assign.subsets, w)
+    hook("encode")
+
+    coded = comp_lib.compress_rows(cfg.compression, coded, rand.keep_idx)
+    hook("compress")
+
+    attack = attack_fn if attack_fn is not None else make_attack_fn(cfg)
+    transmitted = attack(coded, rand.byz_mask)
+    del coded  # free the coded stack before the server allocates
+    hook("attack")
+
+    server = server_fn if server_fn is not None else make_server_fn(cfg)
+    out = server(transmitted)
+    hook("server")
+    return out

@@ -1,0 +1,168 @@
+"""Com-LAD wire compression (Section V, Definition 2).
+
+Ported in this slice: ``identity`` and random sparsification, per device
+(``rand_sparse``) or with one mask shared by every device
+(``rand_sparse_shared``). Each keeps ``q_hat`` coordinates and scales them
+by ``Q / q_hat``. The kept coordinates come in as indices
+(``keep_idx``, one row per device) drawn outside the round. ``quant`` and
+``top_k`` wait for a later slice.
+
+``CompressionSpec`` keeps the reference's one spelling of a condition:
+``"identity" | "randk:8" | "randk:0.3" | "randk_shared:8" | "quant:4" |
+"topk:8"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = [
+    "CompressionSpec",
+    "spec_from",
+    "identity",
+    "rand_sparse",
+    "compress_rows",
+    "sample_keep_idx",
+    "SPARSE",
+]
+
+SPARSE = ("rand_sparse", "rand_sparse_shared")
+
+_SHORT_TO_NAME = {
+    "identity": "none",
+    "none": "none",
+    "randk": "rand_sparse",
+    "rand_sparse": "rand_sparse",
+    "randk_shared": "rand_sparse_shared",
+    "rand_sparse_shared": "rand_sparse_shared",
+    "topk": "top_k",
+    "top_k": "top_k",
+    "quant": "quant",
+}
+_NAME_TO_SHORT = {
+    "none": "identity",
+    "rand_sparse": "randk",
+    "rand_sparse_shared": "randk_shared",
+    "top_k": "topk",
+    "quant": "quant",
+}
+_DEFAULT_CHUNK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionSpec:
+    """Config-level description of the wire compression. The sparse budget
+    is a kept fraction (``q_hat_frac``) or, when ``q_hat > 0``, a kept
+    count."""
+
+    name: str = "none"  # none | rand_sparse | rand_sparse_shared | quant | top_k
+    q_hat_frac: float = 0.3
+    levels: int = 16
+    chunk: int = 1024
+    q_hat: int = 0
+
+    def kept(self, q: int) -> int:
+        """The sparsification count ``q_hat`` for vectors of length q."""
+        if self.q_hat > 0:
+            return min(int(self.q_hat), q)
+        return max(1, int(self.q_hat_frac * q))
+
+    @classmethod
+    def parse(cls, text: str) -> "CompressionSpec":
+        """``short[:param[:chunk]]``; ``parse(spec.canonical())`` round-trips."""
+        if not isinstance(text, str) or not text:
+            raise ValueError(f"compression spec must be a non-empty string, got {text!r}")
+        parts = text.strip().split(":")
+        short = parts[0]
+        if short not in _SHORT_TO_NAME:
+            raise ValueError(
+                f"unknown compressor {short!r}; known: {sorted(set(_NAME_TO_SHORT.values()))}"
+            )
+        name = _SHORT_TO_NAME[short]
+        if name == "none":
+            if len(parts) != 1:
+                raise ValueError(f"identity takes no parameters, got {text!r}")
+            return cls(name="none")
+        if name == "quant":
+            if len(parts) not in (2, 3):
+                raise ValueError(f"quant spec is quant:LEVELS[:CHUNK], got {text!r}")
+            levels = int(parts[1])
+            chunk = int(parts[2]) if len(parts) == 3 else _DEFAULT_CHUNK
+            if levels < 1 or chunk < 1:
+                raise ValueError(f"quant levels/chunk must be >= 1, got {text!r}")
+            return cls(name="quant", levels=levels, chunk=chunk)
+        if len(parts) != 2:
+            raise ValueError(f"{short} spec is {short}:COUNT or {short}:FRAC, got {text!r}")
+        if "." in parts[1]:
+            frac = float(parts[1])
+            if not (0.0 < frac <= 1.0):
+                raise ValueError(f"kept fraction must be in (0, 1], got {text!r}")
+            return cls(name=name, q_hat_frac=frac)
+        k = int(parts[1])
+        if k < 1:
+            raise ValueError(f"kept count must be >= 1, got {text!r}")
+        return cls(name=name, q_hat=k)
+
+    def canonical(self) -> str:
+        """The registry spelling of this spec."""
+        short = _NAME_TO_SHORT[_SHORT_TO_NAME.get(self.name, self.name)]
+        if self.name in ("none", "identity"):
+            return "identity"
+        if self.name == "quant":
+            if self.chunk != _DEFAULT_CHUNK:
+                return f"quant:{self.levels}:{self.chunk}"
+            return f"quant:{self.levels}"
+        if self.q_hat > 0:
+            return f"{short}:{self.q_hat}"
+        return f"{short}:{self.q_hat_frac:g}"
+
+
+def spec_from(name: str, *, q_hat_frac: float = 0.3, levels: int = 16,
+              chunk: int = 1024) -> CompressionSpec:
+    """A spec from a registry spelling (anything with ``:``) or a bare name
+    plus keyword fields, as ``Scenario`` rows give it."""
+    if ":" in name:
+        return CompressionSpec.parse(name)
+    return CompressionSpec(name=name, q_hat_frac=q_hat_frac, levels=levels, chunk=chunk)
+
+
+def identity(rows: torch.Tensor) -> torch.Tensor:
+    return rows
+
+
+def rand_sparse(rows: torch.Tensor, keep_idx: torch.Tensor) -> torch.Tensor:
+    """Keep the coordinates ``keep_idx[i]`` of row ``i``, scaled by
+    ``Q / q_hat``. rows: (R, Q), keep_idx: (R, q_hat) -> (R, Q)."""
+    q, q_hat = rows.shape[-1], keep_idx.shape[-1]
+    mask = torch.zeros_like(rows).scatter_(-1, keep_idx.long(), 1.0)
+    return rows * mask * (q / q_hat)
+
+
+def compress_rows(spec: CompressionSpec, rows: torch.Tensor,
+                  keep_idx: torch.Tensor | None) -> torch.Tensor:
+    """Apply ``spec`` to the (R, Q) coded rows of a round; ``keep_idx`` holds
+    each row's kept coordinates for the sparse compressors (the same row
+    repeated for ``rand_sparse_shared``)."""
+    if spec.name in ("none", "identity"):
+        return identity(rows)
+    if spec.name in SPARSE:
+        if keep_idx is None or keep_idx.shape != (rows.shape[0], spec.kept(rows.shape[1])):
+            raise ValueError(f"{spec.name} needs keep_idx of shape (R, q_hat)")
+        return rand_sparse(rows, keep_idx)
+    if spec.name in ("quant", "top_k"):
+        raise NotImplementedError(f"compressor {spec.name!r} is not ported yet (ROADMAP A.2, B.5)")
+    raise KeyError(f"unknown compressor {spec.name!r}")
+
+
+def sample_keep_idx(spec: CompressionSpec, n: int, q: int,
+                    generator: torch.Generator) -> torch.Tensor | None:
+    """Each device's kept coordinates for a round, drawn from ``generator``:
+    the first ``q_hat`` entries of a random permutation of Q (the argsort of
+    uniform draws), one per device, or one for all devices with
+    ``rand_sparse_shared``."""
+    if spec.name not in SPARSE:
+        return None
+    rows = 1 if spec.name == "rand_sparse_shared" else n
+    u = torch.rand((rows, q), generator=generator, device=generator.device)
+    return u.argsort(dim=-1)[:, : spec.kept(q)].expand(n, -1).contiguous()

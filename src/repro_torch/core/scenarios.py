@@ -1,0 +1,165 @@
+"""The paper's Section-VII conditions and the function that runs one.
+
+  * ``Scenario`` — one declarative row; ``.protocol()`` lowers it to a
+    ``ProtocolConfig``.
+  * ``PAPER_FIG4/5/6`` — the named curves of Figs. 4-6 (Fig. 4 without
+    DRACO-d41, which waits for DRACO's port).
+  * ``run_scenario`` — a scenario on the linear-regression problem.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.attacks import AttackSpec
+from repro_torch.core.byzantine import ProtocolConfig
+from repro_torch.core.compression import spec_from
+from repro_torch.core.engine import RandomnessProvider, TrajectoryResult, run_trajectory
+from repro_torch.data.synthetic import linear_regression_problem, linreg_loss, linreg_subset_grads
+from repro_torch.device import resolve_device
+
+__all__ = ["Scenario", "scenario_name", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6", "run_scenario"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One experimental condition."""
+
+    name: str
+    method: str = "lad"  # lad | plain
+    d: int = 1
+    aggregator: str = "cwtm"
+    attack: str = "sign_flip"
+    n_byz: int = 20
+    compressor: str = "none"  # none | rand_sparse | rand_sparse_shared
+    q_hat_frac: float = 0.3
+    quant_levels: int = 16
+    sigma_h: float = 0.3
+    trim_frac: float = 0.1
+    n_devices: int = 100
+    lr: float = 1e-6
+    participation: str = "full"
+
+    def protocol(self) -> ProtocolConfig:
+        return ProtocolConfig(
+            n_devices=self.n_devices,
+            d=self.d,
+            method=self.method,
+            aggregator=self.aggregator,
+            trim_frac=self.trim_frac,
+            n_byz=self.n_byz,
+            attack=AttackSpec(self.attack, n_byz=self.n_byz),
+            compression=spec_from(
+                self.compressor, q_hat_frac=self.q_hat_frac, levels=self.quant_levels
+            ),
+            participation=self.participation,
+        )
+
+
+def scenario_name(
+    method: str, d: int, aggregator: str, attack: str, compressor: str, sigma_h: float
+) -> str:
+    comp = "" if compressor == "none" else f"/{compressor}"
+    return f"{method}-d{d}/{aggregator}/{attack}{comp}/s{sigma_h:g}"
+
+
+def _fig4(label: str, method: str, d: int, agg: str) -> Scenario:
+    return Scenario(name=label, method=method, d=d, aggregator=agg,
+                    attack="sign_flip", n_byz=20, sigma_h=0.3, lr=1e-6)
+
+
+# Fig. 4: training loss under sign-flip(-2), H=80, sigma_H=0.3.
+PAPER_FIG4 = {
+    "VA": _fig4("VA", "plain", 1, "mean"),
+    "CWTM": _fig4("CWTM", "plain", 1, "cwtm"),
+    "CWTM-NNM": _fig4("CWTM-NNM", "plain", 1, "cwtm-nnm"),
+    "LAD-CWTM-d5": _fig4("LAD-CWTM-d5", "lad", 5, "cwtm"),
+    "LAD-CWTM-d10": _fig4("LAD-CWTM-d10", "lad", 10, "cwtm"),
+    "LAD-CWTM-d20": _fig4("LAD-CWTM-d20", "lad", 20, "cwtm"),
+    "LAD-CWTM-NNM-d10": _fig4("LAD-CWTM-NNM-d10", "lad", 10, "cwtm-nnm"),
+}
+
+# Fig. 5: heterogeneity sweep — the LAD advantage grows with sigma_H.
+PAPER_FIG5 = {
+    f"{label}-s{sigma:g}": Scenario(
+        name=f"{label}-s{sigma:g}", method=method, d=d, aggregator="cwtm",
+        attack="sign_flip", n_byz=20, sigma_h=sigma, lr=1e-6,
+    )
+    for sigma in (0.0, 0.1)
+    for label, method, d in (("CWTM", "plain", 1), ("LAD-CWTM-d10", "lad", 10))
+}
+
+
+def _fig6(label: str, method: str, d: int, agg: str) -> Scenario:
+    return Scenario(name=label, method=method, d=d, aggregator=agg,
+                    attack="sign_flip", n_byz=30, compressor="rand_sparse",
+                    q_hat_frac=0.3, sigma_h=0.3, lr=3e-7)
+
+
+# Fig. 6: compressed communication — random sparsification Q_hat=30, H=70, d=3.
+PAPER_FIG6 = {
+    "Com-VA": _fig6("Com-VA", "plain", 1, "mean"),
+    "Com-CWTM": _fig6("Com-CWTM", "plain", 1, "cwtm"),
+    "Com-CWTM-NNM": _fig6("Com-CWTM-NNM", "plain", 1, "cwtm-nnm"),
+    "Com-TGN": _fig6("Com-TGN", "plain", 1, "tgn"),
+    "Com-LAD-CWTM": _fig6("Com-LAD-CWTM", "lad", 3, "cwtm"),
+    "Com-LAD-CWTM-NNM": _fig6("Com-LAD-CWTM-NNM", "lad", 3, "cwtm-nnm"),
+}
+
+
+def _subset_grads(data, x):
+    z, y = data
+    return linreg_subset_grads(z, y, x)
+
+
+def _loss(data, xs):
+    z, y = data
+    return linreg_loss(z, y, xs)
+
+
+def run_scenario(
+    scn: Scenario,
+    steps: int,
+    *,
+    seed: int = 0,
+    problem: tuple[torch.Tensor, torch.Tensor] | None = None,
+    dim: int = 100,
+    randomness: RandomnessProvider | None = None,
+    device: torch.device | str | None = None,
+) -> TrajectoryResult:
+    """Run one scenario on the Section-VII linear-regression problem.
+
+    One ``torch.Generator`` on the run's device, seeded with ``seed``, draws
+    the problem (unless ``problem`` shares one ``(Z, y)`` across scenarios;
+    it is cut to ``scn.n_devices`` subsets) and then each round's
+    randomness (unless ``randomness`` provides it; its records are checked
+    as they come in, see ``run_trajectory``).
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = scn.n_devices
+    if problem is None:
+        z, y = linear_regression_problem(gen, n=n, dim=dim, sigma_h=scn.sigma_h)
+    else:
+        z, y = problem
+        if z.shape[0] < n:
+            raise ValueError(
+                f"shared problem has {z.shape[0]} subsets < n_devices={n} of scenario {scn.name!r}"
+            )
+        z, y = z[:n].to(dev), y[:n].to(dev)
+    cfg = scn.protocol()
+    return run_trajectory(
+        cfg,
+        torch.zeros(z.shape[1], dtype=torch.float32, device=dev),
+        _subset_grads,
+        steps=steps,
+        lr=scn.lr,
+        randomness=randomness if randomness is not None else gen,
+        # the aggregate estimates (1/N) grad F; eq. (7) steps on F
+        grad_scale=float(n),
+        loss_fn=_loss,
+        data=(z, y),
+        device=dev,
+    )

@@ -1,0 +1,159 @@
+"""Public wrappers over the four kernels of the protocol round.
+
+Each wrapper takes any Q and any number of leading lane axes, folds the
+lanes into one axis, and then:
+
+  * for a tensor on a CUDA device, launches its hand-written kernel (and
+    adds one to its launch count) — there is no fallback;
+  * for a tensor on the CPU, runs the plain PyTorch version.
+
+The kernels take fp32, contiguous tensors; anything else raises. The CUDA
+kernels mask their ragged Q edge themselves, so nothing is padded here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import attacks as _attacks
+from repro_torch.kernels import coded_combine as _coded_combine
+from repro_torch.kernels import cwtm as _cwtm
+from repro_torch.kernels import nnm_dist as _nnm_dist
+from repro_torch.kernels.ref import sqdist_from_gram
+
+__all__ = [
+    "gather_combine",
+    "attack",
+    "cwtm",
+    "gram",
+    "pairwise_sqdist",
+    "KERNELS",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+# kernel name -> launches of its CUDA kernel in this process
+_launches = {"gather_combine": 0, "attack": 0, "cwtm": 0, "gram": 0}
+KERNELS = tuple(_launches)
+
+_MAX_GRID_Y = 65535
+
+
+def launch_counts() -> dict[str, int]:
+    """A copy of the per-kernel launch counts."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """Validate the operands of kernel ``name``; True when they lie on a CUDA
+    device (launch the kernel), False on the CPU (run the plain version)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if tensors[0].dtype != torch.float32:
+        raise TypeError(f"{name}: float32 only, got {tensors[0].dtype}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel and no plain path for device {dev}")
+
+
+def _lanes(x: torch.Tensor, event_ndim: int) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """Fold all leading lane axes of ``x`` into one."""
+    if not x.is_contiguous():
+        raise ValueError("kernel operands must be contiguous")
+    lead = tuple(x.shape[: x.ndim - event_ndim])
+    return x.reshape((-1,) + tuple(x.shape[x.ndim - event_ndim :])), lead
+
+
+def gather_combine(
+    grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor
+) -> torch.Tensor:
+    """eq.-(5) encode. grads: (..., N, Q) f32, subsets: (..., N, d) ids in
+    [0, N), weights: (d,) or (..., d) -> (..., N, Q) coded vectors.
+
+    On the CPU an id outside [0, N) raises. On the card the ids are not
+    read back (that would stall the host every round); the kernel reads no
+    row outside the stack and writes NaN over a device row whose ids are out
+    of range. Records of randomness are checked where they enter a round
+    (``RoundRandomness.validate``)."""
+    n = grads.shape[-2]
+    if subsets.shape[:-1] != grads.shape[:-1]:
+        raise ValueError(f"gather_combine: subsets {tuple(subsets.shape)} vs grads {tuple(grads.shape)}")
+    flat, lead = _lanes(grads, 2)
+    s = subsets.reshape(flat.shape[:2] + subsets.shape[-1:]).to(torch.int32).contiguous()
+    w = weights.to(torch.float32).expand(lead + weights.shape[-1:]).reshape(
+        flat.shape[:1] + weights.shape[-1:]).contiguous()
+    if not _on_card("gather_combine", flat, s, w):
+        if s.numel() and (int(s.min()) < 0 or int(s.max()) >= n):
+            raise IndexError(f"gather_combine: subset ids outside [0, {n})")
+        return _coded_combine.plain(flat, s, w).reshape(grads.shape)
+    if flat.shape[0] * n > _MAX_GRID_Y:
+        raise ValueError(f"gather_combine: lanes x N = {flat.shape[0] * n} > {_MAX_GRID_Y}")
+    _launches["gather_combine"] += 1
+    return _coded_combine.launch(flat, s, w).reshape(grads.shape)
+
+
+def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> torch.Tensor:
+    """Byzantine attack (sign_flip / alie / ipm). msgs: (..., N, Q) f32,
+    mask: (..., N) 0/1 -> (..., N, Q) transmitted; ``param`` is the attack's
+    scalar (coeff / z / eps)."""
+    if name not in _attacks.KERNEL_ATTACK_PARAMS:
+        raise KeyError(f"no kernel attack {name!r}")
+    if mask.shape != msgs.shape[:-1]:
+        raise ValueError(f"attack: mask {tuple(mask.shape)} vs msgs {tuple(msgs.shape)}")
+    flat, _ = _lanes(msgs, 2)
+    flat_mask = mask.to(torch.float32).reshape(flat.shape[:2]).contiguous()
+    if not _on_card("attack", flat, flat_mask):
+        return _attacks.plain(flat, flat_mask, name, param).reshape(msgs.shape)
+    if flat.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"attack: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
+    _launches["attack"] += 1
+    return _attacks.launch(flat, flat_mask, name, param).reshape(msgs.shape)
+
+
+def cwtm(msgs: torch.Tensor, trim: int) -> torch.Tensor:
+    """Coordinate-wise trimmed mean. msgs: (..., N, Q) f32 -> (..., Q)."""
+    n = msgs.shape[-2]
+    if trim < 0 or 2 * trim >= n:
+        raise ValueError(f"trim={trim} too large for N={n}")
+    flat, lead = _lanes(msgs, 2)
+    if not _on_card("cwtm", flat):
+        return _cwtm.plain(flat, trim).reshape(lead + msgs.shape[-1:])
+    if n > _cwtm.MAX_N:
+        raise ValueError(f"cwtm kernel takes N <= {_cwtm.MAX_N}, got {n}")
+    if flat.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"cwtm: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
+    _launches["cwtm"] += 1
+    return _cwtm.launch(flat, trim).reshape(lead + msgs.shape[-1:])
+
+
+def gram(msgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gram matrix and row norms. msgs: (..., N, Q) f32 -> (gram (..., N, N),
+    sq (..., N))."""
+    n = msgs.shape[-2]
+    flat, lead = _lanes(msgs, 2)
+    if not _on_card("gram", flat):
+        g, sq = _nnm_dist.plain(flat)
+    else:
+        if n > _nnm_dist.MAX_N:
+            raise ValueError(f"gram kernel takes N <= {_nnm_dist.MAX_N}, got {n}")
+        if flat.shape[0] > _MAX_GRID_Y:
+            raise ValueError(f"gram: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
+        _launches["gram"] += 1
+        g, sq = _nnm_dist.launch(flat)
+    return g.reshape(lead + (n, n)), sq.reshape(lead + (n,))
+
+
+def pairwise_sqdist(msgs: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances. msgs: (..., N, Q) -> (..., N, N), as
+    ``max(sq_i + sq_j - 2 G_ij, 0)`` around the Gram kernel."""
+    return sqdist_from_gram(*gram(msgs))

@@ -1,0 +1,86 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``: they skip where no card is present. On the machine with
+the card (which has no JAX, so this file imports none):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
+
+Tolerance: gather_combine and cwtm run the plain version's arithmetic term
+for term, so they must agree bitwise; the attack's honest statistics and
+the Gram sum in another order than the plain versions (rtol 1e-5, atol
+1e-6, the Gram's atol scaled by the largest squared row norm).
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(100, 3000), (8, (1 << 20) + 37), (3, 64)])
+def test_kernels_match_plain_on_card(card, n, q):
+    """Each CUDA kernel against its plain version on the card."""
+    gen = card
+    msgs = torch.randn((n, q), generator=gen, device="cuda") * 3
+    mask = (torch.arange(n, device="cuda") < max(1, n // 5)).float()
+    d = min(n, 10)
+    subsets = torch.randint(0, n, (n, d), generator=gen, device="cuda")
+    w = torch.full((d,), 1.0 / d, device="cuda")
+    torch.testing.assert_close(tops.gather_combine(msgs, subsets, w),
+                               tref.gather_combine_ref(msgs, subsets, w), rtol=0, atol=0)
+    for name, param in (("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5)):
+        torch.testing.assert_close(tops.attack(msgs, mask, name, param),
+                                   tref.attack_ref(msgs, mask, name, param), rtol=RTOL, atol=ATOL)
+    trim = (n - 1) // 4
+    torch.testing.assert_close(tops.cwtm(msgs, trim), tref.cwtm_ref(msgs, trim), rtol=0, atol=0)
+    gram, sq = tops.gram(msgs)
+    want_gram, want_sq = tref.gram_ref(msgs)
+    scale = float(want_sq.max())
+    torch.testing.assert_close(gram, want_gram, rtol=RTOL, atol=ATOL * scale)
+    torch.testing.assert_close(sq, want_sq, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_batched_kernels_equal_single_on_card(card):
+    msgs = torch.randn((3, 16, 1000), generator=card, device="cuda")
+    batched_cwtm = tops.cwtm(msgs, 3)
+    batched_gram, batched_sq = tops.gram(msgs)
+    for i in range(3):
+        assert torch.equal(batched_cwtm[i], tops.cwtm(msgs[i], 3))
+        gram, sq = tops.gram(msgs[i])
+        assert torch.equal(batched_gram[i], gram) and torch.equal(batched_sq[i], sq)
+
+
+@pytest.mark.cuda
+def test_gather_combine_marks_out_of_range_rows_with_nan(card):
+    """On the card the wrapper reads no ids back: a device row with an id
+    outside [0, N) comes out NaN, the other rows as the plain version."""
+    msgs = torch.randn((4, 1000), generator=card, device="cuda")
+    subsets = torch.tensor([[0, 1], [1, 2], [2, 4], [3, -1]], device="cuda")
+    w = torch.full((2,), 0.5, device="cuda")
+    out = tops.gather_combine(msgs, subsets, w)
+    assert bool(torch.isnan(out[2:]).all())
+    torch.testing.assert_close(out[:2], tref.gather_combine_ref(msgs, subsets[:2], w), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernels_count_their_launches(card):
+    tops.reset_launch_counts()
+    msgs = torch.randn((8, 100), generator=card, device="cuda")
+    tops.cwtm(msgs, 1)
+    tops.pairwise_sqdist(msgs)
+    assert tops.launch_counts() == {"gather_combine": 0, "attack": 0, "cwtm": 1, "gram": 1}

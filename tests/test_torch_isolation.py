@@ -1,0 +1,70 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``
+or ``chip_smoke.py``, and importing the package builds no kernel."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_jax_and_no_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src"), **env}, cwd=REPO,
+    )
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import repro_torch, repro_torch.convert, repro_torch.core.scenarios, "
+        "repro_torch.core.engine, repro_torch.core.byzantine, repro_torch.kernels.ops\n"
+        "import torch\n"
+        "from repro_torch.core import scenarios as S\n"
+        "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
+        "assert r.metrics['loss'].shape == (2,)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules "
+        "if sys.modules[m] is not None)\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_import_builds_nothing_and_needs_no_nvcc(tmp_path):
+    build_dir = REPO / "build" / "repro_torch"
+    before = sorted(build_dir.iterdir()) if build_dir.exists() else None
+    code = (
+        "import repro_torch, repro_torch.kernels.ops, repro_torch.core.scenarios\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._entries == {}\n"
+        "print(_build.BUILD_DIR)\n"
+    )
+    proc = _run(code, PATH=str(tmp_path))  # no nvcc on PATH
+    assert proc.returncode == 0, proc.stderr
+    assert Path(proc.stdout.strip()) == build_dir
+    after = sorted(build_dir.iterdir()) if build_dir.exists() else None
+    assert after == before

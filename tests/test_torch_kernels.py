@@ -1,0 +1,158 @@
+"""The port's four kernel wrappers against the JAX reference, on the CPU.
+
+On a CPU tensor each ``repro_torch.kernels.ops`` wrapper runs its plain
+PyTorch version; the CUDA kernels themselves are held against those plain
+versions on the card by ``chip_smoke.py`` and ``tests/test_torch_card.py``.
+Here the same numpy inputs go through
+``repro.kernels.ops.<op>(..., backend="interpret")`` (the Pallas kernel in
+interpret mode, as tests/test_kernels.py runs it), through the
+``repro.kernels.ref`` oracle and through the port.
+
+Tolerance: rtol 1e-5, atol 1e-6, as tests/test_kernels.py, except the
+Gram, whose fp32 rounding scales with sum_q |x_i[q] x_j[q]| <= max row norm
+squared rather than with |G_ij| (an off-diagonal entry can be near 0 after
+cancellation): there atol is 1e-6 times the largest squared row norm.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.nnm_dist import gram_pallas_lanes
+from repro_torch.kernels import ops as tops
+from repro_torch.numerics import tree_sum
+
+RTOL, ATOL = 1e-5, 1e-6
+
+# (lanes, N, Q); lanes 0 means no lane axis. Q=300 is ragged against every
+# CUDA kernel's block width.
+SHAPES = [(0, 100, 100), (0, 8, 4096), (0, 100, 300), (3, 16, 300)]
+SHAPE_IDS = ["N100-Q100", "N8-Q4096", "N100-Q300", "L3-N16-Q300"]
+
+
+def _stack(rng, lanes, n, q, scale=3.0):
+    shape = (n, q) if lanes == 0 else (lanes, n, q)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(got: torch.Tensor, want, **kw):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **({"rtol": RTOL, "atol": ATOL} | kw))
+
+
+def _lanes_equal_single(fn, *args):
+    """A batched call equals the per-lane calls bitwise."""
+    batched = fn(*args)
+    lanes = args[0].shape[0]
+    for i in range(lanes):
+        single = fn(*(a[i] if isinstance(a, torch.Tensor) and a.ndim > 1 else a for a in args))
+        for b, s in zip(batched if isinstance(batched, tuple) else (batched,),
+                        single if isinstance(single, tuple) else (single,)):
+            assert torch.equal(b[i], s)
+
+
+@pytest.mark.parametrize("lanes,n,q", SHAPES, ids=SHAPE_IDS)
+def test_gather_combine_matches_reference(lanes, n, q):
+    rng = np.random.default_rng(n * q + lanes)
+    grads = _stack(rng, lanes, n, q)
+    d = 3 if n < 10 else 10
+    lead = () if lanes == 0 else (lanes,)
+    subsets = rng.integers(0, n, size=lead + (n, d)).astype(np.int32)
+    w = np.full((d,), 1.0 / d, np.float32)
+    got = tops.gather_combine(torch.from_numpy(grads), torch.from_numpy(subsets), torch.from_numpy(w))
+    want_kernel = jops.gather_combine(jnp.asarray(grads), jnp.asarray(subsets), jnp.asarray(w),
+                                      backend="interpret")
+    _close(got, want_kernel)
+    _close(got, jref.gather_combine_ref(jnp.asarray(grads), jnp.asarray(subsets), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("name,param", [("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5)])
+@pytest.mark.parametrize("lanes,n,q", SHAPES, ids=SHAPE_IDS)
+def test_attack_matches_reference(lanes, n, q, name, param):
+    rng = np.random.default_rng(7 * n + q + lanes)
+    msgs = _stack(rng, lanes, n, q)
+    lead = () if lanes == 0 else (lanes,)
+    mask = (rng.random(lead + (n,)) < 0.25).astype(np.float32)
+    got = tops.attack(torch.from_numpy(msgs), torch.from_numpy(mask), name, param)
+    want_kernel = jops.attack(jnp.asarray(msgs), jnp.asarray(mask), name, param, backend="interpret")
+    _close(got, want_kernel)
+    _close(got, jref.attack_ref(jnp.asarray(msgs), jnp.asarray(mask), name, param))
+
+
+@pytest.mark.parametrize("lanes,n,q", SHAPES, ids=SHAPE_IDS)
+def test_cwtm_matches_reference(lanes, n, q):
+    rng = np.random.default_rng(3 * n + q + lanes)
+    msgs = _stack(rng, lanes, n, q)
+    trim = max(1, n // 10)
+    got = tops.cwtm(torch.from_numpy(msgs), trim)
+    _close(got, jops.cwtm(jnp.asarray(msgs), trim, backend="interpret"))
+    _close(got, jref.cwtm_ref(jnp.asarray(msgs), trim))
+
+
+@pytest.mark.parametrize("lanes,n,q", SHAPES, ids=SHAPE_IDS)
+def test_gram_and_sqdist_match_reference(lanes, n, q):
+    rng = np.random.default_rng(5 * n + q + lanes)
+    msgs = _stack(rng, lanes, n, q)
+    gram, sq = tops.gram(torch.from_numpy(msgs))
+    flat = jnp.asarray(msgs.reshape((-1, n, q)))
+    want_gram, want_sq = gram_pallas_lanes(flat, q_block=min(2048, q), interpret=True)
+    scale = float(np.max(np.asarray(want_sq)))
+    _close(gram, np.asarray(want_gram).reshape(gram.shape), atol=ATOL * scale)
+    _close(sq, np.asarray(want_sq).reshape(sq.shape))
+    d2 = tops.pairwise_sqdist(torch.from_numpy(msgs))
+    for want in (jops.pairwise_sqdist(jnp.asarray(msgs), backend="interpret"),
+                 jref.pairwise_sqdist_ref(jnp.asarray(msgs))):
+        _close(d2, want, atol=4 * ATOL * scale)
+
+
+def test_batched_equals_single_bitwise():
+    """Inside the port a lane of a batched call equals the single call."""
+    rng = np.random.default_rng(11)
+    msgs = torch.from_numpy(_stack(rng, 3, 16, 300))
+    mask = torch.from_numpy((rng.random((3, 16)) < 0.25).astype(np.float32))
+    subsets = torch.from_numpy(rng.integers(0, 16, size=(3, 16, 4)).astype(np.int32))
+    w = torch.full((3, 4), 0.25)
+    _lanes_equal_single(tops.gather_combine, msgs, subsets, w)
+    for name, param in (("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5)):
+        _lanes_equal_single(lambda m, mk: tops.attack(m, mk, name, param), msgs, mask)
+    _lanes_equal_single(lambda m: tops.cwtm(m, 2), msgs)
+    _lanes_equal_single(tops.gram, msgs)
+
+
+def test_cwtm_plain_sums_the_kept_rows_as_a_tree():
+    """The plain CWTM is sort, trim, then numerics.tree_sum times 1/k: the
+    order the CUDA kernel reproduces term for term."""
+    rng = np.random.default_rng(2)
+    msgs = torch.from_numpy(_stack(rng, 0, 13, 50))
+    kept = torch.sort(msgs, dim=0).values[2:11]
+    assert torch.equal(tops.cwtm(msgs, 2), tree_sum(kept, dim=0) * (1.0 / 9))
+
+
+@pytest.mark.parametrize("bad", ["float64", "strided", "trim"])
+def test_wrappers_raise_on_what_they_do_not_take(bad):
+    msgs = torch.randn(8, 64)
+    if bad == "float64":
+        with pytest.raises(TypeError):
+            tops.cwtm(msgs.double(), 1)
+    elif bad == "strided":
+        with pytest.raises(ValueError):
+            tops.attack(msgs.t(), torch.zeros(64), "sign_flip", -2.0)
+    else:
+        with pytest.raises(ValueError):
+            tops.cwtm(msgs, 4)
+
+
+def test_gather_combine_rejects_out_of_range_ids():
+    with pytest.raises(IndexError):
+        tops.gather_combine(torch.randn(4, 8), torch.tensor([[0], [1], [2], [4]]), torch.ones(1))
+
+
+def test_cpu_calls_launch_no_kernel():
+    tops.reset_launch_counts()
+    msgs = torch.randn(8, 64)
+    tops.cwtm(msgs, 1)
+    tops.pairwise_sqdist(msgs)
+    assert tops.launch_counts() == {name: 0 for name in tops.KERNELS}
