@@ -3,26 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of the protocol round from ``src/repro_torch/
-csrc`` and prints one JSON line per phase:
+Builds the CUDA kernels of the protocol round from ``src/repro_torch/csrc``
+and prints one JSON line per phase:
 
-  device      the card, its power limit and the kernel build time;
-  trajectory  the paper's Section-VII trainer on the card (N=100, dim=100,
-              200 rounds) for every Fig. 4 row except DRACO and three Fig. 6
-              rows; asserts the paper's orderings and holds the
-              LAD-CWTM-NNM-d10 loss curve against the same run on the CPU
-              (the plain versions) under the same randomness;
-  wide_round  one protocol round at the gradient width of smollm-360m
-              (Q = 361,821,120; N=8, d=2, CWTM-NNM, ALIE then sign-flip),
-              after a warm-up round: per-stage ms (the server split into
-              Gram distances, NNM mix and CWTM), peak memory, finiteness;
-  kernels     per kernel: its error against its plain version on the card
-              (at small shapes, and at the wide shape on columns past
-              element 2^31), its time at the wide shape beside the plain
-              version's, a PyTorch library call's where one computes the
-              same function, and the least time the card could take; plus
-              its launches during the two phases above, which must all be
-              above 0;
+  device         the card, its power limit and the kernel build time;
+  trajectory     the paper's Section-VII trainer on the card (N=100,
+                 dim=100, 200 rounds) for every Fig. 4 row except DRACO,
+                 three Fig. 6 rows, and Com-CWTM, Com-LAD-CWTM and
+                 Com-LAD-CWTM-NNM under QSGD at 4 levels (``quant:4``);
+                 asserts the paper's orderings and holds the
+                 LAD-CWTM-NNM-d10 and quant:4 Com-LAD-CWTM loss curves
+                 against the same runs on the CPU (the plain versions) under
+                 the same randomness;
+  participation  the K-of-N erasure sweep (N=16, d=4, dim=32, 400 rounds):
+                 the erasure decode against the mean at e = 0..3 erased rows;
+                 asserts N - e reports every round and that the decode's
+                 final loss does not move with e;
+  wide_round     protocol rounds at the gradient width of smollm-360m
+                 (Q = 361,821,120; N=8, d=2), each after a warm-up round:
+                 CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
+                 under ALIE, and the erasure decode with one row erased;
+                 per-stage ms, peak memory, finiteness, and the decode held
+                 to the gradients' mean;
+  kernels        per kernel: its error against its plain version on the
+                 card (at small shapes, and at the wide shape on columns
+                 past element 2^31), its time at the wide shape beside the
+                 plain version's, a PyTorch library call's where one
+                 computes the same function, and the least time the card
+                 could take; plus its launches during the three phases
+                 above, which must all be above 0 (``coded_combine``, which
+                 no path of the reference runs, carries ``"on_path": false``
+                 and its launches in this phase);
 
 then the card's name and power limit as ``nvidia-smi`` gives them, and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -31,6 +42,7 @@ repository's ``src/repro_torch`` beside it, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -60,7 +72,13 @@ TPU_KERNELS = {
     "attack": ("src/repro_torch/csrc/attack.cu", "src/repro/kernels/attacks.py:97"),
     "cwtm": ("src/repro_torch/csrc/cwtm.cu", "src/repro/kernels/cwtm.py:71"),
     "gram": ("src/repro_torch/csrc/gram.cu", "src/repro/kernels/nnm_dist.py:42"),
+    "quantize": ("src/repro_torch/csrc/quantize.cu", "src/repro/kernels/quantize.py:35"),
+    "masked_combine": ("src/repro_torch/csrc/row_combine.cu", "src/repro/kernels/coded_combine.py:132"),
+    "coded_combine": ("src/repro_torch/csrc/row_combine.cu", "src/repro/kernels/coded_combine.py:30"),
 }
+OFF_PATH = ("coded_combine",)  # no path of the reference runs it: checked in the kernels phase
+BITWISE = ("quantize", "masked_combine", "coded_combine")  # held to their plain versions bit for bit
+QUANT_LEVELS, QUANT_CHUNK = 4, 1024
 
 
 def emit(obj) -> None:
@@ -104,9 +122,10 @@ def check(cond: bool, what: str) -> None:
 # ------------------------------------------------------------------- kernels
 
 
-def kernel_errors(ops, ref) -> dict[str, float]:
+def kernel_errors(ops, ref, quantize) -> dict[str, float]:
     """Max abs error of every kernel against its plain version on the card,
-    over CHECK_SHAPES; raises past the tolerance."""
+    over CHECK_SHAPES; raises past the tolerance (for the BITWISE kernels,
+    on any difference)."""
     err = {name: 0.0 for name in ops.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n, q in CHECK_SHAPES:
@@ -125,17 +144,28 @@ def kernel_errors(ops, ref) -> dict[str, float]:
         # an fp32 dot product's rounding scales with the largest squared row norm
         scale = float(want_sq.max())
         pairs += [("gram", gram, want_gram, ATOL * scale), ("gram", sq, want_sq, ATOL * scale)]
+        u = torch.rand((n, q), generator=gen, device="cuda")
+        for levels, chunk in ((QUANT_LEVELS, QUANT_CHUNK), (16, 1000), (3, 7)):
+            pairs.append(("quantize", ops.stochastic_quantize(x, u, levels, chunk),
+                          quantize.plain(x, u, levels, min(chunk, q)), 0.0))
+        del u
+        # the decode's weights: a mask times a class selection, exact zeros on most rows
+        rw = (torch.rand((n,), generator=gen, device="cuda") < 0.5) * torch.rand((n,), generator=gen, device="cuda")
+        pairs.append(("masked_combine", ops.masked_combine(x, rw), ref.masked_combine_ref(x, rw), 0.0))
+        stack = x[: n - n % 2].reshape(-1, 2, q)  # (N/2, d=2, Q) lanes, as the wide shape's (8, 2, Q)
+        cw = torch.rand((stack.shape[0], 2), generator=gen, device="cuda")
+        pairs.append(("coded_combine", ops.coded_combine(stack, cw), ref.coded_combine_ref(stack, cw), 0.0))
         torch.cuda.synchronize()
         for name, got, want, atol in pairs:
             check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite output at N={n} Q={q}")
-            check(torch.allclose(got, want, rtol=RTOL, atol=atol),
+            check(torch.equal(got, want) if name in BITWISE else torch.allclose(got, want, rtol=RTOL, atol=atol),
                   f"{name} disagrees with its plain version at N={n} Q={q}")
             err[name] = max(err[name], float((got - want).abs().max()))
     return err
 
 
-def kernel_timings(ops, ref, hbm: float, fp32: float) -> dict[str, dict]:
+def kernel_timings(ops, ref, quantize, hbm: float, fp32: float) -> dict[str, dict]:
     """Kernel, plain and library times at the wide shape (N=8, Q=WIDE_Q),
     the least time the card could take, and each kernel's agreement with its
     plain version at that shape.
@@ -145,7 +175,9 @@ def kernel_timings(ops, ref, hbm: float, fp32: float) -> dict[str, dict]:
     version of the input's last PLAIN_Q columns; for rows 6 and 7 those lie
     past element 2^31, where a 32-bit offset would read the wrong rows. The
     Gram is held against the plain version summed over blocks of PLAIN_Q
-    columns. Raises past the tolerance of ``kernel_errors``."""
+    columns, and QSGD on a window that starts on a block boundary and ends
+    in the rows' ragged last block. Raises past the tolerance of
+    ``kernel_errors``."""
     n, q = WIDE_N, WIDE_Q
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((n, q), generator=gen, device="cuda")
@@ -177,7 +209,7 @@ def kernel_timings(ops, ref, hbm: float, fp32: float) -> dict[str, dict]:
         where = f"N={n} Q={q}"
         check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)} at {where}")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output at {where}")
-        check(torch.allclose(got, want, rtol=RTOL, atol=atol),
+        check(torch.equal(got, want) if name in BITWISE else torch.allclose(got, want, rtol=RTOL, atol=atol),
               f"{name} disagrees with its plain version at {where}")
         err = out[name]["max_abs_err_wide"]
         out[name]["max_abs_err_wide"] = max(err, float((got - want).abs().max()))
@@ -227,28 +259,79 @@ def kernel_timings(ops, ref, hbm: float, fp32: float) -> dict[str, dict]:
     scale = float(want_sq.max())
     hold("gram", gram, want_gram, ATOL * scale)
     hold("gram", sq, want_sq, ATOL * scale)
+    del gram, sq, want_gram, want_sq
+
+    u = torch.rand((n, q), generator=gen, device="cuda")
+    up = u[:, :PLAIN_Q].contiguous()
+    lv, ch = QUANT_LEVELS, QUANT_CHUNK
+    # abs, max, two divisions, two products, floor, subtract, compare, add per coordinate
+    entry("quantize",
+          time_ms(lambda: ops.stochastic_quantize(x, u, lv, ch)),
+          time_ms(lambda: ops.stochastic_quantize(xp, up, lv, ch)),
+          time_ms(lambda: quantize.plain(xp, up, lv, ch)),
+          None, f32 * 3 * n * q, 10 * n * q)
+    # a window from a block boundary to the end: it ends in the ragged last block
+    start = ((q - PLAIN_Q) // ch) * ch
+    hold("quantize", ops.stochastic_quantize(x, u, lv, ch)[:, start:],
+         quantize.plain(x[:, start:].contiguous(), u[:, start:].contiguous(), lv, ch))
+    del u, up
+
+    rw = torch.rand((n,), generator=gen, device="cuda")
+    entry("masked_combine",
+          time_ms(lambda: ops.masked_combine(x, rw)),
+          time_ms(lambda: ops.masked_combine(xp, rw)),
+          time_ms(lambda: ref.masked_combine_ref(xp, rw)),
+          time_ms(lambda: torch.matmul(rw, x)),
+          f32 * (n * q + q), 2 * n * q)
+    hold("masked_combine", ops.masked_combine(x, rw)[q - PLAIN_Q:],
+         ref.masked_combine_ref(x[:, q - PLAIN_Q:].contiguous(), rw))
+
+    # (L=8, d=2, Q): every device's two cyclic subsets, stacked
+    stack = torch.stack([x, x[(rows + 1) % n]], dim=1)
+    del x, xp
+    cw = torch.rand((n, 2), generator=gen, device="cuda")
+    sp = stack[:, :, :PLAIN_Q].contiguous()
+    entry("coded_combine",
+          time_ms(lambda: ops.coded_combine(stack, cw)),
+          time_ms(lambda: ops.coded_combine(sp, cw)),
+          time_ms(lambda: ref.coded_combine_ref(sp, cw)),
+          time_ms(lambda: torch.matmul(cw[:, None, :], stack)),
+          f32 * (2 * n * q + n * q), 2 * 2 * n * q)
+    out["coded_combine"]["shape"] = [n, 2, q]
+    hold("coded_combine", ops.coded_combine(stack, cw)[:, q - PLAIN_Q:],
+         ref.coded_combine_ref(stack[:, :, q - PLAIN_Q:].contiguous(), cw))
     return out
 
 
 # ---------------------------------------------------------------- trajectory
 
 
+TRAJECTORY_KERNELS = ("gather_combine", "attack", "cwtm", "gram", "quantize")  # what the trainer rows reach
+
+
 def trajectory_phase(S, byz, ops, gen_problem) -> dict:
-    """Fig. 4 (without DRACO) and Fig. 6 rows on the card, 200 rounds each.
+    """Fig. 4 (without DRACO) and Fig. 6 rows on the card, 200 rounds each,
+    and three Fig. 6 rows under QSGD at 4 levels (``quant:4``, the fleet's
+    wire format) in place of random sparsification.
 
     Every row trains on one problem drawn from seed 0, as each figure's
     example does (examples/linear_regression_paper.py,
     examples/compressed_training.py)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     problem = gen_problem(gen, n=100, dim=100, sigma_h=0.3)
+    quant = {f"{k}/quant:4": dataclasses.replace(S.PAPER_FIG6[k], name=f"{k}/quant:4", compressor="quant:4")
+             for k in ("Com-CWTM", "Com-LAD-CWTM", "Com-LAD-CWTM-NNM")}
     rows = [S.PAPER_FIG4[k] for k in S.PAPER_FIG4] + [
-        S.PAPER_FIG6[k] for k in ("Com-CWTM", "Com-LAD-CWTM", "Com-TGN")]
+        S.PAPER_FIG6[k] for k in ("Com-CWTM", "Com-LAD-CWTM", "Com-TGN")] + list(quant.values())
     nnm = S.PAPER_FIG4["LAD-CWTM-NNM-d10"]
+    qlad = quant["Com-LAD-CWTM/quant:4"]
     cpu_gen = torch.Generator().manual_seed(1)
-    shared = [byz.sample_round_randomness(nnm.protocol(), 100, cpu_gen) for _ in range(STEPS)]
+    # one provider per row held against the CPU: records drawn on the CPU, moved to each run's device
+    shared = {row.name: [byz.sample_round_randomness(row.protocol(), 100, cpu_gen) for _ in range(STEPS)]
+              for row in (nnm, qlad)}
     final, ms_per_round, results = {}, {}, {}
     for scn in rows:
-        provider = (lambda t: shared[t]) if scn.name == nnm.name else None
+        provider = (lambda t, recs=shared[scn.name]: recs[t]) if scn.name in shared else None
         torch.cuda.synchronize()
         start = time.perf_counter()
         res = S.run_scenario(scn, STEPS, seed=0, problem=problem, randomness=provider, device="cuda")
@@ -260,72 +343,175 @@ def trajectory_phase(S, byz, ops, gen_problem) -> dict:
         results[scn.name] = res
     check(final["LAD-CWTM-d10"] < final["CWTM"], "Fig. 4 ordering: LAD-CWTM-d10 must end below CWTM")
     check(final["Com-LAD-CWTM"] < final["Com-CWTM"], "Fig. 6 ordering: Com-LAD-CWTM must end below Com-CWTM")
+    check(final["Com-LAD-CWTM-NNM/quant:4"] < final["Com-CWTM/quant:4"],
+          "Fig. 6 ordering under quant:4: Com-LAD-CWTM-NNM must end below Com-CWTM")
 
-    cpu = S.run_scenario(nnm, STEPS, seed=0, problem=tuple(t.cpu() for t in problem),
-                         randomness=lambda t: shared[t], device="cpu")
-    card_loss = results[nnm.name].metrics["loss"].cpu()
-    rel = float(((card_loss - cpu.metrics["loss"]).abs() / cpu.metrics["loss"].abs()).max())
-    check(rel <= TRAJECTORY_RTOL, f"LAD-CWTM-NNM-d10 card vs CPU loss: rel {rel} > {TRAJECTORY_RTOL}")
+    rel = {}
+    for row in (nnm, qlad):
+        cpu = S.run_scenario(row, STEPS, seed=0, problem=tuple(t.cpu() for t in problem),
+                             randomness=lambda t, recs=shared[row.name]: recs[t], device="cpu")
+        card_loss = results[row.name].metrics["loss"].cpu()
+        rel[row.name] = float(((card_loss - cpu.metrics["loss"]).abs() / cpu.metrics["loss"].abs()).max())
+        check(rel[row.name] <= TRAJECTORY_RTOL,
+              f"{row.name} card vs CPU loss: rel {rel[row.name]} > {TRAJECTORY_RTOL}")
     launches = ops.launch_counts()
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the trainer")
+    for name in TRAJECTORY_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the trainer")
     return {"phase": "trajectory", "launches": launches, "rounds": STEPS, "n_devices": 100, "dim": 100,
             "final_loss": final, "ms_per_round": ms_per_round,
-            "nnm_card_vs_cpu_max_rel_loss": rel, "tolerance": TRAJECTORY_RTOL,
-            "orderings": {"LAD-CWTM-d10<CWTM": True, "Com-LAD-CWTM<Com-CWTM": True}}
+            "card_vs_cpu_max_rel_loss": rel, "tolerance": TRAJECTORY_RTOL,
+            "orderings": {"LAD-CWTM-d10<CWTM": True, "Com-LAD-CWTM<Com-CWTM": True,
+                          "quant:4 Com-LAD-CWTM-NNM<Com-CWTM": True},
+            "reported_not_asserted": {"quant:4 Com-LAD-CWTM<Com-CWTM":
+                                      final["Com-LAD-CWTM/quant:4"] < final["Com-CWTM/quant:4"]}}
+
+
+# ------------------------------------------------------------- participation
+
+PART_N, PART_D, PART_DIM, PART_STEPS = 16, 4, 32, 400
+DECODE_SPREAD_MAX = 1e-4  # benchmarks/paper_figures.py::participation_bench's bound
+
+
+def participation_phase(S) -> dict:
+    """The K-of-N erasure sweep of ``participation_bench``: N=16, d=4,
+    dim=32, lr 1e-5, no attack, the ``adversarial`` schedule erasing the same
+    e = 0..3 rows every round (the margin d - 1 = 3), the erasure decode
+    against the mean of the reporting rows, 400 rounds, one run per row
+    through ``run_scenario``."""
+    rows = [S.Scenario(name=f"e{e}/{agg}", method="lad", d=PART_D, aggregator=agg, attack="none", n_byz=0,
+                       n_devices=PART_N, lr=1e-5, sigma_h=0.3, participation="adversarial", p_drop_n=e)
+            for e in range(PART_D) for agg in ("decode", "mean")]
+    final, ms_per_round = {}, {}
+    for scn in rows:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = S.run_scenario(scn, PART_STEPS, seed=0, dim=PART_DIM, device="cuda")
+        torch.cuda.synchronize()
+        ms_per_round[scn.name] = (time.perf_counter() - start) * 1e3 / PART_STEPS
+        loss = res.metrics["loss"]
+        check(loss.shape == (PART_STEPS,) and bool(torch.isfinite(loss).all()), f"{scn.name}: bad loss")
+        check(bool((res.metrics["n_report"] == PART_N - scn.p_drop_n).all()),
+              f"{scn.name}: not N - e reports every round")
+        final[scn.name] = float(loss[-1])
+
+    def spread(agg):
+        vals = [final[f"e{e}/{agg}"] for e in range(PART_D)]
+        return (max(vals) - min(vals)) / max(vals)
+
+    decode, mean = spread("decode"), spread("mean")
+    check(decode <= DECODE_SPREAD_MAX, f"decode final loss moves with erasures: spread {decode}")
+    check(mean >= decode, f"mean spread {mean} below the decode's {decode}")
+    return {"phase": "participation", "n_devices": PART_N, "d": PART_D, "dim": PART_DIM, "rounds": PART_STEPS,
+            "final_loss": final, "ms_per_round": ms_per_round, "decode_rel_spread": decode,
+            "mean_rel_spread": mean, "decode_spread_max": DECODE_SPREAD_MAX}
 
 
 # ---------------------------------------------------------------- wide round
 
 
-def wide_round_phase(byz, attacks, compression, agg, ops) -> dict:
-    """One round at Q = WIDE_Q: N=8, d=2, CWTM-NNM, trim 0.25, 2 Byzantine.
+def _marked_round(byz, cfg, grads, rand, *, server=None, participation_mask=None):
+    """A warm-up round with the default server (so no stage pays for
+    cudaMalloc), then the timed round with CUDA events after each stage
+    (``server`` may add marks of its own). Returns (aggregate, stage ms,
+    peak GB of the timed round, the warm-up's aggregate)."""
+    want = byz.protocol_round(cfg, grads, rand, device="cuda", participation_mask=participation_mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
 
-    Per attack, an untimed round with the default server first warms the
-    caching allocator (so no stage pays for cudaMalloc); then the timed
-    round runs the same server composed by hand with a mark after the Gram
-    distances and after the NNM mix, and must give the same bits."""
+    def hook(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    g = byz.protocol_round(cfg, grads, rand, device="cuda", stage_hook=hook,
+                           server_fn=server(hook) if server else None, participation_mask=participation_mask)
+    torch.cuda.synchronize()
+    stages = {events[i][0]: events[i - 1][1].elapsed_time(events[i][1]) for i in range(1, len(events))}
+    return g, stages, torch.cuda.max_memory_allocated() / 1e9, want
+
+
+def wide_round_phase(byz, attacks, compression, participation, agg, ops, numerics) -> dict:
+    """Rounds at Q = WIDE_Q, N=8, d=2, each timed after a warm-up round:
+
+      * CWTM-NNM, trim 0.25, 2 Byzantine, under ALIE and sign-flip;
+      * Com-LAD: the same under ALIE with QSGD at 4 levels (``quant:4``),
+        the rounding draws one ``torch.rand((8, Q))`` on the card;
+      * the erasure decode: no attack, no Byzantine device, the
+        ``adversarial`` schedule erasing one row (the margin d - 1), the
+        decoded vector held to the gradients' mean.
+
+    The CWTM-NNM servers are composed by hand with a mark after the Gram
+    distances and after the NNM mix, and must give the warm-up's bits."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     grads = torch.randn((WIDE_N, WIDE_Q), generator=gen, device="cuda")
     out = {"phase": "wide_round", "q": WIDE_Q, "n_devices": WIDE_N, "d": 2,
            "aggregator": "cwtm-nnm", "trim_frac": 0.25, "n_byz": 2, "attacks": {}}
+    stack_gb = WIDE_N * WIDE_Q * 4 / 1e9
+
+    def nnm_server(cfg):
+        def make(hook):
+            def server(msgs):
+                # what make_server_fn(cfg) builds for cwtm-nnm, with marks
+                d2 = ops.pairwise_sqdist(msgs)
+                hook("server_gram")
+                mixed = agg.nnm_mix(msgs, cfg.n_byz, d2)
+                hook("server_nnm_mix")
+                return agg.cwtm(mixed, cfg.trim_frac)
+            return server
+        return make
+
+    def record(name, g, stages, peak_gb, peak_max_gb, **extra):
+        finite = bool(torch.isfinite(g).all())
+        check(g.shape == (WIDE_Q,) and finite, f"wide round ({name}): bad aggregate")
+        check(peak_gb < peak_max_gb, f"wide round ({name}): peak {peak_gb:.1f} GB >= {peak_max_gb} GB")
+        return {"stage_ms": stages, "total_ms": sum(stages.values()), "peak_gb": peak_gb,
+                "peak_gb_max": peak_max_gb, "finite": finite, "aggregate_norm": float(g.norm()), **extra}
+
     for attack in ("alie", "sign_flip"):
         cfg = byz.ProtocolConfig(n_devices=WIDE_N, d=2, method="lad", aggregator="cwtm-nnm",
                                  trim_frac=0.25, n_byz=2, attack=attacks.AttackSpec(attack),
                                  compression=compression.CompressionSpec())
         rand = byz.sample_round_randomness(cfg, WIDE_Q, gen)
-        want = byz.protocol_round(cfg, grads, rand, device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def hook(stage):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((stage, ev))
-
-        def server(msgs):
-            # what make_server_fn(cfg) builds for cwtm-nnm, with marks
-            d2 = ops.pairwise_sqdist(msgs)
-            hook("server_gram")
-            mixed = agg.nnm_mix(msgs, cfg.n_byz, d2)
-            hook("server_nnm_mix")
-            return agg.cwtm(mixed, cfg.trim_frac)
-
-        g = byz.protocol_round(cfg, grads, rand, device="cuda", stage_hook=hook, server_fn=server)
-        torch.cuda.synchronize()
-        stages = {events[i][0]: events[i - 1][1].elapsed_time(events[i][1]) for i in range(1, len(events))}
+        g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand, server=nnm_server(cfg))
         stages["server_cwtm"] = stages.pop("server")
-        finite = bool(torch.isfinite(g).all())
-        check(g.shape == (WIDE_Q,) and finite, f"wide round ({attack}): bad aggregate")
         check(torch.equal(g, want), f"wide round ({attack}): marked server differs from make_server_fn")
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(peak_gb < 50.0, f"wide round ({attack}): peak {peak_gb:.1f} GB")
-        out["attacks"][attack] = {"stage_ms": stages, "total_ms": sum(stages.values()),
-                                  "peak_gb": peak_gb, "finite": finite,
-                                  "aggregate_norm": float(g.norm())}
+        out["attacks"][attack] = record(attack, g, stages, peak_gb, 50.0)
         del g, want
+
+    # Com-LAD with quant:4. Held at once: the gradients, the rounding draws,
+    # and two (8, Q) stacks (the coded and quantized ones, then the
+    # quantized and attacked ones, then the attacked and NNM-mixed ones),
+    # 4 x 11.58 GB, plus the warm-up's and the CWTM's (Q,) outputs, 2 x 1.45
+    # GB: 49.2 GB. The limit leaves 3 GB above that.
+    cfg = byz.ProtocolConfig(n_devices=WIDE_N, d=2, method="lad", aggregator="cwtm-nnm", trim_frac=0.25,
+                             n_byz=2, attack=attacks.AttackSpec("alie"),
+                             compression=compression.CompressionSpec.parse("quant:4"))
+    rand = byz.sample_round_randomness(cfg, WIDE_Q, gen)
+    g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand, server=nnm_server(cfg))
+    stages["server_cwtm"] = stages.pop("server")
+    check(torch.equal(g, want), "wide round (quant:4): marked server differs from make_server_fn")
+    out["com_lad_quant4_alie"] = record("quant:4", g, stages, peak_gb, 4 * stack_gb + 2 * WIDE_Q * 4 / 1e9 + 3.0)
+    del g, want, rand
+
+    # the erasure decode, one row erased: the gradients, the coded stack and
+    # the erased copy, 3 x 11.58 GB, plus (Q,) outputs
+    cfg = byz.ProtocolConfig(n_devices=WIDE_N, d=2, method="lad", aggregator="decode", n_byz=0,
+                             attack=attacks.AttackSpec("none"), compression=compression.CompressionSpec(),
+                             participation=participation.ParticipationSpec("adversarial", n_drop=1))
+    rand = byz.sample_round_randomness(cfg, WIDE_Q, gen)
+    pm, _ = participation.sample_participation(cfg.participation, rand.part_u, 0, WIDE_N,
+                                               participation.init_participation_state(cfg.participation, WIDE_N,
+                                                                                      device="cuda"))
+    g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand, participation_mask=pm)
+    check(torch.equal(g, want), "wide round (decode): the timed round differs from the warm-up")
+    tail = numerics.stable_mean0(grads[:, WIDE_Q - PLAIN_Q:].contiguous())
+    got = g[WIDE_Q - PLAIN_Q:]
+    check(torch.allclose(got, tail, rtol=RTOL, atol=ATOL), "wide round (decode): not the gradients' mean")
+    out["erasure_decode"] = record("decode", g, stages, peak_gb, 3 * stack_gb + 3.0,
+                                   erased=int(WIDE_N - pm.sum()), n_drop=1, n_byz=0, attack="none",
+                                   max_abs_err_vs_mean_last_2_26=float((got - tail).abs().max()))
     return out
 
 
@@ -337,9 +523,10 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import aggregators, attacks, byzantine, compression, scenarios
+    from repro_torch import numerics
+    from repro_torch.core import aggregators, attacks, byzantine, compression, participation, scenarios
     from repro_torch.data.synthetic import linear_regression_problem
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ops, quantize, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -351,20 +538,27 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "peak_hbm_bytes_per_s": hbm, "peak_fp32_flops": fp32})
 
-    errors = kernel_errors(ops, ref)
-    timings = kernel_timings(ops, ref, hbm, fp32)
+    ops.reset_launch_counts()
+    errors = kernel_errors(ops, ref, quantize)
+    timings = kernel_timings(ops, ref, quantize, hbm, fp32)
+    checked = ops.launch_counts()
     torch.cuda.empty_cache()
 
     ops.reset_launch_counts()
     emit(trajectory_phase(scenarios, byzantine, ops, linear_regression_problem))
-    emit(wide_round_phase(byzantine, attacks, compression, aggregators, ops))
+    emit(participation_phase(scenarios))
+    emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
     launches = ops.launch_counts()
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ops.KERNELS:
+        if name in OFF_PATH:
+            check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
+            launches[name] = checked[name]
+        else:
+            check(launches[name] > 0, f"kernel {name} was not launched on the main path")
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
-         "replaces": TPU_KERNELS[name][1], "launches": launches[name],
+         "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
         for name in ops.KERNELS
     ]})

@@ -2,14 +2,17 @@
 
 One round takes the gradient of every data subset and returns the server's
 aggregate: task assignment, eq.-(5) encode (the gather-combine kernel),
-compression, Byzantine attack (the attack kernel), robust aggregation (the
-CWTM kernel, after NNM mixing around the Gram kernel for ``-nnm`` rules).
+compression (the quantize kernel for QSGD), Byzantine attack (the attack
+kernel), then, under partial participation, the erasure of the rows that did
+not report, and robust aggregation (the CWTM kernel, after NNM mixing around
+the Gram kernel for ``-nnm`` rules; the masked-combine kernel for the K-of-N
+erasure decode).
 
 ``method``:
   * ``"lad"``   — Algorithm 1/2 (Com-LAD when compression is on);
   * ``"plain"`` — the non-redundant baselines (VA / CWTM / CWTM-NNM /
                   Com-TGN): LAD with d = 1.
-DRACO and partial participation are not ported yet.
+DRACO is not ported yet.
 
 The round draws nothing itself: its random choices come in as a
 ``RoundRandomness`` record, so a test can hand it the reference's own
@@ -26,8 +29,11 @@ from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core import compression as comp_lib
 from repro_torch.core import task_matrix as tm
+from repro_torch.core.coding import coded_weights, cyclic_erasure_decode
+from repro_torch.core.participation import ParticipationSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.numerics import stable_masked_mean0
 
 __all__ = [
     "ProtocolConfig",
@@ -48,12 +54,17 @@ class ProtocolConfig:
       d: computational load, subsets per device per round (forced to 1 for
         ``method="plain"``).
       method: ``"lad"`` or ``"plain"``.
-      aggregator: ``mean``, ``cwtm`` or ``tgn``, optionally with ``-nnm``.
+      aggregator: ``mean``, ``cwtm`` or ``tgn``, optionally with ``-nnm``;
+        or ``decode``, the K-of-N erasure decode, under an active
+        participation schedule.
       trim_frac: CWTM trim fraction (``f = int(trim_frac * N)`` per side).
       n_byz: number of Byzantine devices ``N - H``.
       attack: the corruption model.
       compression: the Com-LAD wire compression.
-      participation: only ``"full"`` is ported.
+      participation: the erasure fault model. ``"full"`` (the default)
+        runs the unmasked round; any other schedule erases the rows that
+        did not report and makes the server mask-aware (see
+        ``make_server_fn``).
     """
 
     n_devices: int
@@ -68,15 +79,13 @@ class ProtocolConfig:
     compression: comp_lib.CompressionSpec = dataclasses.field(
         default_factory=comp_lib.CompressionSpec
     )
-    participation: str = "full"
+    participation: ParticipationSpec = dataclasses.field(default_factory=ParticipationSpec)
 
     def __post_init__(self):
         if self.method == "draco":
             raise NotImplementedError("method 'draco' is not ported yet (ROADMAP A.2)")
         if self.method not in ("lad", "plain"):
             raise ValueError(f"unknown method {self.method!r}")
-        if self.participation != "full":
-            raise NotImplementedError("partial participation is not ported yet (ROADMAP A.6)")
 
     def make_aggregator(self):
         return agg_lib.make_aggregator(
@@ -97,25 +106,31 @@ class RoundRandomness:
       byz_mask: ``(N,)`` 0/1 float, the Byzantine devices.
       keep_idx: ``(N, q_hat)`` each device's kept coordinates under sparse
         compression, else ``None``.
+      quant_u: ``(N, Q)`` each device's QSGD rounding draws in [0, 1) under
+        ``quant``, else ``None``.
+      part_u: ``(N,)`` the participation schedule's draws in [0, 1) under an
+        active schedule, else ``None``.
     """
 
     task_index: torch.Tensor
     subset_perm: torch.Tensor
     byz_mask: torch.Tensor
     keep_idx: torch.Tensor | None = None
+    quant_u: torch.Tensor | None = None
+    part_u: torch.Tensor | None = None
 
     def to(self, device: torch.device | str) -> "RoundRandomness":
-        return RoundRandomness(
-            task_index=self.task_index.to(device),
-            subset_perm=self.subset_perm.to(device),
-            byz_mask=self.byz_mask.to(device),
-            keep_idx=None if self.keep_idx is None else self.keep_idx.to(device),
-        )
+        return RoundRandomness(**{
+            f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+        })
 
     def validate(self, n: int, q: int) -> None:
         """Raise unless this is a well-formed round for ``N = n`` devices and
         width ``q``: both assignment draws permutations of ``[0, n)``, a 0/1
-        mask of ``n`` devices, keep-indices in ``[0, q)``.
+        mask of ``n`` devices, keep-indices in ``[0, q)``, uniforms in
+        ``[0, 1)`` of shape ``(n, q)`` (``quant_u``) and ``(n,)``
+        (``part_u``).
 
         Reads the tensors on the host (a device sync when they lie on a
         card); ``sample_round_randomness`` needs no check, a record built
@@ -133,6 +148,11 @@ class RoundRandomness:
             if keep.ndim != 2 or keep.shape[0] != n or (
                     keep.numel() and (int(keep.min()) < 0 or int(keep.max()) >= q)):
                 raise ValueError(f"RoundRandomness.keep_idx must be ({n}, q_hat) ids in [0, {q})")
+        for name, shape in (("quant_u", (n, q)), ("part_u", (n,))):
+            u = getattr(self, name)
+            if u is not None and (u.shape != shape or u.dtype != torch.float32
+                                  or not bool(((u >= 0) & (u < 1)).all())):
+                raise ValueError(f"RoundRandomness.{name} must be {shape} float32 in [0, 1)")
 
 
 def sample_round_randomness(cfg: ProtocolConfig, q: int, generator: torch.Generator) -> RoundRandomness:
@@ -143,11 +163,18 @@ def sample_round_randomness(cfg: ProtocolConfig, q: int, generator: torch.Genera
         n, cfg.n_byz, fixed=cfg.attack.fixed_identity, generator=generator,
         device=generator.device,
     )
+    keep_idx = comp_lib.sample_keep_idx(cfg.compression, n, q, generator)
+    quant_u = comp_lib.sample_quant_u(cfg.compression, n, q, generator)
+    part_u = None
+    if cfg.participation.active:
+        part_u = torch.rand((n,), generator=generator, device=generator.device)
     return RoundRandomness(
         task_index=ta.task_index,
         subset_perm=ta.subset_perm,
         byz_mask=mask,
-        keep_idx=comp_lib.sample_keep_idx(cfg.compression, n, q, generator),
+        keep_idx=keep_idx,
+        quant_u=quant_u,
+        part_u=part_u,
     )
 
 
@@ -156,9 +183,53 @@ def make_attack_fn(cfg: ProtocolConfig) -> attack_lib.Attack:
     return dataclasses.replace(cfg.attack, n_byz=cfg.n_byz).make()
 
 
-def make_server_fn(cfg: ProtocolConfig) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The server ``(N, Q) -> (Q,)``; CWTM runs through its kernel and the
-    ``-nnm`` rules through the Gram kernel (see ``aggregators``)."""
+def _masked_server_fn(cfg: ProtocolConfig) -> Callable:
+    """The participation-aware server ``(transmitted, pmask, task_index) ->
+    (Q,)``, in three regimes:
+
+      * ``aggregator="decode"``: the cyclic K-of-N erasure decode, exact
+        while the erasures stay within the margin ``d - 1`` (needs ``d |
+        N``);
+      * ``method="draco"``: DRACO's median over reporting group members,
+        which comes with the DRACO slice;
+      * any other rule, impute-then-aggregate: erased rows are replaced by
+        the reporting rows' mean and the full-participation rule runs on the
+        patched stack. At an all-ones mask the select changes nothing and
+        the rule sees the unmasked stack bit for bit.
+    """
+    if cfg.method == "draco":
+        raise NotImplementedError("DRACO's masked decode is not ported yet (ROADMAP A.2)")
+    if cfg.aggregator == "decode":
+        d = cfg.effective_d()
+        if cfg.n_devices % d != 0:
+            raise ValueError(
+                f"aggregator='decode' exactness needs d | N (the offset classes must tile "
+                f"the subset circle): N={cfg.n_devices} d={d}"
+            )
+        return lambda t, pm, task_index: cyclic_erasure_decode(t, pm, task_index, d)
+    base = cfg.make_aggregator()
+
+    def masked_server(t: torch.Tensor, pm: torch.Tensor, task_index: torch.Tensor) -> torch.Tensor:
+        del task_index
+        imputed = stable_masked_mean0(t, pm)
+        return base(torch.where(pm[:, None] > 0.0, t, imputed[None, :]))
+
+    return masked_server
+
+
+def make_server_fn(cfg: ProtocolConfig) -> Callable:
+    """The server of ``cfg``. At full participation ``(N, Q) -> (Q,)``: CWTM
+    runs through its kernel and the ``-nnm`` rules through the Gram kernel
+    (see ``aggregators``). Under an active participation schedule
+    ``(transmitted, pmask, task_index) -> (Q,)`` (see
+    ``_masked_server_fn``)."""
+    if cfg.participation.active:
+        return _masked_server_fn(cfg)
+    if cfg.aggregator == "decode":
+        raise ValueError(
+            "aggregator='decode' (the K-of-N erasure decode) needs an active participation "
+            "schedule; at full participation the mean server recovers the same gradient mean"
+        )
     return cfg.make_aggregator()
 
 
@@ -169,7 +240,8 @@ def protocol_round(
     *,
     device: torch.device | str | None = None,
     attack_fn: attack_lib.Attack | None = None,
-    server_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    server_fn: Callable | None = None,
+    participation_mask: torch.Tensor | None = None,
     stage_hook: Callable[[str], None] | None = None,
 ) -> torch.Tensor:
     """One full protocol round.
@@ -182,8 +254,15 @@ def protocol_round(
         raises). ``subset_grads`` must already lie there.
       attack_fn / server_fn: overrides of ``make_attack_fn(cfg)`` /
         ``make_server_fn(cfg)``.
-      stage_hook: called with ``"encode"``, ``"compress"``, ``"attack"`` and
-        ``"server"`` as each stage has been enqueued (for stage timing).
+      participation_mask: ``(N,)`` 0/1 float mask of the reporting devices;
+        needs an active ``cfg.participation``, where ``None`` means every
+        device reports through the masked path. The erased rows are zeroed
+        after the attack (the collusion statistics see the whole stack; an
+        erased attacker sends nothing) and the mask-aware server decodes the
+        rest.
+      stage_hook: called with ``"encode"``, ``"compress"``, ``"attack"``,
+        ``"erase"`` (active participation only) and ``"server"`` as each
+        stage has been enqueued (for stage timing).
 
     Returns:
       ``(Q,)`` the aggregate ``g^t``.
@@ -194,15 +273,17 @@ def protocol_round(
         raise ValueError(f"subset_grads lie on {subset_grads.device}, the round runs on {dev}")
     if subset_grads.ndim != 2 or subset_grads.shape[0] != n:
         raise ValueError(f"subset_grads must be ({n}, Q), got {tuple(subset_grads.shape)}")
+    active = cfg.participation.active
+    if participation_mask is not None and not active:
+        raise ValueError("participation_mask passed but cfg.participation is 'full'")
     hook = stage_hook or (lambda stage: None)
 
     d = cfg.effective_d()
     assign = tm.assignment_from(rand.task_index, rand.subset_perm, d)
-    w = torch.full((d,), 1.0 / d, dtype=torch.float32, device=dev)
-    coded = kernel_ops.gather_combine(subset_grads, assign.subsets, w)
+    coded = kernel_ops.gather_combine(subset_grads, assign.subsets, coded_weights(d, dev))
     hook("encode")
 
-    coded = comp_lib.compress_rows(cfg.compression, coded, rand.keep_idx)
+    coded = comp_lib.compress_rows(cfg.compression, coded, rand.keep_idx, rand.quant_u)
     hook("compress")
 
     attack = attack_fn if attack_fn is not None else make_attack_fn(cfg)
@@ -211,6 +292,15 @@ def protocol_round(
     hook("attack")
 
     server = server_fn if server_fn is not None else make_server_fn(cfg)
-    out = server(transmitted)
+    if not active:
+        out = server(transmitted)
+    else:
+        pm = participation_mask
+        if pm is None:
+            pm = torch.ones((n,), dtype=torch.float32, device=dev)
+        # erased rows become exact 0.0; x * 1.0 leaves the others' bits
+        transmitted = transmitted * pm[:, None]
+        hook("erase")
+        out = server(transmitted, pm, assign.task_index)
     hook("server")
     return out

@@ -1,11 +1,17 @@
 """Com-LAD wire compression (Section V, Definition 2).
 
-Ported in this slice: ``identity`` and random sparsification, per device
-(``rand_sparse``) or with one mask shared by every device
-(``rand_sparse_shared``). Each keeps ``q_hat`` coordinates and scales them
-by ``Q / q_hat``. The kept coordinates come in as indices
-(``keep_idx``, one row per device) drawn outside the round. ``quant`` and
-``top_k`` wait for a later slice.
+  * ``identity``;
+  * random sparsification, per device (``rand_sparse``) or with one mask
+    shared by every device (``rand_sparse_shared``): keeps ``q_hat``
+    coordinates and scales them by ``Q / q_hat``. The kept coordinates come
+    in as indices (``keep_idx``, one row per device) drawn outside the
+    round;
+  * ``quant``: QSGD stochastic quantization per chunk (the quantize
+    kernel), its rounding draws ``quant_u`` (one (Q,) row of uniforms per
+    device) drawn outside the round;
+  * ``top_k``: the biased top-k sparsification of the ablations, no draws.
+
+The fleet's payload codec (bit-packed frames) comes with the fleet.
 
 ``CompressionSpec`` keeps the reference's one spelling of a condition:
 ``"identity" | "randk:8" | "randk:0.3" | "randk_shared:8" | "quant:4" |
@@ -14,16 +20,24 @@ by ``Q / q_hat``. The kept coordinates come in as indices
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from repro_torch.kernels import ops as kernel_ops
 
 __all__ = [
     "CompressionSpec",
     "spec_from",
     "identity",
     "rand_sparse",
+    "stochastic_quantization",
+    "top_k",
     "compress_rows",
     "sample_keep_idx",
+    "sample_quant_u",
+    "delta_of",
+    "wire_bits",
     "SPARSE",
 ]
 
@@ -139,19 +153,48 @@ def rand_sparse(rows: torch.Tensor, keep_idx: torch.Tensor) -> torch.Tensor:
     return rows * mask * (q / q_hat)
 
 
+def stochastic_quantization(g: torch.Tensor, u: torch.Tensor, levels: int = 16,
+                            chunk: int = 1024) -> torch.Tensor:
+    """QSGD-style unbiased stochastic quantization with per-chunk scaling,
+    rounding with the given uniforms ``u`` (same shape as ``g``).
+
+    Each chunk of ``chunk`` coordinates along the last axis is scaled by its
+    max-abs, mapped onto ``levels`` uniform levels in [-1, 1] and rounded up
+    with probability equal to the remainder, hence unbiased. Returns the
+    dequantized vectors (the wire format is ``ceil(log2(2 levels + 1))``
+    bits a coordinate plus one fp32 scale a chunk, see ``wire_bits``)."""
+    return kernel_ops.stochastic_quantize(g, u, levels, chunk)
+
+
+def top_k(rows: torch.Tensor, q_hat: int) -> torch.Tensor:
+    """Biased top-k sparsification [15] (ablation only; violates eq. 9):
+    each row keeps its ``q_hat`` coordinates of largest magnitude. A stable
+    descending sort breaks ties toward the lower index, as the reference's
+    ``jax.lax.top_k`` does (``torch.topk`` promises no order)."""
+    idx = torch.sort(rows.abs(), dim=-1, descending=True, stable=True).indices[..., :q_hat]
+    mask = torch.zeros_like(rows).scatter_(-1, idx, 1.0)
+    return rows * mask
+
+
 def compress_rows(spec: CompressionSpec, rows: torch.Tensor,
-                  keep_idx: torch.Tensor | None) -> torch.Tensor:
-    """Apply ``spec`` to the (R, Q) coded rows of a round; ``keep_idx`` holds
-    each row's kept coordinates for the sparse compressors (the same row
-    repeated for ``rand_sparse_shared``)."""
+                  keep_idx: torch.Tensor | None = None,
+                  quant_u: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply ``spec`` to the (R, Q) coded rows of a round; ``keep_idx``
+    holds each row's kept coordinates for the sparse compressors (the same
+    row repeated for ``rand_sparse_shared``), ``quant_u`` each row's
+    rounding draws for ``quant``."""
     if spec.name in ("none", "identity"):
         return identity(rows)
     if spec.name in SPARSE:
         if keep_idx is None or keep_idx.shape != (rows.shape[0], spec.kept(rows.shape[1])):
             raise ValueError(f"{spec.name} needs keep_idx of shape (R, q_hat)")
         return rand_sparse(rows, keep_idx)
-    if spec.name in ("quant", "top_k"):
-        raise NotImplementedError(f"compressor {spec.name!r} is not ported yet (ROADMAP A.2, B.5)")
+    if spec.name == "quant":
+        if quant_u is None or quant_u.shape != rows.shape:
+            raise ValueError("quant needs quant_u of the rows' shape (R, Q)")
+        return stochastic_quantization(rows, quant_u, spec.levels, spec.chunk)
+    if spec.name == "top_k":
+        return top_k(rows, spec.kept(rows.shape[1]))
     raise KeyError(f"unknown compressor {spec.name!r}")
 
 
@@ -166,3 +209,43 @@ def sample_keep_idx(spec: CompressionSpec, n: int, q: int,
     rows = 1 if spec.name == "rand_sparse_shared" else n
     u = torch.rand((rows, q), generator=generator, device=generator.device)
     return u.argsort(dim=-1)[:, : spec.kept(q)].expand(n, -1).contiguous()
+
+
+def sample_quant_u(spec: CompressionSpec, n: int, q: int,
+                   generator: torch.Generator) -> torch.Tensor | None:
+    """Each device's (Q,) rounding draws in [0, 1) for ``quant``, drawn
+    from ``generator`` on its device."""
+    if spec.name != "quant":
+        return None
+    return torch.rand((n, q), generator=generator, device=generator.device)
+
+
+def delta_of(spec: CompressionSpec, q: int) -> float:
+    """The eq.-(10) constant delta of each compressor."""
+    if spec.name in ("none", "identity"):
+        return 0.0
+    if spec.name in SPARSE:
+        return q / spec.kept(q) - 1.0
+    if spec.name == "quant":
+        # QSGD bound: delta <= min(Q / levels^2, sqrt(Q) / levels) for
+        # full-vector scaling; with per-chunk scaling Q -> chunk
+        c = min(spec.chunk, q)
+        return min(c / spec.levels**2, (c**0.5) / spec.levels)
+    if spec.name == "top_k":
+        return 1.0 - spec.kept(q) / q  # contraction parameter (biased class)
+    raise KeyError(spec.name)
+
+
+def wire_bits(spec: CompressionSpec, q: int, value_bits: int = 32) -> float:
+    """Payload bits needed to ship one compressed vector of length q."""
+    idx_bits = max(1, math.ceil(math.log2(max(q, 2))))
+    if spec.name in ("none", "identity"):
+        return float(q * value_bits)
+    if spec.name in ("rand_sparse", "top_k"):
+        return float(spec.kept(q) * (value_bits + idx_bits))
+    if spec.name == "rand_sparse_shared":
+        return float(spec.kept(q) * value_bits)  # the mask comes from the shared round draw
+    if spec.name == "quant":
+        bits = math.ceil(math.log2(2 * spec.levels + 1))
+        return float(q * bits + -(-q // spec.chunk) * 32)
+    raise KeyError(spec.name)

@@ -4,22 +4,28 @@
     ``ProtocolConfig``.
   * ``PAPER_FIG4/5/6`` — the named curves of Figs. 4-6 (Fig. 4 without
     DRACO-d41, which waits for DRACO's port).
+  * ``participation_sweep`` — the partial-participation rows: schedule x
+    aggregator x attack over the cyclic code.
   * ``run_scenario`` — a scenario on the linear-regression problem.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
 from repro_torch.core.attacks import AttackSpec
 from repro_torch.core.byzantine import ProtocolConfig
+from repro_torch.core.coding import erasure_margin
 from repro_torch.core.compression import spec_from
+from repro_torch.core.participation import ParticipationSpec
 from repro_torch.core.engine import RandomnessProvider, TrajectoryResult, run_trajectory
 from repro_torch.data.synthetic import linear_regression_problem, linreg_loss, linreg_subset_grads
 from repro_torch.device import resolve_device
 
-__all__ = ["Scenario", "scenario_name", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6", "run_scenario"]
+__all__ = ["Scenario", "scenario_name", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
+           "participation_sweep", "run_scenario"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,14 +38,19 @@ class Scenario:
     aggregator: str = "cwtm"
     attack: str = "sign_flip"
     n_byz: int = 20
-    compressor: str = "none"  # none | rand_sparse | rand_sparse_shared
+    compressor: str = "none"  # none | rand_sparse | rand_sparse_shared | quant | top_k, or "quant:4"
     q_hat_frac: float = 0.3
     quant_levels: int = 16
     sigma_h: float = 0.3
     trim_frac: float = 0.1
     n_devices: int = 100
     lr: float = 1e-6
+    # participation schedule (core/participation.py): full | iid | onoff | adversarial | markov
     participation: str = "full"
+    p_rate: float = 0.0  # iid per-round drop probability
+    p_drop_n: int = 0  # erased / straggler device count (onoff, adversarial)
+    p_period: int = 4  # onoff duty-cycle window (rounds)
+    p_duty: float = 0.5  # onoff fraction of the window a straggler reports
 
     def protocol(self) -> ProtocolConfig:
         return ProtocolConfig(
@@ -53,7 +64,16 @@ class Scenario:
             compression=spec_from(
                 self.compressor, q_hat_frac=self.q_hat_frac, levels=self.quant_levels
             ),
-            participation=self.participation,
+            participation=ParticipationSpec(
+                self.participation,
+                rate=self.p_rate,
+                n_drop=self.p_drop_n,
+                period=self.p_period,
+                duty=self.p_duty,
+                # worst-case erasure hits honest rows: the Byzantine block
+                # (rows [0, n_byz) under fixed identities) keeps reporting
+                offset=self.n_byz if self.participation == "adversarial" else 0,
+            ),
         )
 
 
@@ -106,6 +126,55 @@ PAPER_FIG6 = {
     "Com-LAD-CWTM": _fig6("Com-LAD-CWTM", "lad", 3, "cwtm"),
     "Com-LAD-CWTM-NNM": _fig6("Com-LAD-CWTM-NNM", "lad", 3, "cwtm-nnm"),
 }
+
+
+def participation_sweep(
+    *,
+    method: str = "lad",
+    d: int = 4,
+    n_devices: int = 16,
+    n_byz: int = 0,
+    schedules: Sequence[str] = ("iid", "onoff", "adversarial"),
+    aggregators: Sequence[str] = ("decode", "mean"),
+    attacks: Sequence[str] = ("sign_flip",),
+    rate: float = 0.25,
+    n_drop: int | None = None,
+    period: int = 4,
+    duty: float = 0.5,
+    base_lr: float = 1e-5,
+) -> list[Scenario]:
+    """The partial-participation rows: schedule x aggregator x attack over
+    the cyclic code at margin ``erasure_margin(d) = d - 1``.
+
+    ``n_drop`` (erased / straggler devices of the deterministic schedules)
+    defaults to the whole margin, the worst erasure the code still decodes
+    exactly. The default aggregators are the contrast: ``"decode"`` (the
+    K-of-N erasure decode) against ``"mean"`` (erased rows imputed, the code
+    unused)."""
+    if method == "draco":
+        raise ValueError("participation_sweep targets the cyclic code; DRACO has its own masked decoder")
+    if n_devices % d != 0:
+        raise ValueError(
+            f"participation rows need d | N (the erasure decode's offset classes must tile "
+            f"the subset circle): N={n_devices} d={d}"
+        )
+    drop = erasure_margin(d) if n_drop is None else n_drop
+    rows = []
+    for sched in schedules:
+        if sched not in ("iid", "onoff", "adversarial", "markov"):
+            raise ValueError(
+                f"unknown participation schedule {sched!r} for a sweep row "
+                "('full' rows are the plain figures; 'external' masks come from the caller)"
+            )
+        for agg in aggregators:
+            for i_a, attack in enumerate(attacks):
+                rows.append(Scenario(
+                    name=f"part/{sched}/{agg}/{attack}", method=method, d=d, aggregator=agg,
+                    attack=attack, n_byz=n_byz, n_devices=n_devices,
+                    lr=base_lr * (1.0 + 0.1 * i_a), participation=sched, p_rate=rate,
+                    p_drop_n=drop, p_period=period, p_duty=duty,
+                ))
+    return rows
 
 
 def _subset_grads(data, x):

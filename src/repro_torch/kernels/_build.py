@@ -39,6 +39,8 @@ _SIGNATURES = {
     "attack": ("repro_attack", (_P, _P, _P, _I, _I, _I64, _I, _F, _P)),
     "cwtm": ("repro_cwtm", (_P, _P, _I, _I, _I64, _I, _F, _P)),
     "gram": ("repro_gram", (_P, _P, _P, _P, _I, _I, _I64, _I64, _I, _I, _P)),
+    "quantize": ("repro_quantize", (_P, _P, _P, _I, _I64, _I64, _I, _P)),
+    "row_combine": ("repro_row_combine", (_P, _P, _P, _I, _I, _I64, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,23 +1,35 @@
-"""Eq.-(5) encode on the card: ``csrc/gather_combine.cu``.
+"""The combines of the coded round on the card.
 
-Replaces ``src/repro/kernels/coded_combine.py::gather_combine_pallas_lanes``.
-The kernel is bound by bytes (one read of the (L, N, Q) gradient stack, one
-write of the coded stack); it runs one thread per (lane, device,
-coordinate) and sums the d gathered rows in a fixed order without FMA
-contraction, which is the plain version's arithmetic (see the source's
-note). ``plain`` is the version the wrapper runs on the CPU.
+  * ``csrc/gather_combine.cu``, the eq.-(5) encode: replaces
+    ``src/repro/kernels/coded_combine.py::gather_combine_pallas_lanes``.
+    Bound by bytes (one read of the (L, N, Q) gradient stack, one write of
+    the coded stack); one thread per (lane, device, coordinate) sums the d
+    gathered rows in a fixed order without FMA contraction, which is the
+    plain version's arithmetic (see the source's note).
+  * ``csrc/row_combine.cu``, ``out[l, q] = sum_r w[l, r] x[l, r, q]``:
+    replaces both ``masked_combine_pallas_lanes`` (the erasure decode's
+    surviving-class sum, R = N) and ``coded_combine_pallas_lanes`` (R = d).
+    Bound by bytes; one thread per (lane, coordinate) adds its R products as
+    the plain version's fixed tree, so the two agree bitwise.
+
+``gather_plain``, ``masked_plain`` and ``coded_plain`` are the versions the
+wrappers run on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import gather_combine_ref as plain
+from repro_torch.kernels.ref import coded_combine_ref as coded_plain
+from repro_torch.kernels.ref import gather_combine_ref as gather_plain
+from repro_torch.kernels.ref import masked_combine_ref as masked_plain
 
-__all__ = ["launch", "plain"]
+__all__ = ["gather_launch", "gather_plain", "rows_launch", "masked_plain", "coded_plain", "MAX_ROWS"]
+
+MAX_ROWS = 256  # row_combine stages the R products of 128 columns in shared memory
 
 
-def launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def gather_launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """grads (L, N, Q) f32, subsets (L, N, d) int32, weights (L, d) f32, all
     contiguous on one CUDA device -> (L, N, Q)."""
     lanes, n, q = grads.shape
@@ -29,4 +41,18 @@ def launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor) ->
     )
     if err:
         raise RuntimeError(f"gather_combine kernel launch failed: CUDA error {err}")
+    return out
+
+
+def rows_launch(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """x (L, R, Q) f32, weights (L, R) f32, contiguous on one CUDA device ->
+    (L, Q)."""
+    lanes, r, q = x.shape
+    out = torch.empty((lanes, q), dtype=x.dtype, device=x.device)
+    err = _build.library("row_combine")(
+        x.data_ptr(), weights.data_ptr(), out.data_ptr(), lanes, r, q,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"row_combine kernel launch failed: CUDA error {err}")
     return out

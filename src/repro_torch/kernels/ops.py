@@ -1,4 +1,4 @@
-"""Public wrappers over the four kernels of the protocol round.
+"""Public wrappers over the kernels of the protocol round.
 
 Each wrapper takes any Q and any number of leading lane axes, folds the
 lanes into one axis, and then:
@@ -18,6 +18,7 @@ from repro_torch.kernels import attacks as _attacks
 from repro_torch.kernels import coded_combine as _coded_combine
 from repro_torch.kernels import cwtm as _cwtm
 from repro_torch.kernels import nnm_dist as _nnm_dist
+from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels.ref import sqdist_from_gram
 
 __all__ = [
@@ -26,13 +27,17 @@ __all__ = [
     "cwtm",
     "gram",
     "pairwise_sqdist",
+    "stochastic_quantize",
+    "masked_combine",
+    "coded_combine",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 # kernel name -> launches of its CUDA kernel in this process
-_launches = {"gather_combine": 0, "attack": 0, "cwtm": 0, "gram": 0}
+_launches = {"gather_combine": 0, "attack": 0, "cwtm": 0, "gram": 0,
+             "quantize": 0, "masked_combine": 0, "coded_combine": 0}
 KERNELS = tuple(_launches)
 
 _MAX_GRID_Y = 65535
@@ -95,11 +100,11 @@ def gather_combine(
     if not _on_card("gather_combine", flat, s, w):
         if s.numel() and (int(s.min()) < 0 or int(s.max()) >= n):
             raise IndexError(f"gather_combine: subset ids outside [0, {n})")
-        return _coded_combine.plain(flat, s, w).reshape(grads.shape)
+        return _coded_combine.gather_plain(flat, s, w).reshape(grads.shape)
     if flat.shape[0] * n > _MAX_GRID_Y:
         raise ValueError(f"gather_combine: lanes x N = {flat.shape[0] * n} > {_MAX_GRID_Y}")
     _launches["gather_combine"] += 1
-    return _coded_combine.launch(flat, s, w).reshape(grads.shape)
+    return _coded_combine.gather_launch(flat, s, w).reshape(grads.shape)
 
 
 def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> torch.Tensor:
@@ -157,3 +162,54 @@ def pairwise_sqdist(msgs: torch.Tensor) -> torch.Tensor:
     """Squared euclidean distances. msgs: (..., N, Q) -> (..., N, N), as
     ``max(sq_i + sq_j - 2 G_ij, 0)`` around the Gram kernel."""
     return sqdist_from_gram(*gram(msgs))
+
+
+def _row_combine(name: str, plain, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``out[..., q] = sum_r w[..., r] x[..., r, q]`` for kernel ``name``;
+    weights broadcast over x's leading axes."""
+    r = x.shape[-2]
+    flat, lead = _lanes(x, 2)
+    w = weights.to(torch.float32).expand(x.shape[:-1]).reshape(flat.shape[:2]).contiguous()
+    if not _on_card(name, flat, w):
+        return plain(flat, w).reshape(lead + x.shape[-1:])
+    if r > _coded_combine.MAX_ROWS:
+        raise ValueError(f"{name} kernel takes at most {_coded_combine.MAX_ROWS} rows, got {r}")
+    if flat.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"{name}: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
+    _launches[name] += 1
+    return _coded_combine.rows_launch(flat, w).reshape(lead + x.shape[-1:])
+
+
+def masked_combine(msgs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted row-combine over the device axis, the K-of-N erasure
+    decode's surviving-class sum. msgs: (..., N, Q) f32, weights: (..., N)
+    row weights (exact 0.0 on rows outside the class) -> (..., Q)."""
+    if weights.shape[-1] != msgs.shape[-2]:
+        raise ValueError(f"masked_combine: weights {tuple(weights.shape)} vs msgs {tuple(msgs.shape)}")
+    return _row_combine("masked_combine", _coded_combine.masked_plain, msgs, weights)
+
+
+def coded_combine(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """eq.-(5) combine of stacked subset gradients. grads: (..., d, Q) f32,
+    weights: (d,) or (..., d) -> (..., Q)."""
+    if weights.shape[-1] != grads.shape[-2]:
+        raise ValueError(f"coded_combine: weights {tuple(weights.shape)} vs grads {tuple(grads.shape)}")
+    return _row_combine("coded_combine", _coded_combine.coded_plain, grads, weights)
+
+
+def stochastic_quantize(g: torch.Tensor, u: torch.Tensor, levels: int = 16, block: int = 1024) -> torch.Tensor:
+    """QSGD quantize-dequantize per block of ``min(block, Q)`` coordinates
+    along the last axis. g, u: (..., Q) f32, u in [0, 1) -> (..., Q)."""
+    if u.shape != g.shape or u.dtype != g.dtype:
+        raise ValueError(f"stochastic_quantize: u {u.dtype}{tuple(u.shape)} vs g {g.dtype}{tuple(g.shape)}")
+    if levels < 1 or block < 1:
+        raise ValueError(f"stochastic_quantize: levels={levels} and block={block} must be >= 1")
+    qb = min(block, g.shape[-1])
+    gf, _ = _lanes(g, 1)
+    uf, _ = _lanes(u, 1)
+    if not _on_card("quantize", gf, uf):
+        return _quantize.plain(gf, uf, levels, qb).reshape(g.shape)
+    if gf.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"quantize: {gf.shape[0]} lanes > {_MAX_GRID_Y}")
+    _launches["quantize"] += 1
+    return _quantize.launch(gf, uf, levels, qb).reshape(g.shape)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels of the protocol round.
+"""Plain PyTorch versions of the kernels of the protocol round.
 
 They compute what the CUDA kernels compute, on any device, and are what a
 wrapper in ``kernels/ops.py`` runs for a tensor on the CPU. Every function
@@ -19,6 +19,9 @@ __all__ = [
     "gram_ref",
     "sqdist_from_gram",
     "pairwise_sqdist_ref",
+    "stochastic_quantize_ref",
+    "masked_combine_ref",
+    "coded_combine_ref",
 ]
 
 
@@ -95,3 +98,42 @@ def sqdist_from_gram(gram: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
 def pairwise_sqdist_ref(msgs: torch.Tensor) -> torch.Tensor:
     """(..., N, Q) -> (..., N, N) squared euclidean distances (fp32)."""
     return sqdist_from_gram(*gram_ref(msgs))
+
+
+def stochastic_quantize_ref(g: torch.Tensor, u: torch.Tensor, levels: int, block: int) -> torch.Tensor:
+    """QSGD per block of ``block`` coordinates (dequantized output).
+
+    g, u: (..., Q) with Q % block == 0; ``u`` in [0, 1) is the rounding
+    randomness. Per block: ``scale = max |g|``, ``y = g / scale * levels``,
+    ``y`` rounds up with probability ``y - floor(y)``, out ``yq / levels *
+    scale`` (0 where scale is 0). Both divisions are true divisions: the
+    level count is a tensor on ``g``'s device, since PyTorch on a CUDA
+    device multiplies by the reciprocal of a host scalar instead.
+    """
+    gc = g.reshape(-1, block).to(torch.float32)
+    uc = u.reshape(-1, block)
+    scale = gc.abs().amax(dim=1, keepdim=True)
+    positive = scale > 0
+    safe = torch.where(positive, scale, 1.0)
+    lev = torch.tensor(float(levels), device=g.device)
+    y = gc / safe * lev
+    lo = torch.floor(y)
+    yq = lo + (uc < (y - lo)).to(torch.float32)
+    out = torch.where(positive, yq / lev * safe, 0.0)
+    return out.reshape(g.shape)
+
+
+def masked_combine_ref(msgs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted row-combine over the device axis (the erasure decode's
+    surviving-class sum). msgs: (..., N, Q), weights: (..., N) -> (..., Q).
+
+    ``tree_sum(msgs * w, dim=-2)``: one rounded product per row, then the
+    fixed tree over rows, as the reference's XLA decode sums
+    (``core/coding.py::cyclic_erasure_decode``)."""
+    return tree_sum(msgs * weights.to(torch.float32)[..., None], dim=-2)
+
+
+def coded_combine_ref(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """eq.-(5) weighted combine. grads: (..., d, Q), weights: (d,) or
+    (..., d) -> (..., Q); the same sum as ``masked_combine_ref``."""
+    return masked_combine_ref(grads, weights.to(torch.float32).expand(grads.shape[:-1]))

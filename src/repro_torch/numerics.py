@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tree_sum", "stable_norm", "stable_mean0"]
+__all__ = ["tree_sum", "stable_norm", "stable_mean0", "stable_masked_mean0"]
 
 
 def _pad_pow2(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -43,3 +43,18 @@ def stable_norm(v: torch.Tensor) -> torch.Tensor:
 def stable_mean0(m: torch.Tensor) -> torch.Tensor:
     """Mean over axis 0 (the device axis) with a fixed-tree accumulation."""
     return tree_sum(m.to(torch.float32), dim=0) * (1.0 / m.shape[0])
+
+
+def stable_masked_mean0(m: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the reporting rows of axis 0 (``mask`` is ``(N,)`` 0/1)
+    with a fixed-tree accumulation.
+
+    Masked rows are exact ``0.0`` terms of the tree, and the divisor is the
+    exact count ``tree_sum(mask)``. At an all-ones mask this is a true
+    division ``tree_sum(m) / N``, not ``stable_mean0``'s multiply by
+    ``1/N``: the two differ in the last bit where ``1/N`` is not dyadic.
+    """
+    m = m.to(torch.float32)
+    w = mask.to(torch.float32)
+    num = tree_sum(m * w[:, None] if m.ndim == 2 else m * w, dim=0)
+    return num / torch.clamp_min(tree_sum(w, dim=0), 1.0)

@@ -1,14 +1,16 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: they skip where no card is present. On the machine with
-the card (which has no JAX, so this file imports none):
+the card (which has no JAX, so this file imports none, and
+``tests/conftest.py``, which imports it, is skipped):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_card.py
 
-Tolerance: gather_combine and cwtm run the plain version's arithmetic term
-for term, so they must agree bitwise; the attack's honest statistics and
-the Gram sum in another order than the plain versions (rtol 1e-5, atol
-1e-6, the Gram's atol scaled by the largest squared row norm).
+Tolerance: gather_combine, cwtm, quantize and the two row combines run the
+plain version's arithmetic term for term, so they must agree bitwise; the
+attack's honest statistics and the Gram sum in another order than the plain
+versions (rtol 1e-5, atol 1e-6, the Gram's atol scaled by the largest
+squared row norm).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref as tref
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -52,6 +55,13 @@ def test_kernels_match_plain_on_card(card, n, q):
     scale = float(want_sq.max())
     torch.testing.assert_close(gram, want_gram, rtol=RTOL, atol=ATOL * scale)
     torch.testing.assert_close(sq, want_sq, rtol=RTOL, atol=ATOL)
+    w = (torch.rand((n,), generator=gen, device="cuda") < 0.5) * torch.rand((n,), generator=gen, device="cuda")
+    torch.testing.assert_close(tops.masked_combine(msgs, w), tref.masked_combine_ref(msgs, w), rtol=0, atol=0)
+    torch.testing.assert_close(tops.coded_combine(msgs, w), tref.coded_combine_ref(msgs, w), rtol=0, atol=0)
+    u = torch.rand((n, q), generator=gen, device="cuda")
+    for levels, chunk in ((4, 1024), (16, 1000), (3, 7), (4, q + 5)):
+        torch.testing.assert_close(tops.stochastic_quantize(msgs, u, levels, chunk),
+                                   tquant.plain(msgs, u, levels, min(chunk, q)), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -59,10 +69,27 @@ def test_batched_kernels_equal_single_on_card(card):
     msgs = torch.randn((3, 16, 1000), generator=card, device="cuda")
     batched_cwtm = tops.cwtm(msgs, 3)
     batched_gram, batched_sq = tops.gram(msgs)
+    w = torch.rand((3, 16), generator=card, device="cuda")
+    u = torch.rand((3, 16, 1000), generator=card, device="cuda")
+    batched_combine = tops.masked_combine(msgs, w)
+    batched_quant = tops.stochastic_quantize(msgs, u, 4, 96)
     for i in range(3):
         assert torch.equal(batched_cwtm[i], tops.cwtm(msgs[i], 3))
         gram, sq = tops.gram(msgs[i])
         assert torch.equal(batched_gram[i], gram) and torch.equal(batched_sq[i], sq)
+        assert torch.equal(batched_combine[i], tops.masked_combine(msgs[i], w[i]))
+        assert torch.equal(batched_quant[i], tops.stochastic_quantize(msgs[i], u[i], 4, 96))
+
+
+@pytest.mark.cuda
+def test_quantize_masks_the_ragged_block_of_each_row(card):
+    """Rows are contiguous: the ragged last block of row 0 must not take
+    the first coordinates of row 1 into its scale."""
+    g = torch.randn((2, 1000), generator=card, device="cuda")
+    g[1, :40] = 1e6  # would dominate row 0's last block's scale if read
+    u = torch.rand((2, 1000), generator=card, device="cuda")
+    out = tops.stochastic_quantize(g, u, 4, 96)
+    torch.testing.assert_close(out[0], tquant.plain(g[:1], u[:1], 4, 96)[0], rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -83,4 +110,7 @@ def test_kernels_count_their_launches(card):
     msgs = torch.randn((8, 100), generator=card, device="cuda")
     tops.cwtm(msgs, 1)
     tops.pairwise_sqdist(msgs)
-    assert tops.launch_counts() == {"gather_combine": 0, "attack": 0, "cwtm": 1, "gram": 1}
+    tops.stochastic_quantize(msgs, torch.rand_like(msgs), 4, 32)
+    tops.masked_combine(msgs, torch.ones(8, device="cuda"))
+    assert tops.launch_counts() == {"gather_combine": 0, "attack": 0, "cwtm": 1, "gram": 1,
+                                    "quantize": 1, "masked_combine": 1, "coded_combine": 0}

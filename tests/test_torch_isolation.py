@@ -42,11 +42,15 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.scenarios, "
-        "repro_torch.core.engine, repro_torch.core.byzantine, repro_torch.kernels.ops\n"
-        "import torch\n"
+        "repro_torch.core.engine, repro_torch.core.byzantine, repro_torch.kernels.ops, "
+        "repro_torch.core.participation, repro_torch.core.coding, repro_torch.kernels.quantize\n"
+        "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
         "assert r.metrics['loss'].shape == (2,)\n"
+        "row = dataclasses.replace(S.participation_sweep(schedules=('adversarial',))[0], compressor='quant:4')\n"
+        "r = S.run_scenario(row, 2, dim=32, device='cpu')\n"
+        "assert r.metrics['n_report'].tolist() == [13.0, 13.0]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules "
         "if sys.modules[m] is not None)\n"
     )
@@ -58,7 +62,7 @@ def test_import_builds_nothing_and_needs_no_nvcc(tmp_path):
     build_dir = REPO / "build" / "repro_torch"
     before = sorted(build_dir.iterdir()) if build_dir.exists() else None
     code = (
-        "import repro_torch, repro_torch.kernels.ops, repro_torch.core.scenarios\n"
+        "import repro_torch, repro_torch.kernels.ops, repro_torch.core.scenarios, repro_torch.core.coding\n"
         "from repro_torch.kernels import _build\n"
         "assert _build._entries == {}\n"
         "print(_build.BUILD_DIR)\n"

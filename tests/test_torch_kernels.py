@@ -1,4 +1,4 @@
-"""The port's four kernel wrappers against the JAX reference, on the CPU.
+"""The port's kernel wrappers against the JAX reference, on the CPU.
 
 On a CPU tensor each ``repro_torch.kernels.ops`` wrapper runs its plain
 PyTorch version; the CUDA kernels themselves are held against those plain
@@ -12,6 +12,11 @@ Tolerance: rtol 1e-5, atol 1e-6, as tests/test_kernels.py, except the
 Gram, whose fp32 rounding scales with sum_q |x_i[q] x_j[q]| <= max row norm
 squared rather than with |G_ij| (an off-diagonal entry can be near 0 after
 cancellation): there atol is 1e-6 times the largest squared row norm.
+QSGD is bitwise: the port's quantizer divides as the reference's oracle and
+its Pallas kernel do. At a level count that is not a power of two the
+Pallas kernel in interpret mode rounds one division differently (one ulp of
+the output; its own oracle and XLA path agree with the port bitwise), so
+there it is held to rtol 1e-6 only.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.coded_combine import coded_combine_pallas_lanes, masked_combine_pallas_lanes
 from repro.kernels.nnm_dist import gram_pallas_lanes
 from repro_torch.kernels import ops as tops
 from repro_torch.numerics import tree_sum
@@ -120,6 +126,10 @@ def test_batched_equals_single_bitwise():
         _lanes_equal_single(lambda m, mk: tops.attack(m, mk, name, param), msgs, mask)
     _lanes_equal_single(lambda m: tops.cwtm(m, 2), msgs)
     _lanes_equal_single(tops.gram, msgs)
+    _lanes_equal_single(tops.masked_combine, msgs, torch.from_numpy(rng.random((3, 16)).astype(np.float32)))
+    _lanes_equal_single(tops.coded_combine, msgs, torch.from_numpy(rng.random((3, 16)).astype(np.float32)))
+    u = torch.from_numpy(rng.random((3, 16, 300)).astype(np.float32))
+    _lanes_equal_single(lambda g, uu: tops.stochastic_quantize(g, uu, 4, 128), msgs, u)
 
 
 def test_cwtm_plain_sums_the_kept_rows_as_a_tree():
@@ -155,4 +165,84 @@ def test_cpu_calls_launch_no_kernel():
     msgs = torch.randn(8, 64)
     tops.cwtm(msgs, 1)
     tops.pairwise_sqdist(msgs)
+    tops.stochastic_quantize(msgs, torch.rand(8, 64), 4, 16)
+    tops.masked_combine(msgs, torch.ones(8))
+    tops.coded_combine(msgs, torch.ones(8))
     assert tops.launch_counts() == {name: 0 for name in tops.KERNELS}
+
+
+# (lanes, Q, chunk, levels): ragged Q against the chunk, Q < chunk, a chunk
+# that is not a power of two, and a lane axis
+QUANT_CASES = [(0, 3000, 1024, 16), (0, 100, 1024, 4), (8, 3000, 1000, 4), (3, 777, 96, 16),
+               (8, 4096, 1024, 4)]
+
+
+@pytest.mark.parametrize("lanes,q,chunk,levels", QUANT_CASES, ids=[f"L{c[0]}-Q{c[1]}-c{c[2]}-l{c[3]}" for c in QUANT_CASES])
+def test_stochastic_quantize_matches_reference_bitwise(lanes, q, chunk, levels):
+    rng = np.random.default_rng(q + chunk + levels)
+    shape = (q,) if lanes == 0 else (lanes, q)
+    g = (rng.standard_normal(shape) * 3).astype(np.float32)
+    g[..., 5:9] = 0.0  # exact zeros, and below a block whose scale is 0
+    if q > 2 * min(chunk, q):
+        g[..., :min(chunk, q)] = 0.0
+    u = rng.random(shape).astype(np.float32)
+    got = tops.stochastic_quantize(torch.from_numpy(g), torch.from_numpy(u), levels, chunk).numpy()
+    for backend in ("interpret", "xla"):
+        want = np.asarray(jops.stochastic_quantize(jnp.asarray(g), jnp.asarray(u), levels, chunk, backend=backend))
+        np.testing.assert_array_equal(got, want, err_msg=backend)
+
+
+def test_stochastic_quantize_odd_levels_match_reference():
+    rng = np.random.default_rng(0)
+    g = (rng.standard_normal((3, 1000)) * 3).astype(np.float32)
+    u = rng.random((3, 1000)).astype(np.float32)
+    got = tops.stochastic_quantize(torch.from_numpy(g), torch.from_numpy(u), 3, 96).numpy()
+    want = np.asarray(jops.stochastic_quantize(jnp.asarray(g), jnp.asarray(u), 3, 96, backend="xla"))
+    np.testing.assert_array_equal(got, want)
+    kernel = jops.stochastic_quantize(jnp.asarray(g), jnp.asarray(u), 3, 96, backend="interpret")
+    np.testing.assert_allclose(got, np.asarray(kernel), rtol=1e-6)
+
+
+@pytest.mark.parametrize("lanes,n,q", SHAPES, ids=SHAPE_IDS)
+def test_masked_combine_matches_reference(lanes, n, q):
+    rng = np.random.default_rng(13 * n + q + lanes)
+    # rows of scale 1/sqrt(N), so that a sum is of order 1 and atol 1e-6
+    # stays above the rounding of a sum that cancels
+    msgs = _stack(rng, lanes, n, q, scale=n ** -0.5)
+    lead = () if lanes == 0 else (lanes,)
+    # a mask times a class selection: exact zeros on most rows
+    w = ((rng.random(lead + (n,)) < 0.5) * rng.random(lead + (n,))).astype(np.float32)
+    got = tops.masked_combine(torch.from_numpy(msgs), torch.from_numpy(w))
+    want_kernel = masked_combine_pallas_lanes(jnp.asarray(msgs.reshape((-1, n, q))), jnp.asarray(w.reshape((-1, n))),
+                                              q_block=q, interpret=True)
+    _close(got, np.asarray(want_kernel).reshape(got.shape))
+    _close(got, jops.masked_combine(jnp.asarray(msgs), jnp.asarray(w), backend="interpret"))
+    _close(got, jref.masked_combine_ref(jnp.asarray(msgs), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("lanes,d,q", [(0, 3, 300), (4, 10, 4096), (8, 2, 2048), (3, 1, 100)])
+def test_coded_combine_matches_reference(lanes, d, q):
+    rng = np.random.default_rng(17 * d + q + lanes)
+    grads = _stack(rng, lanes, d, q, scale=d ** -0.5)
+    lead = () if lanes == 0 else (lanes,)
+    w = rng.random(lead + (d,)).astype(np.float32)
+    got = tops.coded_combine(torch.from_numpy(grads), torch.from_numpy(w))
+    want_kernel = coded_combine_pallas_lanes(jnp.asarray(grads.reshape((-1, d, q))), jnp.asarray(w.reshape((-1, d))),
+                                             q_block=min(2048, q), interpret=True)
+    _close(got, np.asarray(want_kernel).reshape(got.shape))
+    _close(got, jops.coded_combine(jnp.asarray(grads), jnp.asarray(w), backend="interpret"))
+    _close(got, jref.coded_combine_ref(jnp.asarray(grads), jnp.asarray(w)))
+    # one weight vector for every lane
+    _close(tops.coded_combine(torch.from_numpy(grads), torch.from_numpy(w.reshape((-1, d))[0])),
+           jref.coded_combine_ref(jnp.asarray(grads), jnp.asarray(w.reshape((-1, d))[0])))
+
+
+def test_row_combines_sum_as_the_plain_tree():
+    """The plain combines are one product per row, then numerics.tree_sum
+    over rows: the order the CUDA kernel repeats term for term."""
+    rng = np.random.default_rng(4)
+    msgs = torch.from_numpy(_stack(rng, 0, 13, 50))
+    w = torch.from_numpy(rng.random(13).astype(np.float32))
+    want = tree_sum(msgs * w[:, None], dim=0)
+    assert torch.equal(tops.masked_combine(msgs, w), want)
+    assert torch.equal(tops.coded_combine(msgs, w), want)

@@ -6,8 +6,13 @@ The port draws nothing inside a round: its randomness comes in as a
 reference's split of the round key (``core/byzantine.py::protocol_round``):
 ``k_assign, k_mask, k_attack, k_comp = split(key, 4)``, the assignment from
 ``sample_assignment(k_assign, N, d)``, the mask from
-``sample_byzantine_mask(k_mask, ...)`` and device ``i``'s kept coordinates
-from ``permutation(split(k_comp, N)[i], Q)[:q_hat]``.
+``sample_byzantine_mask(k_mask, ...)``, device ``i``'s kept coordinates
+from ``permutation(split(k_comp, N)[i], Q)[:q_hat]``, device ``i``'s QSGD
+rounding draws from ``uniform(split(k_comp, N)[i], (Q,))`` and the
+participation draws from ``uniform(fold_in(key, PARTICIPATION_KEY_SALT),
+(N,))``. With ``jax_threefry_partitionable`` on, the reference's XLA
+quantizer's padded draw ``uniform(k_i, (chunks, chunk))`` begins with the
+same Q values, so one record replays both of its paths.
 
 ALIE and IPM are held against ``repro.kernels.ref.attack_ref`` and against
 ``protocol_round`` with ``backend="xla"``, not against the reference's
@@ -20,6 +25,17 @@ are the reference for what the attacks compute.
 Tolerance: rtol 1e-5, atol 1e-6 per op and per round (as
 tests/test_kernels.py): the port sums in other orders than XLA (the encode
 as sum_j w_j g_j rather than a mean, NNM's mix as a matrix product).
+
+QSGD in a round: the port's encode and the reference's differ by an ulp or
+two, so ``y = g / scale * levels`` differs by a few ulps of ``levels``, and
+where a draw ``u`` lies that close to ``y - floor(y)`` the two sides round
+to different levels, a whole ``scale / levels`` apart: a flip, not a fault.
+Each quant case therefore first asserts that the two sides' y agree within
+``levels * 2^-20`` (8 ulps of ``levels``) and that every draw lies more
+than twice that from the reference's remainder (measured around the circle,
+so a y next to an integer counts too); then the rounding is the same on
+both sides and the round is held to the tolerance above. The seeds were
+chosen so that the margin holds.
 """
 from __future__ import annotations
 
@@ -35,13 +51,16 @@ from repro.core import aggregators as jagg
 from repro.core import attacks as jatt
 from repro.core import byzantine as jbyz
 from repro.core import compression as jcomp
+from repro.core import participation as jpart
 from repro.core import task_matrix as jtm
 from repro.kernels import ref as jref
 from repro_torch.core import aggregators as tagg
 from repro_torch.core import attacks as tatt
 from repro_torch.core import byzantine as tbyz
 from repro_torch.core import compression as tcomp
+from repro_torch.core import participation as tpart
 from repro_torch.core import task_matrix as ttm
+from repro_torch.kernels import ops as tops
 
 RTOL, ATOL = 1e-5, 1e-6
 N, Q = 100, 100
@@ -68,16 +87,51 @@ def jax_round_randomness(cfg: jbyz.ProtocolConfig, key, q: int) -> tbyz.RoundRan
         keep = jax.vmap(lambda k: jax.random.permutation(k, q)[:q_hat])(jax.random.split(k_comp, n))
     elif spec.name == "rand_sparse_shared":
         keep = jnp.broadcast_to(jax.random.permutation(k_comp, q)[: spec.kept(q)], (n, spec.kept(q)))
+    quant_u = None
+    if spec.name == "quant":
+        quant_u = jax.vmap(lambda k: jax.random.uniform(k, (q,)))(jax.random.split(k_comp, n))
+    part_u = None
+    if cfg.participation.active:
+        part_u = jax.random.uniform(jax.random.fold_in(key, jpart.PARTICIPATION_KEY_SALT), (n,))
     return tbyz.RoundRandomness(
         task_index=_t(ta.task_index),
         subset_perm=_t(ta.subset_perm),
         byz_mask=_t(mask),
         keep_idx=None if keep is None else _t(keep),
+        quant_u=None if quant_u is None else _t(quant_u),
+        part_u=None if part_u is None else _t(part_u),
     )
 
 
 def _msgs(seed, n=N, q=Q, scale=3.0):
     return (np.random.default_rng(seed).standard_normal((n, q)) * scale).astype(np.float32)
+
+
+def _quant_y(coded: np.ndarray, spec) -> np.ndarray:
+    """``g / scale * levels`` of QSGD on (N, Q) rows, per block of
+    ``min(chunk, Q)`` (the ragged last block zero-padded)."""
+    q = coded.shape[-1]
+    block = min(spec.chunk, q)
+    padded = np.pad(coded, ((0, 0), (0, (-q) % block))).reshape(coded.shape[0], -1, block)
+    scale = np.abs(padded).max(-1, keepdims=True)
+    return (padded / np.where(scale > 0, scale, 1.0) * spec.levels).reshape(coded.shape[0], -1)[:, :q]
+
+
+def flip_margin(y: np.ndarray, quant_u) -> float:
+    """The least distance, around the unit circle, between a draw and the
+    remainder ``y - floor(y)`` it is compared with."""
+    gap = np.abs(np.asarray(quant_u) - (y - np.floor(y)))
+    return float(np.minimum(gap, 1.0 - gap).min())
+
+
+def assert_no_level_flip(ref_coded, port_coded, quant_u, spec):
+    """The reference's and the port's pre-quantization rows round to the
+    same levels (see the module docstring)."""
+    y_ref, y_port = _quant_y(np.asarray(ref_coded), spec), _quant_y(np.asarray(port_coded), spec)
+    bound = spec.levels * 2.0**-20
+    assert np.max(np.abs(y_ref - y_port)) <= bound
+    margin = flip_margin(y_ref, quant_u)
+    assert margin > 2 * bound, f"a draw lies {margin:.2e} from its remainder: pick another seed"
 
 
 # ------------------------------------------------------------------ task matrix
@@ -179,34 +233,52 @@ def test_compression_spec_spelling_matches(text):
     assert got.kept(Q) == want.kept(Q)
 
 
-@pytest.mark.parametrize("name", ["rand_sparse", "rand_sparse_shared"])
-def test_compress_rows_matches(name):
+@pytest.mark.parametrize("text", ["randk:0.3", "randk_shared:0.3", "quant:4", "quant:16", "quant:4:32",
+                                  "quant:3:7", "topk:0.3", "topk:8"])
+def test_compress_rows_matches(text):
+    """Every compressor on the same rows under the reference's draws; QSGD
+    bitwise (the rows are the same on both sides, so no level can flip)."""
     rows = _msgs(4)
-    spec_j = jcomp.CompressionSpec(name=name, q_hat_frac=0.3)
+    spec_j = jcomp.CompressionSpec.parse(text)
     cfg = jbyz.ProtocolConfig(n_devices=N, compression=spec_j)
     key = jax.random.PRNGKey(9)
     rand = jax_round_randomness(cfg, key, Q)
     k_comp = jax.random.split(key, 4)[3]
     want = jcomp.compress_rows(spec_j, k_comp, jnp.asarray(rows), n_total=N)
-    got = tcomp.compress_rows(tcomp.CompressionSpec(name=name, q_hat_frac=0.3), _t(rows), rand.keep_idx)
+    got = tcomp.compress_rows(tcomp.CompressionSpec.parse(text), _t(rows), rand.keep_idx, rand.quant_u)
+    if spec_j.name == "quant":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     _close(got, want)
 
 
-@pytest.mark.parametrize("name", ["quant", "top_k"])
-def test_unported_compressors_raise(name):
-    with pytest.raises(NotImplementedError):
-        tcomp.compress_rows(tcomp.CompressionSpec(name=name), torch.zeros(4, 8), None)
+def test_top_k_ties_go_to_the_lower_index():
+    rows = np.array([[1.0, -3.0, 3.0, 2.0, -3.0, 0.5]], np.float32)
+    got = tcomp.top_k(_t(rows), 2)
+    _close(got, jcomp.top_k(None, jnp.asarray(rows[0]), 2)[None])
+    np.testing.assert_array_equal(got.numpy(), [[0.0, -3.0, 3.0, 0.0, 0.0, 0.0]])
+
+
+@pytest.mark.parametrize("text", ["identity", "randk:0.3", "randk_shared:8", "quant:4", "quant:16:100",
+                                  "topk:8"])
+@pytest.mark.parametrize("q", [100, 361_821_120])
+def test_delta_and_wire_bits_match(text, q):
+    spec_j, spec_t = jcomp.CompressionSpec.parse(text), tcomp.CompressionSpec.parse(text)
+    assert tcomp.delta_of(spec_t, q) == jcomp.delta_of(spec_j, q)
+    assert tcomp.wire_bits(spec_t, q) == jcomp.wire_bits(spec_j, q)
 
 
 # --------------------------------------------------------------- protocol round
 
 
-def _configs(method, d, agg, attack, comp):
+def _configs(method, d, agg, attack, comp, part=None):
     kw = dict(n_devices=N, d=d, method=method, aggregator=agg, trim_frac=0.1, n_byz=20)
+    part = part or {}
     jcfg = jbyz.ProtocolConfig(**kw, attack=jatt.AttackSpec(attack, n_byz=20),
-                               compression=jcomp.CompressionSpec(name=comp), backend="xla")
+                               compression=jcomp.spec_from(comp),
+                               participation=jpart.ParticipationSpec(**part), backend="xla")
     tcfg = tbyz.ProtocolConfig(**kw, attack=tatt.AttackSpec(attack, n_byz=20),
-                               compression=tcomp.CompressionSpec(name=comp))
+                               compression=tcomp.spec_from(comp),
+                               participation=tpart.ParticipationSpec(**part))
     return jcfg, tcfg
 
 
@@ -240,10 +312,77 @@ def test_protocol_round_needs_a_device_or_cuda():
         tbyz.protocol_round(tcfg, torch.zeros(N, Q), rand)
 
 
-@pytest.mark.parametrize("change", [dict(method="draco"), dict(participation="iid")])
+_IID = dict(name="iid", rate=0.25)
+_ADV = dict(name="adversarial", n_drop=9, offset=20)  # the whole margin d - 1 at d = 10
+_ADV_BEYOND = dict(name="adversarial", n_drop=15, offset=20)
+# (method, d, aggregator, attack, compressor, participation, key seed)
+MASKED_CASES = [
+    ("lad", 10, "cwtm", "sign_flip", "quant:4", None, 4),
+    ("lad", 10, "cwtm-nnm", "alie", "quant:16", None, 4),
+    ("plain", 1, "mean", "ipm", "quant:4:32", None, 3),
+    ("lad", 10, "cwtm", "sign_flip", "topk:0.3", None, 3),
+    ("plain", 1, "cwtm-nnm", "alie", "topk:8", None, 3),
+] + [
+    ("lad", 10, agg, "sign_flip", "none", part, 3)
+    for part in (_IID, _ADV) for agg in ("decode", "mean", "cwtm")
+] + [
+    ("lad", 10, "decode", "alie", "none", _ADV_BEYOND, 3),
+    ("lad", 10, "cwtm-nnm", "ipm", "none", dict(name="iid", rate=0.0), 3),
+    ("lad", 10, "decode", "sign_flip", "quant:4", _IID, 3),
+    ("lad", 5, "cwtm", "alie", "quant:4", _ADV, 3),
+]
+MASKED_IDS = ["-".join(map(str, c[:5])) + ("" if c[5] is None else f"-{c[5]['name']}{c[5].get('n_drop', '')}")
+              for c in MASKED_CASES]
+
+
+@pytest.mark.parametrize("method,d,agg,attack,comp,part,seed", MASKED_CASES, ids=MASKED_IDS)
+def test_protocol_round_with_compression_and_participation_matches(method, d, agg, attack, comp, part, seed):
+    """quant / top_k compression and the masked servers (erasure decode,
+    impute-then-aggregate) against the reference's XLA round, the
+    participation mask drawn by each side's own schedule from the replayed
+    uniforms."""
+    jcfg, tcfg = _configs(method, d, agg, attack, comp, part)
+    grads = _msgs(100 + MASKED_CASES.index((method, d, agg, attack, comp, part, seed)), scale=2.0)
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    rand = jax_round_randomness(jcfg, key, Q)
+    pm_j = pm_t = None
+    if part is not None:
+        pm_j, _ = jpart.sample_participation(jcfg.participation, jax.random.fold_in(key, jpart.PARTICIPATION_KEY_SALT),
+                                             0, N, jnp.ones((N,), jnp.float32))
+        pm_t, _ = tpart.sample_participation(tcfg.participation, rand.part_u, 0, N, torch.ones(N))
+        np.testing.assert_array_equal(pm_t.numpy(), np.asarray(pm_j))
+    if jcfg.compression.name == "quant":
+        subsets = ttm.assignment_from(rand.task_index, rand.subset_perm, tcfg.effective_d()).subsets
+        ref_coded = jnp.mean(jnp.asarray(grads)[jnp.asarray(subsets.numpy())], axis=1)
+        port_coded = tops.gather_combine(_t(grads), subsets, torch.full((tcfg.effective_d(),), 1.0 / tcfg.effective_d()))
+        assert_no_level_flip(ref_coded, port_coded.numpy(), rand.quant_u.numpy(), jcfg.compression)
+    want = jbyz.protocol_round(jcfg, key, jnp.asarray(grads), participation_mask=pm_j)
+    got = tbyz.protocol_round(tcfg, _t(grads), rand, device="cpu", participation_mask=pm_t)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("change", [dict(method="draco")])
 def test_unported_protocol_options_raise(change):
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tbyz.ProtocolConfig(n_devices=N), **change)
+
+
+@pytest.mark.parametrize("case", ["decode-at-full", "decode-d-not-dividing-n", "mask-at-full"])
+def test_masked_server_refusals_match_reference(case):
+    """The reference's two ValueErrors of make_server_fn, and a mask handed
+    to a full-participation round."""
+    if case == "mask-at-full":
+        jcfg, tcfg = _configs("lad", 10, "cwtm", "sign_flip", "none")
+        rand = jax_round_randomness(jcfg, jax.random.PRNGKey(0), Q)
+        with pytest.raises(ValueError):
+            tbyz.protocol_round(tcfg, torch.zeros(N, Q), rand, device="cpu", participation_mask=torch.ones(N))
+        return
+    part = None if case == "decode-at-full" else _IID
+    jcfg, tcfg = _configs("lad", 10 if part is None else 3, "decode", "sign_flip", "none", part)
+    with pytest.raises(ValueError):
+        jbyz.make_server_fn(jcfg)
+    with pytest.raises(ValueError):
+        tbyz.make_server_fn(tcfg)
 
 
 def test_stage_hook_sees_every_stage():
