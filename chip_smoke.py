@@ -7,6 +7,8 @@ Builds the CUDA kernels of the protocol round from ``src/repro_torch/csrc``
 and prints one JSON line per phase:
 
   device         the card, its power limit and the kernel build time;
+  ptxas          registers and spills of every Gram and CWTM kernel entry,
+                 as ``nvcc -Xptxas -v`` reported them when they were built;
   trajectory     the paper's Section-VII trainer on the card (N=100,
                  dim=100, 200 rounds) for every Fig. 4 row except DRACO,
                  three Fig. 6 rows, and Com-CWTM, Com-LAD-CWTM and
@@ -23,8 +25,10 @@ and prints one JSON line per phase:
                  (Q = 361,821,120; N=8, d=2), each after a warm-up round:
                  CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
                  under ALIE, and the erasure decode with one row erased;
-                 per-stage ms, peak memory, finiteness, and the decode held
-                 to the gradients' mean;
+                 per-stage ms (the CWTM-NNM server split into the Gram
+                 distances, the neighbour selection and the one CWTM launch
+                 that mixes as it reads), peak memory, finiteness, and the
+                 decode held to the gradients' mean;
   kernels        per kernel: its error against its plain version on the
                  card (at small shapes, and at the wide shape on columns
                  past element 2^31), its time at the wide shape beside the
@@ -33,7 +37,11 @@ and prints one JSON line per phase:
                  could take; plus its launches during the three phases
                  above, which must all be above 0 (``coded_combine``, which
                  no path of the reference runs, carries ``"on_path": false``
-                 and its launches in this phase);
+                 and its launches in this phase). The CWTM row is the fused
+                 CWTM-NNM server (the CWTM kernel given NNM's neighbour
+                 table), with the kernel's time without the mix and the old
+                 route's (a cuBLAS mixing product, then the CWTM kernel)
+                 beside it;
 
 then the card's name and power limit as ``nvidia-smi`` gives them, and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -44,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -77,7 +86,7 @@ TPU_KERNELS = {
     "coded_combine": ("src/repro_torch/csrc/row_combine.cu", "src/repro/kernels/coded_combine.py:30"),
 }
 OFF_PATH = ("coded_combine",)  # no path of the reference runs it: checked in the kernels phase
-BITWISE = ("quantize", "masked_combine", "coded_combine")  # held to their plain versions bit for bit
+BITWISE = ("cwtm", "quantize", "masked_combine", "coded_combine")  # held to their plain versions bit for bit
 QUANT_LEVELS, QUANT_CHUNK = 4, 1024
 
 
@@ -97,6 +106,24 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """Registers and spill bytes of each kernel entry in an ``nvcc -Xptxas
+    -v`` log."""
+    entries = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce)_kernel)(?:ILi(\d+)E)?", mangled)
+            name = mangled if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            entries.append({"entry": name})
+        elif entries and "spill stores" in line:
+            nums = [int(t) for t in re.findall(r"(\d+) bytes", line)]
+            entries[-1].update({"stack_bytes": nums[0], "spill_store_bytes": nums[1], "spill_load_bytes": nums[2]})
+        elif entries and "Used" in line and "registers" in line:
+            entries[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return entries
 
 
 def time_ms(fn, iters: int = 5) -> float:
@@ -122,11 +149,11 @@ def check(cond: bool, what: str) -> None:
 # ------------------------------------------------------------------- kernels
 
 
-def kernel_errors(ops, ref, quantize) -> dict[str, float]:
+def kernel_errors(ops, ref, quantize, agg) -> dict[str, float]:
     """Max abs error of every kernel against its plain version on the card,
     over CHECK_SHAPES; raises past the tolerance (for the BITWISE kernels,
-    on any difference)."""
-    err = {name: 0.0 for name in ops.KERNELS}
+    on any difference). CWTM is checked with and without NNM's mix."""
+    err = {name: 0.0 for name in TPU_KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n, q in CHECK_SHAPES:
         x = torch.randn((n, q), generator=gen, device="cuda") * 3.0
@@ -139,6 +166,8 @@ def kernel_errors(ops, ref, quantize) -> dict[str, float]:
             pairs.append(("attack", ops.attack(x, mask, name, param), ref.attack_ref(x, mask, name, param), ATOL))
         trim = int(0.1 * n) if n >= 10 else 2
         pairs.append(("cwtm", ops.cwtm(x, trim), ref.cwtm_ref(x, trim), ATOL))
+        table = agg.nnm_neighbours(ops.pairwise_sqdist(x), n // 5 if n >= 10 else 2)
+        pairs.append(("cwtm", ops.cwtm(x, trim, table), ref.cwtm_ref(ref.nnm_mix_ref(x, table), trim), ATOL))
         gram, sq = ops.gram(x)
         want_gram, want_sq = ref.gram_ref(x)
         # an fp32 dot product's rounding scales with the largest squared row norm
@@ -165,7 +194,7 @@ def kernel_errors(ops, ref, quantize) -> dict[str, float]:
     return err
 
 
-def kernel_timings(ops, ref, quantize, hbm: float, fp32: float) -> dict[str, dict]:
+def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str, dict]:
     """Kernel, plain and library times at the wide shape (N=8, Q=WIDE_Q),
     the least time the card could take, and each kernel's agreement with its
     plain version at that shape.
@@ -234,12 +263,25 @@ def kernel_timings(ops, ref, quantize, hbm: float, fp32: float) -> dict[str, dic
         hold("attack", ops.attack(x, mask, name, param)[:, q - PLAIN_Q:],
              ref.attack_ref(tail, mask, name, param))
 
+    # the wide round's server: trim 2, the mix over k = 6 neighbours (2 Byzantine)
     trim = 2
+    table = agg.nnm_neighbours(ops.pairwise_sqdist(x), 2)
+    k = table.shape[-1]
+    # mix (k adds and a product per value), sort, kept-row tree and product per coordinate
     entry("cwtm",
-          time_ms(lambda: ops.cwtm(x, trim)),
-          time_ms(lambda: ops.cwtm(xp, trim)),
-          time_ms(lambda: ref.cwtm_ref(xp, trim)),
-          None, f32 * (n * q + q), (n * (n // 2) * 2 + (n - 2 * trim) + 1) * q)
+          time_ms(lambda: ops.cwtm(x, trim, table)),
+          time_ms(lambda: ops.cwtm(xp, trim, table)),
+          time_ms(lambda: ref.cwtm_ref(ref.nnm_mix_ref(xp, table), trim)),
+          None, f32 * (n * q + q), (n * (k + 1) + n * (n // 2) * 2 + (n - 2 * trim) + 1) * q)
+    # the old route: NNM's (N, N) mixing matrix through cuBLAS in fp32, then the CWTM kernel
+    old_mix = torch.zeros((n, n), device="cuda").scatter_(1, table.long(), 1.0 / k)
+    out["cwtm"].update({
+        "neighbours_k": k, "trim": trim,
+        "ms_without_mix": time_ms(lambda: ops.cwtm(x, trim)),
+        "old_route_ms": time_ms(lambda: ops.cwtm(torch.matmul(old_mix, x), trim)),
+        "old_route": "torch.matmul(mix, X) in fp32 (cuBLAS), then the CWTM kernel without the mix",
+    })
+    hold("cwtm", ops.cwtm(x, trim, table)[q - PLAIN_Q:], ref.cwtm_ref(ref.nnm_mix_ref(tail, table), trim))
     hold("cwtm", ops.cwtm(x, trim)[q - PLAIN_Q:], ref.cwtm_ref(tail, trim))
     del tail
 
@@ -357,6 +399,7 @@ def trajectory_phase(S, byz, ops, gen_problem) -> dict:
     launches = ops.launch_counts()
     for name in TRAJECTORY_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the trainer")
+    check(launches["cwtm_nnm"] > 0, "the CWTM-NNM rows did not take the fused CWTM-NNM launch")
     return {"phase": "trajectory", "launches": launches, "rounds": STEPS, "n_devices": 100, "dim": 100,
             "final_loss": final, "ms_per_round": ms_per_round,
             "card_vs_cpu_max_rel_loss": rel, "tolerance": TRAJECTORY_RTOL,
@@ -443,7 +486,8 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
         decoded vector held to the gradients' mean.
 
     The CWTM-NNM servers are composed by hand with a mark after the Gram
-    distances and after the NNM mix, and must give the warm-up's bits."""
+    distances and after the neighbour selection, and must give the warm-up's
+    bits; both rounds must have launched the fused CWTM-NNM kernel."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     grads = torch.randn((WIDE_N, WIDE_Q), generator=gen, device="cuda")
     out = {"phase": "wide_round", "q": WIDE_Q, "n_devices": WIDE_N, "d": 2,
@@ -456,11 +500,23 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
                 # what make_server_fn(cfg) builds for cwtm-nnm, with marks
                 d2 = ops.pairwise_sqdist(msgs)
                 hook("server_gram")
-                mixed = agg.nnm_mix(msgs, cfg.n_byz, d2)
-                hook("server_nnm_mix")
-                return agg.cwtm(mixed, cfg.trim_frac)
+                table = agg.nnm_neighbours(d2, cfg.n_byz)
+                hook("server_select")
+                return agg.cwtm(msgs, cfg.trim_frac, table)
             return server
         return make
+
+    def fused_round(name, cfg, rand):
+        """The warm-up and the marked round; both must take the fused launch."""
+        before = ops.launch_counts()
+        g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand, server=nnm_server(cfg))
+        after = ops.launch_counts()
+        fused = after["cwtm_nnm"] - before["cwtm_nnm"]
+        check(fused == 2 and after["cwtm"] - before["cwtm"] == 2,
+              f"wide round ({name}): {fused} fused CWTM-NNM launches in two rounds")
+        stages["server_nnm_cwtm"] = stages.pop("server")
+        check(torch.equal(g, want), f"wide round ({name}): marked server differs from make_server_fn")
+        return g, stages, peak_gb, want
 
     def record(name, g, stages, peak_gb, peak_max_gb, **extra):
         finite = bool(torch.isfinite(g).all())
@@ -474,24 +530,20 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
                                  trim_frac=0.25, n_byz=2, attack=attacks.AttackSpec(attack),
                                  compression=compression.CompressionSpec())
         rand = byz.sample_round_randomness(cfg, WIDE_Q, gen)
-        g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand, server=nnm_server(cfg))
-        stages["server_cwtm"] = stages.pop("server")
-        check(torch.equal(g, want), f"wide round ({attack}): marked server differs from make_server_fn")
+        g, stages, peak_gb, want = fused_round(attack, cfg, rand)
         out["attacks"][attack] = record(attack, g, stages, peak_gb, 50.0)
         del g, want
 
     # Com-LAD with quant:4. Held at once: the gradients, the rounding draws,
     # and two (8, Q) stacks (the coded and quantized ones, then the
-    # quantized and attacked ones, then the attacked and NNM-mixed ones),
-    # 4 x 11.58 GB, plus the warm-up's and the CWTM's (Q,) outputs, 2 x 1.45
-    # GB: 49.2 GB. The limit leaves 3 GB above that.
+    # quantized and attacked ones), 4 x 11.58 GB, plus the warm-up's and the
+    # CWTM's (Q,) outputs, 2 x 1.45 GB: 49.2 GB. The limit leaves 3 GB above
+    # that.
     cfg = byz.ProtocolConfig(n_devices=WIDE_N, d=2, method="lad", aggregator="cwtm-nnm", trim_frac=0.25,
                              n_byz=2, attack=attacks.AttackSpec("alie"),
                              compression=compression.CompressionSpec.parse("quant:4"))
     rand = byz.sample_round_randomness(cfg, WIDE_Q, gen)
-    g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand, server=nnm_server(cfg))
-    stages["server_cwtm"] = stages.pop("server")
-    check(torch.equal(g, want), "wide round (quant:4): marked server differs from make_server_fn")
+    g, stages, peak_gb, want = fused_round("quant:4", cfg, rand)
     out["com_lad_quant4_alie"] = record("quant:4", g, stages, peak_gb, 4 * stack_gb + 2 * WIDE_Q * 4 / 1e9 + 3.0)
     del g, want, rand
 
@@ -537,10 +589,11 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "peak_hbm_bytes_per_s": hbm, "peak_fp32_flops": fp32})
+    emit({"phase": "ptxas", **{name: ptxas_entries(_build.ptxas_log(name)) for name in ("gram", "cwtm")}})
 
     ops.reset_launch_counts()
-    errors = kernel_errors(ops, ref, quantize)
-    timings = kernel_timings(ops, ref, quantize, hbm, fp32)
+    errors = kernel_errors(ops, ref, quantize, aggregators)
+    timings = kernel_timings(ops, ref, quantize, aggregators, hbm, fp32)
     checked = ops.launch_counts()
     torch.cuda.empty_cache()
 
@@ -549,7 +602,7 @@ def main() -> int:
     emit(participation_phase(scenarios))
     emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
     launches = ops.launch_counts()
-    for name in ops.KERNELS:
+    for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
             launches[name] = checked[name]
@@ -560,7 +613,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
-        for name in ops.KERNELS
+        for name in TPU_KERNELS
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

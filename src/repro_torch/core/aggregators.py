@@ -3,6 +3,8 @@
 Ported in this slice: ``mean`` (the VA baseline), ``cwtm`` (through the CWTM
 kernel), ``tgn`` (Com-TGN) and NNM pre-aggregation (through the Gram
 kernel), composed as ``nnm_then(rule)`` or named with a ``-nnm`` suffix.
+CWTM-NNM is one launch of the CWTM kernel with the neighbour table as an
+operand (``cwtm_nnm``): the mixed stack is never stored.
 
 Selections use a stable sort, so ties go to the lower index as
 ``jax.lax.top_k`` breaks them in the reference; ``torch.topk`` promises no
@@ -16,10 +18,12 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import nnm_mix_ref
 
 Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
-__all__ = ["mean", "cwtm", "tgn", "nnm_mix", "nnm_then", "make_aggregator", "AGGREGATORS"]
+__all__ = ["mean", "cwtm", "tgn", "nnm_neighbours", "nnm_mix", "nnm_then", "cwtm_nnm",
+           "make_aggregator", "AGGREGATORS"]
 
 _NOT_PORTED = ("median", "geomed", "krum", "multi_krum", "mcc")
 
@@ -28,14 +32,15 @@ def mean(msgs: torch.Tensor) -> torch.Tensor:
     return torch.mean(msgs, dim=0)
 
 
-def cwtm(msgs: torch.Tensor, trim_frac: float = 0.1) -> torch.Tensor:
+def cwtm(msgs: torch.Tensor, trim_frac: float = 0.1, neighbours: torch.Tensor | None = None) -> torch.Tensor:
     """Coordinate-wise trimmed mean: drop the ``f = int(trim_frac * N)``
-    largest and smallest values per coordinate, average the rest."""
+    largest and smallest values per coordinate, average the rest; after the
+    NNM mix of ``neighbours`` (see ``nnm_neighbours``) when given."""
     n = msgs.shape[0]
     f = int(trim_frac * n)
     if 2 * f >= n:
         raise ValueError(f"trim_frac={trim_frac} removes all {n} messages")
-    return kernel_ops.cwtm(msgs, f)
+    return kernel_ops.cwtm(msgs, f, neighbours)
 
 
 def _smallest(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -53,26 +58,33 @@ def tgn(msgs: torch.Tensor, thresh_frac: float = 0.2, n_byz: int = 0) -> torch.T
     return torch.mean(msgs[_smallest(norms, n - f)], dim=0)
 
 
+def nnm_neighbours(d2: torch.Tensor, n_byz: int) -> torch.Tensor:
+    """NNM's selection from the (N, N) squared distances: row n holds the
+    ids of its ``N - b`` nearest neighbours (itself included, ties to the
+    lower index), in ascending order, as int32. Built on ``d2``'s device;
+    nothing is read back."""
+    idx = _smallest(d2, d2.shape[-1] - n_byz)
+    return torch.sort(idx, dim=-1).values.to(torch.int32)
+
+
 def nnm_mix(msgs: torch.Tensor, n_byz: int, d2: torch.Tensor | None = None) -> torch.Tensor:
     """Nearest-neighbour mixing [23]: each message becomes the average of its
-    ``N - b`` nearest neighbours (itself included).
-
-    The average is an (N, N) mixing matrix applied with one fp32 matrix
-    product (TF32 off), so no (N, k, Q) stack of neighbour rows is built.
-    """
-    n = msgs.shape[0]
-    k = n - n_byz
+    ``N - b`` nearest neighbours (itself included), summed in ascending id
+    order (``ref.nnm_mix_ref``), as the CWTM kernel mixes."""
     if d2 is None:
         d2 = kernel_ops.pairwise_sqdist(msgs)
-    idx = _smallest(d2, k)  # (N, k)
-    mix = torch.zeros((n, n), dtype=msgs.dtype, device=msgs.device)
-    mix.scatter_(1, idx, 1.0 / k)
-    return torch.matmul(mix, msgs)
+    return nnm_mix_ref(msgs, nnm_neighbours(d2, n_byz))
 
 
 def nnm_then(rule: Aggregator, n_byz: int) -> Aggregator:
-    """Compose NNM pre-aggregation with a base rule (e.g. CWTM-NNM)."""
+    """Compose NNM pre-aggregation with a base rule (e.g. TGN-NNM)."""
     return lambda msgs: rule(nnm_mix(msgs, n_byz))
+
+
+def cwtm_nnm(msgs: torch.Tensor, n_byz: int, trim_frac: float = 0.1) -> torch.Tensor:
+    """``cwtm(nnm_mix(msgs))`` as two kernels: the Gram distances, then one
+    CWTM launch that mixes as it reads."""
+    return cwtm(msgs, trim_frac, nnm_neighbours(kernel_ops.pairwise_sqdist(msgs), n_byz))
 
 
 AGGREGATORS = {
@@ -92,5 +104,7 @@ def make_aggregator(name: str, *, nnm: bool = False, n_byz: int = 0, **kwargs) -
         raise NotImplementedError(f"aggregator {name!r} is not ported yet (ROADMAP A.2)")
     if name not in AGGREGATORS:
         raise KeyError(f"unknown aggregator {name!r}; have {sorted(AGGREGATORS)}")
+    if nnm and name == "cwtm":
+        return partial(cwtm_nnm, n_byz=n_byz, trim_frac=kwargs.get("trim_frac", 0.1))
     base = AGGREGATORS[name](n_byz=n_byz, **kwargs)
     return nnm_then(base, n_byz=n_byz) if nnm else base

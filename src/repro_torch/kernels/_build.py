@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch/`` at the repository root; the libraries load through
-``ctypes``. All sources compile in parallel on first use, one ``nvcc`` each.
-A library's file name carries the hash of its source and the flags, so a
-changed source builds again and an unchanged one is loaded as it is.
+``ctypes``. All sources compile in parallel on first use, one ``nvcc``
+each. A library's file name carries the hash of its source and the flags,
+so a changed source builds again and an unchanged one is loaded as it is.
+What ``ptxas -v`` said of each (registers, spills) is kept beside it.
 
 Nothing here runs at import: importing the package needs no ``nvcc`` and no
 card.
@@ -21,12 +22,12 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "build_all", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["library", "build_all", "ptxas_log", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +38,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gather_combine": ("repro_gather_combine", (_P, _P, _P, _P, _I, _I, _I, _I64, _P)),
     "attack": ("repro_attack", (_P, _P, _P, _I, _I, _I64, _I, _F, _P)),
-    "cwtm": ("repro_cwtm", (_P, _P, _I, _I, _I64, _I, _F, _P)),
+    "cwtm": ("repro_cwtm", (_P, _P, _I, _F, _P, _I, _I, _I64, _I, _F, _P)),
     "gram": ("repro_gram", (_P, _P, _P, _P, _I, _I, _I64, _I64, _I, _I, _P)),
     "quantize": ("repro_quantize", (_P, _P, _P, _I, _I64, _I64, _I, _P)),
     "row_combine": ("repro_row_combine", (_P, _P, _P, _I, _I, _I64, _P)),
@@ -82,10 +83,18 @@ def build_all() -> float:
         if proc.returncode != 0:
             errors.append(f"{name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return time.perf_counter() - start
+
+
+def ptxas_log(name: str) -> str:
+    """What ``ptxas -v`` said of the kernels of ``csrc/<name>.cu`` when its
+    library was built (registers, shared memory, spills); builds first."""
+    build_all()
+    return _target(name).with_suffix(".log").read_text()
 
 
 def library(name: str):

@@ -35,9 +35,11 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-# kernel name -> launches of its CUDA kernel in this process
+# counter name -> launches in this process: one counter per CUDA kernel,
+# and "cwtm_nnm", the CWTM kernel's launches with the NNM mix (each also
+# counted under "cwtm")
 _launches = {"gather_combine": 0, "attack": 0, "cwtm": 0, "gram": 0,
-             "quantize": 0, "masked_combine": 0, "coded_combine": 0}
+             "quantize": 0, "masked_combine": 0, "coded_combine": 0, "cwtm_nnm": 0}
 KERNELS = tuple(_launches)
 
 _MAX_GRID_Y = 65535
@@ -125,20 +127,38 @@ def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> t
     return _attacks.launch(flat, flat_mask, name, param).reshape(msgs.shape)
 
 
-def cwtm(msgs: torch.Tensor, trim: int) -> torch.Tensor:
-    """Coordinate-wise trimmed mean. msgs: (..., N, Q) f32 -> (..., Q)."""
+def cwtm(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) -> torch.Tensor:
+    """Coordinate-wise trimmed mean. msgs: (..., N, Q) f32 -> (..., Q).
+
+    With ``neighbours`` ((..., N, k) ids, each row strictly ascending in
+    [0, N)), the NNM mix of ``ref.nnm_mix_ref`` comes first, in the same
+    kernel: the mixed stack is never stored. On the CPU a table out of range
+    or out of order raises; on the card it is not read back, and the kernel
+    writes NaN over every lane whose table is out of range or order."""
     n = msgs.shape[-2]
     if trim < 0 or 2 * trim >= n:
         raise ValueError(f"trim={trim} too large for N={n}")
     flat, lead = _lanes(msgs, 2)
-    if not _on_card("cwtm", flat):
-        return _cwtm.plain(flat, trim).reshape(lead + msgs.shape[-1:])
-    if n > _cwtm.MAX_N:
-        raise ValueError(f"cwtm kernel takes N <= {_cwtm.MAX_N}, got {n}")
+    nb = None
+    if neighbours is not None:
+        k = neighbours.shape[-1]
+        if neighbours.shape[:-1] != msgs.shape[:-1] or not 1 <= k <= n:
+            raise ValueError(f"cwtm: neighbours {tuple(neighbours.shape)} vs msgs {tuple(msgs.shape)}")
+        nb = neighbours.to(torch.int32).reshape(flat.shape[:2] + (k,)).contiguous()
+    if not _on_card("cwtm", flat, *(() if nb is None else (nb,))):
+        if nb is not None and nb.numel() and (
+                int(nb.min()) < 0 or int(nb.max()) >= n or bool((nb[..., 1:] <= nb[..., :-1]).any())):
+            raise IndexError(f"cwtm: neighbour rows must be strictly ascending ids in [0, {n})")
+        return _cwtm.plain(flat, trim, nb).reshape(lead + msgs.shape[-1:])
+    max_n = _cwtm.MAX_N if nb is None else _cwtm.MAX_N_MIXED
+    if n > max_n:
+        raise ValueError(f"cwtm kernel takes N <= {max_n}{'' if nb is None else ' with neighbours'}, got {n}")
     if flat.shape[0] > _MAX_GRID_Y:
         raise ValueError(f"cwtm: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
     _launches["cwtm"] += 1
-    return _cwtm.launch(flat, trim).reshape(lead + msgs.shape[-1:])
+    if nb is not None:
+        _launches["cwtm_nnm"] += 1
+    return _cwtm.launch(flat, trim, nb).reshape(lead + msgs.shape[-1:])
 
 
 def gram(msgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

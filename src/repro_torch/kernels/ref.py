@@ -16,6 +16,7 @@ __all__ = [
     "gather_combine_ref",
     "attack_ref",
     "cwtm_ref",
+    "nnm_mix_ref",
     "gram_ref",
     "sqdist_from_gram",
     "pairwise_sqdist_ref",
@@ -77,6 +78,24 @@ def cwtm_ref(msgs: torch.Tensor, trim: int) -> torch.Tensor:
     n = msgs.shape[-2]
     kept = torch.sort(msgs, dim=-2).values[..., trim : n - trim, :]
     return tree_sum(kept, dim=-2) * (1.0 / kept.shape[-2])
+
+
+def nnm_mix_ref(msgs: torch.Tensor, neighbours: torch.Tensor) -> torch.Tensor:
+    """NNM mix. msgs: (..., N, Q), neighbours: (..., N, k) ids in table
+    order (ascending, as ``aggregators.nnm_neighbours`` builds them) ->
+    (..., N, Q), row n the mean of the rows its table row names.
+
+    ``(x_{j_0} + x_{j_1} + ...) * (1 / k)``, added in table order one
+    gathered (..., N, Q) block at a time, never an (..., N, k, Q) stack: the
+    CWTM kernel's mix, term for term.
+    """
+    k = neighbours.shape[-1]
+    idx = neighbours.long()
+    out = None
+    for m in range(k):
+        rows = torch.gather(msgs, -2, idx[..., m, None].expand(idx.shape[:-1] + msgs.shape[-1:]))
+        out = rows if out is None else out + rows
+    return out * (1.0 / k)
 
 
 def gram_ref(msgs: torch.Tensor):

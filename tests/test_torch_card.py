@@ -6,17 +6,21 @@ the card (which has no JAX, so this file imports none, and
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_card.py
 
-Tolerance: gather_combine, cwtm, quantize and the two row combines run the
-plain version's arithmetic term for term, so they must agree bitwise; the
-attack's honest statistics and the Gram sum in another order than the plain
-versions (rtol 1e-5, atol 1e-6, the Gram's atol scaled by the largest
-squared row norm).
+Tolerance: gather_combine, cwtm (with and without the NNM mix), quantize
+and the two row combines run the plain version's arithmetic term for term,
+so they must agree bitwise; the attack's honest statistics and the Gram sum
+in another order than the plain versions (rtol 1e-5, atol 1e-6, the Gram's
+atol scaled by the largest squared row norm). The Gram must still be
+symmetric bit for bit, carry the row norms on its diagonal, and give the
+same bits on every run and in every lane of a batch.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+from repro_torch.core.aggregators import nnm_neighbours
+from repro_torch.kernels import cwtm as tcwtm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref as tref
@@ -112,5 +116,61 @@ def test_kernels_count_their_launches(card):
     tops.pairwise_sqdist(msgs)
     tops.stochastic_quantize(msgs, torch.rand_like(msgs), 4, 32)
     tops.masked_combine(msgs, torch.ones(8, device="cuda"))
-    assert tops.launch_counts() == {"gather_combine": 0, "attack": 0, "cwtm": 1, "gram": 1,
-                                    "quantize": 1, "masked_combine": 1, "coded_combine": 0}
+    tops.cwtm(msgs, 1, torch.arange(8, dtype=torch.int32, device="cuda")[:, None].contiguous())
+    assert tops.launch_counts() == {"gather_combine": 0, "attack": 0, "cwtm": 2, "gram": 1,
+                                    "quantize": 1, "masked_combine": 1, "coded_combine": 0,
+                                    "cwtm_nnm": 1}
+
+
+# (lanes, N, Q, n_byz): the wide round's N = 8 at a ragged Q (4-column groups
+# that cross a row's end) and at Q % 4 == 0 (float4 loads), the register
+# path's largest N, the shared-memory path just above it, the trainer's
+# N = 100, and a lane axis
+CWTM_NNM_CARD = [(1, 8, (1 << 20) + 37, 2), (1, 8, 1 << 20, 2), (1, 12, 1001, 3), (1, 13, 300, 3),
+                 (1, 100, 100, 20), (3, 8, 4096, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,q,n_byz", CWTM_NNM_CARD,
+                         ids=[f"L{c[0]}-N{c[1]}-Q{c[2]}" for c in CWTM_NNM_CARD])
+def test_cwtm_nnm_matches_plain_bitwise_on_card(card, lanes, n, q, n_byz):
+    msgs = torch.randn((lanes, n, q), generator=card, device="cuda") * 3
+    table = nnm_neighbours(tops.pairwise_sqdist(msgs), n_byz)
+    trim = (n - 1) // 4
+    got = tops.cwtm(msgs, trim, table)
+    torch.testing.assert_close(got, tcwtm.plain(msgs, trim, table), rtol=0, atol=0)
+    for i in range(lanes):
+        assert torch.equal(got[i], tops.cwtm(msgs[i], trim, table[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16])
+def test_cwtm_marks_a_lane_with_a_bad_table_nan(card, n):
+    """On the card the table is not read back: a lane whose rows are not
+    strictly ascending comes out NaN, the other lanes as the plain version."""
+    msgs = torch.randn((2, n, 1000), generator=card, device="cuda")
+    first = torch.arange(n).clamp(max=n - 2)
+    good = torch.stack([first, first + 1], dim=1)
+    bad = torch.stack([torch.arange(n), torch.arange(n)], dim=1)  # each id twice
+    table = torch.stack([good, bad]).to(device="cuda", dtype=torch.int32)
+    out = tops.cwtm(msgs, 1, table)
+    assert bool(torch.isnan(out[1]).all())
+    torch.testing.assert_close(out[0], tcwtm.plain(msgs[:1], 1, table[:1])[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(8, 1 << 22), (8, (1 << 20) + 37), (12, 10001), (3, 64), (13, 3000), (100, 100)])
+def test_gram_on_card_is_close_symmetric_and_deterministic(card, n, q):
+    msgs = torch.randn((3, n, q), generator=card, device="cuda") * 3
+    gram, sq = tops.gram(msgs)
+    again, sq_again = tops.gram(msgs)
+    assert torch.equal(gram, again) and torch.equal(sq, sq_again)
+    assert torch.equal(gram, gram.transpose(-1, -2))
+    assert torch.equal(torch.diagonal(gram, dim1=-2, dim2=-1), sq)
+    want_gram, want_sq = tref.gram_ref(msgs)
+    scale = float(want_sq.max())
+    torch.testing.assert_close(gram, want_gram, rtol=RTOL, atol=ATOL * scale)
+    torch.testing.assert_close(sq, want_sq, rtol=RTOL, atol=ATOL * scale)
+    for i in range(3):
+        single, single_sq = tops.gram(msgs[i])
+        assert torch.equal(gram[i], single) and torch.equal(sq[i], single_sq)

@@ -25,11 +25,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import aggregators as jagg
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.coded_combine import coded_combine_pallas_lanes, masked_combine_pallas_lanes
 from repro.kernels.nnm_dist import gram_pallas_lanes
+from repro_torch.core import aggregators as tagg
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.numerics import tree_sum
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -246,3 +249,68 @@ def test_row_combines_sum_as_the_plain_tree():
     want = tree_sum(msgs * w[:, None], dim=0)
     assert torch.equal(tops.masked_combine(msgs, w), want)
     assert torch.equal(tops.coded_combine(msgs, w), want)
+
+
+# (lanes, N, Q, n_byz, trim): the wide round's N = 8 at a ragged Q, a lane
+# axis, and the trainer's N = 100
+CWTM_NNM_CASES = [(1, 8, 1000 + 37, 2, 2), (3, 8, 257, 2, 1), (1, 100, 100, 20, 10)]
+
+
+@pytest.mark.parametrize("lanes,n,q,n_byz,trim", CWTM_NNM_CASES,
+                         ids=[f"L{c[0]}-N{c[1]}-Q{c[2]}-b{c[3]}-t{c[4]}" for c in CWTM_NNM_CASES])
+def test_cwtm_nnm_matches_reference(lanes, n, q, n_byz, trim):
+    """The fused CWTM-NNM (the CWTM wrapper given NNM's neighbour table)
+    against the reference's ``nnm_then(cwtm)`` and against its Pallas
+    composition in interpret mode (Gram distances, the mix, then the CWTM
+    kernel on the mixed stack), lane by lane. Tolerance: rtol 1e-5, atol
+    1e-6 times the inputs' scale (the mix sums k rows in another order)."""
+    scale = 3.0
+    rng = np.random.default_rng(19 * n + q + lanes)
+    msgs = _stack(rng, lanes, n, q, scale=scale)
+    x = torch.from_numpy(msgs)
+    got = tops.cwtm(x, trim, tagg.nnm_neighbours(tops.pairwise_sqdist(x), n_byz))
+    assert got.shape == (lanes, q)
+    trim_frac = (trim + 0.5) / n  # int(trim_frac * n) == trim
+    for lane in range(lanes):
+        xj = jnp.asarray(msgs[lane])
+        want = jagg.make_aggregator("cwtm-nnm", n_byz=n_byz, trim_frac=trim_frac)(xj)
+        _close(got[lane], want, atol=ATOL * scale)
+        mixed = jagg.nnm_mix(xj, n_byz, jops.pairwise_sqdist(xj, backend="interpret"))
+        _close(got[lane], jops.cwtm(mixed, trim, backend="interpret"), atol=ATOL * scale)
+
+
+@pytest.mark.parametrize("lanes,n,q", SHAPES, ids=SHAPE_IDS)
+def test_cwtm_with_identity_neighbours_is_cwtm_bitwise(lanes, n, q):
+    """k = 1, each row its own neighbour: the mix multiplies by 1.0, so the
+    fused plain version is the plain CWTM bit for bit."""
+    rng = np.random.default_rng(23 * n + q + lanes)
+    x = torch.from_numpy(_stack(rng, lanes, n, q))
+    ident = torch.arange(n, dtype=torch.int32)[:, None].expand(x.shape[:-1] + (1,)).contiguous()
+    trim = max(1, n // 10)
+    assert torch.equal(tops.cwtm(x, trim, ident), tops.cwtm(x, trim))
+
+
+def test_nnm_mix_plain_sums_in_table_order():
+    """The plain mix adds the named rows in table order, then multiplies by
+    1/k: the order the CUDA kernel repeats term for term."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(_stack(rng, 0, 5, 40))
+    table = torch.tensor([[0, 2, 4], [1, 2, 3], [0, 1, 2], [2, 3, 4], [0, 3, 4]], dtype=torch.int32)
+    got = tref.nnm_mix_ref(x, table)
+    for n in range(5):
+        a, b, c = (x[int(j)] for j in table[n])
+        assert torch.equal(got[n], ((a + b) + c) * (1.0 / 3))
+
+
+def test_cwtm_nnm_batched_equals_single_bitwise():
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(_stack(rng, 3, 8, 300))
+    table = tagg.nnm_neighbours(tops.pairwise_sqdist(x), 2)
+    _lanes_equal_single(lambda m, nb: tops.cwtm(m, 2, nb), x, table)
+
+
+@pytest.mark.parametrize("table", [[[0, 1], [1, 3], [0, 2]], [[0, 1], [2, 1], [0, 2]], [[0, 0], [1, 2], [0, 2]]],
+                         ids=["out-of-range", "descending", "repeated"])
+def test_cwtm_rejects_a_bad_neighbour_table(table):
+    with pytest.raises(IndexError):
+        tops.cwtm(torch.randn(3, 16), 0, torch.tensor(table, dtype=torch.int32))

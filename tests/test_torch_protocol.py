@@ -213,6 +213,42 @@ def test_nnm_tie_order_is_lower_index():
     np.testing.assert_array_equal(got[0].numpy(), msgs[[0, 1, 2]].mean(0))
 
 
+# (N, Q, n_byz, trim_frac): the wide round's N = 8 (ragged Q) and the trainer's N = 100
+CWTM_NNM_SERVERS = [(8, 1000 + 37, 2, 0.25), (8, 257, 2, 0.125), (100, 100, 20, 0.1)]
+
+
+@pytest.mark.parametrize("n,q,n_byz,trim_frac", CWTM_NNM_SERVERS,
+                         ids=[f"N{c[0]}-Q{c[1]}-b{c[2]}" for c in CWTM_NNM_SERVERS])
+def test_cwtm_nnm_server_is_cwtm_of_the_mix(n, q, n_byz, trim_frac):
+    """make_aggregator("cwtm-nnm") is the fused launch; it equals the CWTM
+    of the mixed stack bitwise and the reference's nnm_then(cwtm) within
+    rtol 1e-5, atol 1e-6 times the inputs' scale."""
+    rng = np.random.default_rng(n + q)
+    msgs = (rng.standard_normal((n, q)) * 3.0).astype(np.float32)
+    msgs[:n_byz] *= -2.0  # a sign-flipped Byzantine block
+    fused = tagg.make_aggregator("cwtm-nnm", n_byz=n_byz, trim_frac=trim_frac)(_t(msgs))
+    assert torch.equal(fused, tagg.make_aggregator("cwtm", nnm=True, n_byz=n_byz, trim_frac=trim_frac)(_t(msgs)))
+    assert torch.equal(fused, tagg.cwtm(tagg.nnm_mix(_t(msgs), n_byz), trim_frac))
+    want = jagg.make_aggregator("cwtm-nnm", n_byz=n_byz, trim_frac=trim_frac)(jnp.asarray(msgs))
+    _close(fused, want, atol=ATOL * 3.0)
+
+
+@pytest.mark.parametrize("n,n_byz,ties", [(8, 2, False), (100, 20, False), (6, 2, True)])
+def test_nnm_neighbours_are_the_reference_selection_in_ascending_order(n, n_byz, ties):
+    """The neighbour table holds, for each row, the ids that the reference's
+    top_k picks (ties to the lower index), sorted, as int32."""
+    rng = np.random.default_rng(n)
+    d2 = rng.random((n, n)).astype(np.float32)
+    if ties:
+        d2 = np.round(d2 * 2).astype(np.float32)  # many equal distances
+    d2 = d2 + d2.T
+    np.fill_diagonal(d2, 0.0)
+    got = tagg.nnm_neighbours(_t(d2), n_byz)
+    assert got.dtype == torch.int32 and got.shape == (n, n - n_byz)
+    _, idx = jax.lax.top_k(-jnp.asarray(d2), n - n_byz)
+    np.testing.assert_array_equal(got.numpy(), np.sort(np.asarray(idx), axis=-1))
+
+
 def test_tgn_tie_order_is_lower_index():
     msgs = np.zeros((6, 4), np.float32)
     msgs[:, 0] = [1.0, -1.0, 1.0, -1.0, 1.0, 3.0]  # five rows of equal norm
