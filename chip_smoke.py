@@ -10,13 +10,24 @@ and prints one JSON line per phase:
   ptxas          registers and spills of every Gram and CWTM kernel entry,
                  as ``nvcc -Xptxas -v`` reported them when they were built;
   trajectory     the paper's Section-VII trainer on the card (N=100,
-                 dim=100, 200 rounds) for every Fig. 4 row except DRACO,
-                 three Fig. 6 rows, and Com-CWTM, Com-LAD-CWTM and
+                 dim=100, 200 rounds) for every Fig. 4 row (DRACO-d41 at
+                 N=82), three Fig. 6 rows, and Com-CWTM, Com-LAD-CWTM and
                  Com-LAD-CWTM-NNM under QSGD at 4 levels (``quant:4``);
                  asserts the paper's orderings and holds the
                  LAD-CWTM-NNM-d10 and quant:4 Com-LAD-CWTM loss curves
                  against the same runs on the CPU (the plain versions) under
                  the same randomness;
+  section7       the 15 rows of ``section7_grid()`` (plain, LAD-d10 and
+                 DRACO-d4 under sign-flip, ALIE and IPM, with and without
+                 random sparsification), 200 rounds each as one captured
+                 round replayed (``mode="graph"``): final losses, ms per
+                 round, and each kernel's launches in the captured round;
+  graph          loop against graph mode on the same seed for six rows
+                 (LAD-CWTM-NNM-d10, Com-LAD-CWTM under quant:4, DRACO-d41,
+                 a markov and an onoff participation row, geomed under the
+                 gaussian attack): asserts the final iterate, every metric
+                 and the participation state equal bit for bit, and prints
+                 ms per round of both;
   participation  the K-of-N erasure sweep (N=16, d=4, dim=32, 400 rounds):
                  the erasure decode against the mean at e = 0..3 erased rows;
                  asserts N - e reports every round and that the decode's
@@ -24,18 +35,24 @@ and prints one JSON line per phase:
   wide_round     protocol rounds at the gradient width of smollm-360m
                  (Q = 361,821,120; N=8, d=2), each after a warm-up round:
                  CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
-                 under ALIE, and the erasure decode with one row erased;
-                 per-stage ms (the CWTM-NNM server split into the Gram
-                 distances, the neighbour selection and the one CWTM launch
-                 that mixes as it reads), peak memory, finiteness, and the
-                 decode held to the gradients' mean;
+                 under ALIE, the erasure decode with one row erased, DRACO
+                 (d=4, one sign-flipping device), and median (ALIE), krum
+                 (sign-flip), multi_krum (IPM), geomed (gaussian) and mcc
+                 (ALIE); per-stage ms (the CWTM-NNM server split into the
+                 Gram distances, the neighbour selection and the one CWTM
+                 launch that mixes as it reads), peak memory, finiteness,
+                 each round's CWTM and Gram launches, and the decode and
+                 DRACO's vote held to the gradients' mean;
   kernels        per kernel: its error against its plain version on the
                  card (at small shapes, and at the wide shape on columns
                  past element 2^31), its time at the wide shape beside the
                  plain version's, a PyTorch library call's where one
                  computes the same function, and the least time the card
-                 could take; plus its launches during the three phases
-                 above, which must all be above 0 (``coded_combine``, which
+                 could take; ``median`` through the CWTM kernel bitwise
+                 against the plain version at N = 8, 41 and 100; plus its
+                 launches during the phases above, which must all be above
+                 0, and the launches that graph replays ran on the card
+                 beside them, which no counter sees (``coded_combine``, which
                  no path of the reference runs, carries ``"on_path": false``
                  and its launches in this phase). The CWTM row is the fused
                  CWTM-NNM server (the CWTM kernel given NNM's neighbour
@@ -67,6 +84,7 @@ WIDE_Q = 361_821_120  # parameters of smollm-360m: the gradient width of one rou
 WIDE_N = 8
 PLAIN_Q = 1 << 26  # the plain versions are timed on this many coordinates
 CHECK_SHAPES = ((100, 100), (100, (1 << 20) + 37), (8, 1 << 20))  # (N, Q)
+MEDIAN_N = (8, 41, 100)  # the wide round's N, DRACO-d41's groups, the trainer's N
 RTOL, ATOL = 1e-5, 1e-6  # kernel against plain, as tests/test_torch_kernels.py
 TRAJECTORY_RTOL = 2e-6  # card against CPU over 200 rounds, as tests/test_torch_engine.py
 STEPS = 200
@@ -184,14 +202,24 @@ def kernel_errors(ops, ref, quantize, agg) -> dict[str, float]:
         stack = x[: n - n % 2].reshape(-1, 2, q)  # (N/2, d=2, Q) lanes, as the wide shape's (8, 2, Q)
         cw = torch.rand((stack.shape[0], 2), generator=gen, device="cuda")
         pairs.append(("coded_combine", ops.coded_combine(stack, cw), ref.coded_combine_ref(stack, cw), 0.0))
-        torch.cuda.synchronize()
-        for name, got, want, atol in pairs:
-            check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite output at N={n} Q={q}")
-            check(torch.equal(got, want) if name in BITWISE else torch.allclose(got, want, rtol=RTOL, atol=atol),
-                  f"{name} disagrees with its plain version at N={n} Q={q}")
-            err[name] = max(err[name], float((got - want).abs().max()))
+        hold_pairs(err, pairs, f"N={n} Q={q}")
+    for n in MEDIAN_N:  # the median is the CWTM kernel at trim (N - 1) // 2
+        x = torch.randn((n, (1 << 16) + 37), generator=gen, device="cuda")
+        hold_pairs(err, [("cwtm", agg.coordinate_median(x), ref.cwtm_ref(x, (n - 1) // 2), 0.0)],
+                   f"median N={n}")
     return err
+
+
+def hold_pairs(err: dict[str, float], pairs, where: str) -> None:
+    """Hold each (name, kernel output, plain output, atol) pair: bitwise for
+    the BITWISE kernels, else within RTOL and atol; track the max error."""
+    torch.cuda.synchronize()
+    for name, got, want, atol in pairs:
+        check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)} at {where}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output at {where}")
+        check(torch.equal(got, want) if name in BITWISE else torch.allclose(got, want, rtol=RTOL, atol=atol),
+              f"{name} disagrees with its plain version at {where}")
+        err[name] = max(err[name], float((got - want).abs().max()))
 
 
 def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str, dict]:
@@ -352,7 +380,7 @@ TRAJECTORY_KERNELS = ("gather_combine", "attack", "cwtm", "gram", "quantize")  #
 
 
 def trajectory_phase(S, byz, ops, gen_problem) -> dict:
-    """Fig. 4 (without DRACO) and Fig. 6 rows on the card, 200 rounds each,
+    """Fig. 4 and Fig. 6 rows on the card, 200 rounds each,
     and three Fig. 6 rows under QSGD at 4 levels (``quant:4``, the fleet's
     wire format) in place of random sparsification.
 
@@ -384,6 +412,9 @@ def trajectory_phase(S, byz, ops, gen_problem) -> dict:
         final[scn.name] = float(loss[-1])
         results[scn.name] = res
     check(final["LAD-CWTM-d10"] < final["CWTM"], "Fig. 4 ordering: LAD-CWTM-d10 must end below CWTM")
+    # benchmarks/paper_figures.py::fig4_training_loss's DRACO claim
+    check(final["DRACO-d41"] < min(final["LAD-CWTM-d20"], final["CWTM"]),
+          "Fig. 4 ordering: DRACO-d41 must end below LAD-CWTM-d20 and CWTM")
     check(final["Com-LAD-CWTM"] < final["Com-CWTM"], "Fig. 6 ordering: Com-LAD-CWTM must end below Com-CWTM")
     check(final["Com-LAD-CWTM-NNM/quant:4"] < final["Com-CWTM/quant:4"],
           "Fig. 6 ordering under quant:4: Com-LAD-CWTM-NNM must end below Com-CWTM")
@@ -403,10 +434,86 @@ def trajectory_phase(S, byz, ops, gen_problem) -> dict:
     return {"phase": "trajectory", "launches": launches, "rounds": STEPS, "n_devices": 100, "dim": 100,
             "final_loss": final, "ms_per_round": ms_per_round,
             "card_vs_cpu_max_rel_loss": rel, "tolerance": TRAJECTORY_RTOL,
-            "orderings": {"LAD-CWTM-d10<CWTM": True, "Com-LAD-CWTM<Com-CWTM": True,
+            "orderings": {"LAD-CWTM-d10<CWTM": True, "DRACO-d41<min(LAD-CWTM-d20,CWTM)": True,
+                          "Com-LAD-CWTM<Com-CWTM": True,
                           "quant:4 Com-LAD-CWTM-NNM<Com-CWTM": True},
             "reported_not_asserted": {"quant:4 Com-LAD-CWTM<Com-CWTM":
                                       final["Com-LAD-CWTM/quant:4"] < final["Com-CWTM/quant:4"]}}
+
+
+# ------------------------------------------------------- section 7, graph
+
+
+def section7_phase(S, replayed: dict[str, int]) -> dict:
+    """The 15 rows of ``section7_grid()``, 200 rounds each in graph mode,
+    each on its own problem from seed 0, as the reference's
+    ``benchmarks/paper_figures.py::section7_sweep`` runs them. Adds each
+    row's replayed launches (captured x replays) to ``replayed``."""
+    final, ms_per_round, replay_ms_per_round, captured = {}, {}, {}, {}
+    for scn in S.section7_grid():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = S.run_scenario(scn, STEPS, seed=0, device="cuda", mode="graph")
+        torch.cuda.synchronize()
+        ms_per_round[scn.name] = (time.perf_counter() - start) * 1e3 / STEPS
+        replay_ms_per_round[scn.name] = res.graph.replay_ms() / STEPS
+        loss = res.metrics["loss"]
+        check(loss.shape == (STEPS,) and bool(torch.isfinite(loss).all()), f"{scn.name}: bad loss")
+        check(res.graph.replays == STEPS, f"{scn.name}: {res.graph.replays} replays")
+        final[scn.name] = float(loss[-1])
+        captured[scn.name] = {k: v for k, v in res.graph.captured_launches.items() if v}
+        for k, v in res.graph.captured_launches.items():
+            replayed[k] += v * res.graph.replays
+    check(len(final) == 15, f"section7_grid gave {len(final)} rows")
+    return {"phase": "section7", "rows": len(final), "rounds": STEPS, "mode": "graph", "final_loss": final,
+            "ms_per_round": ms_per_round, "replay_ms_per_round": replay_ms_per_round,
+            "captured_launches_per_round": captured}
+
+
+def graph_rows(S) -> list:
+    """The rows whose graph mode is held to loop mode bit for bit."""
+    q4 = dataclasses.replace(S.PAPER_FIG6["Com-LAD-CWTM"], name="Com-LAD-CWTM/quant:4", compressor="quant:4")
+    markov, onoff = (S.participation_sweep(schedules=(sched,), aggregators=(agg,), n_byz=3)[0]
+                     for sched, agg in (("markov", "decode"), ("onoff", "cwtm")))
+    geomed = S.Scenario(name="LAD-geomed-d10/gaussian", method="lad", d=10, aggregator="geomed",
+                        attack="gaussian", n_byz=20)
+    return [S.PAPER_FIG4["LAD-CWTM-NNM-d10"], q4, S.PAPER_FIG4["DRACO-d41"], markov, onoff, geomed]
+
+
+def same_bits(a, b) -> bool:
+    """Two trajectory results agree bit for bit: iterate, every metric and
+    the participation state."""
+    if not torch.equal(a.x, b.x) or sorted(a.metrics) != sorted(b.metrics):
+        return False
+    if (a.participation_state is None) != (b.participation_state is None):
+        return False
+    return all(torch.equal(a.metrics[k], b.metrics[k]) for k in a.metrics) and (
+        a.participation_state is None or torch.equal(a.participation_state, b.participation_state))
+
+
+def graph_phase(S, replayed: dict[str, int]) -> dict:
+    """Loop and graph mode on the same seed, 200 rounds, for ``graph_rows``:
+    must agree bit for bit. The participation rows run at their sweep's
+    dim=32, the others at dim=100."""
+    rows = {}
+    for scn in graph_rows(S):
+        dim = PART_DIM if scn.participation != "full" else 100
+        ms, results = {}, {}
+        for mode in ("loop", "graph"):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            results[mode] = S.run_scenario(scn, STEPS, seed=0, dim=dim, device="cuda", mode=mode)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - start) * 1e3 / STEPS
+        stats = results["graph"].graph
+        check(same_bits(results["loop"], results["graph"]), f"{scn.name}: graph mode differs from loop mode")
+        for k, v in stats.captured_launches.items():
+            replayed[k] += v * stats.replays
+        rows[scn.name] = {"loop_ms_per_round": ms["loop"], "graph_ms_per_round": ms["graph"],
+                          "graph_replay_ms_per_round": stats.replay_ms() / STEPS, "bitwise": True,
+                          "final_loss": float(results["graph"].metrics["loss"][-1]),
+                          "captured_launches_per_round": {k: v for k, v in stats.captured_launches.items() if v}}
+    return {"phase": "graph", "rounds": STEPS, "rows": rows}
 
 
 # ------------------------------------------------------------- participation
@@ -483,7 +590,13 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
         the rounding draws one ``torch.rand((8, Q))`` on the card;
       * the erasure decode: no attack, no Byzantine device, the
         ``adversarial`` schedule erasing one row (the margin d - 1), the
-        decoded vector held to the gradients' mean.
+        decoded vector held to the gradients' mean;
+      * DRACO at d=4 (two groups), one sign-flipping device, the vote held
+        to the gradients' mean;
+      * median under ALIE, krum under sign-flip, multi_krum under IPM,
+        geomed under gaussian noise (one ``torch.randn((8, Q))``) and mcc
+        under ALIE, 2 Byzantine, each round's CWTM, Gram and attack
+        launches checked.
 
     The CWTM-NNM servers are composed by hand with a mark after the Gram
     distances and after the neighbour selection, and must give the warm-up's
@@ -493,6 +606,7 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
     out = {"phase": "wide_round", "q": WIDE_Q, "n_devices": WIDE_N, "d": 2,
            "aggregator": "cwtm-nnm", "trim_frac": 0.25, "n_byz": 2, "attacks": {}}
     stack_gb = WIDE_N * WIDE_Q * 4 / 1e9
+    q_gb = WIDE_Q * 4 / 1e9
 
     def nnm_server(cfg):
         def make(hook):
@@ -564,6 +678,53 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
     out["erasure_decode"] = record("decode", g, stages, peak_gb, 3 * stack_gb + 3.0,
                                    erased=int(WIDE_N - pm.sum()), n_drop=1, n_byz=0, attack="none",
                                    max_abs_err_vs_mean_last_2_26=float((got - tail).abs().max()))
+    del g, want, rand, got  # got is a view: it would keep the decode's (Q,) aggregate
+
+    def counted_round(name, cfg, expect):
+        """The warm-up and the timed round of ``cfg``; each launches the
+        CWTM and Gram kernels ``expect[kernel]`` times a round."""
+        rand = byz.sample_round_randomness(cfg, WIDE_Q, gen)
+        before = ops.launch_counts()
+        g, stages, peak_gb, want = _marked_round(byz, cfg, grads, rand)
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in ("cwtm", "gram", "attack")}
+        for k, n in expect.items():
+            check(launches[k] == 2 * n, f"wide round ({name}): {launches[k]} {k} launches in two rounds, not {2 * n}")
+        check(torch.equal(g, want), f"wide round ({name}): the timed round differs from the warm-up")
+        return g, stages, peak_gb, {k: v // 2 for k, v in launches.items()}
+
+    # DRACO, two groups of d=4, device 0 sign-flips: each group keeps an
+    # honest majority, so the vote is exact. The gradients, the coded stack
+    # and the attacked one, 3 x 11.58 GB, plus (Q,)-sized group medians.
+    cfg = byz.ProtocolConfig(n_devices=WIDE_N, d=4, method="draco", n_byz=1,
+                             attack=attacks.AttackSpec("sign_flip"), compression=compression.CompressionSpec())
+    g, stages, peak_gb, launches = counted_round("draco", cfg, {"cwtm": 1, "gram": 0, "attack": 1})
+    got = g[WIDE_Q - PLAIN_Q:]
+    check(torch.allclose(got, tail, rtol=RTOL, atol=ATOL), "wide round (draco): not the gradients' mean")
+    out["draco_d4"] = record("draco", g, stages, peak_gb, 3 * stack_gb + 3.0, d=4, n_byz=1, attack="sign_flip",
+                             launches_per_round=launches,
+                             max_abs_err_vs_mean_last_2_26=float((got - tail).abs().max()))
+    del g, got, tail
+
+    # the other rules at LAD d=2 with 2 Byzantine devices. Held at once:
+    # the gradients, the coded stack and the attacked one (3 x 11.58 GB),
+    # then the server's one (N, Q) temporary in place of the coded stack;
+    # under gaussian also the round's noise (4 stacks), plus a few
+    # (Q,)-sized vectors (1.45 GB each: the warm-up's aggregate, the
+    # iterates of geomed and mcc)
+    rules = (("median", "alie", {"cwtm": 1, "gram": 0, "attack": 1}, 3),
+             ("krum", "sign_flip", {"cwtm": 0, "gram": 1, "attack": 1}, 3),
+             ("multi_krum", "ipm", {"cwtm": 0, "gram": 1, "attack": 1}, 3),
+             ("geomed", "gaussian", {"cwtm": 0, "gram": 0, "attack": 0}, 4),
+             ("mcc", "alie", {"cwtm": 1, "gram": 0, "attack": 1}, 3))
+    out["rules"] = {}
+    for agg_name, attack, expect, stacks in rules:
+        cfg = byz.ProtocolConfig(n_devices=WIDE_N, d=2, method="lad", aggregator=agg_name, n_byz=2,
+                                 attack=attacks.AttackSpec(attack), compression=compression.CompressionSpec())
+        g, stages, peak_gb, launches = counted_round(agg_name, cfg, expect)
+        out["rules"][agg_name] = record(agg_name, g, stages, peak_gb, stacks * stack_gb + 4 * q_gb + 3.0,
+                                        attack=attack, n_byz=2, launches_per_round=launches)
+        del g
     return out
 
 
@@ -598,7 +759,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     ops.reset_launch_counts()
+    replayed = {name: 0 for name in ops.KERNELS}  # launches of graph replays, which no counter sees
     emit(trajectory_phase(scenarios, byzantine, ops, linear_regression_problem))
+    emit(section7_phase(scenarios, replayed))
+    emit(graph_phase(scenarios, replayed))
     emit(participation_phase(scenarios))
     emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
     launches = ops.launch_counts()
@@ -612,6 +776,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
+         "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
         for name in TPU_KERNELS
     ]})

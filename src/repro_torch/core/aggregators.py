@@ -1,14 +1,24 @@
 """kappa-robust aggregation rules (Definition 1): ``(N, Q) -> (Q,)``.
 
-Ported in this slice: ``mean`` (the VA baseline), ``cwtm`` (through the CWTM
-kernel), ``tgn`` (Com-TGN) and NNM pre-aggregation (through the Gram
-kernel), composed as ``nnm_then(rule)`` or named with a ``-nnm`` suffix.
-CWTM-NNM is one launch of the CWTM kernel with the neighbour table as an
-operand (``cwtm_nnm``): the mixed stack is never stored.
+The reference's nine rules: ``mean`` (the VA baseline), ``median`` and
+``cwtm`` (through the CWTM kernel), ``geomed`` (Weiszfeld), ``krum`` and
+``multi_krum`` (their distances through the Gram kernel), ``mcc``
+(maximum correntropy, started from ``median``), ``tgn`` (Com-TGN), and NNM
+pre-aggregation (through the Gram kernel), composed as ``nnm_then(rule)``
+or named with a ``-nnm`` suffix. CWTM-NNM is one launch of the CWTM kernel
+with the neighbour table as an operand (``cwtm_nnm``): the mixed stack is
+never stored.
 
-Selections use a stable sort, so ties go to the lower index as
-``jax.lax.top_k`` breaks them in the reference; ``torch.topk`` promises no
-order.
+Three places where the port does not copy the reference (ROADMAP C.1-C.3):
+
+  * a median is the mean of the middle pair, as ``jnp.median`` takes it
+    (``torch.median`` returns the lower middle value);
+  * Krum excludes each message's distance to itself with a select to
+    ``+inf`` (the reference adds ``eye * inf``, whose off-diagonal
+    ``0 * inf`` makes every score NaN);
+  * selections use a stable sort, so ties go to the lower index as
+    ``jax.lax.top_k`` breaks them in the reference; ``torch.topk``
+    promises no order.
 """
 from __future__ import annotations
 
@@ -22,14 +32,28 @@ from repro_torch.kernels.ref import nnm_mix_ref
 
 Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
-__all__ = ["mean", "cwtm", "tgn", "nnm_neighbours", "nnm_mix", "nnm_then", "cwtm_nnm",
+__all__ = ["mean", "coordinate_median", "cwtm", "geometric_median", "krum_scores", "krum",
+           "multi_krum", "mcc", "tgn", "nnm_neighbours", "nnm_mix", "nnm_then", "cwtm_nnm",
            "make_aggregator", "AGGREGATORS"]
-
-_NOT_PORTED = ("median", "geomed", "krum", "multi_krum", "mcc")
 
 
 def mean(msgs: torch.Tensor) -> torch.Tensor:
     return torch.mean(msgs, dim=0)
+
+
+def coordinate_median(msgs: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over the device axis of (..., N, Q), the mean
+    of the middle pair at even N: the CWTM kernel at trim ``(N - 1) // 2``
+    keeps one or two values and takes ``(lo + hi) * 0.5``, ``jnp.median``'s
+    arithmetic, bit for bit. Leading axes are lanes of one launch."""
+    return kernel_ops.cwtm(msgs, (msgs.shape[-2] - 1) // 2)
+
+
+def _vector_median(v: torch.Tensor) -> torch.Tensor:
+    """Median of a (N,) vector: sort, then the mean of the middle pair."""
+    n = v.shape[0]
+    srt = torch.sort(v).values
+    return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
 
 
 def cwtm(msgs: torch.Tensor, trim_frac: float = 0.1, neighbours: torch.Tensor | None = None) -> torch.Tensor:
@@ -41,6 +65,17 @@ def cwtm(msgs: torch.Tensor, trim_frac: float = 0.1, neighbours: torch.Tensor | 
     if 2 * f >= n:
         raise ValueError(f"trim_frac={trim_frac} removes all {n} messages")
     return kernel_ops.cwtm(msgs, f, neighbours)
+
+
+def geometric_median(msgs: torch.Tensor, iters: int = 8, eps: float = 1e-8) -> torch.Tensor:
+    """Weiszfeld iterations for the geometric median, from the mean. Each
+    step holds one (N, Q) temporary at a time."""
+    z = torch.mean(msgs, dim=0)
+    for _ in range(iters):
+        dist = torch.sqrt(torch.sum((msgs - z).square_(), dim=1) + eps)  # (N,)
+        w = 1.0 / dist
+        z = torch.sum(w[:, None] * msgs, dim=0) / torch.sum(w)
+    return z
 
 
 def _smallest(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -56,6 +91,47 @@ def tgn(msgs: torch.Tensor, thresh_frac: float = 0.2, n_byz: int = 0) -> torch.T
     f = min(max(int(thresh_frac * n), n_byz), n - 1)
     norms = torch.sum(msgs * msgs, dim=1)
     return torch.mean(msgs[_smallest(norms, n - f)], dim=0)
+
+
+def krum_scores(msgs: torch.Tensor, n_byz: int) -> torch.Tensor:
+    """Krum's scores (N,): each message's summed squared distance to its
+    ``max(N - b - 2, 1)`` nearest other messages, the distances from the
+    Gram kernel and its own distance selected away as ``+inf``."""
+    n = msgs.shape[0]
+    k = max(n - n_byz - 2, 1)
+    d2 = kernel_ops.pairwise_sqdist(msgs)
+    d2 = torch.where(torch.eye(n, dtype=torch.bool, device=d2.device), torch.inf, d2)
+    return torch.sum(torch.sort(d2, dim=1).values[:, :k], dim=1)
+
+
+def krum(msgs: torch.Tensor, n_byz: int | None = None) -> torch.Tensor:
+    """The message of least Krum score (the first such message on a tie);
+    ``b = N // 4`` when ``n_byz`` is not given."""
+    b = msgs.shape[0] // 4 if n_byz is None else n_byz
+    return torch.index_select(msgs, 0, torch.argmin(krum_scores(msgs, b)).reshape(1))[0]
+
+
+def multi_krum(msgs: torch.Tensor, n_byz: int | None = None, m: int | None = None) -> torch.Tensor:
+    """The mean of the ``m`` messages of least Krum score (``m = N - b``;
+    ties to the lower index)."""
+    n = msgs.shape[0]
+    b = n // 4 if n_byz is None else n_byz
+    m = n - b if m is None else m
+    idx = _smallest(krum_scores(msgs, b), m)
+    return torch.mean(torch.index_select(msgs, 0, idx), dim=0)
+
+
+def mcc(msgs: torch.Tensor, sigma: float = 1.0, iters: int = 4) -> torch.Tensor:
+    """Maximum-correntropy aggregation [9]: a mean reweighted by
+    ``exp(-||g_i - z||^2 / (2 sigma^2 s))``, the bandwidth ``s`` the median
+    of the squared distances, from the coordinate-wise median."""
+    z = coordinate_median(msgs)
+    for _ in range(iters):
+        d2 = torch.sum((msgs - z).square_(), dim=1)  # (N,)
+        s = _vector_median(d2) + 1e-12
+        w = torch.exp(-d2 / (2.0 * sigma**2 * s))
+        z = torch.sum(w[:, None] * msgs, dim=0) / (torch.sum(w) + 1e-12)
+    return z
 
 
 def nnm_neighbours(d2: torch.Tensor, n_byz: int) -> torch.Tensor:
@@ -89,7 +165,12 @@ def cwtm_nnm(msgs: torch.Tensor, n_byz: int, trim_frac: float = 0.1) -> torch.Te
 
 AGGREGATORS = {
     "mean": lambda **kw: mean,
+    "median": lambda **kw: coordinate_median,
     "cwtm": lambda trim_frac=0.1, **kw: partial(cwtm, trim_frac=trim_frac),
+    "geomed": lambda iters=8, **kw: partial(geometric_median, iters=iters),
+    "krum": lambda n_byz=None, **kw: partial(krum, n_byz=n_byz),
+    "multi_krum": lambda n_byz=None, **kw: partial(multi_krum, n_byz=n_byz),
+    "mcc": lambda sigma=1.0, **kw: partial(mcc, sigma=sigma),
     "tgn": lambda thresh_frac=0.2, n_byz=0, **kw: partial(
         tgn, thresh_frac=thresh_frac, n_byz=n_byz or 0),
 }
@@ -100,8 +181,6 @@ def make_aggregator(name: str, *, nnm: bool = False, n_byz: int = 0, **kwargs) -
     ``-nnm`` suffix, e.g. ``"cwtm-nnm"``)."""
     if name.endswith("-nnm"):
         name, nnm = name[: -len("-nnm")], True
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"aggregator {name!r} is not ported yet (ROADMAP A.2)")
     if name not in AGGREGATORS:
         raise KeyError(f"unknown aggregator {name!r}; have {sorted(AGGREGATORS)}")
     if nnm and name == "cwtm":

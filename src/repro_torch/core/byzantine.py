@@ -6,13 +6,16 @@ compression (the quantize kernel for QSGD), Byzantine attack (the attack
 kernel), then, under partial participation, the erasure of the rows that did
 not report, and robust aggregation (the CWTM kernel, after NNM mixing around
 the Gram kernel for ``-nnm`` rules; the masked-combine kernel for the K-of-N
-erasure decode).
+erasure decode; group medians through the CWTM kernel for DRACO).
 
 ``method``:
   * ``"lad"``   — Algorithm 1/2 (Com-LAD when compression is on);
   * ``"plain"`` — the non-redundant baselines (VA / CWTM / CWTM-NNM /
-                  Com-TGN): LAD with d = 1.
-DRACO is not ported yet.
+                  Com-TGN): LAD with d = 1;
+  * ``"draco"`` — DRACO [13]: fractional repetition (groups of ``d``
+                  devices compute the same ``d`` subsets) and the group
+                  majority-vote decode (``coding.draco_decode``); needs
+                  ``d | N``.
 
 The round draws nothing itself: its random choices come in as a
 ``RoundRandomness`` record, so a test can hand it the reference's own
@@ -29,7 +32,7 @@ from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core import compression as comp_lib
 from repro_torch.core import task_matrix as tm
-from repro_torch.core.coding import coded_weights, cyclic_erasure_decode
+from repro_torch.core.coding import coded_weights, cyclic_erasure_decode, draco_decode
 from repro_torch.core.participation import ParticipationSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
@@ -52,11 +55,12 @@ class ProtocolConfig:
     Attributes:
       n_devices: ``N``, logical devices == data subsets.
       d: computational load, subsets per device per round (forced to 1 for
-        ``method="plain"``).
-      method: ``"lad"`` or ``"plain"``.
-      aggregator: ``mean``, ``cwtm`` or ``tgn``, optionally with ``-nnm``;
-        or ``decode``, the K-of-N erasure decode, under an active
-        participation schedule.
+        ``method="plain"``; the group size for ``method="draco"``).
+      method: ``"lad"``, ``"plain"`` or ``"draco"``.
+      aggregator: any key of ``aggregators.AGGREGATORS``, optionally with
+        ``-nnm``; or ``decode``, the K-of-N erasure decode, under an active
+        participation schedule. DRACO's server is its own decode whatever
+        the aggregator.
       trim_frac: CWTM trim fraction (``f = int(trim_frac * N)`` per side).
       n_byz: number of Byzantine devices ``N - H``.
       attack: the corruption model.
@@ -82,9 +86,7 @@ class ProtocolConfig:
     participation: ParticipationSpec = dataclasses.field(default_factory=ParticipationSpec)
 
     def __post_init__(self):
-        if self.method == "draco":
-            raise NotImplementedError("method 'draco' is not ported yet (ROADMAP A.2)")
-        if self.method not in ("lad", "plain"):
+        if self.method not in ("lad", "plain", "draco"):
             raise ValueError(f"unknown method {self.method!r}")
 
     def make_aggregator(self):
@@ -101,8 +103,10 @@ class RoundRandomness:
     """Every random choice of one round.
 
     Attributes:
-      task_index: ``(N,)`` the task-matrix row each device runs.
-      subset_perm: ``(N,)`` the data subset behind each column.
+      task_index: ``(N,)`` the task-matrix row each device runs;
+        ``arange(N)`` under DRACO, which does not read it.
+      subset_perm: ``(N,)`` the data subset behind each column (under DRACO
+        the permutation whose consecutive blocks of ``d`` the groups take).
       byz_mask: ``(N,)`` 0/1 float, the Byzantine devices.
       keep_idx: ``(N, q_hat)`` each device's kept coordinates under sparse
         compression, else ``None``.
@@ -110,6 +114,8 @@ class RoundRandomness:
         ``quant``, else ``None``.
       part_u: ``(N,)`` the participation schedule's draws in [0, 1) under an
         active schedule, else ``None``.
+      attack_noise: ``(N, Q)`` standard normals under the ``gaussian``
+        attack, else ``None``.
     """
 
     task_index: torch.Tensor
@@ -118,6 +124,7 @@ class RoundRandomness:
     keep_idx: torch.Tensor | None = None
     quant_u: torch.Tensor | None = None
     part_u: torch.Tensor | None = None
+    attack_noise: torch.Tensor | None = None
 
     def to(self, device: torch.device | str) -> "RoundRandomness":
         return RoundRandomness(**{
@@ -130,7 +137,8 @@ class RoundRandomness:
         width ``q``: both assignment draws permutations of ``[0, n)``, a 0/1
         mask of ``n`` devices, keep-indices in ``[0, q)``, uniforms in
         ``[0, 1)`` of shape ``(n, q)`` (``quant_u``) and ``(n,)``
-        (``part_u``).
+        (``part_u``), finite float32 normals of shape ``(n, q)``
+        (``attack_noise``).
 
         Reads the tensors on the host (a device sync when they lie on a
         card); ``sample_round_randomness`` needs no check, a record built
@@ -153,12 +161,22 @@ class RoundRandomness:
             if u is not None and (u.shape != shape or u.dtype != torch.float32
                                   or not bool(((u >= 0) & (u < 1)).all())):
                 raise ValueError(f"RoundRandomness.{name} must be {shape} float32 in [0, 1)")
+        noise = self.attack_noise
+        if noise is not None and (noise.shape != (n, q) or noise.dtype != torch.float32
+                                  or not bool(torch.isfinite(noise).all())):
+            raise ValueError(f"RoundRandomness.attack_noise must be ({n}, {q}) finite float32")
 
 
 def sample_round_randomness(cfg: ProtocolConfig, q: int, generator: torch.Generator) -> RoundRandomness:
     """Draw one round's randomness from ``generator`` on its device."""
     n = cfg.n_devices
-    ta = tm.sample_assignment(generator, n, cfg.effective_d())
+    dev = generator.device
+    if cfg.method == "draco":
+        ta = tm.fractional_repetition(torch.randperm(n, generator=generator, device=dev), cfg.d)
+        task_index = torch.arange(n, device=dev)
+    else:
+        ta = tm.sample_assignment(generator, n, cfg.effective_d())
+        task_index = ta.task_index
     mask = attack_lib.sample_byzantine_mask(
         n, cfg.n_byz, fixed=cfg.attack.fixed_identity, generator=generator,
         device=generator.device,
@@ -167,19 +185,23 @@ def sample_round_randomness(cfg: ProtocolConfig, q: int, generator: torch.Genera
     quant_u = comp_lib.sample_quant_u(cfg.compression, n, q, generator)
     part_u = None
     if cfg.participation.active:
-        part_u = torch.rand((n,), generator=generator, device=generator.device)
+        part_u = torch.rand((n,), generator=generator, device=dev)
+    attack_noise = None
+    if cfg.attack.name == "gaussian":
+        attack_noise = torch.randn((n, q), generator=generator, device=dev)
     return RoundRandomness(
-        task_index=ta.task_index,
+        task_index=task_index,
         subset_perm=ta.subset_perm,
         byz_mask=mask,
         keep_idx=keep_idx,
         quant_u=quant_u,
         part_u=part_u,
+        attack_noise=attack_noise,
     )
 
 
 def make_attack_fn(cfg: ProtocolConfig) -> attack_lib.Attack:
-    """The corruption map ``(msgs, mask) -> transmitted`` of ``cfg``."""
+    """The corruption map ``(msgs, mask, noise) -> transmitted`` of ``cfg``."""
     return dataclasses.replace(cfg.attack, n_byz=cfg.n_byz).make()
 
 
@@ -190,16 +212,19 @@ def _masked_server_fn(cfg: ProtocolConfig) -> Callable:
       * ``aggregator="decode"``: the cyclic K-of-N erasure decode, exact
         while the erasures stay within the margin ``d - 1`` (needs ``d |
         N``);
-      * ``method="draco"``: DRACO's median over reporting group members,
-        which comes with the DRACO slice;
+      * ``method="draco"``: DRACO's median over reporting group members
+        (``coding.draco_decode`` with the mask);
       * any other rule, impute-then-aggregate: erased rows are replaced by
         the reporting rows' mean and the full-participation rule runs on the
         patched stack. At an all-ones mask the select changes nothing and
         the rule sees the unmasked stack bit for bit.
     """
-    if cfg.method == "draco":
-        raise NotImplementedError("DRACO's masked decode is not ported yet (ROADMAP A.2)")
     if cfg.aggregator == "decode":
+        if cfg.method == "draco":
+            raise ValueError(
+                "aggregator='decode' is the cyclic erasure decode, incompatible with "
+                "method='draco' (which has its own masked decoder)"
+            )
         d = cfg.effective_d()
         if cfg.n_devices % d != 0:
             raise ValueError(
@@ -207,6 +232,8 @@ def _masked_server_fn(cfg: ProtocolConfig) -> Callable:
                 f"the subset circle): N={cfg.n_devices} d={d}"
             )
         return lambda t, pm, task_index: cyclic_erasure_decode(t, pm, task_index, d)
+    if cfg.method == "draco":
+        return lambda t, pm, task_index: draco_decode(t, cfg.d, mask=pm)
     base = cfg.make_aggregator()
 
     def masked_server(t: torch.Tensor, pm: torch.Tensor, task_index: torch.Tensor) -> torch.Tensor:
@@ -219,8 +246,9 @@ def _masked_server_fn(cfg: ProtocolConfig) -> Callable:
 
 def make_server_fn(cfg: ProtocolConfig) -> Callable:
     """The server of ``cfg``. At full participation ``(N, Q) -> (Q,)``: CWTM
-    runs through its kernel and the ``-nnm`` rules through the Gram kernel
-    (see ``aggregators``). Under an active participation schedule
+    and ``median`` run through the CWTM kernel, the ``-nnm`` rules and Krum
+    through the Gram kernel (see ``aggregators``), DRACO is its group
+    decode (``coding.draco_decode``). Under an active participation schedule
     ``(transmitted, pmask, task_index) -> (Q,)`` (see
     ``_masked_server_fn``)."""
     if cfg.participation.active:
@@ -230,6 +258,8 @@ def make_server_fn(cfg: ProtocolConfig) -> Callable:
             "aggregator='decode' (the K-of-N erasure decode) needs an active participation "
             "schedule; at full participation the mean server recovers the same gradient mean"
         )
+    if cfg.method == "draco":
+        return lambda t: draco_decode(t, cfg.d)
     return cfg.make_aggregator()
 
 
@@ -279,7 +309,10 @@ def protocol_round(
     hook = stage_hook or (lambda stage: None)
 
     d = cfg.effective_d()
-    assign = tm.assignment_from(rand.task_index, rand.subset_perm, d)
+    if cfg.method == "draco":
+        assign = tm.fractional_repetition(rand.subset_perm, d)
+    else:
+        assign = tm.assignment_from(rand.task_index, rand.subset_perm, d)
     coded = kernel_ops.gather_combine(subset_grads, assign.subsets, coded_weights(d, dev))
     hook("encode")
 
@@ -287,7 +320,7 @@ def protocol_round(
     hook("compress")
 
     attack = attack_fn if attack_fn is not None else make_attack_fn(cfg)
-    transmitted = attack(coded, rand.byz_mask)
+    transmitted = attack(coded, rand.byz_mask, rand.attack_noise)
     del coded  # free the coded stack before the server allocates
     hook("attack")
 

@@ -1,20 +1,22 @@
-"""The erasure reading of the cyclic code.
+"""The decoders of the round's codes.
 
 ``cyclic_erasure_decode`` recovers the full-participation gradient mean from
 the reports of a round with erased devices: the cyclic assignment at load
 ``d`` tolerates ``erasure_margin(d) = d - 1`` missing reports exactly, and
 degrades gracefully beyond. Its surviving-row sum runs through the
-``masked_combine`` kernel. DRACO's majority-vote decode comes with the
-DRACO slice.
+``masked_combine`` kernel. ``draco_decode`` is DRACO's majority vote over
+the groups of the fractional repetition code: every group's median in one
+lane-batched launch of the CWTM kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.aggregators import coordinate_median
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.numerics import tree_sum
+from repro_torch.numerics import stable_mean0, tree_sum
 
-__all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode"]
+__all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode"]
 
 
 def erasure_margin(d: int) -> int:
@@ -62,3 +64,58 @@ def cyclic_erasure_decode(messages: torch.Tensor, mask: torch.Tensor,
     w = mask * (cls == j_star).to(torch.float32)
     decoded = kernel_ops.masked_combine(messages, w)
     return decoded / torch.clamp_min(tree_sum(w, dim=0), 1.0)
+
+
+def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """DRACO's majority-vote decode of the fractional repetition code.
+
+    The ``N`` devices form ``N / d`` groups of ``d`` consecutive devices; the
+    honest members of a group send the same vector, the mean of the group's
+    ``d`` subsets. Each group's coordinate-wise median recovers it while the
+    group has an honest majority, and the mean over groups is the mean over
+    all ``N`` subsets.
+
+    Unmasked, the group medians are one launch of the CWTM kernel with the
+    groups as lanes (``N = d``, trim ``(d - 1) // 2``: the middle value, or
+    the mean of the middle pair at even ``d``), then a fixed-tree mean.
+
+    With ``mask`` (``(N,)`` 0/1, 1 = the device reported) a group's median
+    runs over its reporting members: erased rows are pushed to ``+inf``,
+    sorted last, and the median is the mean of the positions ``(k - 1) // 2``
+    and ``k // 2`` of the ``k`` reporting values. A full group takes the
+    kernel's median, a group with no reporting member is left out (with a
+    select: its median is ``inf``), and the decode is the mean over the
+    surviving groups. When every group is full the result is the unmasked
+    decode, bit for bit.
+
+    Args:
+      messages: ``(N, Q)`` transmitted vectors (erased rows already 0.0).
+      group_size: ``d``, devices per group; ``N % d == 0``.
+      mask: optional ``(N,)`` participation mask.
+
+    Returns:
+      ``(Q,)`` the decoded gradient mean.
+    """
+    n, q = messages.shape
+    if n % group_size != 0:
+        raise ValueError(f"N={n} not divisible by group size d={group_size}")
+    n_groups = n // group_size
+    grouped = messages.reshape(n_groups, group_size, q)
+    full_med = coordinate_median(grouped)  # (groups, Q)
+    legacy = stable_mean0(full_med)
+    if mask is None:
+        return legacy
+    gmask = mask.to(torch.float32).reshape(n_groups, group_size)
+    k = tree_sum(gmask, dim=1)  # reporting members per group
+    ordered = torch.sort(torch.where(gmask[:, :, None] > 0.0, grouped, torch.inf), dim=1).values
+    ki = torch.clamp_min(k.to(torch.int64), 1)
+    lo = torch.gather(ordered, 1, ((ki - 1) // 2)[:, None, None].expand(n_groups, 1, q))
+    hi = torch.gather(ordered, 1, (ki // 2)[:, None, None].expand(n_groups, 1, q))
+    masked_med = (0.5 * (lo + hi))[:, 0, :]
+    group_full = k == float(group_size)
+    block_vals = torch.where(group_full[:, None], full_med, masked_med)
+    alive = (k > 0.0).to(torch.float32)
+    degraded = tree_sum(torch.where(alive[:, None] > 0.0, block_vals, 0.0), dim=0) / torch.clamp_min(
+        tree_sum(alive, dim=0), 1.0)
+    all_full = tree_sum(group_full.to(torch.float32), dim=0) == float(n_groups)
+    return torch.where(all_full, legacy, degraded)

@@ -118,7 +118,7 @@ def _ensure_one_reporter(mask: torch.Tensor) -> torch.Tensor:
 def sample_participation(
     spec: ParticipationSpec,
     u: torch.Tensor | None,
-    t: int,
+    t: int | torch.Tensor,
     n: int,
     state: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -127,7 +127,10 @@ def sample_participation(
 
     ``u`` is the round's ``(N,)`` uniforms in [0, 1); ``"iid"`` and
     ``"markov"`` read it, the other schedules do not (it may be ``None``
-    there). ``state`` is the previous mask, which only ``"markov"`` evolves.
+    there). ``t`` is the round index, an int or a 0-d int64 tensor on the
+    state's device (the step counter of a captured trajectory, never read
+    back); ``"onoff"`` reads it. ``state`` is the previous mask, which only
+    ``"markov"`` evolves.
     """
     dev = state.device
     if spec.name == "full":

@@ -2,8 +2,10 @@
 
   * ``Scenario`` — one declarative row; ``.protocol()`` lowers it to a
     ``ProtocolConfig``.
-  * ``PAPER_FIG4/5/6`` — the named curves of Figs. 4-6 (Fig. 4 without
-    DRACO-d41, which waits for DRACO's port).
+  * ``PAPER_FIG4/5/6`` — the named curves of Figs. 4-6.
+  * ``section7_grid`` — the paper's comparison grid: method x attack x
+    aggregator x compressor x heterogeneity, with the combinations the paper
+    rules out dropped.
   * ``participation_sweep`` — the partial-participation rows: schedule x
     aggregator x attack over the cyclic code.
   * ``run_scenario`` — a scenario on the linear-regression problem.
@@ -24,7 +26,7 @@ from repro_torch.core.engine import RandomnessProvider, TrajectoryResult, run_tr
 from repro_torch.data.synthetic import linear_regression_problem, linreg_loss, linreg_subset_grads
 from repro_torch.device import resolve_device
 
-__all__ = ["Scenario", "scenario_name", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
+__all__ = ["Scenario", "scenario_name", "section7_grid", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
            "participation_sweep", "run_scenario"]
 
 
@@ -33,7 +35,7 @@ class Scenario:
     """One experimental condition."""
 
     name: str
-    method: str = "lad"  # lad | plain
+    method: str = "lad"  # lad | plain | draco
     d: int = 1
     aggregator: str = "cwtm"
     attack: str = "sign_flip"
@@ -84,9 +86,48 @@ def scenario_name(
     return f"{method}-d{d}/{aggregator}/{attack}{comp}/s{sigma_h:g}"
 
 
-def _fig4(label: str, method: str, d: int, agg: str) -> Scenario:
+def section7_grid(
+    methods: Sequence[tuple[str, int]] = (("plain", 1), ("lad", 10), ("draco", 4)),
+    attacks: Sequence[str] = ("sign_flip", "alie", "ipm"),
+    aggregators: Sequence[str] = ("cwtm",),
+    compressors: Sequence[str] = ("none", "rand_sparse"),
+    sigma_levels: Sequence[float] = (0.3,),
+    n_devices: int = 100,
+    n_byz: int = 20,
+    lr: float = 1e-6,
+) -> list[Scenario]:
+    """The paper's Section-VII comparison grid as a flat list of rows.
+
+    DRACO is incompatible with compression (Section VII.B), so its rows
+    appear only with ``compressor="none"``; its ``N`` is rounded down to a
+    multiple of ``d`` (fractional repetition needs ``d | N``), and its
+    aggregator axis collapses to one row named ``"vote"`` (the decode is
+    the server). The defaults give 15 rows."""
+    rows = []
+    seen = set()
+    for method, d in methods:
+        for attack in attacks:
+            for agg in aggregators:
+                for comp in compressors:
+                    if method == "draco" and comp != "none":
+                        continue
+                    for sigma in sigma_levels:
+                        draco = method == "draco"
+                        name = scenario_name(method, d, "vote" if draco else agg, attack, comp, sigma)
+                        if name in seen:
+                            continue
+                        seen.add(name)
+                        rows.append(Scenario(
+                            name=name, method=method, d=d, aggregator="mean" if draco else agg,
+                            attack=attack, n_byz=n_byz, compressor=comp, sigma_h=sigma,
+                            n_devices=n_devices - n_devices % d if draco else n_devices, lr=lr,
+                        ))
+    return rows
+
+
+def _fig4(label: str, method: str, d: int, agg: str, **kw) -> Scenario:
     return Scenario(name=label, method=method, d=d, aggregator=agg,
-                    attack="sign_flip", n_byz=20, sigma_h=0.3, lr=1e-6)
+                    attack="sign_flip", n_byz=20, sigma_h=0.3, lr=1e-6, **kw)
 
 
 # Fig. 4: training loss under sign-flip(-2), H=80, sigma_H=0.3.
@@ -98,6 +139,8 @@ PAPER_FIG4 = {
     "LAD-CWTM-d10": _fig4("LAD-CWTM-d10", "lad", 10, "cwtm"),
     "LAD-CWTM-d20": _fig4("LAD-CWTM-d20", "lad", 20, "cwtm"),
     "LAD-CWTM-NNM-d10": _fig4("LAD-CWTM-NNM-d10", "lad", 10, "cwtm-nnm"),
+    # N=82: two groups of 41, cut from the shared N=100 problem
+    "DRACO-d41": _fig4("DRACO-d41", "draco", 41, "mean", n_devices=82),
 }
 
 # Fig. 5: heterogeneity sweep — the LAD advantage grows with sigma_H.
@@ -196,6 +239,7 @@ def run_scenario(
     dim: int = 100,
     randomness: RandomnessProvider | None = None,
     device: torch.device | str | None = None,
+    mode: str = "loop",
 ) -> TrajectoryResult:
     """Run one scenario on the Section-VII linear-regression problem.
 
@@ -203,7 +247,9 @@ def run_scenario(
     the problem (unless ``problem`` shares one ``(Z, y)`` across scenarios;
     it is cut to ``scn.n_devices`` subsets) and then each round's
     randomness (unless ``randomness`` provides it; its records are checked
-    as they come in, see ``run_trajectory``).
+    as they come in, see ``run_trajectory``). ``mode`` is
+    ``run_trajectory``'s: ``"loop"`` or ``"graph"`` (one captured round
+    replayed, CUDA only).
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -231,4 +277,5 @@ def run_scenario(
         loss_fn=_loss,
         data=(z, y),
         device=dev,
+        mode=mode,
     )

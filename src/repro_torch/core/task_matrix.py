@@ -3,8 +3,10 @@
 Row ``i`` of the ``N x N`` cyclic matrix ``S_hat`` has ones in columns
 ``i, i+1, ..., i+d-1 (mod N)``. Each round draws two permutations: device
 ``i`` runs row ``task_index[i]``, and column ``k`` stands for data subset
-``subset_perm[k]`` (Algorithm 1). The draws come in from outside (see
-``byzantine.RoundRandomness``); this module only builds from them.
+``subset_perm[k]`` (Algorithm 1). DRACO's fractional repetition code
+(``fractional_repetition``) takes one permutation instead. The draws come in
+from outside (see ``byzantine.RoundRandomness``); this module only builds
+from them.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["cyclic_task_matrix", "TaskAssignment", "assignment_from", "sample_assignment"]
+__all__ = ["cyclic_task_matrix", "TaskAssignment", "assignment_from", "fractional_repetition",
+           "sample_assignment"]
 
 
 def cyclic_task_matrix(n: int, d: int) -> np.ndarray:
@@ -48,6 +51,20 @@ def assignment_from(task_index: torch.Tensor, subset_perm: torch.Tensor, d: int)
     perm = subset_perm.long()
     cols = (ti[:, None] + torch.arange(d, device=ti.device)[None, :]) % n
     return TaskAssignment(task_index=ti, subset_perm=perm, subsets=perm[cols])
+
+
+def fractional_repetition(subset_perm: torch.Tensor, d: int) -> TaskAssignment:
+    """DRACO's assignment: device ``i`` belongs to group ``g = i // d`` and
+    computes the subsets ``perm[g*d : g*d + d]``, the same block as every
+    other member of its group. ``task_index`` holds each device's group.
+    Needs ``d | N``."""
+    n = subset_perm.shape[0]
+    if n % d != 0:
+        raise ValueError(f"DRACO's fractional repetition needs d | N: N={n} d={d}")
+    perm = subset_perm.long()
+    groups = torch.arange(n, device=perm.device) // d
+    cols = groups[:, None] * d + torch.arange(d, device=perm.device)[None, :]
+    return TaskAssignment(task_index=groups, subset_perm=perm, subsets=perm[cols])
 
 
 def sample_assignment(generator: torch.Generator, n: int, d: int) -> TaskAssignment:

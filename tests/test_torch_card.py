@@ -13,13 +13,24 @@ in another order than the plain versions (rtol 1e-5, atol 1e-6, the Gram's
 atol scaled by the largest squared row norm). The Gram must still be
 symmetric bit for bit, carry the row norms on its diagonal, and give the
 same bits on every run and in every lane of a batch.
+
+The median through the CWTM kernel and DRACO's decode, masked and unmasked,
+are held to the same computations on the CPU bit for bit (elementwise fp32
+arithmetic and sorts give the same bits on both devices). A trajectory in
+graph mode (one captured round replayed) equals loop mode bit for bit, for
+the rows that ``chip_smoke.py``'s ``graph`` phase runs.
 """
 from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.core.aggregators import nnm_neighbours
+from repro_torch.core import scenarios as tscn
+from repro_torch.core.aggregators import coordinate_median, nnm_neighbours
+from repro_torch.core.coding import draco_decode
 from repro_torch.kernels import cwtm as tcwtm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tquant
@@ -174,3 +185,62 @@ def test_gram_on_card_is_close_symmetric_and_deterministic(card, n, q):
     for i in range(3):
         single, single_sq = tops.gram(msgs[i])
         assert torch.equal(gram[i], single) and torch.equal(sq[i], single_sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 8, 41, 100])
+def test_median_via_the_cwtm_kernel_is_bitwise_the_plain_version(card, n):
+    msgs = torch.randn((n, (1 << 16) + 37), generator=card, device="cuda")
+    before = tops.launch_counts()["cwtm"]
+    got = coordinate_median(msgs)
+    assert tops.launch_counts()["cwtm"] == before + 1
+    torch.testing.assert_close(got, tref.cwtm_ref(msgs, (n - 1) // 2), rtol=0, atol=0)
+
+
+# (N, d, mask): DRACO-d41's two groups of 41, the grid's groups of 4, partial and empty groups
+DRACO_CARD = [(82, 41, None), (100, 4, None), (8, 4, None), (82, 41, "partial"), (12, 3, "empty"),
+              (100, 4, "ones")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,mask", DRACO_CARD, ids=[f"N{c[0]}-d{c[1]}-{c[2]}" for c in DRACO_CARD])
+def test_draco_decode_on_card_equals_plain(card, n, d, mask):
+    msgs = torch.randn((n, 3000), generator=card, device="cuda")
+    pm = None
+    if mask == "partial":
+        pm = (torch.arange(n, device="cuda") % 3 != 1).float()
+    elif mask == "empty":
+        pm = (torch.arange(n, device="cuda") // d != 1).float()
+    elif mask == "ones":
+        pm = torch.ones(n, device="cuda")
+    if pm is not None:
+        msgs = msgs * pm[:, None]
+    got = draco_decode(msgs, d, mask=pm)
+    want = draco_decode(msgs.cpu(), d, mask=None if pm is None else pm.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    if mask == "ones":
+        assert torch.equal(got, draco_decode(msgs, d))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", range(6))
+def test_graph_mode_equals_loop_mode_bitwise(card, row):
+    """The six rows of chip_smoke.py's graph phase, 50 rounds: the final
+    iterate, every metric and the participation state, bit for bit; the
+    captured round replayed once a round."""
+    smoke = _chip_smoke()
+    scn = smoke.graph_rows(tscn)[row]
+    dim = 32 if scn.participation != "full" else 100
+    loop = tscn.run_scenario(scn, 50, seed=3, dim=dim, device="cuda", mode="loop")
+    graph = tscn.run_scenario(scn, 50, seed=3, dim=dim, device="cuda", mode="graph")
+    assert smoke.same_bits(loop, graph)
+    assert graph.graph.replays == 50 and graph.graph.captured_launches["gather_combine"] == 1
+    assert graph.opt_state == loop.opt_state

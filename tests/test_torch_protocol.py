@@ -10,7 +10,10 @@ reference's split of the round key (``core/byzantine.py::protocol_round``):
 from ``permutation(split(k_comp, N)[i], Q)[:q_hat]``, device ``i``'s QSGD
 rounding draws from ``uniform(split(k_comp, N)[i], (Q,))`` and the
 participation draws from ``uniform(fold_in(key, PARTICIPATION_KEY_SALT),
-(N,))``. With ``jax_threefry_partitionable`` on, the reference's XLA
+(N,))``. Under ``method="draco"`` the subset permutation is
+``permutation(k_assign, N)`` (``task_index`` is ``arange(N)``, which DRACO
+does not read); under the ``gaussian`` attack the noise is
+``normal(k_attack, (N, Q))``. With ``jax_threefry_partitionable`` on, the reference's XLA
 quantizer's padded draw ``uniform(k_i, (chunks, chunk))`` begins with the
 same Q values, so one record replays both of its paths.
 
@@ -25,6 +28,9 @@ are the reference for what the attacks compute.
 Tolerance: rtol 1e-5, atol 1e-6 per op and per round (as
 tests/test_kernels.py): the port sums in other orders than XLA (the encode
 as sum_j w_j g_j rather than a mean, NNM's mix as a matrix product).
+``median`` is held to ``jnp.median`` bit for bit. Krum and multi-Krum are
+held to a numpy oracle that excludes each message's own distance, not to
+the reference, whose scores are all NaN (ROADMAP C.1, pinned below).
 
 QSGD in a round: the port's encode and the reference's differ by an ulp or
 two, so ``y = g / scale * levels`` differs by a few ulps of ``levels``, and
@@ -50,6 +56,7 @@ import torch
 from repro.core import aggregators as jagg
 from repro.core import attacks as jatt
 from repro.core import byzantine as jbyz
+from repro.core import coding as jcoding
 from repro.core import compression as jcomp
 from repro.core import participation as jpart
 from repro.core import task_matrix as jtm
@@ -57,6 +64,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import aggregators as tagg
 from repro_torch.core import attacks as tatt
 from repro_torch.core import byzantine as tbyz
+from repro_torch.core import coding as tcoding
 from repro_torch.core import compression as tcomp
 from repro_torch.core import participation as tpart
 from repro_torch.core import task_matrix as ttm
@@ -77,8 +85,12 @@ def _close(got: torch.Tensor, want, rtol=RTOL, atol=ATOL):
 def jax_round_randomness(cfg: jbyz.ProtocolConfig, key, q: int) -> tbyz.RoundRandomness:
     """The reference's draws for one round, as the port's record."""
     n = cfg.n_devices
-    k_assign, k_mask, _, k_comp = jax.random.split(key, 4)
-    ta = jtm.sample_assignment(k_assign, n, cfg.effective_d())
+    k_assign, k_mask, k_attack, k_comp = jax.random.split(key, 4)
+    if cfg.method == "draco":
+        task_index, subset_perm = jnp.arange(n), jax.random.permutation(k_assign, n)
+    else:
+        ta = jtm.sample_assignment(k_assign, n, cfg.effective_d())
+        task_index, subset_perm = ta.task_index, ta.subset_perm
     mask = jatt.sample_byzantine_mask(k_mask, n, cfg.n_byz, fixed=cfg.attack.fixed_identity)
     spec = cfg.compression
     keep = None
@@ -93,13 +105,17 @@ def jax_round_randomness(cfg: jbyz.ProtocolConfig, key, q: int) -> tbyz.RoundRan
     part_u = None
     if cfg.participation.active:
         part_u = jax.random.uniform(jax.random.fold_in(key, jpart.PARTICIPATION_KEY_SALT), (n,))
+    noise = None
+    if cfg.attack.name == "gaussian":
+        noise = jax.random.normal(k_attack, (n, q), dtype=jnp.float32)
     return tbyz.RoundRandomness(
-        task_index=_t(ta.task_index),
-        subset_perm=_t(ta.subset_perm),
+        task_index=_t(task_index),
+        subset_perm=_t(subset_perm),
         byz_mask=_t(mask),
         keep_idx=None if keep is None else _t(keep),
         quant_u=None if quant_u is None else _t(quant_u),
         part_u=None if part_u is None else _t(part_u),
+        attack_noise=None if noise is None else _t(noise),
     )
 
 
@@ -173,9 +189,20 @@ def test_collusion_attacks_match_reference_oracle(name, param):
     _close(got, jref.attack_ref(jnp.asarray(msgs), jnp.asarray(mask), name, param))
 
 
-def test_gaussian_attack_waits_for_later_slice():
-    with pytest.raises(NotImplementedError):
-        tatt.make_attack(tatt.AttackSpec(name="gaussian"))
+@pytest.mark.parametrize("fixed", [True, False])
+def test_gaussian_attack_matches_under_replayed_noise(fixed):
+    """Byzantine rows ``std * normal(key, (N, Q))``, honest rows untouched:
+    bit for bit with the reference's noise handed in."""
+    msgs = _msgs(6)
+    key = jax.random.PRNGKey(11)
+    mask = np.asarray(jatt.sample_byzantine_mask(jax.random.PRNGKey(1), N, 20, fixed=fixed))
+    spec = dict(name="gaussian", n_byz=20, std=7.0)
+    want = jatt.make_attack(jatt.AttackSpec(**spec))(key, jnp.asarray(msgs), jnp.asarray(mask))
+    noise = _t(jax.random.normal(key, (N, Q), dtype=jnp.float32))
+    got = tatt.make_attack(tatt.AttackSpec(**spec))(_t(msgs), _t(mask), noise)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="noise"):
+        tatt.make_attack(tatt.AttackSpec(**spec))(_t(msgs), _t(mask))
 
 
 @pytest.mark.parametrize("n,n_byz", [(100, 0), (100, 20), (8, 2)])
@@ -196,10 +223,84 @@ def test_aggregators_match(name):
     _close(got, want)
 
 
-@pytest.mark.parametrize("name", ["median", "geomed", "krum", "multi_krum", "mcc"])
-def test_unported_aggregators_raise(name):
-    with pytest.raises(NotImplementedError):
-        tagg.make_aggregator(name)
+def test_every_reference_aggregator_is_ported():
+    assert sorted(tagg.AGGREGATORS) == sorted(jagg.AGGREGATORS)
+
+
+@pytest.mark.parametrize("n,ties", [(7, False), (8, False), (41, False), (100, False), (8, True)])
+def test_median_is_bitwise_jnp_median(n, ties):
+    """The CWTM kernel's plain version at trim (N - 1) // 2 is
+    ``jnp.median``: the middle value, or ``(lo + hi) * 0.5``."""
+    msgs = _msgs(n, n=n, q=257)
+    if ties:
+        msgs = np.round(msgs)  # many equal values per coordinate
+    got = tagg.make_aggregator("median")(_t(msgs))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.median(jnp.asarray(msgs), axis=0)))
+
+
+# (aggregator, N, n_byz): the trainer's N = 100 and the wide round's N = 8
+ITERATIVE = [(name, n, b) for name in ("geomed", "mcc") for n, b in ((100, 20), (8, 2), (9, 2))]
+
+
+@pytest.mark.parametrize("name,n,n_byz", ITERATIVE, ids=[f"{c[0]}-N{c[1]}" for c in ITERATIVE])
+def test_geomed_and_mcc_match_reference(name, n, n_byz):
+    """Weiszfeld (8 steps) and MCC (4 reweightings from the median) on a
+    stack with a sign-flipped Byzantine block, within rtol 1e-5, atol 1e-6:
+    the iterations do not amplify the different summation orders."""
+    msgs = _msgs(30 + n, n=n, q=300)
+    msgs[:n_byz] *= -2.0
+    want = jagg.make_aggregator(name, n_byz=n_byz)(jnp.asarray(msgs))
+    got = tagg.make_aggregator(name, n_byz=n_byz)(_t(msgs))
+    _close(got, want)
+
+
+def _krum_oracle(msgs: np.ndarray, n_byz: int, multi: bool) -> np.ndarray:
+    """Krum in float64 numpy: each row's summed squared distance to its
+    N - b - 2 nearest other rows; Krum takes the first least score,
+    multi-Krum the mean of the N - b least (ties to the lower index)."""
+    x = msgs.astype(np.float64)
+    n = x.shape[0]
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    d2[np.arange(n), np.arange(n)] = np.inf
+    scores = np.sort(d2, axis=1)[:, : max(n - n_byz - 2, 1)].sum(1)
+    if not multi:
+        return msgs[int(np.argmin(scores))]
+    return msgs[np.argsort(scores, kind="stable")[: n - n_byz]].astype(np.float64).mean(0)
+
+
+KRUM_CASES = [(name, n, b) for name in ("krum", "multi_krum") for n, b in ((100, 20), (8, 2), (12, 3))]
+
+
+@pytest.mark.parametrize("name,n,n_byz", KRUM_CASES, ids=[f"{c[0]}-N{c[1]}" for c in KRUM_CASES])
+def test_krum_rules_match_numpy_oracle(name, n, n_byz):
+    msgs = _msgs(50 + n, n=n, q=200)
+    msgs[:n_byz] = msgs[:n_byz] * -2.0 + 5.0  # a Byzantine block away from the rest
+    got = tagg.make_aggregator(name, n_byz=n_byz)(_t(msgs))
+    _close(got, _krum_oracle(msgs, n_byz, multi=name == "multi_krum"))
+    if name == "krum":  # Krum returns one of the messages, bit for bit
+        assert any(np.array_equal(got.numpy(), row) for row in msgs[n_byz:])
+
+
+def test_reference_krum_is_nan_poisoned():
+    """ROADMAP C.1: the reference adds ``eye * inf``, whose off-diagonal
+    ``0 * inf`` is NaN, so every score is NaN and ``krum`` returns row 0
+    (a Byzantine row under fixed identities). The port's scores are finite
+    and its Krum avoids the Byzantine row."""
+    msgs = _msgs(60, n=10, q=6)
+    msgs[0] += 100.0
+    assert np.isnan(np.asarray(jagg._krum_scores(jnp.asarray(msgs), 2))).all()
+    np.testing.assert_array_equal(np.asarray(jagg.krum(jnp.asarray(msgs), 2)), msgs[0])
+    assert bool(torch.isfinite(tagg.krum_scores(_t(msgs), 2)).all())
+    got = tagg.krum(_t(msgs), 2)
+    assert not np.array_equal(got.numpy(), msgs[0])
+    np.testing.assert_array_equal(got.numpy(), _krum_oracle(msgs, 2, multi=False))
+
+
+def test_multi_krum_ties_go_to_the_lower_index():
+    msgs = np.zeros((6, 3), np.float32)
+    msgs[:, 0] = [0.0, 1.0, 0.0, 1.0, 0.0, 9.0]  # rows 0, 2, 4 tie, as do rows 1, 3
+    got = tagg.multi_krum(_t(msgs), n_byz=2)  # keeps 4 of 6
+    np.testing.assert_array_equal(got.numpy(), _krum_oracle(msgs, 2, multi=True).astype(np.float32))
 
 
 def test_nnm_tie_order_is_lower_index():
@@ -366,6 +467,10 @@ MASKED_CASES = [
     ("lad", 10, "cwtm-nnm", "ipm", "none", dict(name="iid", rate=0.0), 3),
     ("lad", 10, "decode", "sign_flip", "quant:4", _IID, 3),
     ("lad", 5, "cwtm", "alie", "quant:4", _ADV, 3),
+    # DRACO's masked decode: partial groups, an empty group (rows 20-29), all reporting
+    ("draco", 4, "mean", "sign_flip", "none", _IID, 3),
+    ("draco", 10, "mean", "alie", "none", dict(name="adversarial", n_drop=10, offset=20), 3),
+    ("draco", 10, "mean", "gaussian", "none", dict(name="iid", rate=0.0), 3),
 ]
 MASKED_IDS = ["-".join(map(str, c[:5])) + ("" if c[5] is None else f"-{c[5]['name']}{c[5].get('n_drop', '')}")
               for c in MASKED_CASES]
@@ -397,16 +502,78 @@ def test_protocol_round_with_compression_and_participation_matches(method, d, ag
     _close(got, want)
 
 
-@pytest.mark.parametrize("change", [dict(method="draco")])
-def test_unported_protocol_options_raise(change):
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tbyz.ProtocolConfig(n_devices=N), **change)
+# (method, d, aggregator, attack, compressor, server oracle): the new rules
+# in a round; Krum's rounds hold the port to the reference's round with the
+# numpy Krum as its server (the reference's own Krum is NaN-poisoned)
+RULE_CASES = [
+    ("draco", 4, "mean", "sign_flip", "none", None),
+    ("draco", 4, "mean", "alie", "none", None),
+    ("draco", 10, "mean", "gaussian", "none", None),
+    ("draco", 10, "mean", "ipm", "none", None),
+    ("lad", 10, "median", "alie", "none", None),
+    ("lad", 10, "geomed", "gaussian", "none", None),
+    ("plain", 1, "mcc", "alie", "rand_sparse", None),
+    ("lad", 10, "cwtm", "gaussian", "none", None),
+    ("lad", 10, "krum", "sign_flip", "none", "krum"),
+    ("lad", 10, "multi_krum", "ipm", "none", "multi_krum"),
+]
 
 
-@pytest.mark.parametrize("case", ["decode-at-full", "decode-d-not-dividing-n", "mask-at-full"])
+@pytest.mark.parametrize("method,d,agg,attack,comp,oracle", RULE_CASES,
+                         ids=["-".join(map(str, c[:5])) for c in RULE_CASES])
+def test_protocol_round_with_draco_and_new_rules_matches(method, d, agg, attack, comp, oracle):
+    jcfg, tcfg = _configs(method, d, agg, attack, comp)
+    grads = _msgs(200 + RULE_CASES.index((method, d, agg, attack, comp, oracle)), scale=2.0)
+    key = jax.random.fold_in(jax.random.PRNGKey(1), 5)
+    server = None
+    if oracle is not None:
+        server = lambda t: jnp.asarray(_krum_oracle(np.asarray(t), 20, multi=oracle == "multi_krum"),
+                                       jnp.float32)
+    want = jbyz.protocol_round(jcfg, key, jnp.asarray(grads), server_fn=server)
+    got = tbyz.protocol_round(tcfg, _t(grads), jax_round_randomness(jcfg, key, Q), device="cpu")
+    _close(got, want)
+
+
+# (N, d, n_byz rows, mask or None): the unmasked decode, partial groups, an empty group
+DRACO_DECODES = [
+    (82, 41, 20, None), (100, 4, 20, None), (12, 3, 3, None), (100, 10, 20, None),
+    (12, 4, 3, [1, 1, 0, 1, 1, 0, 0, 1, 1, 1, 1, 1]),  # groups of 3, 2 and 4 reporting
+    (12, 3, 0, [1, 1, 1, 0, 0, 0, 1, 0, 1, 1, 1, 1]),  # group 1 empty
+    (82, 41, 20, [1] * 41 + [1, 0] * 20 + [1]),  # 41 and 21 reporting
+]
+
+
+@pytest.mark.parametrize("n,d,n_byz,mask", DRACO_DECODES,
+                         ids=[f"N{c[0]}-d{c[1]}-{'full' if c[3] is None else 'masked'}-{i}"
+                              for i, c in enumerate(DRACO_DECODES)])
+def test_draco_decode_matches_reference(n, d, n_byz, mask):
+    """Replicated groups with a sign-flipped Byzantine block; erased rows
+    are zero, as the round leaves them."""
+    rng = np.random.default_rng(n + d)
+    blocks = rng.standard_normal((n // d, 1, 64)).astype(np.float32)
+    msgs = np.broadcast_to(blocks, (n // d, d, 64)).reshape(n, 64).copy()
+    msgs[:n_byz] *= -2.0
+    pm = None
+    if mask is not None:
+        pm = np.asarray(mask, np.float32)
+        msgs = msgs * pm[:, None]
+    want = jcoding.draco_decode(jnp.asarray(msgs), d, mask=None if pm is None else jnp.asarray(pm))
+    got = tcoding.draco_decode(_t(msgs), d, mask=None if pm is None else _t(pm))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n,d", [(82, 41), (100, 4)])
+def test_draco_masked_decode_at_all_ones_is_the_unmasked_decode(n, d):
+    msgs = _msgs(n + d, n=n, q=77)
+    full = tcoding.draco_decode(_t(msgs), d)
+    assert torch.equal(tcoding.draco_decode(_t(msgs), d, mask=torch.ones(n)), full)
+
+
+@pytest.mark.parametrize("case", ["decode-at-full", "decode-d-not-dividing-n", "mask-at-full", "draco-decode"])
 def test_masked_server_refusals_match_reference(case):
-    """The reference's two ValueErrors of make_server_fn, and a mask handed
-    to a full-participation round."""
+    """The reference's three ValueErrors of make_server_fn (the erasure
+    decode at full participation, without d | N, and under DRACO), and a
+    mask handed to a full-participation round."""
     if case == "mask-at-full":
         jcfg, tcfg = _configs("lad", 10, "cwtm", "sign_flip", "none")
         rand = jax_round_randomness(jcfg, jax.random.PRNGKey(0), Q)
@@ -414,7 +581,8 @@ def test_masked_server_refusals_match_reference(case):
             tbyz.protocol_round(tcfg, torch.zeros(N, Q), rand, device="cpu", participation_mask=torch.ones(N))
         return
     part = None if case == "decode-at-full" else _IID
-    jcfg, tcfg = _configs("lad", 10 if part is None else 3, "decode", "sign_flip", "none", part)
+    method, d = ("draco", 4) if case == "draco-decode" else ("lad", 10 if part is None else 3)
+    jcfg, tcfg = _configs(method, d, "decode", "sign_flip", "none", part)
     with pytest.raises(ValueError):
         jbyz.make_server_fn(jcfg)
     with pytest.raises(ValueError):
@@ -454,3 +622,25 @@ def test_production_draws_are_valid(comp, fixed):
         assert 0 <= int(rand.keep_idx.min()) and int(rand.keep_idx.max()) < Q
         if comp == "rand_sparse_shared":
             assert (rand.keep_idx == rand.keep_idx[0]).all()
+
+
+def test_draco_and_gaussian_draws_are_valid():
+    """DRACO's record: ``task_index`` is ``arange(N)``, ``subset_perm`` a
+    permutation whose blocks of d the groups share; the gaussian attack's
+    noise is (N, Q) float32 and replaces exactly the Byzantine rows."""
+    tcfg = tbyz.ProtocolConfig(n_devices=N, d=4, method="draco", n_byz=20,
+                               attack=tatt.AttackSpec("gaussian", fixed_identity=False))
+    gen = torch.Generator().manual_seed(4)
+    rand = tbyz.sample_round_randomness(tcfg, Q, gen)
+    rand.validate(N, Q)
+    assert torch.equal(rand.task_index, torch.arange(N))
+    assert torch.equal(torch.sort(rand.subset_perm).values, torch.arange(N))
+    assert rand.attack_noise.shape == (N, Q) and rand.attack_noise.dtype == torch.float32
+    subsets = ttm.fractional_repetition(rand.subset_perm, 4).subsets
+    assert torch.equal(subsets[0::4], subsets[3::4])
+    assert torch.equal(torch.sort(subsets[::4].reshape(-1)).values, torch.arange(N))
+    grads = torch.from_numpy(_msgs(7))
+    out = tbyz.make_attack_fn(tcfg)(grads, rand.byz_mask, rand.attack_noise)
+    byz = rand.byz_mask > 0
+    assert torch.equal(out[~byz], grads[~byz])
+    assert torch.equal(out[byz], 10.0 * rand.attack_noise[byz])
