@@ -11,7 +11,7 @@ and prints one JSON line per phase:
                  as ``nvcc -Xptxas -v`` reported them when they were built;
   trajectory     the paper's Section-VII trainer on the card (N=100,
                  dim=100, 200 rounds) for every Fig. 4 row (DRACO-d41 at
-                 N=82), three Fig. 6 rows, and Com-CWTM, Com-LAD-CWTM and
+                 N=82), every Fig. 6 row, and Com-CWTM, Com-LAD-CWTM and
                  Com-LAD-CWTM-NNM under QSGD at 4 levels (``quant:4``);
                  asserts the paper's orderings and holds the
                  LAD-CWTM-NNM-d10 and quant:4 Com-LAD-CWTM loss curves
@@ -28,6 +28,17 @@ and prints one JSON line per phase:
                  gaussian attack): asserts the final iterate, every metric
                  and the participation state equal bit for bit, and prints
                  ms per round of both;
+  grid           ``scenarios.run_grid``, each bucket one captured round of
+                 all its lanes replayed 200 times: ``section7_grid()`` (5
+                 buckets), Fig. 4, Fig. 6 (``exact=False``), the quant:4
+                 rows, ``participation_sweep()``, and
+                 ``synthetic_sweep(1000)`` at N=16 (unchunked and in
+                 chunks of 64) and at N=100 (100,000 encode rows); every
+                 lane checked bit for bit against the standalone run of
+                 its row (the earlier phases' runs where they ran it), per
+                 bucket its lanes, draw groups, captured launches and
+                 replay ms a round, per call its ms, peak memory and, for
+                 the sweeps, lanes x rounds a second;
   participation  the K-of-N erasure sweep (N=16, d=4, dim=32, 400 rounds):
                  the erasure decode against the mean at e = 0..3 erased rows;
                  asserts N - e reports every round and that the decode's
@@ -379,20 +390,21 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
 TRAJECTORY_KERNELS = ("gather_combine", "attack", "cwtm", "gram", "quantize")  # what the trainer rows reach
 
 
-def trajectory_phase(S, byz, ops, gen_problem) -> dict:
+def trajectory_phase(S, byz, ops, gen_problem) -> tuple[dict, dict]:
     """Fig. 4 and Fig. 6 rows on the card, 200 rounds each,
     and three Fig. 6 rows under QSGD at 4 levels (``quant:4``, the fleet's
     wire format) in place of random sparsification.
 
     Every row trains on one problem drawn from seed 0, as each figure's
     example does (examples/linear_regression_paper.py,
-    examples/compressed_training.py)."""
+    examples/compressed_training.py). Returns the phase's line and what the
+    grid phase reuses: the problem, the rows, their results and the
+    CPU-drawn records of the two rows held against the CPU."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     problem = gen_problem(gen, n=100, dim=100, sigma_h=0.3)
     quant = {f"{k}/quant:4": dataclasses.replace(S.PAPER_FIG6[k], name=f"{k}/quant:4", compressor="quant:4")
              for k in ("Com-CWTM", "Com-LAD-CWTM", "Com-LAD-CWTM-NNM")}
-    rows = [S.PAPER_FIG4[k] for k in S.PAPER_FIG4] + [
-        S.PAPER_FIG6[k] for k in ("Com-CWTM", "Com-LAD-CWTM", "Com-TGN")] + list(quant.values())
+    rows = [S.PAPER_FIG4[k] for k in S.PAPER_FIG4] + [S.PAPER_FIG6[k] for k in S.PAPER_FIG6] + list(quant.values())
     nnm = S.PAPER_FIG4["LAD-CWTM-NNM-d10"]
     qlad = quant["Com-LAD-CWTM/quant:4"]
     cpu_gen = torch.Generator().manual_seed(1)
@@ -431,7 +443,7 @@ def trajectory_phase(S, byz, ops, gen_problem) -> dict:
     for name in TRAJECTORY_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the trainer")
     check(launches["cwtm_nnm"] > 0, "the CWTM-NNM rows did not take the fused CWTM-NNM launch")
-    return {"phase": "trajectory", "launches": launches, "rounds": STEPS, "n_devices": 100, "dim": 100,
+    line = {"phase": "trajectory", "launches": launches, "rounds": STEPS, "n_devices": 100, "dim": 100,
             "final_loss": final, "ms_per_round": ms_per_round,
             "card_vs_cpu_max_rel_loss": rel, "tolerance": TRAJECTORY_RTOL,
             "orderings": {"LAD-CWTM-d10<CWTM": True, "DRACO-d41<min(LAD-CWTM-d20,CWTM)": True,
@@ -439,17 +451,19 @@ def trajectory_phase(S, byz, ops, gen_problem) -> dict:
                           "quant:4 Com-LAD-CWTM-NNM<Com-CWTM": True},
             "reported_not_asserted": {"quant:4 Com-LAD-CWTM<Com-CWTM":
                                       final["Com-LAD-CWTM/quant:4"] < final["Com-CWTM/quant:4"]}}
+    return line, {"problem": problem, "quant_rows": list(quant.values()), "results": results, "records": shared}
 
 
 # ------------------------------------------------------- section 7, graph
 
 
-def section7_phase(S, replayed: dict[str, int]) -> dict:
+def section7_phase(S, replayed: dict[str, int]) -> tuple[dict, dict]:
     """The 15 rows of ``section7_grid()``, 200 rounds each in graph mode,
     each on its own problem from seed 0, as the reference's
     ``benchmarks/paper_figures.py::section7_sweep`` runs them. Adds each
-    row's replayed launches (captured x replays) to ``replayed``."""
-    final, ms_per_round, replay_ms_per_round, captured = {}, {}, {}, {}
+    row's replayed launches (captured x replays) to ``replayed``. Returns
+    the phase's line and each row's result."""
+    final, ms_per_round, replay_ms_per_round, captured, results = {}, {}, {}, {}, {}
     for scn in S.section7_grid():
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -461,13 +475,14 @@ def section7_phase(S, replayed: dict[str, int]) -> dict:
         check(loss.shape == (STEPS,) and bool(torch.isfinite(loss).all()), f"{scn.name}: bad loss")
         check(res.graph.replays == STEPS, f"{scn.name}: {res.graph.replays} replays")
         final[scn.name] = float(loss[-1])
+        results[scn.name] = res
         captured[scn.name] = {k: v for k, v in res.graph.captured_launches.items() if v}
         for k, v in res.graph.captured_launches.items():
             replayed[k] += v * res.graph.replays
     check(len(final) == 15, f"section7_grid gave {len(final)} rows")
     return {"phase": "section7", "rows": len(final), "rounds": STEPS, "mode": "graph", "final_loss": final,
             "ms_per_round": ms_per_round, "replay_ms_per_round": replay_ms_per_round,
-            "captured_launches_per_round": captured}
+            "captured_launches_per_round": captured}, results
 
 
 def graph_rows(S) -> list:
@@ -514,6 +529,140 @@ def graph_phase(S, replayed: dict[str, int]) -> dict:
                           "final_loss": float(results["graph"].metrics["loss"][-1]),
                           "captured_launches_per_round": {k: v for k, v in stats.captured_launches.items() if v}}
     return {"phase": "graph", "rounds": STEPS, "rows": rows}
+
+
+# ---------------------------------------------------------------------- grid
+
+SWEEP_CHUNK = 64  # lanes per chunk of the chunked 1000-lane sweep: 16 chunks, the last one padded
+
+
+def lanes_equal(grid_res, alone, what: str) -> None:
+    """A grid lane and a standalone run agree bit for bit (``same_bits``)."""
+    check(same_bits(grid_res, alone), f"grid {what}: differs from its standalone run")
+
+
+def grid_phase(S, trajectory: dict, section7: dict, replayed: dict[str, int]) -> dict:
+    """``scenarios.run_grid`` on the card, each bucket one captured round of
+    all its lanes replayed 200 times (``mode="graph"``):
+
+      * ``section7_grid()`` (15 rows, 5 buckets), each lane held bit for bit
+        to the ``section7`` phase's graph-mode run of its row;
+      * Fig. 4 (``exact=True``) and Fig. 6 (``exact=False``) on the shared
+        seed-0 problem, as the examples run them, and the three ``quant:4``
+        rows (``exact=False``: the two LAD rows share a bucket), each lane
+        held to the ``trajectory`` phase's loop-mode run of its row (the
+        rows that phase drew on the CPU read the same records here);
+      * ``participation_sweep()`` (iid, onoff and adversarial, decode and
+        mean, N=16, dim=32, ``exact=False``: one bucket a schedule), held
+        to standalone graph-mode runs of the same rows;
+      * ``synthetic_sweep(1000, n_devices=16, n_byz=3)`` at dim=32 (the
+        reference's ``grid_sharded`` configuration), unchunked and in chunks
+        of 64 lanes, bit for bit, and eight lanes held to standalone runs:
+        the first and the last, one of each attack, and the lanes on both
+        sides of the first chunk boundary and of the padded last chunk's;
+      * ``synthetic_sweep(1000, n_devices=100, n_byz=20)`` at dim=100, the
+        paper's width in 1000 lanes (100,000 folded encode rows), three
+        lanes held to standalone runs.
+
+    Adds every chunk's replayed launches to ``replayed``."""
+    out = {"phase": "grid", "rounds": STEPS, "mode": "graph", "calls": {}}
+
+    def run(name, rows, standalone_replay=None, **kw):
+        """One ``run_grid`` call: its host time, and per bucket the lanes,
+        draw groups, chunks, captured launches and replay ms a round."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        res = S.run_grid(rows, STEPS, seed=0, device="cuda", **kw)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - start) * 1e3
+        buckets = {}
+        for row in rows:
+            stats = res[row.name].grid
+            buckets.setdefault(id(stats), (stats, []))[1].append(row.name)
+        lines = []
+        for stats, names in buckets.values():
+            check(len(stats.graphs) == stats.chunks and all(g.replays == STEPS for g in stats.graphs),
+                  f"grid {name}: a chunk was not replayed {STEPS} times")
+            for g in stats.graphs:
+                for k, v in g.captured_launches.items():
+                    replayed[k] += v * g.replays
+            alone = None
+            if standalone_replay is not None and all(n in standalone_replay for n in names):
+                alone = sum(standalone_replay[n] for n in names)
+            lines.append({"lanes": stats.lanes, "draw_groups": stats.draw_groups, "chunk": stats.chunk,
+                          "chunks": stats.chunks, "branches": stats.branches,
+                          "captured_launches_per_round": {k: v for k, v in stats.captured_launches().items() if v},
+                          "replay_ms_per_round": stats.replay_ms() / STEPS,
+                          "standalone_replay_ms_per_round_sum": alone, "first_row": names[0]})
+        for row in rows:
+            loss = res[row.name].metrics["loss"]
+            check(loss.shape == (STEPS,) and bool(torch.isfinite(loss).all()), f"grid {name}: {row.name} bad loss")
+        out["calls"][name] = {"rows": len(rows), "buckets": lines, "call_ms": call_ms,
+                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return res
+
+    # section 7: each row on its own seed-0 problem, as the section7 phase ran it
+    rows = S.section7_grid()
+    res = run("section7", rows, {n: r.graph.replay_ms() / STEPS for n, r in section7.items()})
+    check(len(out["calls"]["section7"]["buckets"]) == 5, "section7_grid did not take 5 buckets")
+    for row in rows:
+        lanes_equal(res[row.name], section7[row.name], row.name)
+
+    # Fig. 4, Fig. 6 and quant:4 on the trajectory phase's problem and records
+    problem, records, done = trajectory["problem"], trajectory["records"], trajectory["results"]
+
+    def provider(scn):
+        recs = records.get(scn.name)
+        return None if recs is None else (lambda t: recs[t])
+
+    for name, rows, exact in (("fig4", list(S.PAPER_FIG4.values()), True),
+                              ("fig6", list(S.PAPER_FIG6.values()), False),
+                              ("quant4", trajectory["quant_rows"], False)):
+        res = run(name, rows, problem=problem, exact=exact, randomness=provider)
+        for row in rows:
+            lanes_equal(res[row.name], done[row.name], row.name)
+    check(len(out["calls"]["fig6"]["buckets"]) == 2, "PAPER_FIG6 did not take 2 buckets under exact=False")
+
+    # the participation sweep, against standalone graph-mode runs
+    rows = S.participation_sweep()
+    alone = {r.name: S.run_scenario(r, STEPS, seed=0, dim=PART_DIM, device="cuda", mode="graph") for r in rows}
+    res = run("participation", rows, {n: r.graph.replay_ms() / STEPS for n, r in alone.items()}, dim=PART_DIM,
+              exact=False)
+    for row in rows:
+        lanes_equal(res[row.name], alone[row.name], row.name)
+
+    # the 1000-lane sweeps
+    def sweep(name, rows, dim, picks, **kw):
+        res = run(name, rows, dim=dim, **kw)
+        info = out["calls"][name]
+        info["lanes_rounds_per_s_call"] = len(rows) * STEPS / (info["call_ms"] / 1e3)
+        info["lanes_rounds_per_s_replays"] = len(rows) * STEPS / (
+            sum(b["replay_ms_per_round"] for b in info["buckets"]) * STEPS / 1e3)
+        for i in picks:
+            lanes_equal(res[rows[i].name], S.run_scenario(rows[i], STEPS, seed=0, dim=dim, device="cuda",
+                                                          mode="graph"), rows[i].name)
+        info["lanes_checked_against_standalone"] = sorted(picks)
+        return res
+
+    rows = S.synthetic_sweep(1000, n_devices=16, n_byz=3)
+    attacks = list(dict.fromkeys(r.attack for r in rows))
+    order = sorted(range(len(rows)), key=lambda i: attacks.index(rows[i].attack))  # the lanes' sorted order
+    last = (len(rows) // SWEEP_CHUNK) * SWEEP_CHUNK  # the padded last chunk starts here
+    picks = {0, len(rows) - 1, order[SWEEP_CHUNK - 1], order[SWEEP_CHUNK], order[last - 1], order[last]}
+    picks |= {next(i for i, r in enumerate(rows) if r.attack == a) for a in attacks}
+    check(len(picks) == 8, f"sweep lanes picked: {sorted(picks)}")
+    whole = sweep("sweep1000_n16", rows, PART_DIM, picks)
+    chunked = sweep("sweep1000_n16_chunked", rows, PART_DIM, (), max_lanes_per_device=SWEEP_CHUNK)
+    check(out["calls"]["sweep1000_n16_chunked"]["buckets"][0]["chunks"] == -(-len(rows) // SWEEP_CHUNK),
+          "the chunked sweep did not take 16 chunks")
+    for row in rows:
+        lanes_equal(chunked[row.name], whole[row.name], f"{row.name} chunked")
+    del whole, chunked
+    rows = S.synthetic_sweep(1000, n_devices=100, n_byz=20)
+    sweep("sweep1000_n100", rows, 100, {0, len(rows) // 2, len(rows) - 1})
+    out["bitwise"] = True
+    return out
 
 
 # ------------------------------------------------------------- participation
@@ -575,8 +724,9 @@ def _marked_round(byz, cfg, grads, rand, *, server=None, participation_mask=None
         ev.record()
         events.append((stage, ev))
 
-    g = byz.protocol_round(cfg, grads, rand, device="cuda", stage_hook=hook,
-                           server_fn=server(hook) if server else None, participation_mask=participation_mask)
+    servers = (byz.LaneBranch(0, 1, server(hook)),) if server else None
+    g = byz.protocol_round(cfg, grads, rand, device="cuda", stage_hook=hook, server_branches=servers,
+                           participation_mask=participation_mask)
     torch.cuda.synchronize()
     stages = {events[i][0]: events[i - 1][1].elapsed_time(events[i][1]) for i in range(1, len(events))}
     return g, stages, torch.cuda.max_memory_allocated() / 1e9, want
@@ -760,9 +910,12 @@ def main() -> int:
 
     ops.reset_launch_counts()
     replayed = {name: 0 for name in ops.KERNELS}  # launches of graph replays, which no counter sees
-    emit(trajectory_phase(scenarios, byzantine, ops, linear_regression_problem))
-    emit(section7_phase(scenarios, replayed))
+    line, trajectory = trajectory_phase(scenarios, byzantine, ops, linear_regression_problem)
+    emit(line)
+    line, section7 = section7_phase(scenarios, replayed)
+    emit(line)
     emit(graph_phase(scenarios, replayed))
+    emit(grid_phase(scenarios, trajectory, section7, replayed))
     emit(participation_phase(scenarios))
     emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
     launches = ops.launch_counts()

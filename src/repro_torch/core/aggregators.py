@@ -1,4 +1,11 @@
-"""kappa-robust aggregation rules (Definition 1): ``(N, Q) -> (Q,)``.
+"""kappa-robust aggregation rules (Definition 1): ``(..., N, Q) -> (..., Q)``.
+
+Leading axes are lanes (independent scenarios of a grid). Every sum over
+the device axis N or the coordinate axis Q is ``numerics.tree_sum``'s fixed
+tree, so lane ``i`` of a batched call equals the single call bit for bit.
+The sums run as one launch of the row-combine kernel (``_sum_rows``,
+``_sum_last``), which adds its rows as that tree, rather than one launch per
+level of the tree.
 
 The reference's nine rules: ``mean`` (the VA baseline), ``median`` and
 ``cwtm`` (through the CWTM kernel), ``geomed`` (Weiszfeld), ``krum`` and
@@ -28,7 +35,9 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.coded_combine import MAX_ROWS
 from repro_torch.kernels.ref import nnm_mix_ref
+from repro_torch.numerics import tree_sum, tree_sum_
 
 Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
@@ -37,8 +46,29 @@ __all__ = ["mean", "coordinate_median", "cwtm", "geometric_median", "krum_scores
            "make_aggregator", "AGGREGATORS"]
 
 
+def _sum_rows(x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum_r w[..., r] * x[..., r, :]`` over the rows of x (..., R, C)
+    (unit weights when ``w`` is None): ``tree_sum``'s tree of the products,
+    as one ``masked_combine`` launch (its kernel adds them as that tree, bit
+    for bit); past the kernel's ``MAX_ROWS`` rows, ``tree_sum`` itself."""
+    if x.shape[-2] > MAX_ROWS:
+        return tree_sum(x if w is None else x * w[..., None], dim=-2)
+    return kernel_ops.masked_combine(x.contiguous(), x.new_ones(x.shape[:-1]) if w is None else w.contiguous())
+
+
+def _sum_last(v: torch.Tensor) -> torch.Tensor:
+    """``tree_sum(v, dim=-1)`` of v (..., K): the K terms of every entry
+    moved to the rows of one (K, M) stack and summed by one ``_sum_rows``
+    launch; past ``MAX_ROWS`` terms, the tree in place (``v`` is then
+    overwritten: callers hand over temporaries)."""
+    k = v.shape[-1]
+    if k > MAX_ROWS:
+        return tree_sum_(v, dim=-1)
+    return _sum_rows(v.movedim(-1, 0).reshape(1, k, -1))[0].reshape(v.shape[:-1])
+
+
 def mean(msgs: torch.Tensor) -> torch.Tensor:
-    return torch.mean(msgs, dim=0)
+    return _sum_rows(msgs) * (1.0 / msgs.shape[-2])
 
 
 def coordinate_median(msgs: torch.Tensor) -> torch.Tensor:
@@ -50,17 +80,18 @@ def coordinate_median(msgs: torch.Tensor) -> torch.Tensor:
 
 
 def _vector_median(v: torch.Tensor) -> torch.Tensor:
-    """Median of a (N,) vector: sort, then the mean of the middle pair."""
-    n = v.shape[0]
-    srt = torch.sort(v).values
-    return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
+    """Median along the last axis of (..., N): sort, then the mean of the
+    middle pair."""
+    n = v.shape[-1]
+    srt = torch.sort(v, dim=-1).values
+    return (srt[..., (n - 1) // 2] + srt[..., n // 2]) * 0.5
 
 
 def cwtm(msgs: torch.Tensor, trim_frac: float = 0.1, neighbours: torch.Tensor | None = None) -> torch.Tensor:
     """Coordinate-wise trimmed mean: drop the ``f = int(trim_frac * N)``
     largest and smallest values per coordinate, average the rest; after the
     NNM mix of ``neighbours`` (see ``nnm_neighbours``) when given."""
-    n = msgs.shape[0]
+    n = msgs.shape[-2]
     f = int(trim_frac * n)
     if 2 * f >= n:
         raise ValueError(f"trim_frac={trim_frac} removes all {n} messages")
@@ -69,12 +100,12 @@ def cwtm(msgs: torch.Tensor, trim_frac: float = 0.1, neighbours: torch.Tensor | 
 
 def geometric_median(msgs: torch.Tensor, iters: int = 8, eps: float = 1e-8) -> torch.Tensor:
     """Weiszfeld iterations for the geometric median, from the mean. Each
-    step holds one (N, Q) temporary at a time."""
-    z = torch.mean(msgs, dim=0)
+    step holds one (..., N, Q) temporary at a time."""
+    z = mean(msgs)
     for _ in range(iters):
-        dist = torch.sqrt(torch.sum((msgs - z).square_(), dim=1) + eps)  # (N,)
+        dist = torch.sqrt(_sum_last((msgs - z[..., None, :]).square_()) + eps)  # (..., N)
         w = 1.0 / dist
-        z = torch.sum(w[:, None] * msgs, dim=0) / torch.sum(w)
+        z = _sum_rows(msgs, w) / _sum_last(w)[..., None]
     return z
 
 
@@ -84,41 +115,51 @@ def _smallest(values: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(values, dim=-1, stable=True).indices[..., :k]
 
 
+def _rows(msgs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` (..., k) of msgs (..., N, Q), in that order: (..., k, Q)."""
+    return torch.gather(msgs, -2, idx[..., None].expand(idx.shape + msgs.shape[-1:]))
+
+
+def _mean_of_rows(msgs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The mean of the rows ``idx`` (..., k), summed as a tree in ``idx``'s
+    order."""
+    return _sum_rows(_rows(msgs, idx)) * (1.0 / idx.shape[-1])
+
+
 def tgn(msgs: torch.Tensor, thresh_frac: float = 0.2, n_byz: int = 0) -> torch.Tensor:
     """Thresholding on gradient norms [19] (Com-TGN): drop the ``f`` messages
     with the largest norms, average the rest."""
-    n = msgs.shape[0]
+    n = msgs.shape[-2]
     f = min(max(int(thresh_frac * n), n_byz), n - 1)
-    norms = torch.sum(msgs * msgs, dim=1)
-    return torch.mean(msgs[_smallest(norms, n - f)], dim=0)
+    norms = _sum_last(msgs * msgs)
+    return _mean_of_rows(msgs, _smallest(norms, n - f))
 
 
 def krum_scores(msgs: torch.Tensor, n_byz: int) -> torch.Tensor:
-    """Krum's scores (N,): each message's summed squared distance to its
+    """Krum's scores (..., N): each message's summed squared distance to its
     ``max(N - b - 2, 1)`` nearest other messages, the distances from the
     Gram kernel and its own distance selected away as ``+inf``."""
-    n = msgs.shape[0]
+    n = msgs.shape[-2]
     k = max(n - n_byz - 2, 1)
     d2 = kernel_ops.pairwise_sqdist(msgs)
     d2 = torch.where(torch.eye(n, dtype=torch.bool, device=d2.device), torch.inf, d2)
-    return torch.sum(torch.sort(d2, dim=1).values[:, :k], dim=1)
+    return _sum_last(torch.sort(d2, dim=-1).values[..., :k])
 
 
 def krum(msgs: torch.Tensor, n_byz: int | None = None) -> torch.Tensor:
     """The message of least Krum score (the first such message on a tie);
     ``b = N // 4`` when ``n_byz`` is not given."""
-    b = msgs.shape[0] // 4 if n_byz is None else n_byz
-    return torch.index_select(msgs, 0, torch.argmin(krum_scores(msgs, b)).reshape(1))[0]
+    b = msgs.shape[-2] // 4 if n_byz is None else n_byz
+    return _rows(msgs, torch.argmin(krum_scores(msgs, b), dim=-1, keepdim=True))[..., 0, :]
 
 
 def multi_krum(msgs: torch.Tensor, n_byz: int | None = None, m: int | None = None) -> torch.Tensor:
     """The mean of the ``m`` messages of least Krum score (``m = N - b``;
     ties to the lower index)."""
-    n = msgs.shape[0]
+    n = msgs.shape[-2]
     b = n // 4 if n_byz is None else n_byz
     m = n - b if m is None else m
-    idx = _smallest(krum_scores(msgs, b), m)
-    return torch.mean(torch.index_select(msgs, 0, idx), dim=0)
+    return _mean_of_rows(msgs, _smallest(krum_scores(msgs, b), m))
 
 
 def mcc(msgs: torch.Tensor, sigma: float = 1.0, iters: int = 4) -> torch.Tensor:
@@ -127,15 +168,15 @@ def mcc(msgs: torch.Tensor, sigma: float = 1.0, iters: int = 4) -> torch.Tensor:
     of the squared distances, from the coordinate-wise median."""
     z = coordinate_median(msgs)
     for _ in range(iters):
-        d2 = torch.sum((msgs - z).square_(), dim=1)  # (N,)
-        s = _vector_median(d2) + 1e-12
+        d2 = _sum_last((msgs - z[..., None, :]).square_())  # (..., N)
+        s = _vector_median(d2)[..., None] + 1e-12
         w = torch.exp(-d2 / (2.0 * sigma**2 * s))
-        z = torch.sum(w[:, None] * msgs, dim=0) / (torch.sum(w) + 1e-12)
+        z = _sum_rows(msgs, w) / (_sum_last(w)[..., None] + 1e-12)
     return z
 
 
 def nnm_neighbours(d2: torch.Tensor, n_byz: int) -> torch.Tensor:
-    """NNM's selection from the (N, N) squared distances: row n holds the
+    """NNM's selection from the (..., N, N) squared distances: row n holds the
     ids of its ``N - b`` nearest neighbours (itself included, ties to the
     lower index), in ascending order, as int32. Built on ``d2``'s device;
     nothing is read back."""

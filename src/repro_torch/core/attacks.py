@@ -1,11 +1,11 @@
-"""Byzantine attacks: ``(msgs (N, Q), byz_mask (N,), noise) -> transmitted
-(N, Q)``.
+"""Byzantine attacks: ``(msgs (..., N, Q), byz_mask (..., N), noise) ->
+transmitted (..., N, Q)``; leading axes are lanes.
 
 The paper's sign-flip (coefficient -2) and the ALIE and IPM collusion
 attacks run through the attack kernel (``kernels/ops.py::attack``) on a
 CUDA tensor and through its plain version on the CPU. ``none``, ``zero``,
 ``label_shift`` and ``gaussian`` are plain tensor code. ``gaussian`` is the
-only attack that reads ``noise``: the round's ``(N, Q)`` standard normals
+only attack that reads ``noise``: the round's ``(..., N, Q)`` standard normals
 (``RoundRandomness.attack_noise``), drawn outside the round.
 """
 from __future__ import annotations
@@ -25,23 +25,23 @@ __all__ = ["Attack", "AttackSpec", "gaussian", "make_attack", "sample_byzantine_
 
 
 def _zero(msgs: torch.Tensor, mask: torch.Tensor, noise=None) -> torch.Tensor:
-    return torch.where(mask[:, None] > 0, torch.zeros_like(msgs), msgs)
+    return torch.where(mask[..., None] > 0, torch.zeros_like(msgs), msgs)
 
 
 def _label_shift(msgs: torch.Tensor, mask: torch.Tensor, noise=None) -> torch.Tensor:
     """Gradient-space proxy for label flipping: negate."""
-    return torch.where(mask[:, None] > 0, -1.0 * msgs, msgs)
+    return torch.where(mask[..., None] > 0, -1.0 * msgs, msgs)
 
 
 def gaussian(msgs: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor | None = None,
              std: float = 10.0) -> torch.Tensor:
     """Byzantine rows become ``std * noise``, honest rows stay. The select
-    writes one (N, Q) stack and scales it in place: an honest row times
+    writes one (..., N, Q) stack and scales it in place: an honest row times
     exact 1.0 keeps its bits, a Byzantine row is ``noise * std``, the
     reference's ``std * normal``."""
     if noise is None or noise.shape != msgs.shape:
         raise ValueError(f"the gaussian attack needs noise of the messages' shape {tuple(msgs.shape)}")
-    byz = mask[:, None] > 0
+    byz = mask[..., None] > 0
     return torch.where(byz, noise, msgs).mul_(torch.where(byz, std, 1.0))
 
 

@@ -20,6 +20,12 @@ erasure decode; group medians through the CWTM kernel for DRACO).
 The round draws nothing itself: its random choices come in as a
 ``RoundRandomness`` record, so a test can hand it the reference's own
 draws and production draws them from a ``torch.Generator``.
+
+The round takes a leading lane axis of independent scenarios: an ``(L, N,
+Q)`` gradient stack with ``(L, ...)`` records gives ``(L, Q)`` aggregates,
+and an ``(N, Q)`` stack is the ``L = 1`` case of the same code. The lanes
+may split into ``LaneBranch`` runs of attacks and of servers: each attack
+and each server is one call over its contiguous run of lanes.
 """
 from __future__ import annotations
 
@@ -41,7 +47,9 @@ from repro_torch.numerics import stable_masked_mean0
 __all__ = [
     "ProtocolConfig",
     "RoundRandomness",
+    "LaneBranch",
     "sample_round_randomness",
+    "draw_signature",
     "make_attack_fn",
     "make_server_fn",
     "protocol_round",
@@ -100,7 +108,9 @@ class ProtocolConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RoundRandomness:
-    """Every random choice of one round.
+    """Every random choice of one round. Every field may carry leading lane
+    axes (one record per lane of a grid, or per round of
+    ``engine.protocol_rounds``), the same on every field.
 
     Attributes:
       task_index: ``(N,)`` the task-matrix row each device runs;
@@ -126,10 +136,23 @@ class RoundRandomness:
     part_u: torch.Tensor | None = None
     attack_noise: torch.Tensor | None = None
 
-    def to(self, device: torch.device | str) -> "RoundRandomness":
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "RoundRandomness":
+        """``fn`` applied to every field that is not ``None``."""
         return RoundRandomness(**{
-            f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+            f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
             for f in dataclasses.fields(self)
+        })
+
+    def to(self, device: torch.device | str) -> "RoundRandomness":
+        return self.map(lambda v: v.to(device))
+
+    @staticmethod
+    def stack(records: "list[RoundRandomness]") -> "RoundRandomness":
+        """The records as one record with a new leading axis."""
+        return RoundRandomness(**{
+            f.name: None if getattr(records[0], f.name) is None
+            else torch.stack([getattr(r, f.name) for r in records])
+            for f in dataclasses.fields(RoundRandomness)
         })
 
     def validate(self, n: int, q: int) -> None:
@@ -138,31 +161,32 @@ class RoundRandomness:
         mask of ``n`` devices, keep-indices in ``[0, q)``, uniforms in
         ``[0, 1)`` of shape ``(n, q)`` (``quant_u``) and ``(n,)``
         (``part_u``), finite float32 normals of shape ``(n, q)``
-        (``attack_noise``).
+        (``attack_noise``); each with the same leading lane axes, if any.
 
         Reads the tensors on the host (a device sync when they lie on a
         card); ``sample_round_randomness`` needs no check, a record built
         anywhere else is checked once where it enters the trainer."""
+        lead = tuple(self.task_index.shape[:-1])
         ids = torch.arange(n)
         for name in ("task_index", "subset_perm"):
             t = getattr(self, name).cpu()
-            if t.shape != (n,) or not torch.equal(torch.sort(t.long()).values, ids):
+            if t.shape != lead + (n,) or not bool((torch.sort(t.long(), dim=-1).values == ids).all()):
                 raise ValueError(f"RoundRandomness.{name} is not a permutation of [0, {n})")
         mask = self.byz_mask.cpu()
-        if mask.shape != (n,) or not bool(((mask == 0) | (mask == 1)).all()):
+        if mask.shape != lead + (n,) or not bool(((mask == 0) | (mask == 1)).all()):
             raise ValueError(f"RoundRandomness.byz_mask must be ({n},) 0/1")
         if self.keep_idx is not None:
             keep = self.keep_idx.cpu()
-            if keep.ndim != 2 or keep.shape[0] != n or (
+            if keep.shape[:-1] != lead + (n,) or (
                     keep.numel() and (int(keep.min()) < 0 or int(keep.max()) >= q)):
                 raise ValueError(f"RoundRandomness.keep_idx must be ({n}, q_hat) ids in [0, {q})")
         for name, shape in (("quant_u", (n, q)), ("part_u", (n,))):
             u = getattr(self, name)
-            if u is not None and (u.shape != shape or u.dtype != torch.float32
+            if u is not None and (u.shape != lead + shape or u.dtype != torch.float32
                                   or not bool(((u >= 0) & (u < 1)).all())):
                 raise ValueError(f"RoundRandomness.{name} must be {shape} float32 in [0, 1)")
         noise = self.attack_noise
-        if noise is not None and (noise.shape != (n, q) or noise.dtype != torch.float32
+        if noise is not None and (noise.shape != lead + (n, q) or noise.dtype != torch.float32
                                   or not bool(torch.isfinite(noise).all())):
             raise ValueError(f"RoundRandomness.attack_noise must be ({n}, {q}) finite float32")
 
@@ -200,14 +224,43 @@ def sample_round_randomness(cfg: ProtocolConfig, q: int, generator: torch.Genera
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class LaneBranch:
+    """The lanes ``[start, stop)`` of a batched round and the attack or the
+    server they run (``make_attack_fn`` / ``make_server_fn`` of their
+    configuration): one call over that slice of lanes."""
+
+    start: int
+    stop: int
+    fn: Callable
+
+
+def _branches(given: tuple[LaneBranch, ...] | None, make: Callable[[], Callable],
+              lanes: int) -> tuple[LaneBranch, ...]:
+    """``given``, checked to cover lanes ``[0, lanes)`` in consecutive runs,
+    or one run of ``make()`` over them all."""
+    runs = given if given is not None else (LaneBranch(0, lanes, make()),)
+    if runs[0].start != 0 or runs[-1].stop != lanes or any(a.stop != b.start for a, b in zip(runs, runs[1:])):
+        raise ValueError(f"branches must cover lanes [0, {lanes}) in consecutive runs")
+    return runs
+
+
+def draw_signature(cfg: ProtocolConfig) -> tuple:
+    """What decides which tensors ``sample_round_randomness`` draws for
+    ``cfg``, and in what order: configurations with the same signature draw
+    the same records from generators seeded alike."""
+    return (cfg.n_devices, cfg.method, cfg.effective_d(), cfg.n_byz, cfg.attack.fixed_identity,
+            cfg.compression, cfg.participation.active, cfg.attack.name == "gaussian")
+
+
 def make_attack_fn(cfg: ProtocolConfig) -> attack_lib.Attack:
     """The corruption map ``(msgs, mask, noise) -> transmitted`` of ``cfg``."""
     return dataclasses.replace(cfg.attack, n_byz=cfg.n_byz).make()
 
 
 def _masked_server_fn(cfg: ProtocolConfig) -> Callable:
-    """The participation-aware server ``(transmitted, pmask, task_index) ->
-    (Q,)``, in three regimes:
+    """The participation-aware server ``(transmitted (..., N, Q), pmask (...,
+    N), task_index (..., N)) -> (..., Q)``, in three regimes:
 
       * ``aggregator="decode"``: the cyclic K-of-N erasure decode, exact
         while the erasures stay within the margin ``d - 1`` (needs ``d |
@@ -238,18 +291,19 @@ def _masked_server_fn(cfg: ProtocolConfig) -> Callable:
 
     def masked_server(t: torch.Tensor, pm: torch.Tensor, task_index: torch.Tensor) -> torch.Tensor:
         del task_index
-        imputed = stable_masked_mean0(t, pm)
-        return base(torch.where(pm[:, None] > 0.0, t, imputed[None, :]))
+        imputed = stable_masked_mean0(t, pm, dim=-2)
+        return base(torch.where(pm[..., None] > 0.0, t, imputed[..., None, :]))
 
     return masked_server
 
 
 def make_server_fn(cfg: ProtocolConfig) -> Callable:
-    """The server of ``cfg``. At full participation ``(N, Q) -> (Q,)``: CWTM
+    """The server of ``cfg``, over any leading lane axes. At full
+    participation ``(..., N, Q) -> (..., Q)``: CWTM
     and ``median`` run through the CWTM kernel, the ``-nnm`` rules and Krum
     through the Gram kernel (see ``aggregators``), DRACO is its group
     decode (``coding.draco_decode``). Under an active participation schedule
-    ``(transmitted, pmask, task_index) -> (Q,)`` (see
+    ``(transmitted, pmask, task_index) -> (..., Q)`` (see
     ``_masked_server_fn``)."""
     if cfg.participation.active:
         return _masked_server_fn(cfg)
@@ -269,43 +323,57 @@ def protocol_round(
     rand: RoundRandomness,
     *,
     device: torch.device | str | None = None,
-    attack_fn: attack_lib.Attack | None = None,
-    server_fn: Callable | None = None,
+    attack_branches: tuple[LaneBranch, ...] | None = None,
+    server_branches: tuple[LaneBranch, ...] | None = None,
     participation_mask: torch.Tensor | None = None,
     stage_hook: Callable[[str], None] | None = None,
 ) -> torch.Tensor:
-    """One full protocol round.
+    """One full protocol round, over a leading lane axis of independent
+    scenarios.
 
     Args:
-      cfg: protocol configuration.
-      subset_grads: ``(N, Q)`` fp32, the gradient of every data subset.
-      rand: this round's random choices, on the round's device.
+      cfg: protocol configuration (the lanes' shared static structure).
+      subset_grads: ``(L, N, Q)`` fp32, the gradient of every data subset in
+        every lane; an ``(N, Q)`` stack is the ``L = 1`` case (its records
+        and mask carry no lane axis, and the result is ``(Q,)``).
+      rand: this round's random choices, ``(L, ...)`` on the round's device.
       device: where the round runs; ``cuda`` when not given (no CUDA then
         raises). ``subset_grads`` must already lie there.
-      attack_fn / server_fn: overrides of ``make_attack_fn(cfg)`` /
-        ``make_server_fn(cfg)``.
-      participation_mask: ``(N,)`` 0/1 float mask of the reporting devices;
-        needs an active ``cfg.participation``, where ``None`` means every
-        device reports through the masked path. The erased rows are zeroed
-        after the attack (the collusion statistics see the whole stack; an
-        erased attacker sends nothing) and the mask-aware server decodes the
-        rest.
+      attack_branches / server_branches: consecutive ``LaneBranch`` runs
+        that cover ``[0, L)``, each with its own attack (server); when not
+        given, ``make_attack_fn(cfg)`` (``make_server_fn(cfg)``) runs on
+        every lane. The attacks' outputs are joined into one stack when
+        there are several runs.
+      participation_mask: ``(L, N)`` 0/1 float mask of the reporting
+        devices; needs an active ``cfg.participation``, where ``None``
+        means every device reports through the masked path. The erased rows
+        are zeroed after the attack (the collusion statistics see the whole
+        stack; an erased attacker sends nothing) and the mask-aware server
+        decodes the rest.
       stage_hook: called with ``"encode"``, ``"compress"``, ``"attack"``,
         ``"erase"`` (active participation only) and ``"server"`` as each
         stage has been enqueued (for stage timing).
 
     Returns:
-      ``(Q,)`` the aggregate ``g^t``.
+      ``(L, Q)`` the aggregates ``g^t`` (``(Q,)`` for an ``(N, Q)`` stack).
     """
+    if subset_grads.ndim == 2:
+        return protocol_round(
+            cfg, subset_grads[None], rand.map(lambda v: v[None]), device=device,
+            attack_branches=attack_branches, server_branches=server_branches, stage_hook=stage_hook,
+            participation_mask=None if participation_mask is None else participation_mask[None])[0]
     dev = resolve_device(device)
     n = cfg.n_devices
     if subset_grads.device != dev:
         raise ValueError(f"subset_grads lie on {subset_grads.device}, the round runs on {dev}")
-    if subset_grads.ndim != 2 or subset_grads.shape[0] != n:
-        raise ValueError(f"subset_grads must be ({n}, Q), got {tuple(subset_grads.shape)}")
+    if subset_grads.ndim != 3 or subset_grads.shape[1] != n:
+        raise ValueError(f"subset_grads must be (L, {n}, Q) or ({n}, Q), got {tuple(subset_grads.shape)}")
+    lanes = subset_grads.shape[0]
     active = cfg.participation.active
     if participation_mask is not None and not active:
         raise ValueError("participation_mask passed but cfg.participation is 'full'")
+    attacks = _branches(attack_branches, lambda: make_attack_fn(cfg), lanes)
+    servers = _branches(server_branches, lambda: make_server_fn(cfg), lanes)
     hook = stage_hook or (lambda stage: None)
 
     d = cfg.effective_d()
@@ -319,21 +387,24 @@ def protocol_round(
     coded = comp_lib.compress_rows(cfg.compression, coded, rand.keep_idx, rand.quant_u)
     hook("compress")
 
-    attack = attack_fn if attack_fn is not None else make_attack_fn(cfg)
-    transmitted = attack(coded, rand.byz_mask, rand.attack_noise)
+    noise = rand.attack_noise
+    parts = [b.fn(coded[b.start:b.stop], rand.byz_mask[b.start:b.stop],
+                  None if noise is None else noise[b.start:b.stop]) for b in attacks]
     del coded  # free the coded stack before the server allocates
+    transmitted = parts[0] if len(parts) == 1 else torch.cat(parts)
+    del parts
     hook("attack")
 
-    server = server_fn if server_fn is not None else make_server_fn(cfg)
     if not active:
-        out = server(transmitted)
+        out = [b.fn(transmitted[b.start:b.stop]) for b in servers]
     else:
         pm = participation_mask
         if pm is None:
-            pm = torch.ones((n,), dtype=torch.float32, device=dev)
+            pm = torch.ones((lanes, n), dtype=torch.float32, device=dev)
         # erased rows become exact 0.0; x * 1.0 leaves the others' bits
-        transmitted = transmitted * pm[:, None]
+        transmitted = transmitted * pm[..., None]
         hook("erase")
-        out = server(transmitted, pm, assign.task_index)
+        out = [b.fn(transmitted[b.start:b.stop], pm[b.start:b.stop], assign.task_index[b.start:b.stop])
+               for b in servers]
     hook("server")
-    return out
+    return out[0] if len(out) == 1 else torch.cat(out)

@@ -47,23 +47,23 @@ def cyclic_erasure_decode(messages: torch.Tensor, mask: torch.Tensor,
     the mean over the subsets its surviving windows cover.
 
     Args:
-      messages: ``(N, Q)`` transmitted vectors; erased rows are multiplied
-        by exact 0.0.
-      mask: ``(N,)`` 0/1 float participation mask.
-      task_index: ``(N,)`` window starts of the round's assignment.
+      messages: ``(..., N, Q)`` transmitted vectors; erased rows are
+        multiplied by exact 0.0. Leading axes are lanes.
+      mask: ``(..., N)`` 0/1 float participation mask.
+      task_index: ``(..., N)`` window starts of the round's assignment.
       d: the load (``N % d == 0`` for exactness).
 
     Returns:
-      ``(Q,)`` the decoded gradient mean.
+      ``(..., Q)`` the decoded gradient mean.
     """
     cls = task_index.long() % d
-    onehot = cls[:, None] == torch.arange(d, device=cls.device)[None, :]
+    onehot = cls[..., None] == torch.arange(d, device=cls.device)
     mask = mask.to(torch.float32)
-    class_report = tree_sum(torch.where(onehot, mask[:, None], 0.0), dim=0)  # (d,)
-    j_star = torch.argmax(class_report)  # the first maximum
+    class_report = tree_sum(torch.where(onehot, mask[..., None], 0.0), dim=-2)  # (..., d)
+    j_star = torch.argmax(class_report, dim=-1, keepdim=True)  # the first maximum
     w = mask * (cls == j_star).to(torch.float32)
     decoded = kernel_ops.masked_combine(messages, w)
-    return decoded / torch.clamp_min(tree_sum(w, dim=0), 1.0)
+    return decoded / torch.clamp_min(tree_sum(w, dim=-1), 1.0)[..., None]
 
 
 def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -76,10 +76,10 @@ def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | N
     all ``N`` subsets.
 
     Unmasked, the group medians are one launch of the CWTM kernel with the
-    groups as lanes (``N = d``, trim ``(d - 1) // 2``: the middle value, or
+    groups of every lane as its lanes (``N = d``, trim ``(d - 1) // 2``: the middle value, or
     the mean of the middle pair at even ``d``), then a fixed-tree mean.
 
-    With ``mask`` (``(N,)`` 0/1, 1 = the device reported) a group's median
+    With ``mask`` (``(..., N)`` 0/1, 1 = the device reported) a group's median
     runs over its reporting members: erased rows are pushed to ``+inf``,
     sorted last, and the median is the mean of the positions ``(k - 1) // 2``
     and ``k // 2`` of the ``k`` reporting values. A full group takes the
@@ -89,33 +89,35 @@ def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | N
     decode, bit for bit.
 
     Args:
-      messages: ``(N, Q)`` transmitted vectors (erased rows already 0.0).
+      messages: ``(..., N, Q)`` transmitted vectors (erased rows already
+        0.0). Leading axes are lanes.
       group_size: ``d``, devices per group; ``N % d == 0``.
-      mask: optional ``(N,)`` participation mask.
+      mask: optional ``(..., N)`` participation mask.
 
     Returns:
-      ``(Q,)`` the decoded gradient mean.
+      ``(..., Q)`` the decoded gradient mean.
     """
-    n, q = messages.shape
+    *lead, n, q = messages.shape
+    lead = tuple(lead)
     if n % group_size != 0:
         raise ValueError(f"N={n} not divisible by group size d={group_size}")
     n_groups = n // group_size
-    grouped = messages.reshape(n_groups, group_size, q)
-    full_med = coordinate_median(grouped)  # (groups, Q)
-    legacy = stable_mean0(full_med)
+    grouped = messages.reshape(lead + (n_groups, group_size, q))
+    full_med = coordinate_median(grouped)  # (..., groups, Q)
+    legacy = stable_mean0(full_med, dim=-2)
     if mask is None:
         return legacy
-    gmask = mask.to(torch.float32).reshape(n_groups, group_size)
-    k = tree_sum(gmask, dim=1)  # reporting members per group
-    ordered = torch.sort(torch.where(gmask[:, :, None] > 0.0, grouped, torch.inf), dim=1).values
-    ki = torch.clamp_min(k.to(torch.int64), 1)
-    lo = torch.gather(ordered, 1, ((ki - 1) // 2)[:, None, None].expand(n_groups, 1, q))
-    hi = torch.gather(ordered, 1, (ki // 2)[:, None, None].expand(n_groups, 1, q))
-    masked_med = (0.5 * (lo + hi))[:, 0, :]
+    gmask = mask.to(torch.float32).reshape(lead + (n_groups, group_size))
+    k = tree_sum(gmask, dim=-1)  # reporting members per group
+    ordered = torch.sort(torch.where(gmask[..., None] > 0.0, grouped, torch.inf), dim=-2).values
+    ki = torch.clamp_min(k.to(torch.int64), 1)[..., None, None].expand(lead + (n_groups, 1, q))
+    lo = torch.gather(ordered, -2, (ki - 1) // 2)
+    hi = torch.gather(ordered, -2, ki // 2)
+    masked_med = (0.5 * (lo + hi))[..., 0, :]
     group_full = k == float(group_size)
-    block_vals = torch.where(group_full[:, None], full_med, masked_med)
+    block_vals = torch.where(group_full[..., None], full_med, masked_med)
     alive = (k > 0.0).to(torch.float32)
-    degraded = tree_sum(torch.where(alive[:, None] > 0.0, block_vals, 0.0), dim=0) / torch.clamp_min(
-        tree_sum(alive, dim=0), 1.0)
-    all_full = tree_sum(group_full.to(torch.float32), dim=0) == float(n_groups)
-    return torch.where(all_full, legacy, degraded)
+    degraded = tree_sum(torch.where(alive[..., None] > 0.0, block_vals, 0.0), dim=-2) / torch.clamp_min(
+        tree_sum(alive, dim=-1), 1.0)[..., None]
+    all_full = tree_sum(group_full.to(torch.float32), dim=-1) == float(n_groups)
+    return torch.where(all_full[..., None], legacy, degraded)

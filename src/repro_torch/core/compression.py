@@ -146,8 +146,8 @@ def identity(rows: torch.Tensor) -> torch.Tensor:
 
 
 def rand_sparse(rows: torch.Tensor, keep_idx: torch.Tensor) -> torch.Tensor:
-    """Keep the coordinates ``keep_idx[i]`` of row ``i``, scaled by
-    ``Q / q_hat``. rows: (R, Q), keep_idx: (R, q_hat) -> (R, Q)."""
+    """Keep the coordinates ``keep_idx[..., i, :]`` of row ``i``, scaled by
+    ``Q / q_hat``. rows: (..., R, Q), keep_idx: (..., R, q_hat) -> (..., R, Q)."""
     q, q_hat = rows.shape[-1], keep_idx.shape[-1]
     mask = torch.zeros_like(rows).scatter_(-1, keep_idx.long(), 1.0)
     return rows * mask * (q / q_hat)
@@ -179,22 +179,25 @@ def top_k(rows: torch.Tensor, q_hat: int) -> torch.Tensor:
 def compress_rows(spec: CompressionSpec, rows: torch.Tensor,
                   keep_idx: torch.Tensor | None = None,
                   quant_u: torch.Tensor | None = None) -> torch.Tensor:
-    """Apply ``spec`` to the (R, Q) coded rows of a round; ``keep_idx``
-    holds each row's kept coordinates for the sparse compressors (the same
-    row repeated for ``rand_sparse_shared``), ``quant_u`` each row's
-    rounding draws for ``quant``."""
+    """Apply ``spec`` to the (..., R, Q) coded rows of a round (leading
+    axes are lanes); ``keep_idx`` holds each row's kept coordinates for the
+    sparse compressors (the same row repeated for ``rand_sparse_shared``),
+    ``quant_u`` each row's rounding draws for ``quant``."""
+    q = rows.shape[-1]
     if spec.name in ("none", "identity"):
         return identity(rows)
     if spec.name in SPARSE:
-        if keep_idx is None or keep_idx.shape != (rows.shape[0], spec.kept(rows.shape[1])):
-            raise ValueError(f"{spec.name} needs keep_idx of shape (R, q_hat)")
+        if keep_idx is None or keep_idx.shape != rows.shape[:-1] + (spec.kept(q),):
+            raise ValueError(f"{spec.name} needs keep_idx of shape (..., R, q_hat)")
         return rand_sparse(rows, keep_idx)
     if spec.name == "quant":
         if quant_u is None or quant_u.shape != rows.shape:
-            raise ValueError("quant needs quant_u of the rows' shape (R, Q)")
-        return stochastic_quantization(rows, quant_u, spec.levels, spec.chunk)
+            raise ValueError("quant needs quant_u of the rows' shape (..., R, Q)")
+        # QSGD works row by row: the lanes fold into rows
+        folded = stochastic_quantization(rows.reshape(-1, q), quant_u.reshape(-1, q), spec.levels, spec.chunk)
+        return folded.reshape(rows.shape)
     if spec.name == "top_k":
-        return top_k(rows, spec.kept(rows.shape[1]))
+        return top_k(rows, spec.kept(q))
     raise KeyError(f"unknown compressor {spec.name!r}")
 
 

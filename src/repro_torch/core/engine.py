@@ -1,11 +1,25 @@
-"""The multi-round trainer: protocol rounds plus optimizer steps.
+"""The multi-round trainer: protocol rounds plus optimizer steps, over a
+leading lane axis of independent scenarios.
 
-``run_trajectory`` runs ``steps`` rounds. Each round computes every subset
-gradient at the iterate, runs ``protocol_round`` with that round's
-``RoundRandomness`` and takes an optimizer step. The round keeps its raw
-vectors (aggregate, honest subset mean, new iterate), and the per-round
-metrics are computed from the stacked vectors after the last round with
-fixed-tree reductions, as the reference's ``_finalize_metrics`` does.
+``run_trajectory`` runs ``steps`` rounds of one scenario. Each round
+computes every subset gradient at the iterate, runs ``protocol_round`` with
+that round's ``RoundRandomness`` and takes an optimizer step. The round
+keeps its raw vectors (aggregate, honest subset mean, new iterate), and the
+per-round metrics are computed from the stacked vectors after the last round
+with fixed-tree reductions, as the reference's ``_finalize_metrics`` does.
+
+``run_grid`` runs many scenarios that share their static structure as the
+lanes of one batched round: every stack is ``(L, N, Q)``, each kernel one
+launch over all lanes. The lanes may differ in attack, aggregator, step
+size, problem data and randomness. They are sorted by (server, attack)
+once, so each server runs once on its contiguous slice of lanes and each
+attack on its slice within that (``byzantine.LaneBranch``), and the
+results are put back in input order.
+Lanes whose configurations draw the same records from the same seed share
+one draw group: its records are drawn once and read by each of its lanes.
+``run_trajectory`` is the grid's one-lane case: both run ``_run_lanes``.
+Every reduction in a round is a fixed tree or a kernel, so a lane's bits do
+not depend on how many lanes ride beside it.
 
 Under an active participation schedule a round also carries the schedule
 state (the previous mask, which ``"markov"`` evolves), draws its mask from
@@ -14,7 +28,7 @@ count as the metric ``n_report``.
 
 Two modes run the same rounds:
 
-  * ``"loop"``: a Python loop, each round's randomness drawn as it starts;
+  * ``"loop"``: a Python loop over the rounds;
   * ``"graph"`` (the reference's ``scan``; CUDA only): every round's
     randomness is drawn up front in round order and stacked on the card,
     one round is captured as a CUDA graph and replayed ``steps`` times. A
@@ -25,13 +39,15 @@ Two modes run the same rounds:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
 from repro_torch.core.byzantine import (
+    LaneBranch,
     ProtocolConfig,
     RoundRandomness,
+    draw_signature,
     make_attack_fn,
     make_server_fn,
     protocol_round,
@@ -43,10 +59,15 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.numerics import stable_mean0, stable_norm, tree_sum
 from repro_torch.optim import OptState, make_optimizer
 
-__all__ = ["TrajectoryResult", "GraphStats", "RandomnessProvider", "run_trajectory",
+__all__ = ["TrajectoryResult", "GraphStats", "GridStats", "RandomnessProvider", "run_trajectory",
+           "run_grid", "protocol_rounds", "pad_lanes", "padded_lane_count", "last_grid_chunk_info",
            "draw_rounds", "stack_rounds", "select_round"]
 
 RandomnessProvider = Callable[[int], RoundRandomness]
+
+# elements of the (lanes, rounds, N, Q) temporary a linear-regression loss
+# makes; the metrics take the rounds in slices of at most this size
+_LOSS_ELEMENTS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +98,43 @@ class GraphStats:
 
 
 @dataclasses.dataclass(frozen=True)
+class GridStats:
+    """How ``run_grid`` ran its lanes.
+
+    Attributes:
+      lanes: lanes of the call.
+      draw_groups: lanes that draw alike share a group, drawn once.
+      chunk: lanes of each chunk (the last one padded to it).
+      chunks: chunks run one after another.
+      branches: attack and server runs of lanes, over all chunks.
+      graphs: each chunk's ``GraphStats`` under ``mode="graph"``, else ().
+    """
+
+    lanes: int
+    draw_groups: int
+    chunk: int
+    chunks: int
+    branches: int
+    graphs: tuple[GraphStats, ...] = ()
+
+    def captured_launches(self) -> dict[str, int]:
+        """Per kernel counter, the launches captured in one round of every
+        chunk, summed over the chunks."""
+        out = {name: 0 for name in kernel_ops.KERNELS}
+        for g in self.graphs:
+            for k, v in g.captured_launches.items():
+                out[k] += v
+        return out
+
+    def replay_ms(self) -> float:
+        """The chunks' replay times, summed (waits for the last replay)."""
+        return sum(g.replay_ms() for g in self.graphs)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrajectoryResult:
-    """Output of ``run_trajectory``.
+    """Output of ``run_trajectory``, or of ``run_grid`` with a leading lane
+    axis on ``x``, every metric and the participation state.
 
     Attributes:
       x: final iterate ``(Q,)``.
@@ -91,6 +147,7 @@ class TrajectoryResult:
         mask), ``None`` at full participation.
       graph: the capture's launch counts and replay events under
         ``mode="graph"``, else ``None``.
+      grid: how ``run_grid`` ran the lanes, else ``None``.
     """
 
     x: torch.Tensor
@@ -98,10 +155,17 @@ class TrajectoryResult:
     metrics: dict[str, torch.Tensor]
     participation_state: torch.Tensor | None = None
     graph: GraphStats | None = None
+    grid: GridStats | None = None
+
+    def lane(self, i: int) -> "TrajectoryResult":
+        """Lane ``i`` of a ``run_grid`` result, as one trajectory's result."""
+        p = self.participation_state
+        return dataclasses.replace(self, x=self.x[i], metrics={k: v[i] for k, v in self.metrics.items()},
+                                   participation_state=None if p is None else p[i])
 
 
 def _finalize_metrics(raw: dict[str, torch.Tensor], loss_fn, x_star) -> dict[str, torch.Tensor]:
-    """Per-round metrics from the stacked ``(steps, Q)`` raw vectors."""
+    """Per-round metrics from the stacked ``(..., steps, Q)`` raw vectors."""
     metrics = {
         "agg_dist": stable_norm(raw["g"] - raw["gmean"]),
         "grad_norm": stable_norm(raw["g"]),
@@ -128,30 +192,118 @@ def draw_rounds(cfg: ProtocolConfig, q: int, steps: int,
                 randomness: RandomnessProvider | torch.Generator) -> list[RoundRandomness]:
     """Every round's randomness in round order: drawn from a generator, or
     asked of a provider for ``t = 0 .. steps-1`` and checked with
-    ``RoundRandomness.validate``. What ``"graph"`` draws up front, and what
-    ``"loop"`` draws one round at a time."""
+    ``RoundRandomness.validate``."""
     return [_draw(cfg, q, randomness, t) for t in range(steps)]
 
 
 def stack_rounds(rounds: list[RoundRandomness], device: torch.device | str) -> RoundRandomness:
     """The records of ``rounds`` as one record of ``(steps, ...)`` tensors on
     ``device``."""
-    return RoundRandomness(**{
-        f.name: None if getattr(rounds[0], f.name) is None
-        else torch.stack([getattr(r, f.name) for r in rounds]).to(device)
-        for f in dataclasses.fields(RoundRandomness)
-    })
+    return RoundRandomness.stack(rounds).to(device)
 
 
-def select_round(stacked: RoundRandomness, t: torch.Tensor) -> RoundRandomness:
-    """Round ``t``'s record of a ``stack_rounds`` record; ``t`` is a 0-d
-    int64 tensor on the records' device, so nothing is read back."""
+def select_round(stacked: RoundRandomness, t: int | torch.Tensor) -> RoundRandomness:
+    """Round ``t``'s record of a ``stack_rounds`` record; ``t`` is an int, or
+    a 0-d int64 tensor on the records' device, so nothing is read back."""
+    if isinstance(t, int):
+        return stacked.map(lambda v: v[t])
     idx = t.reshape(1)
+    return stacked.map(lambda v: v.index_select(0, idx)[0])
+
+
+class _Draws:
+    """The randomness of a run's draw groups: one source each, drawn with
+    the group's configuration. A round's record stacks the groups on a
+    leading axis; ``attack_noise`` stacks only the groups that draw it
+    (``gaussian``)."""
+
+    def __init__(self, cfgs: Sequence[ProtocolConfig], sources: Sequence, q: int, dev: torch.device):
+        self.cfgs, self.sources, self.q, self.dev = list(cfgs), list(sources), q, dev
+        self.noisy = [i for i, c in enumerate(self.cfgs) if c.attack.name == "gaussian"]
+
+    def at(self, t: int) -> RoundRandomness:
+        recs = [_draw(c, self.q, s, t).to(self.dev) for c, s in zip(self.cfgs, self.sources)]
+        noise = [recs[i].attack_noise for i in self.noisy]
+        rec = RoundRandomness.stack([dataclasses.replace(r, attack_noise=None) for r in recs])
+        return dataclasses.replace(rec, attack_noise=torch.stack(noise) if noise else None)
+
+    def stacked(self, steps: int) -> RoundRandomness:
+        """Every round's record, drawn in round order, on a leading round axis."""
+        return RoundRandomness.stack([self.at(t) for t in range(steps)])
+
+
+@dataclasses.dataclass(frozen=True)
+class _Lanes:
+    """The lanes of one batched run: the shared configuration, the attack
+    and server runs, and which draw group (and which row of the groups that
+    draw noise) each lane reads; ``None`` reads group ``i`` for lane ``i``."""
+
+    cfg: ProtocolConfig
+    attacks: tuple[LaneBranch, ...]
+    servers: tuple[LaneBranch, ...]
+    group_of: torch.Tensor | None = None
+    noise_of: torch.Tensor | None = None
+
+
+def _lane_records(groups: RoundRandomness, lanes: _Lanes) -> RoundRandomness:
+    """One round's records per lane from the draw groups' records."""
+    def pick(name: str, v: torch.Tensor) -> torch.Tensor:
+        idx = lanes.noise_of if name == "attack_noise" else lanes.group_of
+        return v if idx is None else v.index_select(0, idx)
+
     return RoundRandomness(**{
-        f.name: None if getattr(stacked, f.name) is None
-        else getattr(stacked, f.name).index_select(0, idx)[0]
+        f.name: None if getattr(groups, f.name) is None else pick(f.name, getattr(groups, f.name))
         for f in dataclasses.fields(RoundRandomness)
     })
+
+
+def _run_lanes(lanes: _Lanes, records, x: torch.Tensor, grads_of: Callable, *, steps: int, lr, grad_scale,
+               opt, state, p_state, mode: str, dev: torch.device):
+    """``steps`` rounds of the lanes from iterates ``x`` ``(L, Q)``.
+
+    ``records`` is a ``t -> RoundRandomness`` of the draw groups (drawn as
+    each round starts; loop mode only) or every round's records stacked on
+    a leading round axis. Returns (the raw ``(steps, L, ...)`` vectors, the
+    last iterates, the schedule state, ``GraphStats`` or ``None``, the
+    optimizer state)."""
+    cfg = lanes.cfg
+    p_spec = cfg.participation
+    n = cfg.n_devices
+
+    def one_round(x, groups, t, p_state, state):
+        """One round at iterates ``x``: (new x, aggregates, honest subset
+        means, schedule state, reporting counts or None, optimizer state)."""
+        rand = _lane_records(groups, lanes)
+        grads = grads_of(x)
+        pm = n_report = None
+        if p_spec.active:
+            pm, p_state = sample_participation(p_spec, rand.part_u, t, n, p_state)
+            n_report = tree_sum(pm, dim=-1)
+        g = protocol_round(cfg, grads, rand, device=dev, attack_branches=lanes.attacks,
+                           server_branches=lanes.servers, participation_mask=pm)
+        new_x, state = opt.update(x, grad_scale * g, state, lr)
+        return new_x, g, stable_mean0(grads, dim=-2), p_state, n_report, state
+
+    names = ("g", "gmean", "x") + (("n_report",) if p_spec.active else ())
+    if mode == "loop":
+        at = records if callable(records) else (lambda t: select_round(records, t))
+        raw: dict[str, list[torch.Tensor]] = {k: [] for k in names}
+        for t in range(steps):
+            x, g, gmean, p_state, n_report, state = one_round(x, at(t), t, p_state, state)
+            for k, v in zip(names, (g, gmean, x, n_report)):
+                raw[k].append(v)
+        return {k: torch.stack(v) for k, v in raw.items()}, x, p_state, None, state
+    stacked, x, p_state, stats = _replay_graph(
+        lambda x, rand, t, p: one_round(x, rand, t, p, state)[:5], records, x, p_state, steps, names)
+    # the replays ran the tensor part of each step; SGD's state is its step count
+    return stacked, x, p_state, stats, dataclasses.replace(state, step=state.step + steps)
+
+
+def _check_mode(mode: str, dev: torch.device) -> None:
+    if mode not in ("loop", "graph"):
+        raise ValueError(f"unknown mode {mode!r}; have 'loop' and 'graph'")
+    if mode == "graph" and dev.type != "cuda":
+        raise ValueError(f"mode='graph' captures a CUDA graph and needs a CUDA device, not {dev}")
 
 
 def run_trajectory(
@@ -204,62 +356,31 @@ def run_trajectory(
         and setting their attributes outside the capture), captures one
         round and replays it.
     """
-    if mode not in ("loop", "graph"):
-        raise ValueError(f"unknown mode {mode!r}; have 'loop' and 'graph'")
     dev = resolve_device(device)
-    if mode == "graph" and dev.type != "cuda":
-        raise ValueError(f"mode='graph' captures a CUDA graph and needs a CUDA device, not {dev}")
+    _check_mode(mode, dev)
     opt = make_optimizer(optimizer)
     x = x0.to(dev)
     state = opt.init(x) if opt_state is None else opt_state
     q = x.shape[-1]
-    n = cfg.n_devices
     if randomness is None:
         randomness = torch.Generator(device=dev).manual_seed(0)
-
-    grads_of = (lambda x: subset_grad_fn(data, x)) if data is not None else subset_grad_fn
-    attack_fn = make_attack_fn(cfg)
-    server_fn = make_server_fn(cfg)
-    p_spec = cfg.participation
+    grads_fn = (lambda x: subset_grad_fn(data, x)) if data is not None else subset_grad_fn
     p_state = None
-    if p_spec.active:
-        p_state = (init_participation_state(p_spec, n, device=dev)
-                   if participation_state is None else participation_state.to(dev))
+    if cfg.participation.active:
+        p_state = (init_participation_state(cfg.participation, cfg.n_devices, device=dev)
+                   if participation_state is None else participation_state.to(dev))[None]
 
-    def one_round(x, rand, t, p_state, state):
-        """One round at iterate ``x``: (new x, aggregate, honest subset
-        mean, schedule state, reporting count or None, optimizer state)."""
-        grads = grads_of(x)
-        pm = n_report = None
-        if p_spec.active:
-            pm, p_state = sample_participation(p_spec, rand.part_u, t, n, p_state)
-            n_report = tree_sum(pm, dim=0)
-        g = protocol_round(cfg, grads, rand, device=dev, attack_fn=attack_fn,
-                           server_fn=server_fn, participation_mask=pm)
-        new_x, state = opt.update(x, grad_scale * g, state, lr)
-        return new_x, g, stable_mean0(grads), p_state, n_report, state
-
-    names = ("g", "gmean", "x") + (("n_report",) if p_spec.active else ())
-    graph_stats = None
-    if mode == "loop":
-        raw: dict[str, list[torch.Tensor]] = {k: [] for k in names}
-        for t in range(steps):
-            rand = _draw(cfg, q, randomness, t).to(dev)
-            x, g, gmean, p_state, n_report, state = one_round(x, rand, t, p_state, state)
-            for k, v in zip(names, (g, gmean, x, n_report)):
-                raw[k].append(v)
-        stacked = {k: torch.stack(v) for k, v in raw.items()}
-    else:
-        records = stack_rounds(draw_rounds(cfg, q, steps, randomness), dev)
-        stacked, x, p_state, graph_stats = _replay_graph(
-            lambda x, rand, t, p: one_round(x, rand, t, p, state)[:5], records, x, p_state, steps, names)
-        # the replays ran the tensor part of each step; SGD's state is its step count
-        state = dataclasses.replace(state, step=state.step + steps)
+    lanes = _Lanes(cfg, (LaneBranch(0, 1, make_attack_fn(cfg)),), (LaneBranch(0, 1, make_server_fn(cfg)),))
+    draws = _Draws([cfg], [randomness], q, dev)
+    raw, x, p_state, stats, state = _run_lanes(
+        lanes, draws.at if mode == "loop" else draws.stacked(steps), x[None], lambda x: grads_fn(x[0])[None],
+        steps=steps, lr=lr, grad_scale=grad_scale, opt=opt, state=state, p_state=p_state, mode=mode, dev=dev)
     bound_loss = None
     if loss_fn is not None:
         bound_loss = (lambda xs: loss_fn(data, xs)) if data is not None else loss_fn
-    return TrajectoryResult(x=x, opt_state=state, participation_state=p_state, graph=graph_stats,
-                            metrics=_finalize_metrics(stacked, bound_loss, x_star))
+    return TrajectoryResult(x=x[0], opt_state=state, participation_state=None if p_state is None else p_state[0],
+                            graph=stats, metrics=_finalize_metrics({k: v[:, 0] for k, v in raw.items()},
+                                                                   bound_loss, x_star))
 
 
 def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state, steps: int,
@@ -268,13 +389,13 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
     and writes row ``t`` of the output buffers, then replay it ``steps``
     times.
 
-    Returns (the stacked outputs, the last iterate, the schedule state,
+    Returns (the stacked outputs, the last iterates, the schedule state,
     ``GraphStats``)."""
     dev = x.device
-    rows = {"g": x.shape, "gmean": x.shape, "x": x.shape, "n_report": ()}
+    rows = {"g": x.shape, "gmean": x.shape, "x": x.shape, "n_report": x.shape[:-1]}
 
     def buffers():
-        """The state a round reads and writes: iterate, step counter,
+        """The state a round reads and writes: iterates, step counter,
         schedule state, output rows."""
         return {"x": x.clone(), "t": torch.zeros((), dtype=torch.int64, device=dev),
                 "p_state": None if p_state is None else p_state.clone(),
@@ -309,3 +430,258 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
     stats = GraphStats(replays=steps, captured_launches={k: after[k] - before[k] for k in after},
                        replay_start=start, replay_end=end)
     return live["out"], live["x"], live["p_state"], stats
+
+
+# ------------------------------------------------------------------- grid
+
+
+def padded_lane_count(n: int, n_devices: int = 1) -> int:
+    """``n`` lanes rounded up to a multiple of ``n_devices`` (one card for
+    now). Padding replicates the last lane, so zero lanes cannot be padded
+    and raise."""
+    if n < 1:
+        raise ValueError(
+            f"cannot pad a lane axis of length {n}: padding replicates the last lane, "
+            "so at least one lane must exist")
+    if n_devices < 1:
+        raise ValueError(f"device count must be >= 1, got {n_devices}")
+    return -(-n // n_devices) * n_devices
+
+
+def pad_lanes(lanes: torch.Tensor, pad: int) -> torch.Tensor:
+    """Append ``pad`` copies of the last lane to the leading axis. A replica
+    runs a real lane's math, so padding never feeds a lane degenerate
+    inputs; the padded lanes are sliced off afterwards."""
+    return lanes if pad == 0 else torch.cat([lanes, lanes[-1:].expand((pad,) + lanes.shape[1:])])
+
+
+def _take_lanes(tree: Any, idx: torch.Tensor) -> Any:
+    """The lanes ``idx`` of every tensor of ``tree``, in that order."""
+    if isinstance(tree, torch.Tensor):
+        return tree.index_select(0, idx.to(tree.device))
+    if isinstance(tree, dict):
+        return {k: _take_lanes(v, idx) for k, v in tree.items()}
+    return type(tree)(_take_lanes(v, idx) for v in tree)
+
+
+_LAST_GRID_CHUNK: dict[str, Any] = {}
+
+
+def last_grid_chunk_info() -> dict[str, Any]:
+    """How the most recent ``run_grid`` call chunked its lanes:
+    ``{"max_lanes_per_device", "chunk", "n_lanes", "devices", "auto"}``."""
+    return dict(_LAST_GRID_CHUNK)
+
+
+def _resolve_chunk(n_lanes: int, max_lanes_per_device: int | str | None, devices: int = 1) -> int:
+    """Lanes per chunk of one grid call."""
+    if isinstance(max_lanes_per_device, str):
+        raise ValueError(
+            f"max_lanes_per_device={max_lanes_per_device!r}: the lane-capacity tuner is not "
+            "ported yet (ROADMAP A.11); pass an int or None")
+    if max_lanes_per_device is not None and max_lanes_per_device < 1:
+        raise ValueError(f"max_lanes_per_device must be >= 1, got {max_lanes_per_device}")
+    if max_lanes_per_device is None:
+        chunk = padded_lane_count(n_lanes, devices)
+    else:
+        chunk = max_lanes_per_device * devices
+    _LAST_GRID_CHUNK.clear()
+    _LAST_GRID_CHUNK.update(max_lanes_per_device=max_lanes_per_device, chunk=chunk, n_lanes=n_lanes,
+                            devices=devices, auto=False)
+    return chunk
+
+
+def _chunk_lanes(tmpl: ProtocolConfig, cfgs: list[ProtocolConfig], keys: list[tuple], groups: list[int],
+                 n_groups: int, noisy: list[int], dev: torch.device) -> _Lanes:
+    """A chunk's lanes, in their sorted order: the attack runs (one per
+    (server, attack) key), the server runs, and each lane's draw group and
+    noise row (a lane that draws no noise reads any row: its attack ignores
+    it)."""
+    noise_row = {g: i for i, g in enumerate(noisy)}
+    return _Lanes(
+        tmpl, _runs(keys, cfgs, make_attack_fn), _runs([k[0] for k in keys], cfgs, make_server_fn),
+        group_of=None if groups == list(range(n_groups)) else torch.tensor(groups, device=dev),
+        noise_of=None if not noisy or groups == noisy else torch.tensor(
+            [noise_row.get(g, 0) for g in groups], device=dev))
+
+
+def _runs(keys: list, cfgs: list[ProtocolConfig], make: Callable) -> tuple[LaneBranch, ...]:
+    """The runs of equal keys along the lanes, each with ``make`` of its
+    first lane's configuration."""
+    runs, start = [], 0
+    for i in range(1, len(keys) + 1):
+        if i == len(keys) or keys[i] != keys[start]:
+            runs.append(LaneBranch(start, i, make(cfgs[start])))
+            start = i
+    return tuple(runs)
+
+
+def run_grid(
+    cfgs: Sequence[ProtocolConfig],
+    x0: torch.Tensor,
+    subset_grad_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+    *,
+    steps: int,
+    lr: float | Sequence[float] | torch.Tensor,
+    randomness: Sequence[RandomnessProvider | torch.Generator],
+    draw_ids: Sequence[int] | None = None,
+    data: Any = None,
+    data_batched: bool = True,
+    optimizer: str = "sgd",
+    grad_scale: float = 1.0,
+    loss_fn: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
+    shard: str = "none",
+    max_lanes_per_device: int | str | None = None,
+    device: torch.device | str | None = None,
+    mode: str = "loop",
+) -> TrajectoryResult:
+    """Run a batch of trajectories as the lanes of one batched round.
+
+    Lane ``i`` equals ``run_trajectory`` with ``cfgs[i]``, lane ``i``'s
+    step size, data and randomness, bit for bit: every reduction of the
+    round is a fixed tree or a kernel, and each lane reads its own records.
+
+    Args:
+      cfgs: one ``ProtocolConfig`` per lane. They share their static
+        structure (everything but the attack and the aggregator) or this
+        raises; group lanes into buckets first (``scenarios.run_grid``).
+      x0: initial iterate ``(Q,)``, shared by the lanes.
+      subset_grad_fn: ``(data, x (l, Q)) -> (l, N, Q)`` subset gradients of
+        ``l`` lanes, ``data`` those lanes' slice of ``data`` (or ``data``
+        itself with ``data_batched=False``).
+      steps: rounds, shared.
+      lr: step size, shared or one per lane (held as a float32 tensor: the
+        same bits as the float).
+      randomness: one source per draw group: a ``torch.Generator`` or a
+        provider ``t -> RoundRandomness`` (checked as in
+        ``run_trajectory``). Every round's records are drawn up front.
+      draw_ids: each lane's draw group (``None``: lane ``i`` reads source
+        ``i``). The lanes of a group must draw alike
+        (``byzantine.draw_signature``).
+      data: the problem, a tensor or a tuple, list or dict of tensors with
+        a leading lane axis (``data_batched=True``), or shared.
+      optimizer / grad_scale: as in ``run_trajectory``, shared.
+      loss_fn: optional ``(data, xs (l, T, Q)) -> (l, T)`` metric hook; the
+        rounds are handed over in slices that bound its temporaries.
+      shard: ``"none"``; spreading the lanes over several cards waits for
+        ROADMAP A.9 and raises.
+      max_lanes_per_device: lanes per chunk: the lanes run in equal chunks,
+        one after another, the last one padded by replicating its last lane
+        (sliced off afterwards); ``None`` runs them all at once. ``"auto"``
+        (the tuner) is not ported and raises.
+      device / mode: as in ``run_trajectory``; under ``"graph"`` each chunk
+        captures one round and replays it.
+
+    Returns:
+      A ``TrajectoryResult`` with a leading ``(L,)`` axis on ``x``, the
+      metrics (``(L, steps)``) and the participation state; ``.lane(i)``
+      gives lane ``i``, and ``grid`` says how the lanes ran.
+    """
+    if shard != "none":
+        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9")
+    dev = resolve_device(device)
+    _check_mode(mode, dev)
+    cfgs = list(cfgs)
+    n_lanes = len(cfgs)
+    if n_lanes == 0:
+        raise ValueError("run_grid needs at least one lane")
+    chunk = _resolve_chunk(n_lanes, max_lanes_per_device)
+    tmpl = cfgs[0]
+    for c in cfgs:
+        if dataclasses.replace(c, attack=tmpl.attack, aggregator=tmpl.aggregator) != tmpl:
+            raise ValueError("run_grid lanes must share all but attack and aggregator: bucket them first")
+    draw_ids = list(range(n_lanes)) if draw_ids is None else list(draw_ids)
+    sources = list(randomness)
+    if len(draw_ids) != n_lanes or sorted(set(draw_ids)) != list(range(len(sources))):
+        raise ValueError(f"draw_ids must map the {n_lanes} lanes onto the {len(sources)} sources, each used")
+    group_cfg = {}
+    for c, g in zip(cfgs, draw_ids):
+        if draw_signature(group_cfg.setdefault(g, c)) != draw_signature(c):
+            raise ValueError(f"lanes of draw group {g} draw different records")
+
+    opt = make_optimizer(optimizer)
+    state = opt.init(x0)
+    x0 = x0.to(dev)
+    q = x0.shape[-1]
+    draws = _Draws([group_cfg[g] for g in range(len(sources))], sources, q, dev)
+    records = draws.stacked(steps)
+    lr_lanes = None if isinstance(lr, (int, float)) else torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    if lr_lanes is not None and lr_lanes.shape != (n_lanes,):
+        raise ValueError(f"lr must be a float or one per lane ({n_lanes},), got {tuple(lr_lanes.shape)}")
+
+    # one (server, attack) key per lane, numbered by first appearance; a stable sort makes runs
+    attacks, servers = {}, {}
+    keys = [(servers.setdefault(c.aggregator, len(servers)), attacks.setdefault(c.attack, len(attacks)))
+            for c in cfgs]
+    order = sorted(range(n_lanes), key=lambda i: keys[i])
+    outs, graphs, n_branches = [], [], 0
+    for start in range(0, n_lanes, chunk):
+        take = min(chunk, n_lanes - start)
+        idx = pad_lanes(torch.tensor(order[start:start + take], device=dev), chunk - take)
+        ids = idx.tolist()
+        lanes = _chunk_lanes(tmpl, [cfgs[i] for i in ids], [keys[i] for i in ids], [draw_ids[i] for i in ids],
+                             len(sources), draws.noisy, dev)
+        n_branches += len(lanes.attacks) + len(lanes.servers)
+        chunk_data = _take_lanes(data, idx) if data is not None and data_batched else data
+        x = x0.expand(chunk, q).clone()
+        p_state = None
+        if tmpl.participation.active:
+            p_state = init_participation_state(tmpl.participation, tmpl.n_devices, device=dev, lanes=chunk)
+        raw, x, p_state, stats, _ = _run_lanes(
+            lanes, records, x, lambda x, d=chunk_data: subset_grad_fn(d, x), steps=steps,
+            lr=lr if lr_lanes is None else lr_lanes.index_select(0, idx), grad_scale=grad_scale, opt=opt,
+            state=state, p_state=p_state, mode=mode, dev=dev)
+        raw = {k: v.transpose(0, 1)[:take] for k, v in raw.items()}  # (lanes, steps, ...)
+        bound_loss = None
+        if loss_fn is not None:
+            real = chunk_data  # the loss reads the chunk's real lanes only
+            if data is not None and data_batched and take < chunk:
+                real = _take_lanes(chunk_data, torch.arange(take, device=dev))
+            bound_loss = _sliced_loss(loss_fn, real, tmpl.n_devices * q)
+        outs.append((x[:take], _finalize_metrics(raw, bound_loss, None),
+                     None if p_state is None else p_state[:take]))
+        if stats is not None:
+            graphs.append(stats)
+    # undo the sort: sorted position j holds input lane order[j]
+    inverse = torch.empty(n_lanes, dtype=torch.int64)
+    inverse[torch.tensor(order)] = torch.arange(n_lanes)
+    inverse = inverse.to(dev)
+    x = torch.cat([o[0] for o in outs]).index_select(0, inverse)
+    metrics = {k: torch.cat([o[1][k] for o in outs]).index_select(0, inverse) for k in outs[0][1]}
+    p_state = None if outs[0][2] is None else torch.cat([o[2] for o in outs]).index_select(0, inverse)
+    stats = GridStats(lanes=n_lanes, draw_groups=len(sources), chunk=chunk, chunks=len(outs),
+                      branches=n_branches, graphs=tuple(graphs))
+    return TrajectoryResult(x=x, opt_state=dataclasses.replace(state, step=state.step + steps),
+                            metrics=metrics, participation_state=p_state, grid=stats)
+
+
+def _sliced_loss(loss_fn: Callable, data: Any, row_elements: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``xs (l, T, Q) -> loss_fn(data, xs)`` over slices of the rounds whose
+    ``l x rounds x row_elements`` temporaries stay within _LOSS_ELEMENTS."""
+    def loss(xs: torch.Tensor) -> torch.Tensor:
+        per = max(1, _LOSS_ELEMENTS // max(1, xs.shape[0] * row_elements))
+        return torch.cat([loss_fn(data, xs[:, s:s + per]) for s in range(0, xs.shape[1], per)], dim=1)
+    return loss
+
+
+def protocol_rounds(
+    cfg: ProtocolConfig,
+    subset_grads: torch.Tensor,
+    rounds: int,
+    *,
+    randomness: RandomnessProvider | torch.Generator | None = None,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """``rounds`` independent protocol rounds on one ``(N, Q)`` gradient
+    stack, run as the lanes of one batched round: the ``(rounds, Q)``
+    aggregates. Round ``t`` reads the ``t``-th record of ``randomness`` (a
+    generator on ``device``, seeded 0 when not given, or a provider), as
+    ``run_trajectory`` would; under an active participation schedule every
+    device reports. For estimates of an encoder's bias and variance."""
+    dev = resolve_device(device)
+    if randomness is None:
+        randomness = torch.Generator(device=dev).manual_seed(0)
+    q = subset_grads.shape[-1]
+    rand = stack_rounds(draw_rounds(cfg, q, rounds, randomness), dev)
+    grads = subset_grads.to(dev).expand((rounds,) + tuple(subset_grads.shape)).contiguous()
+    return protocol_round(cfg, grads, rand, device=dev)

@@ -101,18 +101,21 @@ class ParticipationSpec:
 
 
 def init_participation_state(spec: ParticipationSpec, n: int,
-                             device: torch.device | str = "cpu") -> torch.Tensor:
-    """The schedule state before round 0: the previous mask, all ones."""
+                             device: torch.device | str = "cpu",
+                             lanes: int | None = None) -> torch.Tensor:
+    """The schedule state before round 0: the previous mask, all ones;
+    ``(N,)``, or ``(lanes, N)``, one state per lane of a grid."""
     del spec
-    return torch.ones((n,), dtype=torch.float32, device=device)
+    shape = (n,) if lanes is None else (lanes, n)
+    return torch.ones(shape, dtype=torch.float32, device=device)
 
 
 def _ensure_one_reporter(mask: torch.Tensor) -> torch.Tensor:
-    """The last device back on when a draw erased every row (a select on
-    the exact count, no arithmetic on the mask)."""
-    n = mask.shape[0]
+    """The last device back on in each lane of (..., N) whose draw erased
+    every row (a select on the exact count, no arithmetic on the mask)."""
+    n = mask.shape[-1]
     fallback = (torch.arange(n, device=mask.device) == n - 1).to(torch.float32)
-    return torch.where(tree_sum(mask, dim=0) == 0.0, fallback, mask)
+    return torch.where(tree_sum(mask, dim=-1)[..., None] == 0.0, fallback, mask)
 
 
 def sample_participation(
@@ -122,21 +125,24 @@ def sample_participation(
     n: int,
     state: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The round-``t`` mask of ``spec``, ``(N,)`` float32 0/1 (1 = the
-    device reports), and the new state.
+    """The round-``t`` mask of ``spec``, float32 0/1 of the state's shape
+    (1 = the device reports), and the new state.
 
-    ``u`` is the round's ``(N,)`` uniforms in [0, 1); ``"iid"`` and
-    ``"markov"`` read it, the other schedules do not (it may be ``None``
-    there). ``t`` is the round index, an int or a 0-d int64 tensor on the
-    state's device (the step counter of a captured trajectory, never read
-    back); ``"onoff"`` reads it. ``state`` is the previous mask, which only
-    ``"markov"`` evolves.
+    ``state`` is the previous mask, ``(N,)`` or ``(..., N)`` with one state
+    per lane; only ``"markov"`` evolves it. ``u`` is the round's uniforms in
+    [0, 1), of the state's shape; ``"iid"`` and ``"markov"`` read it, the
+    other schedules do not (it may be ``None`` there). ``t`` is the round
+    index, an int or a 0-d int64 tensor on the state's device (the step
+    counter of a captured trajectory, never read back), shared by every
+    lane; ``"onoff"`` reads it.
     """
     dev = state.device
+    if state.shape[-1] != n:
+        raise ValueError(f"participation state {tuple(state.shape)} is not over {n} devices")
     if spec.name == "full":
-        return torch.ones((n,), dtype=torch.float32, device=dev), state
-    if spec.name in ("iid", "markov") and (u is None or u.shape != (n,)):
-        raise ValueError(f"schedule {spec.name!r} needs ({n},) uniforms")
+        return torch.ones(state.shape, dtype=torch.float32, device=dev), state
+    if spec.name in ("iid", "markov") and (u is None or u.shape != state.shape):
+        raise ValueError(f"schedule {spec.name!r} needs uniforms of the state's shape {tuple(state.shape)}")
     if spec.name == "iid":
         return _ensure_one_reporter((u >= spec.rate).to(torch.float32)), state
     idx = torch.arange(n, device=dev)
@@ -146,10 +152,10 @@ def sample_participation(
         straggler = idx >= n - n_straggle
         # phase-shifted per device, so stragglers do not blink in lockstep
         on = ~straggler | ((t + idx) % spec.period < duty_rounds)
-        return _ensure_one_reporter(on.to(torch.float32)), state
+        return _ensure_one_reporter(on.to(torch.float32)).expand(state.shape), state
     if spec.name == "adversarial":
         erased = (idx >= spec.offset) & (idx < spec.offset + spec.n_drop)
-        return _ensure_one_reporter((~erased).to(torch.float32)), state
+        return _ensure_one_reporter((~erased).to(torch.float32)).expand(state.shape), state
     if spec.name == "markov":
         mask = torch.where(state > 0.0, u >= spec.p_drop, u < spec.p_recover).to(torch.float32)
         mask = _ensure_one_reporter(mask)

@@ -8,26 +8,32 @@
     rules out dropped.
   * ``participation_sweep`` — the partial-participation rows: schedule x
     aggregator x attack over the cyclic code.
+  * ``synthetic_sweep`` — one bucket of any number of rows (the scaling
+    studies' 1000-lane sweeps).
   * ``run_scenario`` — a scenario on the linear-regression problem.
+  * ``run_grid`` — many scenarios at once: rows that share their static
+    structure run as the lanes of one batched round (``engine.run_grid``),
+    one compile bucket at a time; ``grid_finals`` sums a sweep up.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
 from repro_torch.core.attacks import AttackSpec
-from repro_torch.core.byzantine import ProtocolConfig
+from repro_torch.core import engine as engine_lib
+from repro_torch.core.byzantine import ProtocolConfig, draw_signature
 from repro_torch.core.coding import erasure_margin
 from repro_torch.core.compression import spec_from
 from repro_torch.core.participation import ParticipationSpec
-from repro_torch.core.engine import RandomnessProvider, TrajectoryResult, run_trajectory
+from repro_torch.core.engine import RandomnessProvider, TrajectoryResult
 from repro_torch.data.synthetic import linear_regression_problem, linreg_loss, linreg_subset_grads
 from repro_torch.device import resolve_device
 
 __all__ = ["Scenario", "scenario_name", "section7_grid", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
-           "participation_sweep", "run_scenario"]
+           "participation_sweep", "synthetic_sweep", "run_scenario", "run_grid", "grid_finals"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,13 +226,68 @@ def participation_sweep(
     return rows
 
 
+def synthetic_sweep(
+    n_rows: int,
+    *,
+    method: str = "lad",
+    d: int = 4,
+    aggregator: str = "cwtm",
+    n_devices: int = 16,
+    n_byz: int = 3,
+    attacks: Sequence[str] = ("sign_flip", "alie", "ipm"),
+    compressor: str = "none",
+    base_lr: float = 1e-5,
+) -> list[Scenario]:
+    """One compile bucket of ``n_rows`` rows, the workload of the scaling
+    studies (1000-row sweeps): every row shares the static protocol
+    structure and varies along the per-lane axes only, the attack (cycled),
+    the step size and the data's heterogeneity (both swept densely), so
+    every lane is a distinct trajectory."""
+    if n_rows < 1:
+        raise ValueError(f"n_rows must be >= 1, got {n_rows}")
+    rows = []
+    for i in range(n_rows):
+        frac = i / max(1, n_rows - 1)
+        attack = attacks[i % len(attacks)]
+        rows.append(Scenario(
+            name=f"syn{i:05d}/{attack}", method=method, d=d, aggregator=aggregator, attack=attack,
+            n_byz=n_byz, compressor=compressor, sigma_h=round(0.05 + 0.45 * frac, 6),
+            n_devices=n_devices, lr=base_lr * (0.5 + frac),
+        ))
+    return rows
+
+
+def _lane_setup(scn: Scenario, *, seed: int, problem, dim: int,
+                device: torch.device) -> tuple[torch.Generator, tuple[torch.Tensor, torch.Tensor]]:
+    """A scenario's generator (on ``device``, seeded ``seed``) and the
+    ``(Z, y)`` it trains on: drawn from that generator at the scenario's
+    heterogeneity, or the shared ``problem`` cut to ``scn.n_devices``
+    subsets. ``run_scenario`` and every lane of ``run_grid`` start here, so
+    the two cannot drift apart; the rounds draw on from the generator."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n = scn.n_devices
+    if problem is None:
+        return gen, linear_regression_problem(gen, n=n, dim=dim, sigma_h=scn.sigma_h)
+    z, y = problem
+    if z.shape[0] < n:
+        raise ValueError(
+            f"shared problem has {z.shape[0]} subsets < n_devices={n} of scenario {scn.name!r}"
+        )
+    return gen, (z[:n].to(device), y[:n].to(device))
+
+
 def _subset_grads(data, x):
     z, y = data
     return linreg_subset_grads(z, y, x)
 
 
 def _loss(data, xs):
+    """Losses of iterates (rounds, Q) on one problem, or (lanes, rounds, Q)
+    on a shared problem or one problem per lane."""
     z, y = data
+    if z.ndim == 3:
+        z, y = z[:, None], y[:, None]
     return linreg_loss(z, y, xs)
 
 
@@ -252,30 +313,137 @@ def run_scenario(
     replayed, CUDA only).
     """
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    n = scn.n_devices
-    if problem is None:
-        z, y = linear_regression_problem(gen, n=n, dim=dim, sigma_h=scn.sigma_h)
-    else:
-        z, y = problem
-        if z.shape[0] < n:
-            raise ValueError(
-                f"shared problem has {z.shape[0]} subsets < n_devices={n} of scenario {scn.name!r}"
-            )
-        z, y = z[:n].to(dev), y[:n].to(dev)
-    cfg = scn.protocol()
-    return run_trajectory(
-        cfg,
+    gen, (z, y) = _lane_setup(scn, seed=seed, problem=problem, dim=dim, device=dev)
+    return engine_lib.run_trajectory(
+        scn.protocol(),
         torch.zeros(z.shape[1], dtype=torch.float32, device=dev),
         _subset_grads,
         steps=steps,
         lr=scn.lr,
         randomness=randomness if randomness is not None else gen,
         # the aggregate estimates (1/N) grad F; eq. (7) steps on F
-        grad_scale=float(n),
+        grad_scale=float(scn.n_devices),
         loss_fn=_loss,
         data=(z, y),
         device=dev,
         mode=mode,
     )
+
+
+def _bucket_signature(scn: Scenario, exact: bool = True) -> tuple:
+    """Everything that fixes a round's static structure: rows that agree on
+    it run as lanes of one batched round. The attack, the step size and the
+    heterogeneity stay per lane; with ``exact=False`` the aggregator too (a
+    bucket then holds several servers, each on its run of lanes, and every
+    lane stays bitwise equal to its standalone run). ``exact=True`` keeps
+    one aggregator a bucket, as the reference does."""
+    return (
+        scn.method,
+        scn.d,
+        scn.n_devices,
+        scn.n_byz,
+        scn.trim_frac,
+        scn.compressor,
+        scn.q_hat_frac,
+        scn.quant_levels,
+        # an active schedule adds a state to the round and changes the server
+        scn.participation,
+        scn.p_rate,
+        scn.p_drop_n,
+        scn.p_period,
+        scn.p_duty,
+    ) + ((scn.aggregator,) if exact else ())
+
+
+def _run_bucket(group: list[Scenario], steps: int, *, seed: int, problem, dim: int, device: torch.device,
+                mode: str, max_lanes_per_device, randomness) -> dict[str, TrajectoryResult]:
+    """One compile bucket as one ``engine.run_grid`` call.
+
+    Every lane's problem and generator come from ``_lane_setup``, as
+    ``run_scenario``'s do. Lanes that draw alike (``draw_signature``) read
+    one draw group, drawn from its first lane's generator (every lane's
+    generator is seeded alike and has drawn alike); a lane that
+    ``randomness`` gives a provider draws from it alone."""
+    setups = [_lane_setup(s, seed=seed, problem=problem, dim=dim, device=device) for s in group]
+    cfgs = [s.protocol() for s in group]
+    groups: dict[object, int] = {}
+    sources = []
+    draw_ids = []
+    for lane, (scn, cfg) in enumerate(zip(group, cfgs)):
+        provider = None if randomness is None else randomness(scn)
+        key = ("lane", lane) if provider is not None else draw_signature(cfg)
+        if key not in groups:
+            groups[key] = len(sources)
+            sources.append(provider if provider is not None else setups[lane][0])
+        draw_ids.append(groups[key])
+    if problem is not None:
+        data, batched = setups[0][1], False
+    else:
+        data, batched = tuple(torch.stack(parts) for parts in zip(*(p for _, p in setups))), True
+    res = engine_lib.run_grid(
+        cfgs, torch.zeros(data[0].shape[-1], dtype=torch.float32, device=device), _subset_grads,
+        steps=steps, lr=[s.lr for s in group], randomness=sources, draw_ids=draw_ids, data=data,
+        data_batched=batched, grad_scale=float(group[0].n_devices), loss_fn=_loss,
+        max_lanes_per_device=max_lanes_per_device, device=device, mode=mode)
+    return {s.name: res.lane(i) for i, s in enumerate(group)}
+
+
+def run_grid(
+    scenarios: Sequence[Scenario],
+    steps: int,
+    *,
+    seed: int = 0,
+    problem: tuple[torch.Tensor, torch.Tensor] | None = None,
+    dim: int = 100,
+    mode: str = "graph",
+    exact: bool = True,
+    max_lanes_per_device: int | str | None = None,
+    randomness: Callable[[Scenario], RandomnessProvider | None] | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, TrajectoryResult]:
+    """Run many scenarios; returns ``{name: TrajectoryResult}`` in input
+    order (``grid_finals`` sums it up).
+
+    The rows are grouped into compile buckets by static structure
+    (method, d, N, Byzantine count, trim, compressor, participation, and
+    with ``exact=True`` the aggregator), and each bucket's rows run as the
+    lanes of one batched round (``engine.run_grid``): each kernel one launch
+    over the bucket's lanes, each attack and server one call over its run of
+    lanes. ``mode`` is how a bucket's rounds run: ``"graph"`` (the default:
+    one round captured as a CUDA graph and replayed, CUDA only) or
+    ``"loop"``. ``section7_grid()``'s 15 rows run as 5 buckets. Every lane
+    equals ``run_scenario`` of its row with the same seed bit for bit, with
+    ``exact`` either way; ``run_scenario`` row by row is the reference a
+    grid is held to.
+
+    ``max_lanes_per_device`` streams a bucket through equal chunks of that
+    many lanes (bitwise equal to unchunked); ``"auto"`` waits for the
+    lane-capacity tuner (ROADMAP A.11) and raises.
+
+    ``randomness`` maps a row to its round provider (replaying another
+    trainer's draws), or to ``None`` for the row's own seeded generator,
+    which every row draws from by default, as ``run_scenario`` does.
+    """
+    scns = list(scenarios)
+    dev = resolve_device(device)
+    if not scns:
+        raise ValueError("run_grid needs at least one scenario")
+    buckets: dict[tuple, list[Scenario]] = {}
+    for s in scns:
+        buckets.setdefault(_bucket_signature(s, exact=exact), []).append(s)
+    out: dict[str, TrajectoryResult] = {}
+    for group in buckets.values():
+        out.update(_run_bucket(group, steps, seed=seed, problem=problem, dim=dim, device=dev,
+                               mode=mode, max_lanes_per_device=max_lanes_per_device,
+                               randomness=randomness))
+    return {s.name: out[s.name] for s in scns}
+
+
+def grid_finals(results: dict[str, TrajectoryResult]) -> dict[str, dict[str, float]]:
+    """``{name: {final_loss, final_agg_dist}}`` of a ``run_grid`` result,
+    the summary row of the benchmark scripts."""
+    return {
+        name: {"final_loss": float(res.metrics["loss"][-1]),
+               "final_agg_dist": float(res.metrics["agg_dist"][-1])}
+        for name, res in results.items()
+    }

@@ -33,10 +33,12 @@ class TaskAssignment:
     """One round's assignment.
 
     Attributes:
-      task_index: ``(N,)`` int64, ``T_i^t``: device ``i`` runs that row.
-      subset_perm: ``(N,)`` int64, ``p^t``: column ``k`` is subset ``p[k]``.
-      subsets: ``(N, d)`` int64, the subset ids device ``i`` computes,
+      task_index: ``(..., N)`` int64, ``T_i^t``: device ``i`` runs that row.
+      subset_perm: ``(..., N)`` int64, ``p^t``: column ``k`` is subset ``p[k]``.
+      subsets: ``(..., N, d)`` int64, the subset ids device ``i`` computes,
         ``p[(T_i + j) mod N]`` for ``j < d``.
+
+    Leading axes are independent lanes (scenarios of a grid).
     """
 
     task_index: torch.Tensor
@@ -45,26 +47,28 @@ class TaskAssignment:
 
 
 def assignment_from(task_index: torch.Tensor, subset_perm: torch.Tensor, d: int) -> TaskAssignment:
-    """The assignment that the two permutations of a round define."""
-    n = task_index.shape[0]
+    """The assignment that the two permutations of a round define, ``(...,
+    N)`` draws of any leading lane axes."""
+    n = task_index.shape[-1]
     ti = task_index.long()
     perm = subset_perm.long()
-    cols = (ti[:, None] + torch.arange(d, device=ti.device)[None, :]) % n
-    return TaskAssignment(task_index=ti, subset_perm=perm, subsets=perm[cols])
+    cols = (ti[..., None] + torch.arange(d, device=ti.device)) % n  # (..., N, d)
+    subsets = torch.gather(perm, -1, cols.flatten(-2)).reshape(cols.shape)
+    return TaskAssignment(task_index=ti, subset_perm=perm, subsets=subsets)
 
 
 def fractional_repetition(subset_perm: torch.Tensor, d: int) -> TaskAssignment:
     """DRACO's assignment: device ``i`` belongs to group ``g = i // d`` and
     computes the subsets ``perm[g*d : g*d + d]``, the same block as every
     other member of its group. ``task_index`` holds each device's group.
-    Needs ``d | N``."""
-    n = subset_perm.shape[0]
+    ``subset_perm`` is ``(..., N)``, any leading lane axes. Needs ``d | N``."""
+    n = subset_perm.shape[-1]
     if n % d != 0:
         raise ValueError(f"DRACO's fractional repetition needs d | N: N={n} d={d}")
     perm = subset_perm.long()
     groups = torch.arange(n, device=perm.device) // d
     cols = groups[:, None] * d + torch.arange(d, device=perm.device)[None, :]
-    return TaskAssignment(task_index=groups, subset_perm=perm, subsets=perm[cols])
+    return TaskAssignment(task_index=groups.expand(perm.shape), subset_perm=perm, subsets=perm[..., cols])
 
 
 def sample_assignment(generator: torch.Generator, n: int, d: int) -> TaskAssignment:

@@ -34,11 +34,15 @@ def linreg_resid(z: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Ten
 
 
 def linreg_subset_grads(z: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """All N subset gradients of f_k(x) = 0.5 (<x, z_k> - y_k)^2: (N, dim)."""
-    return linreg_resid(z, y, x)[:, None] * z
+    """All N subset gradients of f_k(x) = 0.5 (<x, z_k> - y_k)^2 at
+    iterates x (..., dim): (..., N, dim). ``(z, y)`` are one problem
+    ((N, dim), (N,)) or one per lane ((..., N, dim), (..., N))."""
+    return linreg_resid(z, y, x)[..., None] * z
 
 
 def linreg_loss(z: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Sum of the subset losses at iterates x (..., dim) -> (...)."""
+    """Sum of the subset losses at iterates x (..., dim) -> (...); a lane
+    axis of ``(z, y)`` must stand before ``x``'s other axes (``z[:, None]``
+    for iterates ``(L, steps, dim)``)."""
     r = linreg_resid(z, y, x)
     return 0.5 * tree_sum(r * r, dim=-1)

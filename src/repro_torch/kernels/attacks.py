@@ -22,11 +22,12 @@ _MODES = {"sign_flip": (0, "coeff"), "alie": (1, "z"), "ipm": (2, "eps")}
 KERNEL_ATTACK_PARAMS = {name: field for name, (_, field) in _MODES.items()}
 
 
-def launch(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> torch.Tensor:
+def launch(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float,
+           out: torch.Tensor | None = None) -> torch.Tensor:
     """msgs (L, N, Q) f32, mask (L, N) f32, contiguous on one CUDA device
-    -> (L, N, Q) transmitted stack."""
+    -> (L, N, Q) transmitted stack, written into ``out`` when given."""
     lanes, n, q = msgs.shape
-    out = torch.empty_like(msgs)
+    out = torch.empty_like(msgs) if out is None else out
     err = _build.library("attack")(
         msgs.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes, n, q,
         _MODES[name][0], float(param), torch.cuda.current_stream(msgs.device).cuda_stream,

@@ -29,12 +29,14 @@ __all__ = ["gather_launch", "gather_plain", "rows_launch", "masked_plain", "code
 MAX_ROWS = 256  # row_combine stages the R products of 128 columns in shared memory
 
 
-def gather_launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def gather_launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """grads (L, N, Q) f32, subsets (L, N, d) int32, weights (L, d) f32, all
-    contiguous on one CUDA device -> (L, N, Q)."""
+    contiguous on one CUDA device -> (L, N, Q), written into ``out`` when
+    given (contiguous, of the grads' shape)."""
     lanes, n, q = grads.shape
     d = subsets.shape[-1]
-    out = torch.empty_like(grads)
+    out = torch.empty_like(grads) if out is None else out
     err = _build.library("gather_combine")(
         grads.data_ptr(), subsets.data_ptr(), weights.data_ptr(), out.data_ptr(),
         lanes, n, d, q, torch.cuda.current_stream(grads.device).cuda_stream,
@@ -44,11 +46,11 @@ def gather_launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Ten
     return out
 
 
-def rows_launch(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def rows_launch(x: torch.Tensor, weights: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """x (L, R, Q) f32, weights (L, R) f32, contiguous on one CUDA device ->
-    (L, Q)."""
+    (L, Q), written into ``out`` when given."""
     lanes, r, q = x.shape
-    out = torch.empty((lanes, q), dtype=x.dtype, device=x.device)
+    out = torch.empty((lanes, q), dtype=x.dtype, device=x.device) if out is None else out
     err = _build.library("row_combine")(
         x.data_ptr(), weights.data_ptr(), out.data_ptr(), lanes, r, q,
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -30,11 +30,13 @@ def plain(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None)
     return cwtm_ref(msgs if neighbours is None else nnm_mix_ref(msgs, neighbours), trim)
 
 
-def launch(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) -> torch.Tensor:
+def launch(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None,
+           out: torch.Tensor | None = None) -> torch.Tensor:
     """msgs (L, N, Q) f32 contiguous on a CUDA device, neighbours None or
-    (L, N, k) int32 with strictly ascending rows -> (L, Q)."""
+    (L, N, k) int32 with strictly ascending rows -> (L, Q), written into
+    ``out`` when given."""
     lanes, n, q = msgs.shape
-    out = torch.empty((lanes, q), dtype=msgs.dtype, device=msgs.device)
+    out = torch.empty((lanes, q), dtype=msgs.dtype, device=msgs.device) if out is None else out
     k = 0 if neighbours is None else neighbours.shape[-1]
     err = _build.library("cwtm")(
         msgs.data_ptr(), None if neighbours is None else neighbours.data_ptr(), k,

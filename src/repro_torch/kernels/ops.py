@@ -9,6 +9,10 @@ lanes into one axis, and then:
 
 The kernels take fp32, contiguous tensors; anything else raises. The CUDA
 kernels mask their ragged Q edge themselves, so nothing is padded here.
+A kernel's grid spans its folded lanes (``gather_combine``: lanes x N rows)
+in one dimension of at most 65535 blocks, so a wrapper launches a larger
+fold in consecutive slices of lanes; lanes are independent, so the bits do
+not change, and each launch counts.
 """
 from __future__ import annotations
 
@@ -73,6 +77,18 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no kernel and no plain path for device {dev}")
 
 
+def _launch_sliced(name: str, launch, out: torch.Tensor, per: int, *operands: torch.Tensor) -> torch.Tensor:
+    """Launch ``launch(*operand slices, out=out slice)`` over consecutive
+    slices of at most ``per`` lanes (the leading axis of every operand and
+    of ``out``), counting each launch under ``name``."""
+    lanes = out.shape[0]
+    for start in range(0, lanes, per):
+        stop = min(lanes, start + per)
+        _launches[name] += 1
+        launch(*(t[start:stop] for t in operands), out=out[start:stop])
+    return out
+
+
 def _lanes(x: torch.Tensor, event_ndim: int) -> tuple[torch.Tensor, tuple[int, ...]]:
     """Fold all leading lane axes of ``x`` into one."""
     if not x.is_contiguous():
@@ -103,10 +119,10 @@ def gather_combine(
         if s.numel() and (int(s.min()) < 0 or int(s.max()) >= n):
             raise IndexError(f"gather_combine: subset ids outside [0, {n})")
         return _coded_combine.gather_plain(flat, s, w).reshape(grads.shape)
-    if flat.shape[0] * n > _MAX_GRID_Y:
-        raise ValueError(f"gather_combine: lanes x N = {flat.shape[0] * n} > {_MAX_GRID_Y}")
-    _launches["gather_combine"] += 1
-    return _coded_combine.gather_launch(flat, s, w).reshape(grads.shape)
+    if n > _MAX_GRID_Y:
+        raise ValueError(f"gather_combine: N = {n} > {_MAX_GRID_Y}")
+    return _launch_sliced("gather_combine", _coded_combine.gather_launch, torch.empty_like(flat),
+                          _MAX_GRID_Y // n, flat, s, w).reshape(grads.shape)
 
 
 def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> torch.Tensor:
@@ -121,10 +137,8 @@ def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> t
     flat_mask = mask.to(torch.float32).reshape(flat.shape[:2]).contiguous()
     if not _on_card("attack", flat, flat_mask):
         return _attacks.plain(flat, flat_mask, name, param).reshape(msgs.shape)
-    if flat.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"attack: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
-    _launches["attack"] += 1
-    return _attacks.launch(flat, flat_mask, name, param).reshape(msgs.shape)
+    return _launch_sliced("attack", lambda m, k, out: _attacks.launch(m, k, name, param, out=out),
+                          torch.empty_like(flat), _MAX_GRID_Y, flat, flat_mask).reshape(msgs.shape)
 
 
 def cwtm(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) -> torch.Tensor:
@@ -153,12 +167,13 @@ def cwtm(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) 
     max_n = _cwtm.MAX_N if nb is None else _cwtm.MAX_N_MIXED
     if n > max_n:
         raise ValueError(f"cwtm kernel takes N <= {max_n}{'' if nb is None else ' with neighbours'}, got {n}")
-    if flat.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"cwtm: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
-    _launches["cwtm"] += 1
+    out = torch.empty((flat.shape[0], flat.shape[-1]), dtype=flat.dtype, device=flat.device)
+    before = _launches["cwtm"]
+    _launch_sliced("cwtm", lambda m, *t, out: _cwtm.launch(m, trim, *t, out=out), out, _MAX_GRID_Y,
+                   flat, *(() if nb is None else (nb,)))
     if nb is not None:
-        _launches["cwtm_nnm"] += 1
-    return _cwtm.launch(flat, trim, nb).reshape(lead + msgs.shape[-1:])
+        _launches["cwtm_nnm"] += _launches["cwtm"] - before
+    return out.reshape(lead + msgs.shape[-1:])
 
 
 def gram(msgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -171,10 +186,10 @@ def gram(msgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     else:
         if n > _nnm_dist.MAX_N:
             raise ValueError(f"gram kernel takes N <= {_nnm_dist.MAX_N}, got {n}")
-        if flat.shape[0] > _MAX_GRID_Y:
-            raise ValueError(f"gram: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
-        _launches["gram"] += 1
-        g, sq = _nnm_dist.launch(flat)
+        parts = [_nnm_dist.launch(flat[a:a + _MAX_GRID_Y]) for a in range(0, flat.shape[0], _MAX_GRID_Y)]
+        _launches["gram"] += len(parts)
+        g, sq = (parts[0] if len(parts) == 1 else
+                 (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])))
     return g.reshape(lead + (n, n)), sq.reshape(lead + (n,))
 
 
@@ -194,10 +209,9 @@ def _row_combine(name: str, plain, x: torch.Tensor, weights: torch.Tensor) -> to
         return plain(flat, w).reshape(lead + x.shape[-1:])
     if r > _coded_combine.MAX_ROWS:
         raise ValueError(f"{name} kernel takes at most {_coded_combine.MAX_ROWS} rows, got {r}")
-    if flat.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"{name}: {flat.shape[0]} lanes > {_MAX_GRID_Y}")
-    _launches[name] += 1
-    return _coded_combine.rows_launch(flat, w).reshape(lead + x.shape[-1:])
+    out = torch.empty((flat.shape[0], flat.shape[-1]), dtype=flat.dtype, device=flat.device)
+    return _launch_sliced(name, _coded_combine.rows_launch, out, _MAX_GRID_Y, flat, w).reshape(
+        lead + x.shape[-1:])
 
 
 def masked_combine(msgs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -229,7 +243,5 @@ def stochastic_quantize(g: torch.Tensor, u: torch.Tensor, levels: int = 16, bloc
     uf, _ = _lanes(u, 1)
     if not _on_card("quantize", gf, uf):
         return _quantize.plain(gf, uf, levels, qb).reshape(g.shape)
-    if gf.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"quantize: {gf.shape[0]} lanes > {_MAX_GRID_Y}")
-    _launches["quantize"] += 1
-    return _quantize.launch(gf, uf, levels, qb).reshape(g.shape)
+    return _launch_sliced("quantize", lambda a, b, out: _quantize.launch(a, b, levels, qb, out=out),
+                          torch.empty_like(gf), _MAX_GRID_Y, gf, uf).reshape(g.shape)

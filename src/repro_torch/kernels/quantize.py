@@ -29,10 +29,12 @@ def plain(g: torch.Tensor, u: torch.Tensor, levels: int, block: int) -> torch.Te
     return stochastic_quantize_ref(g, u, levels, block)[..., :q].contiguous()
 
 
-def launch(g: torch.Tensor, u: torch.Tensor, levels: int, block: int) -> torch.Tensor:
-    """g, u (L, Q) f32, contiguous on one CUDA device -> (L, Q)."""
+def launch(g: torch.Tensor, u: torch.Tensor, levels: int, block: int,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """g, u (L, Q) f32, contiguous on one CUDA device -> (L, Q), written
+    into ``out`` when given."""
     lanes, q = g.shape
-    out = torch.empty_like(g)
+    out = torch.empty_like(g) if out is None else out
     err = _build.library("quantize")(
         g.data_ptr(), u.data_ptr(), out.data_ptr(), lanes, q, block, levels,
         torch.cuda.current_stream(g.device).cuda_stream,

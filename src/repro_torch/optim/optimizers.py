@@ -29,8 +29,13 @@ def sgd() -> Optimizer:
     def init(params: torch.Tensor) -> OptState:
         return OptState(step=0)
 
-    def update(params: torch.Tensor, grads: torch.Tensor, state: OptState, lr: float,
+    def update(params: torch.Tensor, grads: torch.Tensor, state: OptState, lr: float | torch.Tensor,
                weight_decay: float = 0.0):
+        """``lr`` is a float, or a float32 tensor of the lanes' shape
+        (``(L,)`` for ``(L, Q)`` params): one step size per lane, the same
+        bits as the float."""
+        if isinstance(lr, torch.Tensor):
+            lr = lr.reshape(lr.shape + (1,) * (params.ndim - lr.ndim))
         g = grads.to(torch.float32) + weight_decay * params.to(torch.float32)
         new = (params.to(torch.float32) - lr * g).to(params.dtype)
         return new, OptState(step=state.step + 1)

@@ -18,7 +18,10 @@ The median through the CWTM kernel and DRACO's decode, masked and unmasked,
 are held to the same computations on the CPU bit for bit (elementwise fp32
 arithmetic and sorts give the same bits on both devices). A trajectory in
 graph mode (one captured round replayed) equals loop mode bit for bit, for
-the rows that ``chip_smoke.py``'s ``graph`` phase runs.
+the rows that ``chip_smoke.py``'s ``graph`` phase runs. A grid of small
+buckets in graph mode equals the loop-mode grid and each lane's standalone
+graph run bit for bit, and the kernels launch folded lane counts above the
+grid's 65535 blocks in slices, equal to their plain versions.
 """
 from __future__ import annotations
 
@@ -244,3 +247,69 @@ def test_graph_mode_equals_loop_mode_bitwise(card, row):
     assert smoke.same_bits(loop, graph)
     assert graph.graph.replays == 50 and graph.graph.captured_launches["gather_combine"] == 1
     assert graph.opt_state == loop.opt_state
+
+
+def _grid_rows():
+    """Small buckets of every kind the grid phase runs: section-7 rows with
+    DRACO, mixed servers with gaussian draw groups, quant:4, participation."""
+    rows = tscn.section7_grid(n_devices=16, n_byz=3, methods=(("plain", 1), ("lad", 4), ("draco", 4)))
+    rows += [tscn.Scenario(name=f"mix/{agg}/{attack}", method="lad", d=4, aggregator=agg, attack=attack,
+                           n_byz=3, n_devices=16, lr=1e-5)
+             for agg, attack in (("cwtm-nnm", "gaussian"), ("geomed", "alie"), ("krum", "gaussian"),
+                                 ("mcc", "ipm"), ("tgn", "sign_flip"))]
+    rows += [tscn.Scenario(name=f"quant/{m}", method=m, d=4 if m == "lad" else 1, aggregator="cwtm",
+                           compressor="quant:4", n_byz=3, n_devices=16) for m in ("lad", "plain")]
+    rows += tscn.participation_sweep(schedules=("iid", "onoff", "markov"), n_byz=3)
+    return rows
+
+
+@pytest.mark.cuda
+def test_graph_grid_equals_loop_grid_and_standalone_graph_runs(card):
+    """The grid in mode="graph" equals mode="loop" bit for bit,
+    and each lane equals its standalone graph-mode run."""
+    from repro_torch.core.engine import last_grid_chunk_info
+
+    rows = _grid_rows()
+    loop = tscn.run_grid(rows, 30, dim=24, device="cuda", mode="loop", exact=False)
+    graph = tscn.run_grid(rows, 30, dim=24, device="cuda", mode="graph", exact=False,
+                          max_lanes_per_device=4)
+    assert last_grid_chunk_info()["chunk"] == 4
+    smoke = _chip_smoke()
+    for row in rows:
+        assert smoke.same_bits(loop[row.name], graph[row.name]), row.name
+        alone = tscn.run_scenario(row, 30, dim=24, device="cuda", mode="graph")
+        assert smoke.same_bits(graph[row.name], alone), row.name
+    stats = graph[rows[0].name].grid
+    assert stats.graphs and all(g.replays == 30 for g in stats.graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gather_combine", "attack", "cwtm", "cwtm_nnm"])
+def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
+    """Folded lane counts above 65535 launch in slices of lanes: each slice
+    counts, and the result equals the plain version bit for bit (within
+    the attack's tolerance)."""
+    if kernel == "gather_combine":
+        lanes, n, q = 700, 100, 40  # 70,000 (lane, device) rows
+    else:
+        lanes, n, q = 70_000, 5, 40
+    msgs = torch.randn((lanes, n, q), generator=card, device="cuda")
+    before = tops.launch_counts()
+    if kernel == "gather_combine":
+        subsets = torch.randint(0, n, (lanes, n, 3), generator=card, device="cuda")
+        w = torch.rand((lanes, 3), generator=card, device="cuda")
+        got, want = tops.gather_combine(msgs, subsets, w), tref.gather_combine_ref(msgs, subsets, w)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    elif kernel == "attack":
+        mask = (torch.rand((lanes, n), generator=card, device="cuda") < 0.4).float()
+        torch.testing.assert_close(tops.attack(msgs, mask, "alie", 1.5), tref.attack_ref(msgs, mask, "alie", 1.5),
+                                   rtol=RTOL, atol=ATOL)
+    elif kernel == "cwtm":
+        torch.testing.assert_close(tops.cwtm(msgs, 1), tref.cwtm_ref(msgs, 1), rtol=0, atol=0)
+    else:
+        table = torch.tensor([[0, 1, 2], [1, 2, 3], [2, 3, 4], [0, 3, 4], [0, 1, 4]], dtype=torch.int32,
+                             device="cuda").expand(lanes, n, 3).contiguous()
+        torch.testing.assert_close(tops.cwtm(msgs, 1, table), tcwtm.plain(msgs, 1, table), rtol=0, atol=0)
+    after = tops.launch_counts()
+    counter = "cwtm" if kernel == "cwtm_nnm" else kernel
+    assert after[counter] - before[counter] == 2
