@@ -43,6 +43,20 @@ and prints one JSON line per phase:
                  the erasure decode against the mean at e = 0..3 erased rows;
                  asserts N - e reports every round and that the decode's
                  final loss does not move with e;
+  lm             the LM path: ``lm_sweep()``'s 12 rows on ``lm_arch()``
+                 (N=10, 2 Byzantine, 4 buckets), 100 rounds, each row alone
+                 in graph mode and all through ``run_lm_grid`` in graph
+                 mode, every lane bit for bit against its row's run; one
+                 row's loop mode bit for bit against its graph mode; one
+                 row on the card against the CPU on the same records; per
+                 bucket its lanes, replay ms a round and captured launches;
+  lm_wide        ``run_lm_scenario`` at smollm-360m's published widths and
+                 depth (P = 361,821,120), N=8, LAD d=2, CWTM under ALIE, 3
+                 rounds after a warm-up round: per round the subset
+                 gradients' ms and each stage's, peak memory, finite losses;
+                 one round's aggregate through the kernels against the plain
+                 versions, and a subset's vmapped gradient against a plain
+                 backward;
   wide_round     protocol rounds at the gradient width of smollm-360m
                  (Q = 361,821,120; N=8, d=2), each after a warm-up round:
                  CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
@@ -62,7 +76,10 @@ and prints one JSON line per phase:
                  could take; ``median`` through the CWTM kernel bitwise
                  against the plain version at N = 8, 41 and 100; plus its
                  launches during the phases above, which must all be above
-                 0, and the launches that graph replays ran on the card
+                 0 (``lm_launches``: those of the two LM phases, counted
+                 from 0 before them, where the encode, attack and CWTM
+                 kernels must be above 0), and the launches that graph
+                 replays ran on the card
                  beside them, which no counter sees (``coded_combine``, which
                  no path of the reference runs, carries ``"on_path": false``
                  and its launches in this phase). The CWTM row is the fused
@@ -705,6 +722,202 @@ def participation_phase(S) -> dict:
             "mean_rel_spread": mean, "decode_spread_max": DECODE_SPREAD_MAX}
 
 
+# ------------------------------------------------------------------------ lm
+
+LM_STEPS = 100
+LM_KERNELS = ("gather_combine", "attack", "cwtm")  # what lm_sweep's rows reach (lad-d2 encodes, CWTM server)
+LM_RTOL = 2e-6  # LM card against CPU: tests/test_torch_lm.py's tolerance of the port against the reference
+
+
+def lm_phase(S, byz, replayed: dict[str, int]) -> dict:
+    """``lm_sweep()``'s 12 rows on ``lm_arch()`` (N=10, 2 Byzantine, 4
+    buckets), 100 rounds each:
+
+      * every row alone in graph mode (``run_lm_scenario``), then all rows
+        through ``run_lm_grid`` in graph mode, every lane held bit for bit
+        to its row's standalone run;
+      * the first row in loop mode, bit for bit against its graph mode;
+      * one row (ALIE, no compression) on the card and on the CPU from the
+        same records (drawn on the CPU), loss, ``agg_dist`` and
+        ``grad_norm`` within relative ``LM_RTOL`` every round.
+
+    Per row the standalone replay ms a round; per bucket its lanes, captured
+    launches and replay ms a round. Adds the replays' launches to
+    ``replayed``."""
+    rows = S.lm_sweep()
+    out = {"phase": "lm", "rows": len(rows), "rounds": LM_STEPS, "mode": "graph", "n_devices": rows[0].n_devices,
+           "n_byz": rows[0].n_byz, "arch": dataclasses.asdict(S.lm_arch())}
+    alone, replay_ms = {}, {}
+    for row in rows:
+        res = S.run_lm_scenario(row, LM_STEPS, seed=0, device="cuda", mode="graph")
+        check(res.graph.replays == LM_STEPS, f"{row.name}: {res.graph.replays} replays")
+        loss = res.metrics["loss"]
+        check(loss.shape == (LM_STEPS,) and bool(torch.isfinite(loss).all()), f"{row.name}: bad loss")
+        replay_ms[row.name] = res.graph.replay_ms() / LM_STEPS
+        for k, v in res.graph.captured_launches.items():
+            replayed[k] += v * res.graph.replays
+        alone[row.name] = res
+    out["standalone_replay_ms_per_round"] = replay_ms
+    out["final_loss"] = {n: float(r.metrics["loss"][-1]) for n, r in alone.items()}
+    out["initial_loss"] = {n: float(r.metrics["loss"][0]) for n, r in alone.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    grid = S.run_lm_grid(rows, LM_STEPS, seed=0, device="cuda", mode="graph")
+    torch.cuda.synchronize()
+    out["grid_call_ms"] = (time.perf_counter() - start) * 1e3
+    out["grid_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    buckets = {}
+    for row in rows:
+        stats = grid[row.name].grid
+        buckets.setdefault(id(stats), (stats, []))[1].append(row.name)
+    lines = []
+    for stats, names in buckets.values():
+        check(all(g.replays == LM_STEPS for g in stats.graphs), "lm grid: a chunk was not replayed")
+        for g in stats.graphs:
+            for k, v in g.captured_launches.items():
+                replayed[k] += v * g.replays
+        lines.append({"first_row": names[0], "lanes": stats.lanes, "replay_ms_per_round": stats.replay_ms() / LM_STEPS,
+                      "standalone_replay_ms_per_round_sum": sum(replay_ms[n] for n in names),
+                      "captured_launches_per_round": {k: v for k, v in stats.captured_launches().items() if v}})
+    check(len(lines) == 4, f"lm_sweep took {len(lines)} buckets, not 4")
+    for row in rows:
+        lanes_equal(grid[row.name], alone[row.name], row.name)
+    out["buckets"] = lines
+    out["lanes_bitwise_standalone"] = True
+
+    first = rows[0]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    loop = S.run_lm_scenario(first, LM_STEPS, seed=0, device="cuda", mode="loop")
+    torch.cuda.synchronize()
+    out["loop_ms_per_round"] = {first.name: (time.perf_counter() - start) * 1e3 / LM_STEPS}
+    check(same_bits(loop, alone[first.name]), f"{first.name}: LM loop mode differs from graph mode")
+    out["loop_bitwise_graph"] = first.name
+
+    row = next(r for r in rows if r.attack == "alie" and r.compressor == "none" and r.method == "lad")
+    cpu_gen = torch.Generator().manual_seed(1)
+    p = S._lm_fns(S.lm_arch()).x0.numel()
+    recs = [byz.sample_round_randomness(row.protocol(), p, cpu_gen) for _ in range(LM_STEPS)]
+    card = S.run_lm_scenario(row, LM_STEPS, seed=0, randomness=lambda t: recs[t], device="cuda")
+    cpu = S.run_lm_scenario(row, LM_STEPS, seed=0, randomness=lambda t: recs[t], device="cpu")
+    rel = {}
+    for k in ("loss", "agg_dist", "grad_norm"):
+        want = cpu.metrics[k]
+        rel[k] = float(((card.metrics[k].cpu() - want).abs() / want.abs()).max())
+        check(rel[k] <= LM_RTOL, f"{row.name} card vs CPU {k}: rel {rel[k]} > {LM_RTOL}")
+    out["card_vs_cpu"] = {"row": row.name, "max_rel": rel, "tolerance": LM_RTOL}
+    return out
+
+
+LM_WIDE_ROUNDS = 3
+LM_WIDE_PEAK_GB = 60.0  # reckoned 45 to 52 GB: the (8, P) stacks of the round, the iterates' rows; the card has 80
+SUBSET_GRAD_RTOL = 1e-4  # a leaf's vmapped gradient against a plain backward, relative to the leaf's max
+
+
+def lm_wide_phase(S, byz, models, coding, pytree, archs) -> dict:
+    """``run_lm_scenario`` at smollm-360m's published widths and depth (32
+    layers, d_model 960, 15/5 heads of 64, d_ff 2560, vocab 49152, tied; P
+    = 361,821,120), N=8, 2 Byzantine, LAD d=2 with CWTM (trim 2 a side)
+    under ALIE, 2 rows of 16 tokens a subset, 3 rounds in loop mode after
+    one untimed warm-up round. Per round the subset gradients' ms and each
+    stage's (CUDA events at ``run_trajectory``'s stage marks) and the peak
+    memory; the losses must be finite. Then, on the gradients at the
+    initial parameters: one round's aggregate through the kernels against
+    the same round through the plain versions (on the CPU, over the first
+    and the last 2^22 columns; every stage works column by column) within
+    rtol 1e-5, atol 1e-6; and subset 0's vmapped gradient against a plain
+    ``backward()`` on its rows, each leaf within ``SUBSET_GRAD_RTOL`` of
+    the leaf's largest magnitude."""
+    arch = archs.ARCHS["smollm-360m"]
+    row = S.Scenario(name="lm-wide/lad-d2/cwtm/alie", method="lad", d=2, aggregator="cwtm", attack="alie",
+                     n_byz=2, n_devices=WIDE_N, trim_frac=0.25, sigma_h=0.5, lr=3e-3)
+    start = time.perf_counter()
+    x0, spec, subset_grads, _ = S._lm_fns(arch)
+    init_s = time.perf_counter() - start
+    check(x0.numel() == WIDE_Q, f"smollm-360m has {x0.numel()} parameters, not {WIDE_Q}")
+    kw = dict(arch=arch, seed=0, per_subset=2, seq_len=16, device="cuda")
+    warm = S.run_lm_scenario(row, 1, **kw)
+    check(bool(torch.isfinite(warm.metrics["loss"]).all()), "lm_wide: warm-up loss not finite")
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def hook(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    start = time.perf_counter()
+    res = S.run_lm_scenario(row, LM_WIDE_ROUNDS, stage_hook=hook, **kw)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - start) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rounds = []
+    for i, (stage, ev) in enumerate(marks):
+        if stage == "round":
+            rounds.append({})
+        else:
+            rounds[-1][stage] = marks[i - 1][1].elapsed_time(ev)
+    check(len(rounds) == LM_WIDE_ROUNDS, f"lm_wide: {len(rounds)} rounds marked")
+    loss = res.metrics["loss"]
+    check(loss.shape == (LM_WIDE_ROUNDS,) and bool(torch.isfinite(loss).all()), "lm_wide: bad loss")
+    check(peak_gb < LM_WIDE_PEAK_GB, f"lm_wide: peak {peak_gb:.1f} GB >= {LM_WIDE_PEAK_GB}")
+    out = {"phase": "lm_wide", "arch": arch.name, "params": WIDE_Q, "n_devices": WIDE_N, "d": 2, "n_byz": 2,
+           "aggregator": "cwtm", "trim_frac": 0.25, "attack": "alie", "per_subset": 2, "seq_len": 16,
+           "rounds": LM_WIDE_ROUNDS, "init_s": init_s, "call_ms": call_ms, "stage_ms_per_round": rounds,
+           "peak_gb": peak_gb, "peak_gb_max": LM_WIDE_PEAK_GB, "loss": loss.tolist(),
+           "grad_norm": res.metrics["grad_norm"].tolist(), "agg_dist": res.metrics["agg_dist"].tolist()}
+    del res
+
+    # the gradients at x0, one round through the kernels and through the plain versions
+    data = S._lm_problem(arch, seed=0, n_subsets=WIDE_N, sigma_h=row.sigma_h, per_subset=2, seq_len=16,
+                         device=torch.device("cuda"))
+    x = x0.to("cuda")
+    grads = subset_grads(data, x)  # once untimed: its allocations
+    del grads
+    torch.cuda.synchronize()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    start = time.perf_counter()
+    grads = subset_grads(data, x)
+    enqueue_ms = (time.perf_counter() - start) * 1e3  # the host's time to enqueue, no sync inside
+    end_ev.record()
+    end_ev.synchronize()
+    # the card cannot finish before the host has enqueued: equal times mean the host bounds it
+    out["subset_grads"] = {"ms": start_ev.elapsed_time(end_ev), "host_enqueue_ms": enqueue_ms}
+    cfg = row.protocol()
+    rand = byz.sample_round_randomness(cfg, WIDE_Q, torch.Generator(device="cuda").manual_seed(3))
+    g = byz.protocol_round(cfg, grads, rand, device="cuda")
+    cols = 1 << 22
+    err = 0.0
+    for sl in (slice(0, cols), slice(WIDE_Q - cols, WIDE_Q)):
+        want = byz.protocol_round(cfg, grads[:, sl].cpu(), rand.to("cpu"), device="cpu")
+        got = g[sl].cpu()
+        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL), "lm_wide: kernel route differs from the plain route")
+        err = max(err, float((got - want).abs().max()))
+    out["kernel_vs_plain_round"] = {"columns": [[0, cols], [WIDE_Q - cols, WIDE_Q]], "max_abs_err": err,
+                                    "rtol": RTOL, "atol": ATOL}
+    del g
+
+    # subset 0: a plain backward() on its rows, against its row of the vmapped stack
+    tree = pytree.map_tree(lambda a: a.detach().clone().requires_grad_(True), coding.unflatten_pytree(x, spec))
+    loss0 = models.loss_fn(tree, None, arch, {"tokens": data[0][0], "labels": data[1][0]})[0]
+    loss0.backward()
+    plain = coding.flatten_pytree(pytree.map_tree(lambda a: a.grad, tree))[0]
+    del tree, loss0
+    worst = 0.0
+    for want, got in zip(pytree.leaves(coding.unflatten_pytree(plain, spec)),
+                         pytree.leaves(coding.unflatten_pytree(grads[0], spec))):
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    check(worst <= SUBSET_GRAD_RTOL, f"lm_wide: vmapped gradient off a plain backward by {worst} of a leaf's max")
+    out["vmapped_vs_plain_backward"] = {"subset": 0, "max_err_over_leaf_max": worst, "tolerance": SUBSET_GRAD_RTOL,
+                                        "rel_l2": float((grads[0] - plain).norm() / plain.norm())}
+    return out
+
+
 # ---------------------------------------------------------------- wide round
 
 
@@ -886,8 +1099,9 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import numerics
-    from repro_torch.core import aggregators, attacks, byzantine, compression, participation, scenarios
+    from repro_torch import models, numerics, pytree
+    from repro_torch.configs import archs
+    from repro_torch.core import aggregators, attacks, byzantine, coding, compression, participation, scenarios
     from repro_torch.data.synthetic import linear_regression_problem
     from repro_torch.kernels import _build, ops, quantize, ref
 
@@ -917,8 +1131,27 @@ def main() -> int:
     emit(graph_phase(scenarios, replayed))
     emit(grid_phase(scenarios, trajectory, section7, replayed))
     emit(participation_phase(scenarios))
+    linear = ops.launch_counts()
+    del trajectory, section7
+    torch.cuda.empty_cache()
+
+    # the LM path: its own counts, from 0
+    ops.reset_launch_counts()
+    for phase in (lambda: lm_phase(scenarios, byzantine, replayed),
+                  lambda: lm_wide_phase(scenarios, byzantine, models, coding, pytree, archs)):
+        start = time.perf_counter()
+        line = phase()
+        line["phase_s"] = time.perf_counter() - start
+        emit(line)
+    lm = ops.launch_counts()
+    for name in LM_KERNELS:
+        check(lm[name] > 0, f"kernel {name} was not launched on the LM path")
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
     emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
-    launches = ops.launch_counts()
+    wide = ops.launch_counts()
+    launches = {name: linear[name] + lm[name] + wide[name] for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
@@ -929,7 +1162,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
-         "graph_replay_launches": replayed[name],
+         "lm_launches": lm[name], "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
         for name in TPU_KERNELS
     ]})

@@ -5,6 +5,8 @@ SGD step count, the problem ``(Z, y)``, optionally ``x_star`` and, under
 partial participation, the schedule state: the previous ``(N,)`` mask) into
 the port's tensors on a chosen device; ``result_to_numpy`` turns a
 ``TrajectoryResult`` back. Both sides then start from identical state.
+``lm_params_from_numpy`` carries the LM's parameter tree across, leaf for
+leaf.
 """
 from __future__ import annotations
 
@@ -13,10 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.core.engine import TrajectoryResult
 from repro_torch.optim import OptState
 
-__all__ = ["TrainerState", "state_from_numpy", "result_to_numpy"]
+__all__ = ["TrainerState", "state_from_numpy", "result_to_numpy", "lm_params_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +57,18 @@ def result_to_numpy(res: TrajectoryResult) -> dict[str, np.ndarray]:
         out["participation_state"] = res.participation_state.detach().cpu().numpy()
     out.update({k: v.detach().cpu().numpy() for k, v in res.metrics.items()})
     return out
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own: widen exactly, narrow back
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_numpy(tree, *, device: torch.device | str = "cpu"):
+    """The reference's LM parameter tree (nested dicts of numpy arrays) as
+    the port's tree of tensors on ``device``, leaf for leaf, bits and dtypes
+    unchanged: ``coding.flatten_pytree`` of the result is the reference's
+    flat vector of the same tree."""
+    return pytree.map_tree(lambda a: _leaf(a, device), tree)

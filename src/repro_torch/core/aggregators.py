@@ -43,7 +43,7 @@ Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
 __all__ = ["mean", "coordinate_median", "cwtm", "geometric_median", "krum_scores", "krum",
            "multi_krum", "mcc", "tgn", "nnm_neighbours", "nnm_mix", "nnm_then", "cwtm_nnm",
-           "make_aggregator", "AGGREGATORS"]
+           "make_aggregator", "AGGREGATORS", "kappa_bound"]
 
 
 def _sum_rows(x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
@@ -228,3 +228,31 @@ def make_aggregator(name: str, *, nnm: bool = False, n_byz: int = 0, **kwargs) -
         return partial(cwtm_nnm, n_byz=n_byz, trim_frac=kwargs.get("trim_frac", 0.1))
     base = AGGREGATORS[name](n_byz=n_byz, **kwargs)
     return nnm_then(base, n_byz=n_byz) if nnm else base
+
+
+def kappa_bound(name: str, n: int, h: int, trim_frac: float = 0.1) -> float:
+    """Known robustness coefficients kappa (Definition 1) from [23] Table 1,
+    with ``b = N - H`` Byzantine devices: order-correct standard bounds for
+    the theory plots, ``inf`` where the rule is not kappa-robust (``mean``).
+    The reference's values, number for number."""
+    b = n - h
+    if b == 0:
+        return 0.0
+    frac = b / (n - 2 * b) if n > 2 * b else float("inf")
+    if name == "mean":
+        return float("inf")
+    if name in ("median", "geomed"):
+        return 4.0 * frac**2 * (1 + frac) ** 2 if frac != float("inf") else float("inf")
+    if name == "cwtm":
+        return frac * (1.0 + frac)
+    if name in ("krum", "multi_krum"):
+        return 6.0 * (1 + frac) ** 2 if frac != float("inf") else float("inf")
+    if name.endswith("-nnm"):
+        base = kappa_bound(name[: -len("-nnm")], n, h, trim_frac)
+        # NNM composes to kappa = O(b/n) ([23] Thm 2): 8 b/h (1 + base)
+        return 8.0 * b / h * (1.0 + base) if base != float("inf") else float("inf")
+    if name == "mcc":
+        return frac * (1.0 + frac)  # no published tight bound; a CWTM-like proxy
+    if name == "tgn":
+        return frac * (1.0 + frac)
+    raise KeyError(name)

@@ -6,17 +6,23 @@ the reports of a round with erased devices: the cyclic assignment at load
 degrades gracefully beyond. Its surviving-row sum runs through the
 ``masked_combine`` kernel. ``draco_decode`` is DRACO's majority vote over
 the groups of the fractional repetition code: every group's median in one
-lane-batched launch of the CWTM kernel.
+lane-batched launch of the CWTM kernel. ``flatten_pytree`` lays a model's
+parameter tree out as the one flat vector that the protocol round works on,
+in the reference's leaf order.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch import pytree
 from repro_torch.core.aggregators import coordinate_median
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.numerics import stable_mean0, tree_sum
 
-__all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode"]
+__all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode", "flatten_pytree",
+           "unflatten_pytree"]
 
 
 def erasure_margin(d: int) -> int:
@@ -121,3 +127,32 @@ def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | N
         tree_sum(alive, dim=-1), 1.0)[..., None]
     all_full = tree_sum(group_full.to(torch.float32), dim=-1) == float(n_groups)
     return torch.where(all_full[..., None], legacy, degraded)
+
+
+def flatten_pytree(tree) -> tuple[torch.Tensor, tuple]:
+    """A tree of tensors as one 1-D vector, the leaves concatenated in
+    ``jax.tree.flatten``'s order (dict keys sorted, see ``pytree``), and the
+    spec ``(skeleton, shapes)`` that ``unflatten_pytree`` takes. The vector is
+    the reference's ``flatten_pytree`` of the same tree, element for
+    element."""
+    leaves = pytree.leaves(tree)
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves]) if leaves else torch.zeros((0,))
+    return flat, (pytree.map_tree(lambda leaf: None, tree), shapes)
+
+
+def unflatten_pytree(flat: torch.Tensor, spec: tuple):
+    """The tree of ``spec`` over ``flat``: each leaf a view of its slice of
+    the last axis, nothing copied. ``flat`` may carry leading axes (an
+    ``(N, P)`` stack of flat vectors gives leaves of shape ``(N, *shape)``)."""
+    skeleton, shapes = spec
+    lead = tuple(flat.shape[:-1])
+    if flat.shape[-1] != sum(math.prod(s) for s in shapes):
+        raise ValueError(f"flat vector of {flat.shape[-1]} elements for a tree of "
+                         f"{sum(math.prod(s) for s in shapes)}")
+    views, idx = [], 0
+    for shape in shapes:
+        size = math.prod(shape)
+        views.append(flat[..., idx:idx + size].view(lead + shape))
+        idx += size
+    return pytree.from_leaves(skeleton, views)

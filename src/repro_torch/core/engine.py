@@ -258,31 +258,37 @@ def _lane_records(groups: RoundRandomness, lanes: _Lanes) -> RoundRandomness:
 
 
 def _run_lanes(lanes: _Lanes, records, x: torch.Tensor, grads_of: Callable, *, steps: int, lr, grad_scale,
-               opt, state, p_state, mode: str, dev: torch.device):
+               opt, state, p_state, mode: str, dev: torch.device, stage_hook: Callable[[str], None] | None = None):
     """``steps`` rounds of the lanes from iterates ``x`` ``(L, Q)``.
 
     ``records`` is a ``t -> RoundRandomness`` of the draw groups (drawn as
     each round starts; loop mode only) or every round's records stacked on
-    a leading round axis. Returns (the raw ``(steps, L, ...)`` vectors, the
-    last iterates, the schedule state, ``GraphStats`` or ``None``, the
-    optimizer state)."""
+    a leading round axis. ``stage_hook`` (loop mode only) marks the stages
+    of every round, see ``run_trajectory``. Returns (the raw ``(steps, L,
+    ...)`` vectors, the last iterates, the schedule state, ``GraphStats`` or
+    ``None``, the optimizer state)."""
     cfg = lanes.cfg
     p_spec = cfg.participation
     n = cfg.n_devices
+    hook = stage_hook or (lambda stage: None)
 
     def one_round(x, groups, t, p_state, state):
         """One round at iterates ``x``: (new x, aggregates, honest subset
         means, schedule state, reporting counts or None, optimizer state)."""
+        hook("round")
         rand = _lane_records(groups, lanes)
         grads = grads_of(x)
+        hook("grads")
         pm = n_report = None
         if p_spec.active:
             pm, p_state = sample_participation(p_spec, rand.part_u, t, n, p_state)
             n_report = tree_sum(pm, dim=-1)
         g = protocol_round(cfg, grads, rand, device=dev, attack_branches=lanes.attacks,
-                           server_branches=lanes.servers, participation_mask=pm)
+                           server_branches=lanes.servers, participation_mask=pm, stage_hook=stage_hook)
         new_x, state = opt.update(x, grad_scale * g, state, lr)
-        return new_x, g, stable_mean0(grads, dim=-2), p_state, n_report, state
+        gmean = stable_mean0(grads, dim=-2)
+        hook("step")
+        return new_x, g, gmean, p_state, n_report, state
 
     names = ("g", "gmean", "x") + (("n_report",) if p_spec.active else ())
     if mode == "loop":
@@ -323,6 +329,7 @@ def run_trajectory(
     participation_state: torch.Tensor | None = None,
     device: torch.device | str | None = None,
     mode: str = "loop",
+    stage_hook: Callable[[str], None] | None = None,
 ) -> TrajectoryResult:
     """Run ``steps`` protocol rounds from ``x0``.
 
@@ -355,7 +362,14 @@ def run_trajectory(
         runs one round eagerly on copies of the state (building the kernels
         and setting their attributes outside the capture), captures one
         round and replays it.
+      stage_hook: loop mode only; called with ``"round"`` as each round
+        begins, ``"grads"`` once its subset gradients are enqueued, then
+        ``protocol_round``'s stages, and ``"step"`` after the optimizer step
+        and the round's honest subset mean (for per-stage CUDA-event times). A captured round runs no Python,
+        so graph mode refuses it.
     """
+    if stage_hook is not None and mode != "loop":
+        raise ValueError("stage_hook marks loop-mode rounds; a captured round runs no Python")
     dev = resolve_device(device)
     _check_mode(mode, dev)
     opt = make_optimizer(optimizer)
@@ -374,7 +388,8 @@ def run_trajectory(
     draws = _Draws([cfg], [randomness], q, dev)
     raw, x, p_state, stats, state = _run_lanes(
         lanes, draws.at if mode == "loop" else draws.stacked(steps), x[None], lambda x: grads_fn(x[0])[None],
-        steps=steps, lr=lr, grad_scale=grad_scale, opt=opt, state=state, p_state=p_state, mode=mode, dev=dev)
+        steps=steps, lr=lr, grad_scale=grad_scale, opt=opt, state=state, p_state=p_state, mode=mode, dev=dev,
+        stage_hook=stage_hook)
     bound_loss = None
     if loss_fn is not None:
         bound_loss = (lambda xs: loss_fn(data, xs)) if data is not None else loss_fn

@@ -14,26 +14,38 @@
   * ``run_grid`` — many scenarios at once: rows that share their static
     structure run as the lanes of one batched round (``engine.run_grid``),
     one compile bucket at a time; ``grid_finals`` sums a sweep up.
+  * ``lm_sweep`` / ``run_lm_scenario`` / ``run_lm_grid`` — the same matrix
+    at LM scale: the iterate is a transformer's flattened fp32 parameter
+    vector (``lm_arch`` by default), each subset's gradient its full-model
+    gradient on the subset's tokens.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+import functools
+from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
+from repro_torch import models, pytree
 from repro_torch.core.attacks import AttackSpec
 from repro_torch.core import engine as engine_lib
 from repro_torch.core.byzantine import ProtocolConfig, draw_signature
-from repro_torch.core.coding import erasure_margin
+from repro_torch.core.coding import erasure_margin, flatten_pytree, unflatten_pytree
 from repro_torch.core.compression import spec_from
 from repro_torch.core.participation import ParticipationSpec
 from repro_torch.core.engine import RandomnessProvider, TrajectoryResult
-from repro_torch.data.synthetic import linear_regression_problem, linreg_loss, linreg_subset_grads
+from repro_torch.data.synthetic import (
+    linear_regression_problem,
+    linreg_loss,
+    linreg_subset_grads,
+    lm_batch_for_devices,
+)
 from repro_torch.device import resolve_device
 
 __all__ = ["Scenario", "scenario_name", "section7_grid", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
-           "participation_sweep", "synthetic_sweep", "run_scenario", "run_grid", "grid_finals"]
+           "participation_sweep", "synthetic_sweep", "run_scenario", "least_squares", "run_grid", "grid_finals",
+           "lm_arch", "lm_sweep", "run_lm_scenario", "run_lm_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,6 +313,7 @@ def run_scenario(
     randomness: RandomnessProvider | None = None,
     device: torch.device | str | None = None,
     mode: str = "loop",
+    with_sol_err: bool = False,
 ) -> TrajectoryResult:
     """Run one scenario on the Section-VII linear-regression problem.
 
@@ -310,7 +323,9 @@ def run_scenario(
     randomness (unless ``randomness`` provides it; its records are checked
     as they come in, see ``run_trajectory``). ``mode`` is
     ``run_trajectory``'s: ``"loop"`` or ``"graph"`` (one captured round
-    replayed, CUDA only).
+    replayed, CUDA only). ``with_sol_err`` adds the metric ``sol_err``,
+    ``||x_t - x*||`` to the least-squares solution of ``(Z, y)``
+    (``least_squares``).
     """
     dev = resolve_device(device)
     gen, (z, y) = _lane_setup(scn, seed=seed, problem=problem, dim=dim, device=dev)
@@ -324,10 +339,25 @@ def run_scenario(
         # the aggregate estimates (1/N) grad F; eq. (7) steps on F
         grad_scale=float(scn.n_devices),
         loss_fn=_loss,
+        x_star=least_squares(z, y) if with_sol_err else None,
         data=(z, y),
         device=dev,
         mode=mode,
     )
+
+
+def least_squares(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The minimum-norm least-squares solution ``x*`` of ``Z x = y``, as
+    float32 on ``z``'s device.
+
+    Solved in float64 on the CPU, where ``torch.linalg.lstsq`` factors with
+    LAPACK's ``gelsy`` (a complete orthogonal factorization: the
+    minimum-norm solution, of the wide ``(82, 100)`` system of the
+    DRACO-d41 rows too). On CUDA, ``lstsq`` takes only a tall ``Z`` of full
+    rank. The reference solves in float32 (``jnp.linalg.lstsq``, an SVD),
+    so the two ``x*`` differ by the float32 solve's error."""
+    sol = torch.linalg.lstsq(z.detach().cpu().double(), y.detach().cpu().double()[:, None])
+    return sol.solution[:, 0].to(torch.float32).to(z.device)
 
 
 def _bucket_signature(scn: Scenario, exact: bool = True) -> tuple:
@@ -355,16 +385,30 @@ def _bucket_signature(scn: Scenario, exact: bool = True) -> tuple:
     ) + ((scn.aggregator,) if exact else ())
 
 
-def _run_bucket(group: list[Scenario], steps: int, *, seed: int, problem, dim: int, device: torch.device,
-                mode: str, max_lanes_per_device, randomness) -> dict[str, TrajectoryResult]:
+@dataclasses.dataclass(frozen=True)
+class _BucketProblem:
+    """What one compile bucket trains on, so that the linear-regression grid
+    and the LM grid share ``_run_bucket``: the engine's gradient and loss
+    hooks, the initial iterate, the data (one per lane when
+    ``data_batched``) and the aggregate's scale."""
+
+    subset_grad_fn: Callable
+    loss_fn: Callable
+    x0: torch.Tensor
+    data: Any
+    data_batched: bool
+    grad_scale: float
+
+
+def _run_bucket(group: list[Scenario], steps: int, prob: _BucketProblem, gens: list[torch.Generator], *,
+                device: torch.device, mode: str, max_lanes_per_device, randomness) -> dict[str, TrajectoryResult]:
     """One compile bucket as one ``engine.run_grid`` call.
 
-    Every lane's problem and generator come from ``_lane_setup``, as
-    ``run_scenario``'s do. Lanes that draw alike (``draw_signature``) read
-    one draw group, drawn from its first lane's generator (every lane's
+    ``gens[i]`` is lane ``i``'s generator, seeded and advanced as its
+    standalone run's. Lanes that draw alike (``draw_signature``) read one
+    draw group, drawn from its first lane's generator (every lane's
     generator is seeded alike and has drawn alike); a lane that
     ``randomness`` gives a provider draws from it alone."""
-    setups = [_lane_setup(s, seed=seed, problem=problem, dim=dim, device=device) for s in group]
     cfgs = [s.protocol() for s in group]
     groups: dict[object, int] = {}
     sources = []
@@ -374,18 +418,28 @@ def _run_bucket(group: list[Scenario], steps: int, *, seed: int, problem, dim: i
         key = ("lane", lane) if provider is not None else draw_signature(cfg)
         if key not in groups:
             groups[key] = len(sources)
-            sources.append(provider if provider is not None else setups[lane][0])
+            sources.append(provider if provider is not None else gens[lane])
         draw_ids.append(groups[key])
+    res = engine_lib.run_grid(
+        cfgs, prob.x0, prob.subset_grad_fn, steps=steps, lr=[s.lr for s in group], randomness=sources,
+        draw_ids=draw_ids, data=prob.data, data_batched=prob.data_batched, grad_scale=prob.grad_scale,
+        loss_fn=prob.loss_fn, max_lanes_per_device=max_lanes_per_device, device=device, mode=mode)
+    return {s.name: res.lane(i) for i, s in enumerate(group)}
+
+
+def _linreg_bucket(group: list[Scenario], *, seed: int, problem, dim: int,
+                   device: torch.device) -> tuple[_BucketProblem, list[torch.Generator]]:
+    """The linear-regression problem of one bucket and its lanes'
+    generators, each lane set up by ``_lane_setup`` as ``run_scenario``'s."""
+    setups = [_lane_setup(s, seed=seed, problem=problem, dim=dim, device=device) for s in group]
     if problem is not None:
         data, batched = setups[0][1], False
     else:
         data, batched = tuple(torch.stack(parts) for parts in zip(*(p for _, p in setups))), True
-    res = engine_lib.run_grid(
-        cfgs, torch.zeros(data[0].shape[-1], dtype=torch.float32, device=device), _subset_grads,
-        steps=steps, lr=[s.lr for s in group], randomness=sources, draw_ids=draw_ids, data=data,
-        data_batched=batched, grad_scale=float(group[0].n_devices), loss_fn=_loss,
-        max_lanes_per_device=max_lanes_per_device, device=device, mode=mode)
-    return {s.name: res.lane(i) for i, s in enumerate(group)}
+    x0 = torch.zeros(data[0].shape[-1], dtype=torch.float32, device=device)
+    # the aggregate estimates (1/N) grad F; eq. (7) steps on F
+    prob = _BucketProblem(_subset_grads, _loss, x0, data, batched, float(group[0].n_devices))
+    return prob, [gen for gen, _ in setups]
 
 
 def run_grid(
@@ -433,9 +487,9 @@ def run_grid(
         buckets.setdefault(_bucket_signature(s, exact=exact), []).append(s)
     out: dict[str, TrajectoryResult] = {}
     for group in buckets.values():
-        out.update(_run_bucket(group, steps, seed=seed, problem=problem, dim=dim, device=dev,
-                               mode=mode, max_lanes_per_device=max_lanes_per_device,
-                               randomness=randomness))
+        prob, gens = _linreg_bucket(group, seed=seed, problem=problem, dim=dim, device=dev)
+        out.update(_run_bucket(group, steps, prob, gens, device=dev, mode=mode,
+                               max_lanes_per_device=max_lanes_per_device, randomness=randomness))
     return {s.name: out[s.name] for s in scns}
 
 
@@ -447,3 +501,234 @@ def grid_finals(results: dict[str, TrajectoryResult]) -> dict[str, dict[str, flo
                "final_agg_dist": float(res.metrics["agg_dist"][-1])}
         for name, res in results.items()
     }
+
+
+# --------------------------------------------------------------------------
+# The LM scale: the same matrix, each lane training a transformer.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def lm_arch():
+    """The small transformer of the LM sweeps: smollm-360m's family (3:1
+    GQA, tied embeddings) cut to 1 layer, d_model=32, vocab=64, as the
+    reference's ``lm_arch``. Cached, so every caller shares one config
+    (and with it ``_lm_fns``'s cached problem)."""
+    from repro_torch.configs.archs import ARCHS, reduced
+
+    return reduced(ARCHS["smollm-360m"]).scaled(
+        n_layers=1, d_model=32, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64, vocab=64,
+    )
+
+
+class _LMFns(NamedTuple):
+    x0: torch.Tensor
+    spec: tuple
+    subset_grad_fn: Callable
+    loss_fn: Callable
+
+
+@functools.lru_cache(maxsize=4)
+def _lm_fns(arch) -> _LMFns:
+    """(x0, spec, subset_grad_fn, loss_fn) of the LM problem of ``arch``.
+
+    ``x0`` is the model's flattened parameter vector, initialised from a
+    CPU generator seeded 0 (the same on every device) in the arch's dtype
+    and widened to float32, as the reference's ``_lm_fns`` does from
+    ``PRNGKey(0)``; it lies on the CPU. ``spec`` is its
+    ``flatten_pytree`` spec.
+
+    ``subset_grad_fn(data, x)``: ``x`` ``(l, P)`` iterates of ``l`` lanes
+    and ``data`` the ``(tokens, labels)`` of the N subsets, ``(N, rows,
+    S)`` each; returns the ``(l, N, P)`` stack of every subset's gradient
+    at every lane's iterate (``(N, P)`` for one ``(P,)`` iterate). Each lane is its own step: its iterate copied
+    (so its views start where a one-lane run's do), the gradients of all N
+    subsets from one ``torch.func.vmap(torch.func.grad(...))``, taken
+    through the per-period form of the tree (``unstack_periods``), and each
+    leaf written straight into its slice of the lane's rows of the stack.
+    A lane thus sees exactly the shapes of a one-lane run, whatever the
+    lane count, and its bits do not depend on it.
+
+    ``loss_fn(data, xs)``: the mean next-token loss over all subsets' rows
+    at each iterate of ``xs`` ``(..., P)``, one forward pass an iterate.
+    """
+    params0, _ = models.init(torch.Generator().manual_seed(0), arch)
+    x0, spec = flatten_pytree(pytree.map_tree(lambda a: a.to(torch.float32), params0))
+    del params0
+    unstack = models.transformer.unstack_periods
+
+    def subset_loss(params, tokens, labels):
+        return models.loss_fn(params, None, arch, {"tokens": tokens, "labels": labels})[0]
+
+    per_subset = torch.func.vmap(torch.func.grad(subset_loss), in_dims=(None, 0, 0))
+
+    def lm_subset_grads(data, x):
+        if x.ndim == 1:  # one iterate (P,): the (N, P) stack
+            return lm_subset_grads(data, x[None])[0]
+        tokens, labels = data
+        out = x.new_empty((x.shape[0], tokens.shape[0], x.shape[-1]))
+        for i in range(x.shape[0]):
+            grads = per_subset(unstack(unflatten_pytree(x[i].clone(), spec)), tokens, labels)
+            rows = unstack(unflatten_pytree(out[i], spec), lead=1)
+            for g, dst in zip(pytree.leaves(grads), pytree.leaves(rows)):
+                dst.copy_(g)
+            del grads
+        return out
+
+    def lm_loss(data, xs):
+        tokens, labels = data
+        batch = {"tokens": tokens.reshape(-1, tokens.shape[-1]), "labels": labels.reshape(-1, labels.shape[-1])}
+        flat = xs.reshape(-1, xs.shape[-1])
+        with torch.no_grad():
+            losses = [models.loss_fn(unflatten_pytree(flat[j].clone(), spec), None, arch, batch)[0]
+                      for j in range(flat.shape[0])]
+        return torch.stack(losses).reshape(xs.shape[:-1])
+
+    return _LMFns(x0, spec, lm_subset_grads, lm_loss)
+
+
+def _lm_problem(arch, *, seed: int, n_subsets: int, sigma_h: float, per_subset: int, seq_len: int,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The heterogeneous-LM ``(tokens, labels)`` of one run, ``(N,
+    per_subset, seq_len)`` each, drawn from a CPU generator seeded ``seed``
+    (the same tokens on every device) and moved to ``device``."""
+    batch = lm_batch_for_devices(torch.Generator().manual_seed(seed), arch.vocab, n_subsets=n_subsets,
+                                 per_subset=per_subset, seq_len=seq_len, sigma_h=sigma_h)
+    return batch["tokens"].contiguous().to(device), batch["labels"].contiguous().to(device)
+
+
+def lm_sweep(
+    methods: Sequence[tuple[str, int]] = (("lad", 2), ("plain", 1)),
+    attacks: Sequence[str] = ("sign_flip", "alie", "ipm"),
+    aggregators: Sequence[str] = ("cwtm",),
+    compressors: Sequence[str] = ("none", "rand_sparse"),
+    *,
+    n_devices: int = 10,
+    n_byz: int = 2,
+    sigma_h: float = 0.5,
+    q_hat_frac: float = 0.5,
+    trim_frac: float = 0.2,
+    lr: float = 3e-3,
+) -> list[Scenario]:
+    """The LM-scale matrix: method x attack x aggregator x compressor, with
+    ``section7_grid``'s pruning (DRACO rows drop compression and round N
+    down to a multiple of d). Every row shares ``sigma_h``: ``run_lm_grid``
+    trains a bucket on one shared problem. The default 12 rows fall into 4
+    buckets (method x compressor; the attacks are per lane)."""
+    rows = []
+    seen = set()
+    for method, d in methods:
+        for attack in attacks:
+            for agg in aggregators:
+                for comp in compressors:
+                    if method == "draco" and comp != "none":
+                        continue
+                    draco = method == "draco"
+                    name = "lm/" + scenario_name(method, d, "vote" if draco else agg, attack, comp, sigma_h)
+                    if name in seen:
+                        continue
+                    seen.add(name)
+                    rows.append(Scenario(
+                        name=name, method=method, d=d, aggregator="mean" if draco else agg, attack=attack,
+                        n_byz=n_byz, compressor=comp, q_hat_frac=q_hat_frac, sigma_h=sigma_h,
+                        trim_frac=trim_frac, n_devices=n_devices - n_devices % d if draco else n_devices, lr=lr,
+                    ))
+    return rows
+
+
+def run_lm_scenario(
+    scn: Scenario,
+    steps: int,
+    *,
+    arch=None,
+    seed: int = 0,
+    per_subset: int = 2,
+    seq_len: int = 16,
+    params=None,
+    batch: dict[str, torch.Tensor] | None = None,
+    randomness: RandomnessProvider | None = None,
+    device: torch.device | str | None = None,
+    mode: str = "loop",
+    stage_hook: Callable[[str], None] | None = None,
+) -> TrajectoryResult:
+    """One LM-scale scenario: the transformer ``arch`` (``lm_arch()`` when
+    not given) trained from its flattened parameters through the protocol
+    round, ``grad_scale`` 1 (the loss is a mean), the mean loss over every
+    subset's rows as the metric ``loss``.
+
+    ``params`` (a parameter tree, widened to float32) replaces the seeded
+    initial parameters, and ``batch`` (``tokens`` and ``labels``, ``(N,
+    rows, S)``) the seeded heterogeneous-LM data; the rounds draw from a
+    generator on the run's device seeded ``seed``, unless ``randomness``
+    provides them. ``mode`` and ``stage_hook`` are ``run_trajectory``'s.
+    ``run_lm_grid``'s lanes equal this run of their rows bit for bit.
+    """
+    dev = resolve_device(device)
+    arch = arch if arch is not None else lm_arch()
+    x0, spec, lm_subset_grads, lm_loss = _lm_fns(arch)
+    if params is not None:
+        x0, given = flatten_pytree(pytree.map_tree(lambda a: a.to(torch.float32), params))
+        if given != spec:
+            raise ValueError(f"params are not {arch.name}'s tree of leaves: {given[1]} against {spec[1]}")
+    if batch is None:
+        data = _lm_problem(arch, seed=seed, n_subsets=scn.n_devices, sigma_h=scn.sigma_h,
+                           per_subset=per_subset, seq_len=seq_len, device=dev)
+    else:
+        data = (batch["tokens"].to(dev), batch["labels"].to(dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return engine_lib.run_trajectory(
+        scn.protocol(), x0.to(dev), lm_subset_grads, steps=steps, lr=scn.lr,
+        randomness=randomness if randomness is not None else gen, grad_scale=1.0, loss_fn=lm_loss,
+        data=data, device=dev, mode=mode, stage_hook=stage_hook)
+
+
+def run_lm_grid(
+    scenarios: Sequence[Scenario],
+    steps: int,
+    *,
+    arch=None,
+    seed: int = 0,
+    per_subset: int = 2,
+    seq_len: int = 16,
+    mode: str = "graph",
+    exact: bool = True,
+    shard: str = "none",
+    max_lanes_per_device: int | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, TrajectoryResult]:
+    """Sweep LM-scale scenarios: the buckets of ``run_grid`` (same
+    signature, ``exact`` and chunking), every bucket's lanes training the
+    transformer on one shared problem (``data_batched=False``) through
+    ``engine.run_grid``. ``mode`` is how a bucket's rounds run, as in
+    ``run_grid``: ``"graph"`` (one captured round replayed, CUDA only) or
+    ``"loop"``; row by row is ``run_lm_scenario``.
+
+    Every lane equals ``run_lm_scenario`` of its row with the same seed bit
+    for bit. All rows must share ``sigma_h`` (a bucket shares one data
+    tensor). ``shard`` other than ``"none"`` waits for ROADMAP A.9.
+    """
+    scns = list(scenarios)
+    if not scns:
+        raise ValueError("run_lm_grid needs at least one scenario")
+    sigmas = {s.sigma_h for s in scns}
+    if len(sigmas) != 1:
+        raise ValueError(
+            f"run_lm_grid rows must share sigma_h (got {sorted(sigmas)}): the LM sweep trains on one "
+            "shared problem per bucket, so data heterogeneity cannot vary per lane")
+    if shard != "none":
+        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9")
+    dev = resolve_device(device)
+    arch = arch if arch is not None else lm_arch()
+    x0, _, lm_subset_grads, lm_loss = _lm_fns(arch)
+    buckets: dict[tuple, list[Scenario]] = {}
+    for s in scns:
+        buckets.setdefault(_bucket_signature(s, exact=exact), []).append(s)
+    out: dict[str, TrajectoryResult] = {}
+    for group in buckets.values():
+        data = _lm_problem(arch, seed=seed, n_subsets=group[0].n_devices, sigma_h=group[0].sigma_h,
+                           per_subset=per_subset, seq_len=seq_len, device=dev)
+        prob = _BucketProblem(lm_subset_grads, lm_loss, x0.to(dev), data, False, 1.0)
+        gens = [torch.Generator(device=dev).manual_seed(seed) for _ in group]
+        out.update(_run_bucket(group, steps, prob, gens, device=dev, mode=mode,
+                               max_lanes_per_device=max_lanes_per_device, randomness=None))
+    return {s.name: out[s.name] for s in scns}

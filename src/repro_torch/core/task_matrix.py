@@ -6,7 +6,9 @@ Row ``i`` of the ``N x N`` cyclic matrix ``S_hat`` has ones in columns
 ``subset_perm[k]`` (Algorithm 1). DRACO's fractional repetition code
 (``fractional_repetition``) takes one permutation instead. The draws come in
 from outside (see ``byzantine.RoundRandomness``); this module only builds
-from them.
+from them. ``fractional_repetition_matrix``, ``column_counts``,
+``is_column_balanced`` and ``assignment_deviation`` are Lemma 1's analysis
+of a task matrix, in numpy.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["cyclic_task_matrix", "TaskAssignment", "assignment_from", "fractional_repetition",
+__all__ = ["cyclic_task_matrix", "fractional_repetition_matrix", "column_counts", "is_column_balanced",
+           "assignment_deviation", "TaskAssignment", "assignment_from", "fractional_repetition",
            "sample_assignment"]
 
 
@@ -26,6 +29,44 @@ def cyclic_task_matrix(n: int, d: int) -> np.ndarray:
     first = np.zeros(n, dtype=np.int32)
     first[:d] = 1
     return np.stack([np.roll(first, i) for i in range(n)], axis=0)
+
+
+def fractional_repetition_matrix(n: int, d: int) -> np.ndarray:
+    """DRACO's fractional repetition task matrix: ``n // d`` groups of ``d``
+    devices, every device of group ``g`` computing the block of subsets
+    ``[g*d, (g+1)*d)``. Needs ``d | n``. Column-balanced, so it attains the
+    Lemma-1 infimum too."""
+    if n % d != 0:
+        raise ValueError(f"fractional repetition needs d | n, got n={n}, d={d}")
+    s = np.zeros((n, n), dtype=np.int32)
+    for i in range(n):
+        g = i // d
+        s[i, g * d: (g + 1) * d] = 1
+    return s
+
+
+def column_counts(s: np.ndarray) -> np.ndarray:
+    return np.asarray(s).sum(axis=0)
+
+
+def is_column_balanced(s: np.ndarray) -> bool:
+    """True iff every column has the same number of ones (Lemma 1's optimum)."""
+    counts = column_counts(s)
+    return bool(np.all(counts == counts[0]))
+
+
+def assignment_deviation(s: np.ndarray, h: int) -> float:
+    """Lemma 1's ``E||(1/(dH)) h S - (1/N) 1||^2`` for a task matrix ``s``
+    with ``d`` ones per row, from its column counts ``theta_j`` (the proof's
+    eqs. 38-41); for the cyclic matrix it is ``(N-H)(N-d) / (d H (N-1) N)``."""
+    s = np.asarray(s)
+    n = s.shape[0]
+    d = int(s[0].sum())
+    theta = column_counts(s).astype(np.float64)
+    # eqs. (40)-(41): 1/(d^2 H^2) [H d + H(H-1)/(N(N-1)) (sum theta_j^2 - d N)] - 1/N
+    cross = float((theta**2).sum() - d * n)
+    val = (h * d + h * (h - 1) / (n * (n - 1)) * cross) / (d**2 * h**2) - 1.0 / n
+    return float(val)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -313,3 +313,75 @@ def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
     after = tops.launch_counts()
     counter = "cwtm" if kernel == "cwtm_nnm" else kernel
     assert after[counter] - before[counter] == 2
+
+
+# ------------------------------------------------------------------- the LM
+
+
+LM_STEPS = 20
+# a leaf's vmapped gradient against a plain backward on the card: the batched
+# and the single products sum in other orders, 2 layers deep (chip_smoke.py's
+# lm_wide phase holds the full 32-layer depth to the same bound)
+SUBSET_GRAD_RTOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_lm_graph_mode_equals_loop_mode_bitwise(card):
+    """An LM row (LAD d=2 under ALIE, random sparsification): the captured
+    round, torch.func backward included, replayed 20 times equals the loop
+    bit for bit."""
+    smoke = _chip_smoke()
+    row = next(r for r in tscn.lm_sweep() if r.attack == "alie" and r.compressor == "rand_sparse" and r.d == 2)
+    loop = tscn.run_lm_scenario(row, LM_STEPS, seed=2, device="cuda", mode="loop")
+    graph = tscn.run_lm_scenario(row, LM_STEPS, seed=2, device="cuda", mode="graph")
+    assert smoke.same_bits(loop, graph)
+    assert graph.graph.replays == LM_STEPS and graph.graph.captured_launches["gather_combine"] == 1
+
+
+@pytest.mark.cuda
+def test_lm_grid_lane_equals_standalone_run_bitwise(card):
+    """A 3-lane LM bucket in graph mode: each lane equals its row's
+    standalone graph-mode run bit for bit."""
+    smoke = _chip_smoke()
+    rows = tscn.lm_sweep(methods=(("lad", 2),), compressors=("none",))
+    grid = tscn.run_lm_grid(rows, LM_STEPS, seed=1, device="cuda")
+    assert grid[rows[0].name].grid.lanes == 3
+    for row in rows:
+        assert smoke.same_bits(grid[row.name], tscn.run_lm_scenario(row, LM_STEPS, seed=1, device="cuda",
+                                                                    mode="graph")), row.name
+
+
+@pytest.mark.cuda
+def test_lm_round_is_deterministic(card):
+    """One LM round run twice gives the same bits: the embedding's and the
+    label rows' gradients are matrix products, not atomic scatter-adds."""
+    row = tscn.lm_sweep()[0]
+    a, b = (tscn.run_lm_scenario(row, 1, seed=5, device="cuda") for _ in range(2))
+    assert torch.equal(a.x, b.x)
+    x0, _, grads, _ = tscn._lm_fns(tscn.lm_arch())
+    data = tscn._lm_problem(tscn.lm_arch(), seed=5, n_subsets=row.n_devices, sigma_h=row.sigma_h, per_subset=2,
+                            seq_len=16, device=torch.device("cuda"))
+    x = x0.to("cuda")
+    assert torch.equal(grads(data, x), grads(data, x))
+
+
+@pytest.mark.cuda
+def test_lm_vmapped_gradient_equals_plain_backward(card):
+    """smollm-360m's widths at 2 layers: subset 3's row of the vmapped
+    gradient stack against a plain ``backward()`` on its rows, each leaf
+    within SUBSET_GRAD_RTOL of its largest magnitude."""
+    from repro_torch import models, pytree
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.core.coding import flatten_pytree, unflatten_pytree
+
+    arch = ARCHS["smollm-360m"].scaled(n_layers=2)
+    x0, spec, grads, _ = tscn._lm_fns(arch)
+    data = tscn._lm_problem(arch, seed=0, n_subsets=4, sigma_h=0.5, per_subset=2, seq_len=16,
+                            device=torch.device("cuda"))
+    x = x0.to("cuda")
+    stack = grads(data, x)
+    tree = pytree.map_tree(lambda a: a.detach().clone().requires_grad_(True), unflatten_pytree(x, spec))
+    models.loss_fn(tree, None, arch, {"tokens": data[0][3], "labels": data[1][3]})[0].backward()
+    plain = flatten_pytree(pytree.map_tree(lambda a: a.grad, tree))[0]
+    for want, got in zip(pytree.leaves(unflatten_pytree(plain, spec)), pytree.leaves(unflatten_pytree(stack[3], spec))):
+        assert float((got - want).abs().max()) <= SUBSET_GRAD_RTOL * float(want.abs().max())

@@ -12,8 +12,23 @@ participation bitwise. The port sums in other orders than
 XLA (the eq.-(5) encode, NNM's mix, the server means), each round differing
 by fp32 rounding; the step size is small, so the differences do not grow
 with rounds. On this problem, over these 30 rounds, every metric agrees to
-a few 1e-7 relative, about ten times inside the tolerance. The NNM rows
-need no more: their neighbour choice is the same on both sides.
+a few 1e-7 relative, about ten times inside the tolerance.
+
+Selections (NNM's neighbours, TGN's kept rows) are discrete: where two
+candidates lie within the distances' fp32 rounding of the cut-off, the two
+sides may pick differently, and the curves part. The 30-round rows above
+have no such round. ``test_selection_rows_match_reference_round_by_round``
+runs three rows where one comes within 200 rounds (cwtm-nnm and tgn-nnm
+under random sparsification, and geomed, whose aggregate's norm falls to
+a fifth of its median): every round of the port is held against the
+reference's round on the port's own input, and a round that differs, or
+the round where the curves part, must show a pick within the Gram's fp32
+rounding bound of the cut-off (and, where the two selections on one input
+differ, every differing pick within it). Past that round the curves are
+not held. ``grad_norm`` there is held on the scale of the aggregate's
+typical norm (the run's median), as ``agg_dist`` is on its round's
+``grad_norm``: where the aggregate nearly cancels, its norm keeps the
+rounding of the vectors summed.
 
 Under the erasure decode, and under DRACO's decode where every group keeps
 an honest majority (DRACO-d41), the aggregate is the honest mean up to
@@ -43,12 +58,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import aggregators as jagg
 from repro.core import engine as jengine
 from repro.core import scenarios as jscn
 from repro.data.synthetic import linear_regression_problem as jax_problem
 from repro.data.synthetic import linreg_loss as jax_loss
 from repro.data.synthetic import linreg_subset_grads as jax_grads
 from repro_torch import convert
+from repro_torch.core import aggregators as tagg
 from repro_torch.core import engine as tengine
 from repro_torch.core import scenarios as tscn
 from repro_torch.data.synthetic import linreg_loss, linreg_subset_grads
@@ -356,3 +373,127 @@ def test_chip_smoke_wide_q_is_smollm_360m_parameter_count():
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     assert chip_smoke.WIDE_Q == count == 361_821_120
+
+
+# ------------------------------------------------- selections (ROADMAP C.6)
+
+C6_STEPS = 200
+C6_ROWS = [("lad", 10, "cwtm-nnm", "alie", "rand_sparse"), ("lad", 10, "tgn-nnm", "gaussian", "rand_sparse"),
+           ("plain", 1, "geomed", "sign_flip", "none")]
+
+
+def _gram_error_bound(q: int) -> float:
+    """gamma_Q of a Q-term fp32 dot product: |fl(a.b) - a.b| <= gamma_Q sum |a_k b_k|."""
+    u = 2.0 ** -24
+    return q * u / (1 - q * u)
+
+
+def _cutoff_margins(values: torch.Tensor, keep: int, bound) -> torch.Tensor:
+    """Per row of ``values`` (rows, M), float64: the least ``(v_b - v_a) /
+    bound(a, b)`` over a among the ``keep`` smallest (ties to the lower
+    index) and b among the rest, with ``v_a < v_b``. Exactly equal values
+    (identical rows, such as the colluding ALIE rows) order by index on both
+    sides alike and are no margin. Below 1, a pick lies within the rounding
+    bound of the cut-off."""
+    order = torch.sort(values, dim=-1, stable=True).indices
+    sel, rest = order[:, :keep], order[:, keep:]
+    va, vb = torch.gather(values, 1, sel), torch.gather(values, 1, rest)
+    ratio = (vb[:, None, :] - va[:, :, None]) / bound(sel[:, :, None], rest[:, None, :])
+    return torch.where(vb[:, None, :] > va[:, :, None], ratio, torch.inf).flatten(1).min(dim=1).values
+
+
+def _selections(cfg, stack: torch.Tensor) -> list[tuple[str, torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The server's selections on the port's transmitted ``stack`` (N, Q):
+    (name, the port's picks, the reference's picks, each row's cut-off
+    margin): NNM's neighbours (by the Gram distances), and for TGN-NNM
+    TGN's kept rows of the port's mixed stack (by their squared norms)."""
+    n, q = stack.shape
+    gam = _gram_error_bound(q)
+    k = n - cfg.n_byz
+    x = stack.double()
+    sq = (x * x).sum(-1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * x @ x.T  # each fp32 side is within 2 gamma_Q (sq_i + sq_j)
+    port = tagg.nnm_neighbours(tops.pairwise_sqdist(stack), cfg.n_byz).long()
+    ref = torch.from_numpy(np.array(jax.lax.top_k(-jagg._pairwise_sqdist(jnp.asarray(stack.numpy())), k)[1]))
+    rows = torch.arange(n)[:, None, None]
+    out = [("nnm", port, ref, _cutoff_margins(d2, k, lambda a, b: 2 * gam * (2 * sq[rows] + sq[a] + sq[b])))]
+    if cfg.aggregator == "tgn-nnm":
+        mixed = tagg.nnm_mix(stack, cfg.n_byz)
+        f = min(max(int(0.2 * n), cfg.n_byz), n - 1)
+        norms = (mixed.double() ** 2).sum(-1)
+        port = tagg._smallest(tagg._sum_last(mixed * mixed), n - f)[None]
+        ref = torch.from_numpy(np.array(jax.lax.top_k(-jnp.sum(jnp.asarray(mixed.numpy()) ** 2, axis=1),
+                                                      n - f)[1]))[None]
+        out.append(("tgn", port, ref, _cutoff_margins(norms[None], n - f,
+                                                      lambda a, b: gam * (norms[a] + norms[b]))))
+    return out
+
+
+def _assert_flip_within_margin(cfg, stack: torch.Tensor, t: int) -> None:
+    """Round ``t`` may pick differently on the two sides: some pick lies
+    within the rounding bound of its cut-off, and where the two sides'
+    selections on this one input differ, the rows that differ are such
+    picks."""
+    least = min(float(m.min()) for _, _, _, m in _selections(cfg, stack))
+    assert least <= 1.0, f"round {t}: the curves part, yet every pick clears its cut-off by {least:.3g} bounds"
+    for name, port, ref, margin in _selections(cfg, stack):
+        for i in range(port.shape[0]):
+            if set(port[i].tolist()) != set(ref[i].tolist()):
+                assert float(margin[i]) <= 1.0, f"round {t}: {name} row {i} differs with margin {margin[i]:.3g}"
+
+
+@pytest.mark.parametrize("method,d,agg,attack,comp", C6_ROWS, ids=["/".join(map(str, r)) for r in C6_ROWS])
+def test_selection_rows_match_reference_round_by_round(problem, monkeypatch, method, d, agg, attack, comp):
+    """Rows whose selections come within rounding of a tie in 200 rounds
+    (see the module docstring): every port round against the reference's
+    round on the port's input, and the curves up to the round where they
+    part, which must be such a tie."""
+    from repro.core import byzantine as jbyz
+
+    z, y = problem
+    kw = dict(name=f"{method}-d{d}/{agg}/{attack}/{comp}", method=method, d=d, aggregator=agg, attack=attack,
+              compressor=comp)
+    jrow, trow = jscn.Scenario(**kw), tscn.Scenario(**kw)
+    jres = jscn.run_scenario(jrow, C6_STEPS, seed=0, problem=(jnp.asarray(z), jnp.asarray(y)), mode="scan")
+    rounds, stacks = [], []
+    real_round, real_server = tengine.protocol_round, tengine.make_server_fn
+
+    def recording_round(cfg, grads, rand, **k):
+        out = real_round(cfg, grads, rand, **k)
+        rounds.append((grads[0].clone(), out[0].clone()))
+        return out
+
+    def recording_server(cfg):
+        server = real_server(cfg)
+        return lambda t: (stacks.append(t[0].clone()), server(t))[1]
+
+    monkeypatch.setattr(tengine, "protocol_round", recording_round)
+    monkeypatch.setattr(tengine, "make_server_fn", recording_server)
+    tres = tscn.run_scenario(trow, C6_STEPS, problem=(torch.from_numpy(z), torch.from_numpy(y)), device="cpu",
+                             randomness=_replayed(trow.protocol(), 0, C6_STEPS, z.shape[1]))
+    assert len(rounds) == len(stacks) == C6_STEPS
+    cfg = trow.protocol()
+    ref_round = jax.jit(lambda key, grads: jbyz.protocol_round(jrow.protocol(), key, grads))
+    flips = []
+    for t, (grads, got) in enumerate(rounds):
+        want = np.asarray(ref_round(jax.random.fold_in(jax.random.PRNGKey(0), t), jnp.asarray(grads.numpy())))
+        scale = float(np.abs(want).max())
+        if not np.allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * scale):
+            _assert_flip_within_margin(cfg, stacks[t], t)
+            flips.append(t)
+
+    metric = {k: np.asarray(jres.metrics[k]) for k in ("loss", "agg_dist", "grad_norm")}
+    port = {k: tres.metrics[k].numpy() for k in metric}
+    typical = float(np.median(metric["grad_norm"]))
+    ok = np.abs(port["loss"] - metric["loss"]) <= TRAJECTORY_RTOL * np.abs(metric["loss"])
+    ok &= np.abs(port["agg_dist"] - metric["agg_dist"]) <= TRAJECTORY_RTOL * (metric["agg_dist"] + metric["grad_norm"])
+    ok &= np.abs(port["grad_norm"] - metric["grad_norm"]) <= TRAJECTORY_RTOL * (metric["grad_norm"] + typical)
+    parted = int(np.argmin(ok)) if not ok.all() else None
+    if parted is None:
+        assert not flips, f"rounds {flips} picked differently, yet the curves agree"
+        np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x), rtol=TRAJECTORY_RTOL,
+                                   atol=TRAJECTORY_RTOL * float(np.abs(np.asarray(jres.x)).max()))
+    else:
+        assert cfg.aggregator.endswith("-nnm"), f"{kw['name']}: the curves part at round {parted} with no selection"
+        assert not flips or flips[0] >= parted, (flips, parted)
+        _assert_flip_within_margin(cfg, stacks[parted], parted)

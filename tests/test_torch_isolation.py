@@ -43,7 +43,8 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.scenarios, "
         "repro_torch.core.engine, repro_torch.core.byzantine, repro_torch.kernels.ops, "
-        "repro_torch.core.participation, repro_torch.core.coding, repro_torch.kernels.quantize\n"
+        "repro_torch.core.participation, repro_torch.core.coding, repro_torch.kernels.quantize, "
+        "repro_torch.models, repro_torch.configs.archs, repro_torch.core.theory, repro_torch.pytree\n"
         "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
@@ -51,6 +52,8 @@ def test_port_imports_with_jax_blocked():
         "row = dataclasses.replace(S.participation_sweep(schedules=('adversarial',))[0], compressor='quant:4')\n"
         "r = S.run_scenario(row, 2, dim=32, device='cpu')\n"
         "assert r.metrics['n_report'].tolist() == [13.0, 13.0]\n"
+        "r = S.run_lm_scenario(S.lm_sweep()[0], 1, device='cpu')\n"
+        "assert r.metrics['loss'].shape == (1,)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules "
         "if sys.modules[m] is not None)\n"
     )
