@@ -57,6 +57,21 @@ and prints one JSON line per phase:
                  one round's aggregate through the kernels against the plain
                  versions, and a subset's vmapped gradient against a plain
                  backward;
+  train          the LM train step (``launch.train.build_engine_step``) at
+                 ``lm_arch()``, N=10, 4 steps, AdamW: loop bit for bit graph
+                 mode under fp32 and bf16 moments and under 2 microbatches
+                 with QSGD; warm steps and an equal configuration capture
+                 nothing; a checkpoint after step 2, loaded and resumed, bit
+                 for bit the uninterrupted run; the card's losses against
+                 the CPU's on the same records;
+  train_wide     the train step on smollm-360m at its published widths,
+                 depth and dtype (bf16 weights, P = 361,821,120) with
+                 ``TrainConfig``'s AdamW (bf16 moments), N=8, LAD d=2, CWTM
+                 under ALIE: 3 steps in loop mode and 3 in graph mode after a
+                 warm-up step, per step the card's and the host's ms, the
+                 first graph step's (with the captures), each mode's peak
+                 memory, finite losses, loop bit for bit graph, and the
+                 optimizer apply alone against its byte bound;
   wide_round     protocol rounds at the gradient width of smollm-360m
                  (Q = 361,821,120; N=8, d=2), each after a warm-up round:
                  CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
@@ -76,7 +91,7 @@ and prints one JSON line per phase:
                  could take; ``median`` through the CWTM kernel bitwise
                  against the plain version at N = 8, 41 and 100; plus its
                  launches during the phases above, which must all be above
-                 0 (``lm_launches``: those of the two LM phases, counted
+                 0 (``lm_launches``: those of the four LM phases, counted
                  from 0 before them, where the encode, attack and CWTM
                  kernels must be above 0), and the launches that graph
                  replays ran on the card
@@ -88,7 +103,8 @@ and prints one JSON line per phase:
                  route's (a cuBLAS mixing product, then the CWTM kernel)
                  beside it;
 
-then the card's name and power limit as ``nvidia-smi`` gives them, and, as
+(``wide_round`` runs before the LM phases, so its peaks are its own), then
+the card's name and power limit as ``nvidia-smi`` gives them, and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero. Without a CUDA card, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero at once.
@@ -97,6 +113,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -918,6 +935,242 @@ def lm_wide_phase(S, byz, models, coding, pytree, archs) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- train
+
+TRAIN_STEPS = 4
+TRAIN_RTOL = 2e-6  # the step's loss, card against CPU: tests/test_torch_train.py's standard against the reference
+
+
+def train_tcfg(T, arch, **kw):
+    """tests/test_train_engine_shard.py's ``_tcfg`` at N=10: LAD d=2, CWTM
+    trim 0.2, 2 sign-flipping devices, AdamW (lr 3e-3, a 4-step schedule)."""
+    base = dict(arch=arch.name, protocol="lad", protocol_impl="engine", n_subsets=10, d=2, aggregator="cwtm",
+                trim_frac=0.2, n_byz=2, attack="sign_flip", optimizer="adamw", lr=3e-3, steps=TRAIN_STEPS)
+    base.update(kw)
+    return T.TrainConfig(**base)
+
+
+def train_batches(synthetic, arch, n: int, rows: int, steps: int, seq_len: int = 16, seed: int = 42):
+    """``steps`` batches of ``n`` subsets of ``rows`` rows each, ``(n * rows,
+    seq_len)`` tokens and labels, from CPU generators seeded ``(seed, i)``."""
+    out = []
+    for i in range(steps):
+        b = synthetic.lm_batch_for_devices(torch.Generator().manual_seed(seed * 1000 + i), arch.vocab, n_subsets=n,
+                                           per_subset=rows, seq_len=seq_len, sigma_h=0.5)
+        out.append({k: v.reshape(-1, seq_len) for k, v in b.items()})
+    return out
+
+
+def tree_equal(a, b, pytree) -> bool:
+    """Two trees (optimizer states included) agree in paths, dtypes and bits."""
+    pa, pb = list(pytree.paths(a)), list(pytree.paths(b))
+    return [k for k, _ in pa] == [k for k, _ in pb] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(pa, pb))
+
+
+def drive(step, params, state, batches, start: int = 0):
+    """``step`` over ``batches`` from ``step_idx = start``; returns the last
+    params and state and every loss."""
+    losses = []
+    for i, b in enumerate(batches, start=start):
+        params, state, loss, _ = step(params, state, b, i)
+        losses.append(loss)
+    return params, state, torch.stack(losses)
+
+
+def train_phase(T, models, pytree, ops, byz, checkpoint, synthetic, arch, tmp: Path) -> dict:
+    """The LM train step (``launch.train.build_engine_step``) at ``lm_arch()``,
+    N=10, 4 steps, batches of 1 row of 16 tokens a subset:
+
+      * loop against graph mode, bit for bit (params, optimizer state,
+        losses), under AdamW with fp32 and with bf16 moments, and with
+        ``microbatches=2`` under ``compression="quant"`` (QSGD on the LM
+        path; 2 rows a subset);
+      * the captures made once: warm steps and a second step built from an
+        equal configuration capture nothing (``engine_program_cache_info``);
+      * a checkpoint after step 2 (params and optimizer state), loaded and
+        resumed to step 4 in graph mode, bit for bit the uninterrupted run;
+      * the card against the CPU in loop mode on the same records (drawn on
+        the CPU): every step's loss within relative ``TRAIN_RTOL``, the
+        params' largest difference reported."""
+    out = {"phase": "train", "arch": dataclasses.asdict(arch), "n_devices": 10, "steps": TRAIN_STEPS}
+    params0, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params0 = pytree.map_tree(lambda a: a.to("cuda"), params0)
+    batches = train_batches(synthetic, arch, 10, 1, TRAIN_STEPS)
+    runs = {}
+    for name, kw, rows in (("adamw_fp32", dict(momentum_dtype="float32"), 1),
+                           ("adamw_bf16", dict(momentum_dtype="bfloat16"), 1),
+                           ("adamw_bf16_mb2_quant", dict(microbatches=2, compression="quant", quant_levels=4), 2)):
+        tcfg = train_tcfg(T, arch, **kw)
+        data = batches if rows == 1 else train_batches(synthetic, arch, 10, rows, TRAIN_STEPS)
+        res = {}
+        for mode in ("loop", "graph"):
+            step, opt = T.build_train_step(arch, tcfg, specs, device="cuda", mode=mode)
+            if mode == "loop":  # untimed: first-use set-up of the libraries
+                step(params0, opt.init(params0), data[0], 0)
+            before = ops.launch_counts()["quantize"]
+            start = time.perf_counter()
+            first = drive(step, params0, opt.init(params0), data[:1])  # in graph mode, with the captures
+            torch.cuda.synchronize()
+            mid = time.perf_counter()
+            rest = drive(step, first[0], first[1], data[1:], start=1)
+            torch.cuda.synchronize()
+            res[mode] = (rest[0], rest[1], torch.cat([first[2], rest[2]]))
+            res[mode + "_ms"] = ((mid - start) * 1e3, (time.perf_counter() - mid) * 1e3 / (TRAIN_STEPS - 1))
+            res[mode + "_quantize_launches"] = ops.launch_counts()["quantize"] - before
+        (lp, ls, ll), (gp, gs, gl) = res["loop"], res["graph"]
+        check(bool(torch.isfinite(ll).all()), f"train {name}: loss not finite")
+        check(tree_equal((lp, ls), (gp, gs), pytree) and torch.equal(ll, gl),
+              f"train {name}: graph mode differs from loop mode")
+        if "quant" in name:
+            check(res["loop_quantize_launches"] > 0, "train: QSGD was not launched on the LM path")
+        runs[name] = {"loss": ll.tolist(), "loop_ms_per_step": res["loop_ms"][1],
+                      "graph_first_step_ms_incl_captures": res["graph_ms"][0],
+                      "graph_ms_per_warm_step": res["graph_ms"][1], "loop_bitwise_graph": True,
+                      "quantize_launches_loop": res["loop_quantize_launches"]}
+    out["runs"] = runs
+
+    # warm steps and an equal configuration capture nothing
+    tcfg = train_tcfg(T, arch, momentum_dtype="float32")
+    step, opt = T.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
+    state = opt.init(params0)
+    step(params0, state, batches[0], 0)
+    info = T.engine_program_cache_info()
+    for i in (1, 2):
+        step(params0, state, batches[i], i)
+    step2, _ = T.build_train_step(arch, train_tcfg(T, arch, momentum_dtype="float32"), specs, device="cuda",
+                                  mode="graph")
+    step2(params0, state, batches[3], 3)
+    check(T.engine_program_cache_info() == info, "train: a warm step captured again")
+    out["captures"] = info
+
+    # save after step 2, load, resume to step 4: bit for bit the uninterrupted run
+    whole = drive(step, params0, opt.init(params0), batches)
+    p_mid, s_mid, _ = drive(step, params0, opt.init(params0), batches[:2])
+    ck = str(tmp / "train_ck")
+    checkpoint.save_checkpoint(ck, {"params": p_mid, "opt": s_mid}, step=2)
+    like = {"params": params0, "opt": opt.init(params0)}
+    restored, at = checkpoint.load_checkpoint(ck, like)
+    check(at == 2 and tree_equal(restored, {"params": p_mid, "opt": s_mid}, pytree),
+          "train: the checkpoint did not restore bit for bit")
+    p_fin, s_fin, _ = drive(step, restored["params"], restored["opt"], batches[2:], start=2)
+    check(tree_equal((p_fin, s_fin), whole[:2], pytree),
+          "train: the resumed run differs from the uninterrupted one")
+    out["resume_bitwise"] = True
+
+    # the card against the CPU, loop mode, on records drawn on the CPU
+    pcfg = T.make_round_config(tcfg, 10)
+    q = sum(v.numel() for v in pytree.leaves(params0))
+    gen = torch.Generator().manual_seed(7)
+    recs = {(i, 0): byz.sample_round_randomness(pcfg, q, gen) for i in range(TRAIN_STEPS)}
+    side = {}
+    for dev in ("cuda", "cpu"):
+        step, opt = T.build_train_step(arch, tcfg, specs, device=dev, randomness=lambda i, j: recs[(i, j)])
+        p = pytree.map_tree(lambda a: a.to(dev), params0)
+        side[dev] = drive(step, p, opt.init(p), batches)
+    card_loss, cpu_loss = side["cuda"][2].cpu(), side["cpu"][2]
+    rel = float(((card_loss - cpu_loss).abs() / cpu_loss.abs()).max())
+    check(rel <= TRAIN_RTOL, f"train card vs CPU loss: rel {rel} > {TRAIN_RTOL}")
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(pytree.leaves(side["cuda"][0]),
+                                                                 pytree.leaves(side["cpu"][0])))
+    out["card_vs_cpu"] = {"max_rel_loss": rel, "tolerance": TRAIN_RTOL, "params_max_abs_diff": worst,
+                          "loss_card": card_loss.tolist()}
+    T.engine_program_cache_clear()
+    return out
+
+
+TRAIN_WIDE_STEPS = 3
+TRAIN_WIDE_PEAK_GB = 76.0  # the card has 80
+
+
+def train_wide_phase(T, models, pytree, archs, synthetic, hbm: float, fp32: float) -> dict:
+    """smollm-360m at its published widths, depth and dtype (bf16 weights,
+    fp32 norm scales, P = 361,821,120) through the train step, with
+    ``TrainConfig``'s optimizer (AdamW, bf16 moments, weight decay 0.01, lr
+    3e-4 on a 100-step schedule), N=8, LAD d=2, CWTM (trim 0.25) under ALIE
+    with 2 Byzantine, 2 rows of 16 tokens a subset: one untimed warm-up
+    step, then 3 steps in loop mode and 3 in graph mode from the same
+    state. Per step the card's ms (CUDA events) and the host's; the apply
+    alone (eager) against its byte bound; the first graph step's time (the
+    warm-up run and both captures); each mode's peak memory; finite losses;
+    the final params and state bit for bit equal across the modes."""
+    arch = archs.ARCHS["smollm-360m"]
+    tcfg = T.TrainConfig(arch=arch.name, protocol="lad", protocol_impl="engine", n_subsets=WIDE_N, d=2,
+                         aggregator="cwtm", trim_frac=0.25, n_byz=2, attack="alie")
+    start = time.perf_counter()
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    init_s = time.perf_counter() - start
+    q = sum(v.numel() for v in pytree.leaves(params))
+    check(q == WIDE_Q, f"smollm-360m has {q} parameters, not {WIDE_Q}")
+    check({v.dtype for v in pytree.leaves(params)} == {torch.bfloat16, torch.float32}, "train_wide: not bf16/fp32")
+    batches = train_batches(synthetic, arch, WIDE_N, 2, 1 + TRAIN_WIDE_STEPS)
+    out = {"phase": "train_wide", "arch": arch.name, "params": q, "n_devices": WIDE_N, "d": 2, "n_byz": 2,
+           "aggregator": "cwtm", "trim_frac": 0.25, "attack": "alie", "per_subset": 2, "seq_len": 16,
+           "optimizer": tcfg.optimizer, "momentum_dtype": tcfg.momentum_dtype, "lr": tcfg.lr,
+           "weight_decay": tcfg.weight_decay, "schedule_steps": tcfg.steps, "init_s": init_s}
+    loop_step, opt = T.build_train_step(arch, tcfg, specs, device="cuda", mode="loop")
+    state = opt.init(params)
+    params, state, loss, _ = loop_step(params, state, batches[0], 0)  # the untimed warm-up step
+    check(bool(torch.isfinite(loss)), "train_wide: warm-up loss not finite")
+
+    def timed(step, name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p, s, rows, losses = params, state, [], []
+        for i, b in enumerate(batches[1:], start=1):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev[0].record()
+            p, s, loss, _ = step(p, s, b, i)
+            ev[1].record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev[1].synchronize()
+            rows.append({"card_ms": ev[0].elapsed_time(ev[1]), "host_ms": host_ms,
+                         "wall_ms": (time.perf_counter() - t0) * 1e3})
+            losses.append(float(loss))
+        check(all(map(math.isfinite, losses)), f"train_wide {name}: loss not finite")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(peak < TRAIN_WIDE_PEAK_GB, f"train_wide {name}: peak {peak:.1f} GB >= {TRAIN_WIDE_PEAK_GB}")
+        out[name] = {"steps": rows, "loss": losses, "peak_gb": peak}
+        return p, s
+
+    loop_p, loop_s = timed(loop_step, "loop")
+    torch.cuda.empty_cache()  # the loop's cached blocks would sit beside the captures' pools
+    graph_step, _ = T.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
+    before = T.engine_program_cache_info()
+    graph_p, graph_s = timed(graph_step, "graph")
+    out["graph"]["first_step_incl_captures_ms"] = out["graph"]["steps"][0]["wall_ms"]
+    after = T.engine_program_cache_info()
+    out["captures"] = {k: after[k] - before[k] for k in ("round", "apply")}
+    check(out["captures"] == {"round": 1, "apply": 1}, f"train_wide: captures {out['captures']}, not one each")
+    check(tree_equal((loop_p, loop_s), (graph_p, graph_s), pytree),
+          "train_wide: graph mode differs from loop mode")
+    out["loop_bitwise_graph"] = True
+    del loop_p, loop_s, graph_p, graph_s
+    T.engine_program_cache_clear()
+    torch.cuda.empty_cache()
+
+    # the optimizer apply alone, eager, on an aggregate of the params' width
+    from repro_torch.core.coding import tree_spec, unflatten_pytree
+    from repro_torch.optim import linear_warmup_cosine
+    g = torch.randn((q,), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda") * 1e-3
+    schedule = linear_warmup_cosine(tcfg.lr, warmup=max(tcfg.steps // 20, 1), total_steps=tcfg.steps)
+    idx = torch.tensor(7, dtype=torch.int32, device="cuda")
+    spec = tree_spec(params)
+    apply_ms = time_ms(lambda: opt.update(params, unflatten_pytree(g, spec), state, schedule(idx),
+                                          weight_decay=tcfg.weight_decay))
+    # each input read once, each output written once: params, the fp32 aggregate, both moments in; params, moments out
+    nbytes = sum(p.numel() * (2 * p.element_size() + 4 + 4 * m.element_size())
+                 for p, m in zip(pytree.leaves(params), pytree.leaves(state.mu)))
+    nops = 17 * q  # AdamW's products, sums, two divisions and a root per parameter (fp32, off the tensor cores)
+    bound_bytes, bound_ops = nbytes / hbm * 1e3, nops / fp32 * 1e3
+    out["apply"] = {"ms": apply_ms, "bound_ms": max(bound_bytes, bound_ops),
+                    "bound_by": "bytes" if bound_bytes >= bound_ops else "operations", "bytes": nbytes,
+                    "operations": nops, "route": "eager PyTorch elementwise ops, leaf by leaf"}
+    return out
+
+
 # ---------------------------------------------------------------- wide round
 
 
@@ -964,10 +1217,12 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
     The CWTM-NNM servers are composed by hand with a mark after the Gram
     distances and after the neighbour selection, and must give the warm-up's
     bits; both rounds must have launched the fused CWTM-NNM kernel."""
+    resident_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases left allocated
     gen = torch.Generator(device="cuda").manual_seed(2)
     grads = torch.randn((WIDE_N, WIDE_Q), generator=gen, device="cuda")
     out = {"phase": "wide_round", "q": WIDE_Q, "n_devices": WIDE_N, "d": 2,
-           "aggregator": "cwtm-nnm", "trim_frac": 0.25, "n_byz": 2, "attacks": {}}
+           "aggregator": "cwtm-nnm", "trim_frac": 0.25, "n_byz": 2, "attacks": {},
+           "resident_gb_at_start": resident_gb}
     stack_gb = WIDE_N * WIDE_Q * 4 / 1e9
     q_gb = WIDE_Q * 4 / 1e9
 
@@ -1099,11 +1354,13 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import models, numerics, pytree
+    from repro_torch import checkpoint, models, numerics, pytree
     from repro_torch.configs import archs
     from repro_torch.core import aggregators, attacks, byzantine, coding, compression, participation, scenarios
+    from repro_torch.data import synthetic
     from repro_torch.data.synthetic import linear_regression_problem
     from repro_torch.kernels import _build, ops, quantize, ref
+    from repro_torch.launch import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1135,22 +1392,31 @@ def main() -> int:
     del trajectory, section7
     torch.cuda.empty_cache()
 
-    # the LM path: its own counts, from 0
+    # the wide rounds before the LM phases: their peaks are the rounds' own,
+    # not raised by what the LM phases' captures leave resident (PERF.md §7)
     ops.reset_launch_counts()
+    emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
+    wide = ops.launch_counts()
+    torch.cuda.empty_cache()
+
+    # the LM path, the train step's phases with it: its own counts, from 0
+    ops.reset_launch_counts()
+    tmp = ROOT / "build" / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
     for phase in (lambda: lm_phase(scenarios, byzantine, replayed),
-                  lambda: lm_wide_phase(scenarios, byzantine, models, coding, pytree, archs)):
+                  lambda: lm_wide_phase(scenarios, byzantine, models, coding, pytree, archs),
+                  lambda: train_phase(train, models, pytree, ops, byzantine, checkpoint, synthetic,
+                                      scenarios.lm_arch(), tmp),
+                  lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32)):
         start = time.perf_counter()
         line = phase()
         line["phase_s"] = time.perf_counter() - start
         emit(line)
+        torch.cuda.empty_cache()
     lm = ops.launch_counts()
     for name in LM_KERNELS:
         check(lm[name] > 0, f"kernel {name} was not launched on the LM path")
-    torch.cuda.empty_cache()
 
-    ops.reset_launch_counts()
-    emit(wide_round_phase(byzantine, attacks, compression, participation, aggregators, ops, numerics))
-    wide = ops.launch_counts()
     launches = {name: linear[name] + lm[name] + wide[name] for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:

@@ -6,7 +6,8 @@ partial participation, the schedule state: the previous ``(N,)`` mask) into
 the port's tensors on a chosen device; ``result_to_numpy`` turns a
 ``TrajectoryResult`` back. Both sides then start from identical state.
 ``lm_params_from_numpy`` carries the LM's parameter tree across, leaf for
-leaf.
+leaf, and ``opt_state_from_numpy`` its optimizer state (step and moments),
+so the port can start from the reference's mid-run state.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch import pytree
 from repro_torch.core.engine import TrajectoryResult
 from repro_torch.optim import OptState
 
-__all__ = ["TrainerState", "state_from_numpy", "result_to_numpy", "lm_params_from_numpy"]
+__all__ = ["TrainerState", "state_from_numpy", "result_to_numpy", "lm_params_from_numpy", "opt_state_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +33,10 @@ class TrainerState:
     participation_state: torch.Tensor | None = None
 
 
+def _step(step, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device)
+
+
 def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
@@ -41,7 +46,7 @@ def state_from_numpy(x, step, z, y, x_star=None, participation_state=None, *,
     """The reference's state (numpy arrays and an int step) on ``device``."""
     return TrainerState(
         x=_tensor(x, device),
-        opt_state=OptState(step=int(step)),
+        opt_state=OptState(step=_step(step, device), mu=(), nu=()),
         z=_tensor(z, device),
         y=_tensor(y, device),
         x_star=None if x_star is None else _tensor(x_star, device),
@@ -52,7 +57,7 @@ def state_from_numpy(x, step, z, y, x_star=None, participation_state=None, *,
 def result_to_numpy(res: TrajectoryResult) -> dict[str, np.ndarray]:
     """``{"x": ..., "step": ..., <metric>: ...}`` as numpy arrays, plus
     ``"participation_state"`` under partial participation."""
-    out = {"x": res.x.detach().cpu().numpy(), "step": np.asarray(res.opt_state.step)}
+    out = {"x": res.x.detach().cpu().numpy(), "step": res.opt_state.step.detach().cpu().numpy()}
     if res.participation_state is not None:
         out["participation_state"] = res.participation_state.detach().cpu().numpy()
     out.update({k: v.detach().cpu().numpy() for k, v in res.metrics.items()})
@@ -72,3 +77,12 @@ def lm_params_from_numpy(tree, *, device: torch.device | str = "cpu"):
     unchanged: ``coding.flatten_pytree`` of the result is the reference's
     flat vector of the same tree."""
     return pytree.map_tree(lambda a: _leaf(a, device), tree)
+
+
+def opt_state_from_numpy(state, *, device: torch.device | str = "cpu") -> OptState:
+    """The reference's ``OptState`` (its ``step``, ``mu`` and ``nu``, the
+    leaves numpy arrays, as ``jax.device_get`` gives them) as the port's on
+    ``device``: the step a 0-d int32 tensor, the moment trees leaf for leaf
+    with their bits and dtypes (``()`` stays ``()``)."""
+    moments = {k: pytree.map_tree(lambda a: _leaf(a, device), getattr(state, k)) for k in ("mu", "nu")}
+    return OptState(step=_step(state.step, device), **moments)

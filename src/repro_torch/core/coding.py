@@ -22,7 +22,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.numerics import stable_mean0, tree_sum
 
 __all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode", "flatten_pytree",
-           "unflatten_pytree"]
+           "unflatten_pytree", "tree_spec"]
 
 
 def erasure_margin(d: int) -> int:
@@ -136,9 +136,13 @@ def flatten_pytree(tree) -> tuple[torch.Tensor, tuple]:
     the reference's ``flatten_pytree`` of the same tree, element for
     element."""
     leaves = pytree.leaves(tree)
-    shapes = [tuple(leaf.shape) for leaf in leaves]
     flat = torch.cat([leaf.reshape(-1) for leaf in leaves]) if leaves else torch.zeros((0,))
-    return flat, (pytree.map_tree(lambda leaf: None, tree), shapes)
+    return flat, tree_spec(tree)
+
+
+def tree_spec(tree) -> tuple:
+    """``flatten_pytree``'s spec of ``tree``, without building the vector."""
+    return pytree.map_tree(lambda leaf: None, tree), [tuple(leaf.shape) for leaf in pytree.leaves(tree)]
 
 
 def unflatten_pytree(flat: torch.Tensor, spec: tuple):

@@ -3,10 +3,12 @@ leading lane axis of independent scenarios.
 
 ``run_trajectory`` runs ``steps`` rounds of one scenario. Each round
 computes every subset gradient at the iterate, runs ``protocol_round`` with
-that round's ``RoundRandomness`` and takes an optimizer step. The round
-keeps its raw vectors (aggregate, honest subset mean, new iterate), and the
-per-round metrics are computed from the stacked vectors after the last round
-with fixed-tree reductions, as the reference's ``_finalize_metrics`` does.
+that round's ``RoundRandomness`` and takes an optimizer step (any
+``optim.make_optimizer`` name, at a fixed step size or a schedule's value
+for the round). The round keeps its raw vectors (aggregate, honest subset
+mean, new iterate), and the per-round metrics are computed from the stacked
+vectors after the last round with fixed-tree reductions, as the reference's
+``_finalize_metrics`` does; ``with_metrics=False`` keeps none of them.
 
 ``run_grid`` runs many scenarios that share their static structure as the
 lanes of one batched round: every stack is ``(L, N, Q)``, each kernel one
@@ -32,9 +34,11 @@ Two modes run the same rounds:
   * ``"graph"`` (the reference's ``scan``; CUDA only): every round's
     randomness is drawn up front in round order and stacked on the card,
     one round is captured as a CUDA graph and replayed ``steps`` times. A
-    step counter on the card, advanced inside the graph, selects the
+    round counter on the card, advanced inside the graph, selects the
     round's records and the rows of the preallocated ``(steps, ...)``
-    output buffers. Graph mode equals loop mode bit for bit.
+    output buffers, and is the schedule's input; the optimizer's step and
+    moments are buffers the round overwrites. Graph mode equals loop mode
+    bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch import pytree
 from repro_torch.core.byzantine import (
     LaneBranch,
     ProtocolConfig,
@@ -257,24 +262,41 @@ def _lane_records(groups: RoundRandomness, lanes: _Lanes) -> RoundRandomness:
     })
 
 
+def _lr_at(lr, t: int | torch.Tensor, dev: torch.device):
+    """Round ``t``'s step size: ``lr`` itself, or a schedule's value at ``t``
+    (a 0-d int64 tensor on ``dev``, the graph's round counter or its loop
+    twin, so both modes evaluate it on the same input)."""
+    if not callable(lr):
+        return lr
+    return lr(t if isinstance(t, torch.Tensor) else torch.tensor(t, dtype=torch.int64, device=dev))
+
+
+def _map_state(state: OptState, fn: Callable[[torch.Tensor], torch.Tensor], step: bool = False) -> OptState:
+    """``fn`` applied to every moment leaf (and to the step with ``step``)."""
+    return OptState(step=fn(state.step) if step else state.step, mu=pytree.map_tree(fn, state.mu),
+                    nu=pytree.map_tree(fn, state.nu))
+
+
 def _run_lanes(lanes: _Lanes, records, x: torch.Tensor, grads_of: Callable, *, steps: int, lr, grad_scale,
-               opt, state, p_state, mode: str, dev: torch.device, stage_hook: Callable[[str], None] | None = None):
+               opt, state, p_state, mode: str, dev: torch.device, stage_hook: Callable[[str], None] | None = None,
+               with_metrics: bool = True):
     """``steps`` rounds of the lanes from iterates ``x`` ``(L, Q)``.
 
     ``records`` is a ``t -> RoundRandomness`` of the draw groups (drawn as
     each round starts; loop mode only) or every round's records stacked on
-    a leading round axis. ``stage_hook`` (loop mode only) marks the stages
+    a leading round axis. ``lr`` is a float, a per-lane ``(L,)`` tensor or a
+    ``t -> lr`` schedule. ``stage_hook`` (loop mode only) marks the stages
     of every round, see ``run_trajectory``. Returns (the raw ``(steps, L,
-    ...)`` vectors, the last iterates, the schedule state, ``GraphStats`` or
-    ``None``, the optimizer state)."""
+    ...)`` vectors, none without ``with_metrics``, the last iterates, the
+    schedule state, ``GraphStats`` or ``None``, the optimizer state)."""
     cfg = lanes.cfg
     p_spec = cfg.participation
     n = cfg.n_devices
     hook = stage_hook or (lambda stage: None)
 
     def one_round(x, groups, t, p_state, state):
-        """One round at iterates ``x``: (new x, aggregates, honest subset
-        means, schedule state, reporting counts or None, optimizer state)."""
+        """One round at iterates ``x``: (new x, the raw vectors, schedule
+        state, optimizer state)."""
         hook("round")
         rand = _lane_records(groups, lanes)
         grads = grads_of(x)
@@ -285,24 +307,25 @@ def _run_lanes(lanes: _Lanes, records, x: torch.Tensor, grads_of: Callable, *, s
             n_report = tree_sum(pm, dim=-1)
         g = protocol_round(cfg, grads, rand, device=dev, attack_branches=lanes.attacks,
                            server_branches=lanes.servers, participation_mask=pm, stage_hook=stage_hook)
-        new_x, state = opt.update(x, grad_scale * g, state, lr)
-        gmean = stable_mean0(grads, dim=-2)
+        new_x, state = opt.update(x, grad_scale * g, state, _lr_at(lr, t, dev))
+        raw = {}
+        if with_metrics:
+            raw = {"g": g, "gmean": stable_mean0(grads, dim=-2), "x": new_x}
+            if n_report is not None:
+                raw["n_report"] = n_report
         hook("step")
-        return new_x, g, gmean, p_state, n_report, state
+        return new_x, raw, p_state, state
 
-    names = ("g", "gmean", "x") + (("n_report",) if p_spec.active else ())
+    names = (("g", "gmean", "x") + (("n_report",) if p_spec.active else ())) if with_metrics else ()
     if mode == "loop":
         at = records if callable(records) else (lambda t: select_round(records, t))
         raw: dict[str, list[torch.Tensor]] = {k: [] for k in names}
         for t in range(steps):
-            x, g, gmean, p_state, n_report, state = one_round(x, at(t), t, p_state, state)
-            for k, v in zip(names, (g, gmean, x, n_report)):
-                raw[k].append(v)
+            x, r, p_state, state = one_round(x, at(t), t, p_state, state)
+            for k in names:
+                raw[k].append(r[k])
         return {k: torch.stack(v) for k, v in raw.items()}, x, p_state, None, state
-    stacked, x, p_state, stats = _replay_graph(
-        lambda x, rand, t, p: one_round(x, rand, t, p, state)[:5], records, x, p_state, steps, names)
-    # the replays ran the tensor part of each step; SGD's state is its step count
-    return stacked, x, p_state, stats, dataclasses.replace(state, step=state.step + steps)
+    return _replay_graph(one_round, records, x, p_state, state, steps, names)
 
 
 def _check_mode(mode: str, dev: torch.device) -> None:
@@ -318,9 +341,10 @@ def run_trajectory(
     subset_grad_fn: Callable[..., torch.Tensor],
     *,
     steps: int,
-    lr: float,
+    lr: float | torch.Tensor | Callable[[torch.Tensor], torch.Tensor],
     randomness: RandomnessProvider | torch.Generator | None = None,
     optimizer: str = "sgd",
+    momentum_dtype: str | torch.dtype = "float32",
     grad_scale: float = 1.0,
     loss_fn: Callable[..., torch.Tensor] | None = None,
     x_star: torch.Tensor | None = None,
@@ -330,6 +354,7 @@ def run_trajectory(
     device: torch.device | str | None = None,
     mode: str = "loop",
     stage_hook: Callable[[str], None] | None = None,
+    with_metrics: bool = True,
 ) -> TrajectoryResult:
     """Run ``steps`` protocol rounds from ``x0``.
 
@@ -339,19 +364,22 @@ def run_trajectory(
       subset_grad_fn: ``x -> (N, Q)`` subset gradients, or ``(data, x) ->
         (N, Q)`` when ``data`` is given.
       steps: number of rounds.
-      lr: step size.
+      lr: step size: a float, a 0-d float32 tensor, or a schedule ``t ->
+        lr`` of the round index (a 0-d int64 tensor on ``device``; in graph
+        mode the captured round's counter, so it is evaluated on the card).
       randomness: a ``torch.Generator`` on ``device`` that draws every
         round (seeded 0 when not given), or a provider ``t ->
         RoundRandomness`` for rounds ``t = 0 .. steps-1``, whose records are
         checked with ``RoundRandomness.validate`` as they come in.
-      optimizer: a ``repro_torch.optim.make_optimizer`` name.
+      optimizer / momentum_dtype: a ``repro_torch.optim.make_optimizer``
+        name and the dtype of its moments.
       grad_scale: multiplies the aggregate before the optimizer step (the
         paper's eq.-(7) sum-loss needs ``N x`` the mean-gradient estimate).
       loss_fn / x_star: optional metric hooks; ``loss_fn`` maps stacked
         iterates ``(steps, Q)`` (and ``data`` first, when given) to
         ``(steps,)``.
       data: problem tensors handed to ``subset_grad_fn`` and ``loss_fn``.
-      opt_state: optimizer state to resume from.
+      opt_state: optimizer state to resume from (moved to ``device``).
       participation_state: schedule state to resume from (the previous
         ``(N,)`` mask); all ones when not given.
       device: where the rounds run; ``cuda`` when not given (no CUDA then
@@ -367,14 +395,20 @@ def run_trajectory(
         ``protocol_round``'s stages, and ``"step"`` after the optimizer step
         and the round's honest subset mean (for per-stage CUDA-event times). A captured round runs no Python,
         so graph mode refuses it.
+      with_metrics: ``False`` keeps no per-round ``(steps, Q)`` rows (at a
+        model's width they are gigabytes a round): the result holds the
+        final iterate and optimizer state and no metrics, and ``loss_fn``
+        and ``x_star`` must be ``None``.
     """
     if stage_hook is not None and mode != "loop":
         raise ValueError("stage_hook marks loop-mode rounds; a captured round runs no Python")
+    if not with_metrics and (loss_fn is not None or x_star is not None):
+        raise ValueError("with_metrics=False is incompatible with loss_fn/x_star")
     dev = resolve_device(device)
     _check_mode(mode, dev)
-    opt = make_optimizer(optimizer)
+    opt = make_optimizer(optimizer, momentum_dtype=momentum_dtype)
     x = x0.to(dev)
-    state = opt.init(x) if opt_state is None else opt_state
+    state = opt.init(x) if opt_state is None else _map_state(opt_state, lambda v: v.to(dev), step=True)
     q = x.shape[-1]
     if randomness is None:
         randomness = torch.Generator(device=dev).manual_seed(0)
@@ -388,42 +422,49 @@ def run_trajectory(
     draws = _Draws([cfg], [randomness], q, dev)
     raw, x, p_state, stats, state = _run_lanes(
         lanes, draws.at if mode == "loop" else draws.stacked(steps), x[None], lambda x: grads_fn(x[0])[None],
-        steps=steps, lr=lr, grad_scale=grad_scale, opt=opt, state=state, p_state=p_state, mode=mode, dev=dev,
-        stage_hook=stage_hook)
-    bound_loss = None
-    if loss_fn is not None:
-        bound_loss = (lambda xs: loss_fn(data, xs)) if data is not None else loss_fn
-    return TrajectoryResult(x=x[0], opt_state=state, participation_state=None if p_state is None else p_state[0],
-                            graph=stats, metrics=_finalize_metrics({k: v[:, 0] for k, v in raw.items()},
-                                                                   bound_loss, x_star))
+        steps=steps, lr=lr, grad_scale=grad_scale, opt=opt, state=_map_state(state, lambda v: v[None]),
+        p_state=p_state, mode=mode, dev=dev, stage_hook=stage_hook, with_metrics=with_metrics)
+    metrics = {}
+    if with_metrics:
+        bound_loss = None
+        if loss_fn is not None:
+            bound_loss = (lambda xs: loss_fn(data, xs)) if data is not None else loss_fn
+        metrics = _finalize_metrics({k: v[:, 0] for k, v in raw.items()}, bound_loss, x_star)
+    return TrajectoryResult(x=x[0], opt_state=_map_state(state, lambda v: v[0]), metrics=metrics, graph=stats,
+                            participation_state=None if p_state is None else p_state[0])
 
 
-def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state, steps: int,
+def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state, state: OptState, steps: int,
                   names: tuple[str, ...]):
     """Capture one round of ``one_round`` that reads round ``t``'s records
     and writes row ``t`` of the output buffers, then replay it ``steps``
-    times.
+    times. The iterates, the schedule state and the optimizer state (its
+    step and moments) are buffers the round reads and overwrites.
 
     Returns (the stacked outputs, the last iterates, the schedule state,
-    ``GraphStats``)."""
+    ``GraphStats``, the optimizer state)."""
     dev = x.device
     rows = {"g": x.shape, "gmean": x.shape, "x": x.shape, "n_report": x.shape[:-1]}
 
     def buffers():
-        """The state a round reads and writes: iterates, step counter,
-        schedule state, output rows."""
+        """The state a round reads and writes: iterates, round counter,
+        schedule state, optimizer state, output rows."""
         return {"x": x.clone(), "t": torch.zeros((), dtype=torch.int64, device=dev),
                 "p_state": None if p_state is None else p_state.clone(),
+                "state": _map_state(state, torch.clone, step=True),
                 "out": {k: torch.empty((steps, *rows[k]), dtype=torch.float32, device=dev) for k in names}}
 
     def step(bufs):
         t = bufs["t"]
-        new_x, g, gmean, new_p, n_report = one_round(bufs["x"], select_round(records, t), t, bufs["p_state"])
-        for k, v in zip(names, (g, gmean, new_x, n_report)):
-            bufs["out"][k].index_copy_(0, t.reshape(1), v[None])
+        new_x, raw, new_p, new_state = one_round(bufs["x"], select_round(records, t), t, bufs["p_state"],
+                                                 bufs["state"])
+        for k in names:
+            bufs["out"][k].index_copy_(0, t.reshape(1), raw[k][None])
         bufs["x"].copy_(new_x)
         if new_p is not None:
             bufs["p_state"].copy_(new_p)
+        for (_, dst), (_, src) in zip(pytree.paths(bufs["state"]), pytree.paths(new_state), strict=True):
+            dst.copy_(src)
         t.add_(1)
 
     side = torch.cuda.Stream(device=dev)
@@ -444,7 +485,7 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
     end.record()
     stats = GraphStats(replays=steps, captured_launches={k: after[k] - before[k] for k in after},
                        replay_start=start, replay_end=end)
-    return live["out"], live["x"], live["p_state"], stats
+    return live["out"], live["x"], live["p_state"], stats, live["state"]
 
 
 # ------------------------------------------------------------------- grid
@@ -537,18 +578,20 @@ def run_grid(
     subset_grad_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     *,
     steps: int,
-    lr: float | Sequence[float] | torch.Tensor,
+    lr: float | Sequence[float] | torch.Tensor | Callable[[torch.Tensor], torch.Tensor],
     randomness: Sequence[RandomnessProvider | torch.Generator],
     draw_ids: Sequence[int] | None = None,
     data: Any = None,
     data_batched: bool = True,
     optimizer: str = "sgd",
+    momentum_dtype: str | torch.dtype = "float32",
     grad_scale: float = 1.0,
     loss_fn: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
     shard: str = "none",
     max_lanes_per_device: int | str | None = None,
     device: torch.device | str | None = None,
     mode: str = "loop",
+    with_metrics: bool = True,
 ) -> TrajectoryResult:
     """Run a batch of trajectories as the lanes of one batched round.
 
@@ -566,7 +609,7 @@ def run_grid(
         itself with ``data_batched=False``).
       steps: rounds, shared.
       lr: step size, shared or one per lane (held as a float32 tensor: the
-        same bits as the float).
+        same bits as the float), or a shared schedule ``t -> lr``.
       randomness: one source per draw group: a ``torch.Generator`` or a
         provider ``t -> RoundRandomness`` (checked as in
         ``run_trajectory``). Every round's records are drawn up front.
@@ -575,7 +618,8 @@ def run_grid(
         (``byzantine.draw_signature``).
       data: the problem, a tensor or a tuple, list or dict of tensors with
         a leading lane axis (``data_batched=True``), or shared.
-      optimizer / grad_scale: as in ``run_trajectory``, shared.
+      optimizer / momentum_dtype / grad_scale: as in ``run_trajectory``,
+        shared; every lane has its own moments.
       loss_fn: optional ``(data, xs (l, T, Q)) -> (l, T)`` metric hook; the
         rounds are handed over in slices that bound its temporaries.
       shard: ``"none"``; spreading the lanes over several cards waits for
@@ -584,13 +628,14 @@ def run_grid(
         one after another, the last one padded by replicating its last lane
         (sliced off afterwards); ``None`` runs them all at once. ``"auto"``
         (the tuner) is not ported and raises.
-      device / mode: as in ``run_trajectory``; under ``"graph"`` each chunk
-        captures one round and replays it.
+      device / mode / with_metrics: as in ``run_trajectory``; under
+        ``"graph"`` each chunk captures one round and replays it.
 
     Returns:
       A ``TrajectoryResult`` with a leading ``(L,)`` axis on ``x``, the
-      metrics (``(L, steps)``) and the participation state; ``.lane(i)``
-      gives lane ``i``, and ``grid`` says how the lanes ran.
+      metrics (``(L, steps)``), the optimizer state's moments and the
+      participation state; ``.lane(i)`` gives lane ``i``, and ``grid`` says
+      how the lanes ran.
     """
     if shard != "none":
         raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9")
@@ -614,13 +659,16 @@ def run_grid(
         if draw_signature(group_cfg.setdefault(g, c)) != draw_signature(c):
             raise ValueError(f"lanes of draw group {g} draw different records")
 
-    opt = make_optimizer(optimizer)
-    state = opt.init(x0)
+    if not with_metrics and loss_fn is not None:
+        raise ValueError("with_metrics=False is incompatible with loss_fn")
+    opt = make_optimizer(optimizer, momentum_dtype=momentum_dtype)
     x0 = x0.to(dev)
     q = x0.shape[-1]
     draws = _Draws([group_cfg[g] for g in range(len(sources))], sources, q, dev)
     records = draws.stacked(steps)
-    lr_lanes = None if isinstance(lr, (int, float)) else torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    lr_lanes = None
+    if not (isinstance(lr, (int, float)) or callable(lr)):
+        lr_lanes = torch.as_tensor(lr, dtype=torch.float32, device=dev)
     if lr_lanes is not None and lr_lanes.shape != (n_lanes,):
         raise ValueError(f"lr must be a float or one per lane ({n_lanes},), got {tuple(lr_lanes.shape)}")
 
@@ -642,10 +690,10 @@ def run_grid(
         p_state = None
         if tmpl.participation.active:
             p_state = init_participation_state(tmpl.participation, tmpl.n_devices, device=dev, lanes=chunk)
-        raw, x, p_state, stats, _ = _run_lanes(
+        raw, x, p_state, stats, state = _run_lanes(
             lanes, records, x, lambda x, d=chunk_data: subset_grad_fn(d, x), steps=steps,
             lr=lr if lr_lanes is None else lr_lanes.index_select(0, idx), grad_scale=grad_scale, opt=opt,
-            state=state, p_state=p_state, mode=mode, dev=dev)
+            state=opt.init(x), p_state=p_state, mode=mode, dev=dev, with_metrics=with_metrics)
         raw = {k: v.transpose(0, 1)[:take] for k, v in raw.items()}  # (lanes, steps, ...)
         bound_loss = None
         if loss_fn is not None:
@@ -653,8 +701,8 @@ def run_grid(
             if data is not None and data_batched and take < chunk:
                 real = _take_lanes(chunk_data, torch.arange(take, device=dev))
             bound_loss = _sliced_loss(loss_fn, real, tmpl.n_devices * q)
-        outs.append((x[:take], _finalize_metrics(raw, bound_loss, None),
-                     None if p_state is None else p_state[:take]))
+        outs.append((x[:take], _finalize_metrics(raw, bound_loss, None) if with_metrics else {},
+                     None if p_state is None else p_state[:take], _map_state(state, lambda v: v[:take])))
         if stats is not None:
             graphs.append(stats)
     # undo the sort: sorted position j holds input lane order[j]
@@ -664,10 +712,13 @@ def run_grid(
     x = torch.cat([o[0] for o in outs]).index_select(0, inverse)
     metrics = {k: torch.cat([o[1][k] for o in outs]).index_select(0, inverse) for k in outs[0][1]}
     p_state = None if outs[0][2] is None else torch.cat([o[2] for o in outs]).index_select(0, inverse)
+    moments = [pytree.leaves((o[3].mu, o[3].nu)) for o in outs]
+    state = outs[0][3]  # every chunk took the same steps
+    opt_state = OptState(step=state.step, **dict(zip(("mu", "nu"), pytree.from_leaves(
+        (state.mu, state.nu), [torch.cat(vs).index_select(0, inverse) for vs in zip(*moments)]))))
     stats = GridStats(lanes=n_lanes, draw_groups=len(sources), chunk=chunk, chunks=len(outs),
                       branches=n_branches, graphs=tuple(graphs))
-    return TrajectoryResult(x=x, opt_state=dataclasses.replace(state, step=state.step + steps),
-                            metrics=metrics, participation_state=p_state, grid=stats)
+    return TrajectoryResult(x=x, opt_state=opt_state, metrics=metrics, participation_state=p_state, grid=stats)
 
 
 def _sliced_loss(loss_fn: Callable, data: Any, row_elements: int) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -385,3 +385,113 @@ def test_lm_vmapped_gradient_equals_plain_backward(card):
     plain = flatten_pytree(pytree.map_tree(lambda a: a.grad, tree))[0]
     for want, got in zip(pytree.leaves(unflatten_pytree(plain, spec)), pytree.leaves(unflatten_pytree(stack[3], spec))):
         assert float((got - want).abs().max()) <= SUBSET_GRAD_RTOL * float(want.abs().max())
+
+
+# ------------------------------------------------------------ the train step
+
+
+def _train_parts():
+    from repro_torch import models, pytree
+    from repro_torch.launch import train
+
+    smoke = _chip_smoke()
+    arch = tscn.lm_arch()
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    return smoke, train, pytree, arch, params, specs
+
+
+@pytest.mark.cuda
+def test_run_trajectory_graph_equals_loop_under_adamw(card):
+    """The Fig. 4 LAD-CWTM-NNM-d10 round under AdamW with bf16 moments and a
+    warm-up-cosine schedule evaluated on the card: 30 captured rounds equal
+    the loop bit for bit (iterate, metrics, step and moments)."""
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import linear_regression_problem, linreg_loss, linreg_subset_grads
+    from repro_torch.optim import linear_warmup_cosine
+
+    smoke = _chip_smoke()
+    cfg = tscn.PAPER_FIG4["LAD-CWTM-NNM-d10"].protocol()
+    z, y = linear_regression_problem(torch.Generator(device="cuda").manual_seed(0), n=100, dim=100)
+    out = {}
+    for mode in ("loop", "graph"):
+        out[mode] = engine.run_trajectory(
+            cfg, torch.zeros(100), lambda d, x: linreg_subset_grads(d[0], d[1], x), steps=30,
+            lr=linear_warmup_cosine(1e-2, 3, 30), optimizer="adamw", momentum_dtype="bfloat16",
+            randomness=torch.Generator(device="cuda").manual_seed(1), loss_fn=lambda d, xs: linreg_loss(d[0], d[1], xs),
+            data=(z, y), device="cuda", mode=mode)
+    assert smoke.same_bits(out["loop"], out["graph"])
+    a, b = out["loop"].opt_state, out["graph"].opt_state
+    assert int(a.step) == int(b.step) == 30
+    assert torch.equal(a.mu, b.mu) and torch.equal(a.nu, b.nu) and a.mu.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(momentum_dtype="float32"), dict(momentum_dtype="bfloat16"),
+                                dict(microbatches=2, compression="quant", quant_levels=4)],
+                         ids=["adamw-fp32", "adamw-bf16", "mb2-quant"])
+def test_train_step_graph_equals_loop_and_captures_once(card, kw):
+    """build_engine_step at lm_arch(), N=10, 4 steps: graph mode equals loop
+    mode bit for bit (params, state, losses); warm steps and a second step
+    built from an equal config capture nothing."""
+    smoke, train, pytree, arch, params, specs = _train_parts()
+    tcfg = smoke.train_tcfg(train, arch, **kw)
+    from repro_torch.data import synthetic
+
+    batches = smoke.train_batches(synthetic, arch, 10, tcfg.microbatches, 4)
+    runs = {}
+    for mode in ("loop", "graph"):
+        step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode=mode)
+        runs[mode] = smoke.drive(step, params, opt.init(params), batches[:1])
+        if mode == "graph":
+            info = train.engine_program_cache_info()
+        rest = smoke.drive(step, runs[mode][0], runs[mode][1], batches[1:], start=1)
+        runs[mode] = (rest[0], rest[1], torch.cat([runs[mode][2], rest[2]]))
+    step2, _ = train.build_train_step(arch, smoke.train_tcfg(train, arch, **kw), specs, device="cuda", mode="graph")
+    step2(params, opt.init(params), batches[0], 0)
+    assert train.engine_program_cache_info() == info
+    (lp, ls, ll), (gp, gs, gl) = runs["loop"], runs["graph"]
+    assert smoke.tree_equal((lp, ls), (gp, gs), pytree) and torch.equal(ll, gl)
+
+
+@pytest.mark.cuda
+def test_train_resume_is_bitwise_on_card(card, tmp_path):
+    """A checkpoint after step 2 (params and AdamW state, bf16 moments),
+    loaded and resumed in graph mode to step 4, equals the run straight
+    through bit for bit."""
+    from repro_torch import checkpoint
+    from repro_torch.data import synthetic
+
+    smoke, train, pytree, arch, params, specs = _train_parts()
+    tcfg = smoke.train_tcfg(train, arch, momentum_dtype="bfloat16")
+    batches = smoke.train_batches(synthetic, arch, 10, 1, 4)
+    step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
+    whole = smoke.drive(step, params, opt.init(params), batches)
+    p_mid, s_mid, _ = smoke.drive(step, params, opt.init(params), batches[:2])
+    ck = str(tmp_path / "ck")
+    checkpoint.save_checkpoint(ck, {"params": p_mid, "opt": s_mid}, step=2)
+    restored, at = checkpoint.load_checkpoint(ck, {"params": params, "opt": opt.init(params)})
+    assert at == 2
+    p_fin, s_fin, _ = smoke.drive(step, restored["params"], restored["opt"], batches[2:], start=2)
+    assert smoke.tree_equal((p_fin, s_fin), whole[:2], pytree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kernel", [(dict(aggregator="cwtm-nnm"), "gram"),
+                                       (dict(protocol="none"), "masked_combine")], ids=["cwtm-nnm", "none"])
+def test_train_step_launches_its_server_kernel(card, kw, kernel):
+    """A train step under CWTM-NNM launches the Gram kernel, and one under
+    ``protocol="none"`` (the mean) the masked-combine kernel; graph mode
+    still equals loop mode."""
+    from repro_torch.data import synthetic
+
+    smoke, train, pytree, arch, params, specs = _train_parts()
+    tcfg = smoke.train_tcfg(train, arch, **kw)
+    batches = smoke.train_batches(synthetic, arch, 10, 1, 2)
+    before = tops.launch_counts()[kernel]
+    step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode="loop")
+    loop = smoke.drive(step, params, opt.init(params), batches)
+    assert tops.launch_counts()[kernel] > before
+    step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
+    graph = smoke.drive(step, params, opt.init(params), batches)
+    assert smoke.tree_equal(loop[0], graph[0], pytree) and torch.equal(loop[2], graph[2])

@@ -44,7 +44,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch, repro_torch.convert, repro_torch.core.scenarios, "
         "repro_torch.core.engine, repro_torch.core.byzantine, repro_torch.kernels.ops, "
         "repro_torch.core.participation, repro_torch.core.coding, repro_torch.kernels.quantize, "
-        "repro_torch.models, repro_torch.configs.archs, repro_torch.core.theory, repro_torch.pytree\n"
+        "repro_torch.models, repro_torch.configs.archs, repro_torch.core.theory, repro_torch.pytree, "
+        "repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.launch.train\n"
         "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
@@ -54,6 +55,10 @@ def test_port_imports_with_jax_blocked():
         "assert r.metrics['n_report'].tolist() == [13.0, 13.0]\n"
         "r = S.run_lm_scenario(S.lm_sweep()[0], 1, device='cpu')\n"
         "assert r.metrics['loss'].shape == (1,)\n"
+        "from repro_torch.launch import train as T\n"
+        "tr = T.Trainer(S.lm_arch(), T.TrainConfig(protocol_impl='engine', n_subsets=4, n_byz=1), device='cpu')\n"
+        "toks = torch.randint(0, 64, (4, 9), generator=torch.Generator().manual_seed(0))\n"
+        "assert len(tr.run([{'tokens': toks[:, :-1], 'labels': toks[:, 1:]}])) == 1\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules "
         "if sys.modules[m] is not None)\n"
     )
