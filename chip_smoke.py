@@ -57,6 +57,20 @@ and prints one JSON line per phase:
                  one round's aggregate through the kernels against the plain
                  versions, and a subset's vmapped gradient against a plain
                  backward;
+  zoo            ``run_zoo_sweep()``: the seven ``ZOO_FAMILIES`` (dense,
+                 Jamba's Mamba-MoE hybrid, RWKV-6, MoE, sliding window,
+                 cross-attention, whisper) on their ``zoo_arch``, 2 rows
+                 each, 50 rounds in graph mode: every lane bit for bit its
+                 row's standalone graph run, loop bit for bit graph on the
+                 LAD row, and the LAD row's loss curve on the card against
+                 the CPU on the same records within 2e-6 (RWKV under the
+                 provision of ``zoo_phase``); per family replay ms a round,
+                 captured launches, the kernels of a subset-gradient call;
+                 the kernels a token adds to the Mamba and RWKV loops;
+  zoo_wide       as ``lm_wide``, for whisper-small whole (P = 335,106,048,
+                 1500 frames, 1 row a subset), granite-moe-3b-a800m and
+                 rwkv6-1.6b at their widths cut to 2 layers (P =
+                 352,461,312 and 378,062,848);
   train          the LM train step (``launch.train.build_engine_step``) at
                  ``lm_arch()``, N=10, 4 steps, AdamW: loop bit for bit graph
                  mode under fp32 and bf16 moments and under 2 microbatches
@@ -91,7 +105,7 @@ and prints one JSON line per phase:
                  could take; ``median`` through the CWTM kernel bitwise
                  against the plain version at N = 8, 41 and 100; plus its
                  launches during the phases above, which must all be above
-                 0 (``lm_launches``: those of the four LM phases, counted
+                 0 (``lm_launches``: those of the six LM phases, counted
                  from 0 before them, where the encode, attack and CWTM
                  kernels must be above 0), and the launches that graph
                  replays ran on the card
@@ -838,25 +852,44 @@ def lm_wide_phase(S, byz, models, coding, pytree, archs) -> dict:
     layers, d_model 960, 15/5 heads of 64, d_ff 2560, vocab 49152, tied; P
     = 361,821,120), N=8, 2 Byzantine, LAD d=2 with CWTM (trim 2 a side)
     under ALIE, 2 rows of 16 tokens a subset, 3 rounds in loop mode after
-    one untimed warm-up round. Per round the subset gradients' ms and each
-    stage's (CUDA events at ``run_trajectory``'s stage marks) and the peak
-    memory; the losses must be finite. Then, on the gradients at the
-    initial parameters: one round's aggregate through the kernels against
-    the same round through the plain versions (on the CPU, over the first
-    and the last 2^22 columns; every stage works column by column) within
-    rtol 1e-5, atol 1e-6; and subset 0's vmapped gradient against a plain
-    ``backward()`` on its rows, each leaf within ``SUBSET_GRAD_RTOL`` of
-    the leaf's largest magnitude."""
-    arch = archs.ARCHS["smollm-360m"]
-    row = S.Scenario(name="lm-wide/lad-d2/cwtm/alie", method="lad", d=2, aggregator="cwtm", attack="alie",
+    one untimed warm-up round: ``wide_lm_run``."""
+    return {"phase": "lm_wide", **wide_lm_run(S, byz, models, coding, pytree, archs.ARCHS["smollm-360m"], WIDE_Q,
+                                              per_subset=2, peak_gb_max=LM_WIDE_PEAK_GB)}
+
+
+def wide_lm_run(S, byz, models, coding, pytree, arch, params: int, *, per_subset: int, peak_gb_max: float,
+                float64_anchor: bool = False) -> dict:
+    """``run_lm_scenario`` of ``arch`` (``params`` parameters), N=8, 2
+    Byzantine, LAD d=2 with CWTM (trim 2 a side) under ALIE, ``per_subset``
+    rows of 16 tokens a subset, 3 rounds in loop mode after one untimed
+    warm-up round. Per round the subset gradients' ms and each stage's
+    (CUDA events at ``run_trajectory``'s stage marks) and the peak memory;
+    the losses must be finite. Then, on the gradients at the initial
+    parameters: their ms and the host's enqueue ms; one round's aggregate
+    through the kernels against the same round through the plain versions
+    (on the CPU, over the first and the last 2^22 columns; every stage works
+    column by column) within rtol 1e-5, atol 1e-6; and subset 0's vmapped
+    gradient against a plain ``backward()`` on its rows, each leaf within
+    ``SUBSET_GRAD_RTOL`` of the leaf's largest magnitude. Where an MoE arch
+    misses that, the plain backward is taken again on the vmapped
+    forward's expert and token picks (the two forwards can route a token
+    differently at a near-tie of a cut, which every differing pick must
+    be, within ``MOE_TIE_TOL``) and held to ``SUBSET_GRAD_RTOL``. Where
+    another arch misses it with ``float64_anchor`` (a leaf that float32
+    cannot resolve), both evaluations are taken again in float64 on the
+    card (``models.precision.float64``; the vmapped one over subsets 0 and
+    1), which must agree within ``FLOAT64_RTOL``, and the float32 vmapped
+    gradient's largest leaf error from the float64 one may be at most
+    ``ANCHOR_FACTOR`` times the float32 plain backward's."""
+    row = S.Scenario(name=f"{arch.name}/lad-d2/cwtm/alie", method="lad", d=2, aggregator="cwtm", attack="alie",
                      n_byz=2, n_devices=WIDE_N, trim_frac=0.25, sigma_h=0.5, lr=3e-3)
     start = time.perf_counter()
     x0, spec, subset_grads, _ = S._lm_fns(arch)
     init_s = time.perf_counter() - start
-    check(x0.numel() == WIDE_Q, f"smollm-360m has {x0.numel()} parameters, not {WIDE_Q}")
-    kw = dict(arch=arch, seed=0, per_subset=2, seq_len=16, device="cuda")
+    check(x0.numel() == params, f"{arch.name} has {x0.numel()} parameters, not {params}")
+    kw = dict(arch=arch, seed=0, per_subset=per_subset, seq_len=16, device="cuda")
     warm = S.run_lm_scenario(row, 1, **kw)
-    check(bool(torch.isfinite(warm.metrics["loss"]).all()), "lm_wide: warm-up loss not finite")
+    check(bool(torch.isfinite(warm.metrics["loss"]).all()), f"{arch.name}: warm-up loss not finite")
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -878,19 +911,19 @@ def lm_wide_phase(S, byz, models, coding, pytree, archs) -> dict:
             rounds.append({})
         else:
             rounds[-1][stage] = marks[i - 1][1].elapsed_time(ev)
-    check(len(rounds) == LM_WIDE_ROUNDS, f"lm_wide: {len(rounds)} rounds marked")
+    check(len(rounds) == LM_WIDE_ROUNDS, f"{arch.name}: {len(rounds)} rounds marked")
     loss = res.metrics["loss"]
-    check(loss.shape == (LM_WIDE_ROUNDS,) and bool(torch.isfinite(loss).all()), "lm_wide: bad loss")
-    check(peak_gb < LM_WIDE_PEAK_GB, f"lm_wide: peak {peak_gb:.1f} GB >= {LM_WIDE_PEAK_GB}")
-    out = {"phase": "lm_wide", "arch": arch.name, "params": WIDE_Q, "n_devices": WIDE_N, "d": 2, "n_byz": 2,
-           "aggregator": "cwtm", "trim_frac": 0.25, "attack": "alie", "per_subset": 2, "seq_len": 16,
+    check(loss.shape == (LM_WIDE_ROUNDS,) and bool(torch.isfinite(loss).all()), f"{arch.name}: bad loss")
+    check(peak_gb < peak_gb_max, f"{arch.name}: peak {peak_gb:.1f} GB >= {peak_gb_max}")
+    out = {"arch": arch.name, "params": params, "n_devices": WIDE_N, "d": 2, "n_byz": 2,
+           "aggregator": "cwtm", "trim_frac": 0.25, "attack": "alie", "per_subset": per_subset, "seq_len": 16,
            "rounds": LM_WIDE_ROUNDS, "init_s": init_s, "call_ms": call_ms, "stage_ms_per_round": rounds,
-           "peak_gb": peak_gb, "peak_gb_max": LM_WIDE_PEAK_GB, "loss": loss.tolist(),
+           "peak_gb": peak_gb, "peak_gb_max": peak_gb_max, "loss": loss.tolist(),
            "grad_norm": res.metrics["grad_norm"].tolist(), "agg_dist": res.metrics["agg_dist"].tolist()}
     del res
 
     # the gradients at x0, one round through the kernels and through the plain versions
-    data = S._lm_problem(arch, seed=0, n_subsets=WIDE_N, sigma_h=row.sigma_h, per_subset=2, seq_len=16,
+    data = S._lm_problem(arch, seed=0, n_subsets=WIDE_N, sigma_h=row.sigma_h, per_subset=per_subset, seq_len=16,
                          device=torch.device("cuda"))
     x = x0.to("cuda")
     grads = subset_grads(data, x)  # once untimed: its allocations
@@ -906,32 +939,376 @@ def lm_wide_phase(S, byz, models, coding, pytree, archs) -> dict:
     # the card cannot finish before the host has enqueued: equal times mean the host bounds it
     out["subset_grads"] = {"ms": start_ev.elapsed_time(end_ev), "host_enqueue_ms": enqueue_ms}
     cfg = row.protocol()
-    rand = byz.sample_round_randomness(cfg, WIDE_Q, torch.Generator(device="cuda").manual_seed(3))
+    rand = byz.sample_round_randomness(cfg, params, torch.Generator(device="cuda").manual_seed(3))
     g = byz.protocol_round(cfg, grads, rand, device="cuda")
     cols = 1 << 22
     err = 0.0
-    for sl in (slice(0, cols), slice(WIDE_Q - cols, WIDE_Q)):
+    for sl in (slice(0, cols), slice(params - cols, params)):
         want = byz.protocol_round(cfg, grads[:, sl].cpu(), rand.to("cpu"), device="cpu")
         got = g[sl].cpu()
-        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL), "lm_wide: kernel route differs from the plain route")
+        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"{arch.name}: kernel route differs from the plain route")
         err = max(err, float((got - want).abs().max()))
-    out["kernel_vs_plain_round"] = {"columns": [[0, cols], [WIDE_Q - cols, WIDE_Q]], "max_abs_err": err,
+    out["kernel_vs_plain_round"] = {"columns": [[0, cols], [params - cols, params]], "max_abs_err": err,
                                     "rtol": RTOL, "atol": ATOL}
     del g
 
     # subset 0: a plain backward() on its rows, against its row of the vmapped stack
+    rows0 = dict(zip(S._DATA_KEYS, (d[0] for d in data)))
+    plain = plain_backward(models, coding, pytree, arch, x, spec, rows0)
+    paths = [path for path, _ in pytree.paths(coding.unflatten_pytree(plain, spec))]
+    worst, leaf = leaf_error(pytree, coding, spec, grads[0], plain, paths)
+    line = {"subset": 0, "max_err_over_leaf_max": worst, "worst_leaf": leaf, "tolerance": SUBSET_GRAD_RTOL,
+            "rel_l2": float((grads[0] - plain).norm() / plain.norm())}
+    out["vmapped_vs_plain_backward"] = line
+    if worst > SUBSET_GRAD_RTOL and any(b.mlp == "moe" for b in arch.period):
+        # the two forwards may route a token differently at a near-tie: the plain
+        # backward again on the vmapped forward's routes
+        routes = moe_routes(S, models, arch, coding.unflatten_pytree(x, spec), data, vmapped=True)
+        flip = moe_flip(S, models, arch, coding.unflatten_pytree(x, spec), data, routes)
+        pinned = plain_backward(models, coding, pytree, arch, x, spec, rows0, routes=routes)
+        worst, leaf = leaf_error(pytree, coding, spec, grads[0], pinned, paths)
+        line["routes_pinned"] = {"max_err_over_leaf_max": worst, "worst_leaf": leaf,
+                                 "rel_l2": float((grads[0] - pinned).norm() / pinned.norm()), "routing_flip": flip}
+        check(flip is None or flip["max_distance_to_cut"] <= MOE_TIE_TOL,
+              f"{arch.name}: MoE routes differ away from a tie ({flip})")
+        check(worst <= SUBSET_GRAD_RTOL,
+              f"{arch.name}: vmapped gradient off a route-pinned plain backward by {worst} of a leaf's max ({leaf})")
+    elif worst > SUBSET_GRAD_RTOL and float64_anchor:
+        # an ill-conditioned leaf: the same two evaluations in float64 on the card (the vmapped one over
+        # subsets 0 and 1), which must agree; and the float32 vmapped gradient held to float64
+        # the arch's float32 (and so its params' dtype) computes in float64 inside the block; the frontend,
+        # which the model rounds to the arch's dtype first, is rounded so and then widened
+        arch64 = dataclasses.replace(arch, param_dtype="float32")
+        widened = tuple(d.to(arch.dtype).double() if d.is_floating_point() else d for d in data)
+        subset_grads64 = S._lm_fns(arch64).subset_grad_fn
+        with models.precision.float64():
+            plain64 = plain_backward(models, coding, pytree, arch64, x.double(), spec,
+                                     dict(zip(S._DATA_KEYS, (d[0] for d in widened))))
+            vmapped64 = subset_grads64(tuple(d[:2] for d in widened), x.double())[0]
+        agree, aleaf = leaf_error(pytree, coding, spec, vmapped64, plain64, paths)
+        del vmapped64
+        vmapped, vleaf = leaf_error(pytree, coding, spec, grads[0].double(), plain64, paths)
+        single, sleaf = leaf_error(pytree, coding, spec, plain.double(), plain64, paths)
+        line["float64"] = {"vmapped_vs_plain_err_over_leaf_max": agree, "worst_leaf": aleaf,
+                           "tolerance": models.precision.FLOAT64_RTOL, "vmapped32_err_over_leaf_max": vmapped,
+                           "vmapped32_worst_leaf": vleaf, "plain32_err_over_leaf_max": single,
+                           "plain32_worst_leaf": sleaf, "factor": ANCHOR_FACTOR}
+        check(agree <= models.precision.FLOAT64_RTOL,
+              f"{arch.name}: float64 vmapped gradient off a float64 plain backward by {agree} ({aleaf})")
+        check(vmapped <= ANCHOR_FACTOR * single,
+              f"{arch.name}: vmapped gradient {vmapped} off float64 against a plain backward's {single}")
+    else:
+        check(worst <= SUBSET_GRAD_RTOL,
+              f"{arch.name}: vmapped gradient off a plain backward by {worst} of a leaf's max ({leaf})")
+    return out
+
+
+def plain_backward(models, coding, pytree, arch, x, spec, rows, routes=None) -> torch.Tensor:
+    """The flat gradient of the loss on ``rows`` (one subset's batch) at
+    ``x`` by a plain ``backward()``; with ``routes`` (``moe_routes``'),
+    every MoE block takes those expert and token picks instead of its own,
+    its combine weights from its own probabilities at those experts."""
     tree = pytree.map_tree(lambda a: a.detach().clone().requires_grad_(True), coding.unflatten_pytree(x, spec))
-    loss0 = models.loss_fn(tree, None, arch, {"tokens": data[0][0], "labels": data[1][0]})[0]
-    loss0.backward()
-    plain = coding.flatten_pytree(pytree.map_tree(lambda a: a.grad, tree))[0]
-    del tree, loss0
-    worst = 0.0
-    for want, got in zip(pytree.leaves(coding.unflatten_pytree(plain, spec)),
-                         pytree.leaves(coding.unflatten_pytree(grads[0], spec))):
-        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
-    check(worst <= SUBSET_GRAD_RTOL, f"lm_wide: vmapped gradient off a plain backward by {worst} of a leaf's max")
-    out["vmapped_vs_plain_backward"] = {"subset": 0, "max_err_over_leaf_max": worst, "tolerance": SUBSET_GRAD_RTOL,
-                                        "rel_l2": float((grads[0] - plain).norm() / plain.norm())}
+    real, queue = models.moe._route, list(routes or ())
+
+    def pinned(params, xb, top_k, capacity_factor):
+        probs = real(params, xb, top_k, capacity_factor)[0]
+        _, chosen, token_idx = queue.pop(0)
+        return probs, chosen, models.moe._combine_weights(probs, chosen), token_idx
+
+    if routes is not None:
+        models.moe._route = pinned
+    try:
+        models.loss_fn(tree, None, arch, rows)[0].backward()
+    finally:
+        models.moe._route = real
+    check(not queue, f"{arch.name}: {len(queue)} pinned routes left unused")
+    return coding.flatten_pytree(pytree.map_tree(lambda a: a.grad, tree))[0]
+
+
+ANCHOR_FACTOR = 2.0  # float32 from float64 at an ill-conditioned leaf: the vmapped gradient within this times the plain
+MOE_TIE_TOL = 1e-6  # a routing pick that differs: its value this close to the cut (the card's fp32 noise there: 1.6e-7)
+
+
+def moe_routes(S, models, arch, tree, data, vmapped: bool) -> list[tuple[torch.Tensor, ...]]:
+    """Subset 0's routing in every MoE block of one forward pass: the
+    probabilities ``(1, T, E)``, each token's chosen experts one-hot ``(1,
+    T, k, E)`` and each expert's tokens ``(1, E, C)``, from the vmapped
+    forward over all subsets (as the engine's gradients run it) or from a
+    plain forward of subset 0's rows."""
+    real, routes = models.moe._route, []
+
+    def route(params, xb, top_k, capacity_factor):
+        out = real(params, xb, top_k, capacity_factor)
+        routes.extend((out[0], out[1], out[3]))
+        return out
+
+    def forward(p, *d):
+        routes.clear()
+        models.loss_fn(p, None, arch, dict(zip(S._DATA_KEYS, d)))
+        return tuple(routes)
+
+    models.moe._route = route
+    try:
+        with torch.no_grad():
+            if vmapped:
+                flat = [t[0] for t in torch.func.vmap(forward, in_dims=(None,) + (0,) * len(data))(
+                    models.transformer.unstack_periods(tree), *data)]
+            else:
+                flat = list(forward(tree, *(d[0] for d in data)))
+    finally:
+        models.moe._route = real
+    return list(zip(flat[0::3], flat[1::3], flat[2::3]))
+
+
+def moe_flip(S, models, arch, tree, data, vmapped_routes) -> dict | None:
+    """Where the vmapped forward (``vmapped_routes``) and the plain forward
+    of subset 0 route a token differently: the first MoE block that
+    differs, its differing picks, and the largest distance of a differing
+    pick's value (the plain forward's) from its cut (the top-k-th
+    probability of its token, or the C-th gate weight of its expert);
+    ``None`` if every block routes alike. Past that block the inputs
+    differ, so later blocks are not compared."""
+    for block, ((vp, _, vt), (pp, _, pt)) in enumerate(zip(vmapped_routes,
+                                                            moe_routes(S, models, arch, tree, data, False))):
+        vp, vt, pp, pt = vp[0], vt[0], pp[0], pt[0]
+        k, cap = arch.moe.top_k, pt.shape[-1]
+        picked = lambda probs: torch.zeros_like(probs, dtype=torch.bool).scatter_(
+            -1, torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k], True)
+        vchosen, pchosen = picked(vp), picked(pp)
+        experts = vchosen != pchosen  # (T, E)
+        tokens = [set(vt[e].tolist()) ^ set(pt[e].tolist()) for e in range(pt.shape[0])]
+        if not bool(experts.any()) and not any(tokens):
+            continue
+        kth = torch.sort(pp, dim=-1, descending=True).values[:, k - 1:k]  # (T, 1)
+        gaps = [float((pp[experts] - kth.expand_as(pp)[experts]).abs().max())] if bool(experts.any()) else []
+        combine = pp * pchosen / (pp * pchosen).sum(-1, keepdim=True)  # the plain forward's gate weights (T, E)
+        for e, diff in enumerate(tokens):
+            if diff:
+                cut = torch.sort(combine[:, e], descending=True).values[cap - 1]
+                gaps.append(max(abs(float(combine[t, e] - cut)) for t in diff))
+        return {"block": block, "expert_picks_differ": int(experts.sum()),
+                "tokens_in_differing_expert_picks": sum(len(d) for d in tokens), "max_distance_to_cut": max(gaps),
+                "tolerance": MOE_TIE_TOL}
+    return None
+
+
+def leaf_error(pytree, coding, spec, got, want, paths) -> tuple[float, str]:
+    """The largest ``max|got - want| / max|want|`` over the leaves of two
+    flat gradients, and its leaf's path."""
+    worst, leaf = 0.0, ""
+    for path, w, g in zip(paths, pytree.leaves(coding.unflatten_pytree(want, spec)),
+                          pytree.leaves(coding.unflatten_pytree(got, spec))):
+        err = float((g - w).abs().max() / w.abs().max())
+        if err > worst:
+            worst, leaf = err, path
+    return worst, leaf
+
+
+# ----------------------------------------------------------------------- zoo
+
+ZOO_STEPS = 50
+
+
+def device_kernels(fn) -> int | None:
+    """The CUDA kernels ``fn`` launches, as ``torch.profiler`` sees them
+    (memory copies and sets not counted); ``None`` if it sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def token_loop_kernels(models, pytree, S) -> dict:
+    """Kernels a token adds to one forward and backward of the Mamba and
+    the RWKV time mix (the zoo's jamba and rwkv widths, 2 rows): the
+    profiled count at 32 tokens less the count at 16, over 16."""
+    out = {}
+    for fam, kind, fn in (("jamba", "mamba", lambda p, x, a: models.mamba.mamba(p, x, a.mamba.d_state)),
+                          ("rwkv", "rwkv", lambda p, x, a: models.rwkv.rwkv_time_mix(p, x, a.rwkv.head_dim))):
+        arch = S.zoo_arch(fam)
+        params, _ = models.init(torch.Generator(device="cuda").manual_seed(0), arch)
+        i = next(i for i, b in enumerate(arch.period) if b.mixer == kind)
+        mixer = pytree.map_tree(lambda a: a[0].detach().requires_grad_(True), params["periods"][f"blk{i}"]["mixer"])
+        counts = {}
+        for s in (16, 32):
+            x = torch.randn((2, s, arch.d_model), device="cuda", requires_grad=True)
+            fn(mixer, x, arch).sum().backward()  # warm-up
+            counts[s] = device_kernels(lambda: fn(mixer, x, arch).sum().backward())
+        out[kind] = None if None in counts.values() else (counts[32] - counts[16]) / 16
+    return out
+
+
+def zoo_phase(S, byz, models, pytree, replayed: dict[str, int]) -> dict:
+    """``run_zoo_sweep()`` over the seven ``ZOO_FAMILIES`` (each family's
+    LAD-d2 and plain rows, N=8, 2 Byzantine, CWTM under sign-flip) on their
+    ``zoo_arch``, 50 rounds in graph mode, and per family:
+
+      * every lane bit for bit its row's standalone graph-mode
+        ``run_lm_scenario``;
+      * the LAD row in loop mode bit for bit its graph mode;
+      * the LAD row on the card and on the CPU from the same records (drawn
+        on the CPU): the loss curves within relative ``LM_RTOL`` every
+        round. Where they part (RWKV, ``precision.PARTING_FAMILIES``), every
+        round up to the parting round is held on the CPU's iterate: the
+        card's subset gradients against the CPU's, each row within
+        ``GRAD_ROW_RTOL`` of its norm, or, at a round where they differ
+        more (an ill-conditioned gradient, ``models.precision``), the same
+        gradients in float64 on the card and on the CPU within
+        ``FLOAT64_RTOL`` of each other and each float32 evaluation within
+        ``ILL_ROW_BOUND`` of the CPU's float64 one; the first such round
+        no later than the parting round.
+
+    Per family the replay ms a round of each row alone and of each bucket,
+    each kernel's launches in the captured round, and the kernels of one
+    subset-gradient call as ``torch.profiler`` counts them; and the kernels
+    a token adds to the Mamba and RWKV loops. Adds the replays' launches
+    to ``replayed``."""
+    sweep = S.zoo_sweep()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    grid = S.run_zoo_sweep(ZOO_STEPS, sweep=sweep, seed=0, device="cuda", mode="graph")
+    torch.cuda.synchronize()
+    out = {"phase": "zoo", "rounds": ZOO_STEPS, "mode": "graph", "n_devices": 8, "n_byz": 2,
+           "sweep_call_s": time.perf_counter() - start, "families": {}}
+    for fam, rows in sweep.items():
+        arch = S.zoo_arch(fam)
+        x0, _, subset_grads, _ = S._lm_fns(arch)
+        line = {"arch": arch.name, "params": x0.numel(), "rows": {}, "buckets": []}
+        alone = {}
+        for row in rows:
+            res = S.run_lm_scenario(row, ZOO_STEPS, arch=arch, seed=0, device="cuda", mode="graph")
+            loss = res.metrics["loss"]
+            check(res.graph.replays == ZOO_STEPS and bool(torch.isfinite(loss).all()), f"{row.name}: bad run")
+            for k, v in res.graph.captured_launches.items():
+                replayed[k] += v * res.graph.replays
+            lanes_equal(grid[fam][row.name], res, row.name)
+            alone[row.name] = res
+            line["rows"][row.name] = {
+                "replay_ms_per_round": res.graph.replay_ms() / ZOO_STEPS, "final_loss": float(loss[-1]),
+                "initial_loss": float(loss[0]),
+                "captured_launches_per_round": {k: v for k, v in res.graph.captured_launches.items() if v}}
+        seen = set()
+        for row in rows:
+            stats = grid[fam][row.name].grid
+            if id(stats) in seen:
+                continue
+            seen.add(id(stats))
+            for g in stats.graphs:
+                for k, v in g.captured_launches.items():
+                    replayed[k] += v * g.replays
+            line["buckets"].append({"first_row": row.name, "lanes": stats.lanes,
+                                    "replay_ms_per_round": stats.replay_ms() / ZOO_STEPS})
+        line["lanes_bitwise_standalone"] = True
+
+        lad = rows[0]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loop = S.run_lm_scenario(lad, ZOO_STEPS, arch=arch, seed=0, device="cuda", mode="loop")
+        torch.cuda.synchronize()
+        line["loop_ms_per_round"] = (time.perf_counter() - start) * 1e3 / ZOO_STEPS
+        check(same_bits(loop, alone[lad.name]), f"{lad.name}: loop mode differs from graph mode")
+        line["loop_bitwise_graph"] = lad.name
+        line["card_vs_cpu"] = zoo_card_vs_cpu(S, byz, models, fam, lad, arch)
+
+        data = S._lm_problem(arch, seed=0, n_subsets=lad.n_devices, sigma_h=lad.sigma_h, per_subset=2, seq_len=16,
+                             device=torch.device("cuda"))
+        x = x0.to("cuda")
+        subset_grads(data, x)
+        line["subset_grad_kernels"] = device_kernels(lambda: subset_grads(data, x))
+        out["families"][fam] = line
+    out["token_loop_kernels_per_token"] = token_loop_kernels(models, pytree, S)
+    return out
+
+
+def zoo_card_vs_cpu(S, byz, models, fam: str, row, arch) -> dict:
+    """The row on the card and on the CPU from the same records; see
+    ``zoo_phase``."""
+    x0 = S._lm_fns(arch).x0
+    cpu_gen = torch.Generator().manual_seed(1)
+    recs = [byz.sample_round_randomness(row.protocol(), x0.numel(), cpu_gen) for _ in range(ZOO_STEPS)]
+    fns = S._lm_fns(arch)
+    xs = []
+
+    def recording(d, x):
+        xs.append(x.clone())
+        return fns.subset_grad_fn(d, x)
+
+    card = S.run_lm_scenario(row, ZOO_STEPS, arch=arch, seed=0, randomness=lambda t: recs[t], device="cuda")
+    real = S._lm_fns
+    S._lm_fns = lambda a: fns._replace(subset_grad_fn=recording) if a is arch else real(a)
+    try:
+        cpu = S.run_lm_scenario(row, ZOO_STEPS, arch=arch, seed=0, randomness=lambda t: recs[t], device="cpu")
+    finally:
+        S._lm_fns = real
+    want = cpu.metrics["loss"]
+    rel = ((card.metrics["loss"].cpu() - want).abs() / want.abs())
+    out = {"row": row.name, "max_rel_loss": float(rel.max()), "tolerance": LM_RTOL}
+    if bool((rel <= LM_RTOL).all()):
+        return out
+    parted = int(torch.nonzero(rel > LM_RTOL)[0])
+    check(fam in models.precision.PARTING_FAMILIES, f"{row.name}: card and CPU loss curves part at round {parted}")
+    out["parted_at_round"] = parted
+    out["max_rel_loss_before"] = float(rel[:parted].max()) if parted else 0.0
+    data_cpu = S._lm_problem(arch, seed=0, n_subsets=row.n_devices, sigma_h=row.sigma_h, per_subset=2, seq_len=16,
+                             device=torch.device("cpu"))
+    data_card = tuple(d.to("cuda") for d in data_cpu)
+    row_error, ill = models.precision.row_error, []
+    for t in range(parted + 1):  # the loss of round t is at the iterate after its step
+        want_g = fns.subset_grad_fn(data_cpu, xs[t])
+        got_g = fns.subset_grad_fn(data_card, xs[t].to("cuda")).cpu()
+        err = row_error(got_g, want_g)
+        if err > models.precision.GRAD_ROW_RTOL:
+            with models.precision.float64():
+                exact = fns.subset_grad_fn(data_cpu, xs[t].double())
+                card64 = fns.subset_grad_fn(data_card, xs[t].to("cuda").double()).cpu()
+            agree, cpu_err, card_err = row_error(card64, exact), row_error(want_g, exact), row_error(got_g, exact)
+            check(agree <= models.precision.FLOAT64_RTOL, f"{row.name} round {t}: float64 card {agree} off float64 CPU")
+            bound = models.precision.ILL_ROW_BOUND
+            check(max(card_err, cpu_err) <= bound,
+                  f"{row.name} round {t}: card {card_err}, CPU {cpu_err} off float64 (bound {bound})")
+            ill.append({"round": t, "card_vs_cpu": err, "float64_card_vs_cpu": agree, "card_vs_float64": card_err,
+                        "cpu_vs_float64": cpu_err})
+    check(bool(ill), f"{row.name}: the curves part at round {parted} with no ill-conditioned round before it")
+    out["ill_conditioned_rounds"] = ill
+    return out
+
+
+ZOO_WIDE = (  # (arch, cut, parameters, rows of 16 tokens a subset)
+    ("whisper-small", {}, 335_106_048, 1),
+    ("granite-moe-3b-a800m", {"n_layers": 2}, 352_461_312, 2),
+    ("rwkv6-1.6b", {"n_layers": 2}, 378_062_848, 2),
+)
+ZOO_WIDE_PEAK_GB = 70.0  # reckoned 45 to 60 GB (PERF.md §6); the card has 80
+
+
+def zoo_wide_phase(S, byz, models, coding, pytree, archs) -> dict:
+    """``wide_lm_run`` (as ``lm_wide``) for three configurations at their
+    published widths, in fp32: whisper-small whole (12 encoder layers over
+    1500 frames of 768, 12 decoder periods of self- and cross-attention,
+    d_model 768, 12 heads of 64, d_ff 3072, vocab 51865, untied; 1 row a
+    subset), and granite-moe-3b-a800m (d_model 1536, 24/8 heads of 64, 40
+    experts top-8 of d_ff 512, vocab 49155) and rwkv6-1.6b (d_model 2048,
+    wkv heads of 64, decay LoRA 64, d_ff 7168, vocab 65536) cut from 32 and
+    24 layers to 2 (2 rows a subset). A subset's vmapped gradient that is
+    off its plain backward by more than ``SUBSET_GRAD_RTOL`` of a leaf's
+    largest value is held to a float64 backward (whisper's 1500-frame
+    attention gradients are ill-conditioned in float32; PERF.md §6). Each
+    configuration's problem is released before the next."""
+    out = {"phase": "zoo_wide", "configs": {}}
+    for name, cut, params, rows in ZOO_WIDE:
+        arch = archs.ARCHS[name].scaled(**cut)
+        out["configs"][name] = {"cut": cut, **wide_lm_run(S, byz, models, coding, pytree, arch, params,
+                                                           per_subset=rows, peak_gb_max=ZOO_WIDE_PEAK_GB,
+                                                           float64_anchor=True)}
+        S._lm_fns.cache_clear()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1405,6 +1782,8 @@ def main() -> int:
     tmp.mkdir(parents=True, exist_ok=True)
     for phase in (lambda: lm_phase(scenarios, byzantine, replayed),
                   lambda: lm_wide_phase(scenarios, byzantine, models, coding, pytree, archs),
+                  lambda: zoo_phase(scenarios, byzantine, models, pytree, replayed),
+                  lambda: zoo_wide_phase(scenarios, byzantine, models, coding, pytree, archs),
                   lambda: train_phase(train, models, pytree, ops, byzantine, checkpoint, synthetic,
                                       scenarios.lm_arch(), tmp),
                   lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32)):

@@ -18,6 +18,10 @@
     at LM scale: the iterate is a transformer's flattened fp32 parameter
     vector (``lm_arch`` by default), each subset's gradient its full-model
     gradient on the subset's tokens.
+  * ``ZOO_FAMILIES`` / ``zoo_arch`` / ``zoo_sweep`` / ``run_zoo_sweep`` —
+    the LM matrix over the model zoo: dense, Jamba's Mamba-MoE hybrid,
+    RWKV-6, MoE, sliding-window, cross-attention and the whisper
+    encoder-decoder, each at the ``lm_arch`` scale.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["Scenario", "scenario_name", "section7_grid", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
            "participation_sweep", "synthetic_sweep", "run_scenario", "least_squares", "run_grid", "grid_finals",
-           "lm_arch", "lm_sweep", "run_lm_scenario", "run_lm_grid"]
+           "lm_arch", "lm_sweep", "run_lm_scenario", "run_lm_grid", "ZOO_FAMILIES", "zoo_arch", "zoo_sweep",
+           "run_zoo_sweep"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -528,7 +533,10 @@ class _LMFns(NamedTuple):
     loss_fn: Callable
 
 
-@functools.lru_cache(maxsize=4)
+_DATA_KEYS = ("tokens", "labels", "frontend")  # an LM problem's leaves, in order
+
+
+@functools.lru_cache(maxsize=16)
 def _lm_fns(arch) -> _LMFns:
     """(x0, spec, subset_grad_fn, loss_fn) of the LM problem of ``arch``.
 
@@ -536,18 +544,29 @@ def _lm_fns(arch) -> _LMFns:
     CPU generator seeded 0 (the same on every device) in the arch's dtype
     and widened to float32, as the reference's ``_lm_fns`` does from
     ``PRNGKey(0)``; it lies on the CPU. ``spec`` is its
-    ``flatten_pytree`` spec.
+    ``flatten_pytree`` spec. The cache pins ``x0`` and the closures of up to
+    16 archs, as the reference's does: the whole ``ZOO_FAMILIES`` zoo and
+    the LM sweeps' arch at once, so a ``run_zoo_sweep`` builds each x0
+    once. ``_lm_fns.cache_clear()`` releases them.
 
-    ``subset_grad_fn(data, x)``: ``x`` ``(l, P)`` iterates of ``l`` lanes
-    and ``data`` the ``(tokens, labels)`` of the N subsets, ``(N, rows,
-    S)`` each; returns the ``(l, N, P)`` stack of every subset's gradient
+    ``data`` is the problem ``(tokens, labels)``, ``(N, rows, S)`` each,
+    and for the vlm and audio families a third leaf, the frontend
+    embeddings ``(N, rows, n_frontend_tokens, d_frontend)``.
+
+    ``subset_grad_fn(data, x)``: ``x`` ``(l, P)`` iterates of ``l`` lanes;
+    returns the ``(l, N, P)`` stack of every subset's gradient
     at every lane's iterate (``(N, P)`` for one ``(P,)`` iterate). Each lane is its own step: its iterate copied
     (so its views start where a one-lane run's do), the gradients of all N
-    subsets from one ``torch.func.vmap(torch.func.grad(...))``, taken
+    subsets from one ``torch.func.vmap`` of the loss's gradient, taken
     through the per-period form of the tree (``unstack_periods``), and each
     leaf written straight into its slice of the lane's rows of the stack.
     A lane thus sees exactly the shapes of a one-lane run, whatever the
-    lane count, and its bits do not depend on it.
+    lane count, and its bits do not depend on it. The gradient is the
+    loss's ``torch.func.vjp`` pulled back without building a graph of the
+    backward (``create_graph=False``): ``torch.func.grad`` builds one, which
+    keeps every layer's backward intermediates alive until the call
+    returns (whisper-small's 1500-frame encoder at 8 subsets did not fit an
+    80 GB card that way).
 
     ``loss_fn(data, xs)``: the mean next-token loss over all subsets' rows
     at each iterate of ``xs`` ``(..., P)``, one forward pass an iterate.
@@ -556,19 +575,21 @@ def _lm_fns(arch) -> _LMFns:
     x0, spec = flatten_pytree(pytree.map_tree(lambda a: a.to(torch.float32), params0))
     del params0
     unstack = models.transformer.unstack_periods
+    n_leaves = 3 if arch.family in models.transformer.FRONTEND_FAMILIES else 2
 
-    def subset_loss(params, tokens, labels):
-        return models.loss_fn(params, None, arch, {"tokens": tokens, "labels": labels})[0]
+    def subset_grad(params, *data):
+        loss, pullback = torch.func.vjp(
+            lambda p: models.loss_fn(p, None, arch, dict(zip(_DATA_KEYS, data)))[0], params)
+        return pullback(torch.ones_like(loss), retain_graph=False, create_graph=False)[0]
 
-    per_subset = torch.func.vmap(torch.func.grad(subset_loss), in_dims=(None, 0, 0))
+    per_subset = torch.func.vmap(subset_grad, in_dims=(None,) + (0,) * n_leaves)
 
     def lm_subset_grads(data, x):
         if x.ndim == 1:  # one iterate (P,): the (N, P) stack
             return lm_subset_grads(data, x[None])[0]
-        tokens, labels = data
-        out = x.new_empty((x.shape[0], tokens.shape[0], x.shape[-1]))
+        out = x.new_empty((x.shape[0], data[0].shape[0], x.shape[-1]))
         for i in range(x.shape[0]):
-            grads = per_subset(unstack(unflatten_pytree(x[i].clone(), spec)), tokens, labels)
+            grads = per_subset(unstack(unflatten_pytree(x[i].clone(), spec)), *data)
             rows = unstack(unflatten_pytree(out[i], spec), lead=1)
             for g, dst in zip(pytree.leaves(grads), pytree.leaves(rows)):
                 dst.copy_(g)
@@ -576,8 +597,7 @@ def _lm_fns(arch) -> _LMFns:
         return out
 
     def lm_loss(data, xs):
-        tokens, labels = data
-        batch = {"tokens": tokens.reshape(-1, tokens.shape[-1]), "labels": labels.reshape(-1, labels.shape[-1])}
+        batch = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in zip(_DATA_KEYS, data)}
         flat = xs.reshape(-1, xs.shape[-1])
         with torch.no_grad():
             losses = [models.loss_fn(unflatten_pytree(flat[j].clone(), spec), None, arch, batch)[0]
@@ -588,13 +608,21 @@ def _lm_fns(arch) -> _LMFns:
 
 
 def _lm_problem(arch, *, seed: int, n_subsets: int, sigma_h: float, per_subset: int, seq_len: int,
-                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+                device: torch.device) -> tuple[torch.Tensor, ...]:
     """The heterogeneous-LM ``(tokens, labels)`` of one run, ``(N,
     per_subset, seq_len)`` each, drawn from a CPU generator seeded ``seed``
-    (the same tokens on every device) and moved to ``device``."""
-    batch = lm_batch_for_devices(torch.Generator().manual_seed(seed), arch.vocab, n_subsets=n_subsets,
-                                 per_subset=per_subset, seq_len=seq_len, sigma_h=sigma_h)
-    return batch["tokens"].contiguous().to(device), batch["labels"].contiguous().to(device)
+    (the same data on every device) and moved to ``device``; for the vlm
+    and audio families a third leaf, the stub frontend embeddings ``(N,
+    per_subset, n_frontend_tokens, d_frontend)``, standard normals drawn
+    next from the same generator."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = lm_batch_for_devices(gen, arch.vocab, n_subsets=n_subsets, per_subset=per_subset, seq_len=seq_len,
+                                 sigma_h=sigma_h)
+    data = (batch["tokens"], batch["labels"])
+    if arch.family in models.transformer.FRONTEND_FAMILIES:
+        enc = arch.encoder
+        data += (torch.randn((n_subsets, per_subset, enc.n_frontend_tokens, enc.d_frontend), generator=gen),)
+    return tuple(t.contiguous().to(device) for t in data)
 
 
 def lm_sweep(
@@ -658,7 +686,9 @@ def run_lm_scenario(
 
     ``params`` (a parameter tree, widened to float32) replaces the seeded
     initial parameters, and ``batch`` (``tokens`` and ``labels``, ``(N,
-    rows, S)``) the seeded heterogeneous-LM data; the rounds draw from a
+    rows, S)``, and for the vlm and audio families ``frontend``, ``(N,
+    rows, n_frontend_tokens, d_frontend)``) the seeded heterogeneous-LM
+    data; the rounds draw from a
     generator on the run's device seeded ``seed``, unless ``randomness``
     provides them. ``mode`` and ``stage_hook`` are ``run_trajectory``'s.
     ``run_lm_grid``'s lanes equal this run of their rows bit for bit.
@@ -674,7 +704,10 @@ def run_lm_scenario(
         data = _lm_problem(arch, seed=seed, n_subsets=scn.n_devices, sigma_h=scn.sigma_h,
                            per_subset=per_subset, seq_len=seq_len, device=dev)
     else:
-        data = (batch["tokens"].to(dev), batch["labels"].to(dev))
+        keys = _DATA_KEYS[:3 if arch.family in models.transformer.FRONTEND_FAMILIES else 2]
+        if any(k not in batch for k in keys):
+            raise ValueError(f"{arch.name} ({arch.family}) trains on a batch of {keys}, not {tuple(batch)}")
+        data = tuple(batch[k].to(dev) for k in keys)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return engine_lib.run_trajectory(
         scn.protocol(), x0.to(dev), lm_subset_grads, steps=steps, lr=scn.lr,
@@ -732,3 +765,95 @@ def run_lm_grid(
         out.update(_run_bucket(group, steps, prob, gens, device=dev, mode=mode,
                                max_lanes_per_device=max_lanes_per_device, randomness=None))
     return {s.name: out[s.name] for s in scns}
+
+
+# --------------------------------------------------------------------------
+# The architecture zoo: the LM sweep over an architecture axis.
+# --------------------------------------------------------------------------
+
+ZOO_FAMILIES = ("transformer", "jamba", "rwkv", "moe", "swa", "cross", "audio")
+
+
+@functools.lru_cache(maxsize=None)
+def zoo_arch(family: str):
+    """The small ``ArchConfig`` of one zoo family, the reference's
+    ``zoo_arch``: each family's structure at the ``lm_arch`` scale
+    (d_model 32, vocab 64). jamba keeps its 8-block 1:7 attention:mamba
+    period with MoE on the even blocks, rwkv its token-shift FFN, cross and
+    audio their frontends (audio with a 1-layer encoder), swa a sliding
+    window of 6. Cached, so each family has one config (and one
+    ``_lm_fns`` problem)."""
+    from repro_torch.configs.archs import ARCHS, reduced
+    from repro_torch.configs.base import BlockSpec, EncoderConfig, MambaConfig, RWKVConfig
+
+    if family == "transformer":
+        return lm_arch()
+    tiny = dict(d_model=32, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64, vocab=64)
+    if family == "swa":
+        return lm_arch().scaled(name="zoo-swa", period=(BlockSpec(sliding_window=6),))
+    if family == "jamba":
+        base = reduced(ARCHS["jamba-1.5-large-398b"])
+        return base.scaled(name="zoo-jamba", n_layers=8, **tiny, moe=dataclasses.replace(base.moe, d_ff_expert=32),
+                           mamba=MambaConfig(d_state=4, d_conv=4, expand=2))
+    if family == "rwkv":
+        return reduced(ARCHS["rwkv6-1.6b"]).scaled(name="zoo-rwkv", n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
+                                                  head_dim=16, d_ff=64, vocab=64,
+                                                  rwkv=RWKVConfig(head_dim=16, decay_lora=8))
+    if family == "moe":
+        base = reduced(ARCHS["granite-moe-3b-a800m"])
+        return base.scaled(name="zoo-moe", n_layers=1, **tiny, moe=dataclasses.replace(base.moe, d_ff_expert=32))
+    if family == "cross":
+        return reduced(ARCHS["llama-3.2-vision-90b"]).scaled(
+            name="zoo-cross", n_layers=5, **tiny,
+            encoder=EncoderConfig(n_frontend_tokens=8, d_frontend=16, n_encoder_layers=0))
+    if family == "audio":
+        return reduced(ARCHS["whisper-small"]).scaled(
+            name="zoo-audio", n_layers=2, **tiny,
+            encoder=EncoderConfig(n_frontend_tokens=8, d_frontend=16, n_encoder_layers=1))
+    raise ValueError(f"unknown zoo family {family!r} (have {ZOO_FAMILIES})")
+
+
+def zoo_sweep(
+    families: Sequence[str] = ZOO_FAMILIES,
+    methods: Sequence[tuple[str, int]] = (("lad", 2), ("plain", 1)),
+    attacks: Sequence[str] = ("sign_flip",),
+    aggregators: Sequence[str] = ("cwtm",),
+    compressors: Sequence[str] = ("none",),
+    *,
+    n_devices: int = 8,
+    n_byz: int = 2,
+    sigma_h: float = 0.5,
+    **kw,
+) -> dict[str, list[Scenario]]:
+    """``lm_sweep``'s rows for every family, named ``zoo/<family>/...``:
+    ``{family: rows}``, one list a family (a bucket cannot mix
+    architectures: P differs). ``kw`` goes to ``lm_sweep``."""
+    out: dict[str, list[Scenario]] = {}
+    for fam in families:
+        zoo_arch(fam)  # an unknown family raises here
+        rows = lm_sweep(methods, attacks, aggregators, compressors, n_devices=n_devices, n_byz=n_byz,
+                        sigma_h=sigma_h, **kw)
+        out[fam] = [dataclasses.replace(s, name=f"zoo/{fam}/" + s.name[len("lm/"):]) for s in rows]
+    return out
+
+
+def run_zoo_sweep(
+    steps: int,
+    *,
+    families: Sequence[str] = ZOO_FAMILIES,
+    sweep: dict[str, list[Scenario]] | None = None,
+    seed: int = 0,
+    per_subset: int = 2,
+    seq_len: int = 16,
+    mode: str = "graph",
+    **grid_kw,
+) -> dict[str, dict[str, TrajectoryResult]]:
+    """Train the zoo under attack: one ``run_lm_grid`` a family on its
+    ``zoo_arch``, ``{family: {row name: result}}``. Every lane equals
+    ``run_lm_scenario(row, ..., arch=zoo_arch(family))`` bit for bit.
+    ``grid_kw`` (``device``, ``exact``, ``max_lanes_per_device``) goes to
+    ``run_lm_grid``."""
+    sweep = sweep if sweep is not None else zoo_sweep(families)
+    return {fam: run_lm_grid(rows, steps, arch=zoo_arch(fam), seed=seed, per_subset=per_subset, seq_len=seq_len,
+                             mode=mode, **grid_kw)
+            for fam, rows in sweep.items()}

@@ -81,7 +81,7 @@ def sinusoidal_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
     """Whisper-style fixed sinusoidal position embeddings: (seq, d_model)."""
     pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d_model)
+    angle = pos / torch.pow(torch.full((), 10000.0, device=device), dim / d_model)  # no host copy: graph capture
     pe = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(angle)
     # odd d_model: the cos half has floor(d/2) slots, the last sin frequency no partner

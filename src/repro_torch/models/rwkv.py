@@ -1,0 +1,121 @@
+"""RWKV-6 ("Finch") time-mix and channel-mix blocks over a full sequence
+[arXiv:2404.05892].
+
+Token-shift interpolation with learned per-channel mixing coefficients,
+receptance/key/value/gate projections, the data-dependent decay ``w_t =
+exp(-exp(w0 + LoRA(x_shifted)))``, the bonus ``u`` for the current token,
+and the per-head matrix-valued WKV state
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    y_t = r_t @ S_{t-1} + (sum_i r_i u_i k_i) * v_t
+
+with the u-bonus readout computed outside the recurrence, as the reference
+does. The reference's ``lax.scan`` over the sequence is a Python loop over
+the tokens here, the state in float32 (graph mode captures it; PERF.md
+counts its launches a token). The readout is group-normed per head and
+gated by SiLU(g). The channel mix is RWKV's squared-ReLU FFN with token
+shift. The decode states come with serving (ROADMAP A.8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
+
+__all__ = ["rwkv_time_mix_init", "rwkv_channel_mix_init", "rwkv_time_mix", "rwkv_channel_mix"]
+
+
+def rwkv_time_mix_init(generator: torch.Generator, d_model: int, head_dim: int, decay_lora: int,
+                       dtype: torch.dtype):
+    """wr, wk, wv, wg, wo, w_lora_a, w_lora_b drawn in that order."""
+    dev = generator.device
+    n_heads = d_model // head_dim
+    draws = {name: dense_param(generator, (d_model, d_model), axes, dtype)
+             for name, axes in (("wr", ("fsdp", "tp")), ("wk", ("fsdp", "tp")), ("wv", ("fsdp", "tp")),
+                                ("wg", ("fsdp", "tp")), ("wo", ("tp", "fsdp")))}
+    draws["w_lora_a"] = dense_param(generator, (d_model, decay_lora), ("fsdp", None), dtype)
+    draws["w_lora_b"] = dense_param(generator, (decay_lora, d_model), (None, "tp"), dtype)
+    return split_tree({
+        **draws,
+        "mu": scale_param((5, d_model), (None, None), torch.float32, 0.5, device=dev),  # r/k/v/g/w shifts
+        "w0": zeros_param((d_model,), (None,), torch.float32, device=dev),
+        "bonus_u": zeros_param((n_heads, head_dim), ("tp", None), torch.float32, device=dev),
+        "ln_scale": scale_param((d_model,), (None,), torch.float32, 1.0, device=dev),
+    })
+
+
+def rwkv_channel_mix_init(generator: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype):
+    """wk, wv, wr drawn in that order."""
+    draws = {
+        "wk": dense_param(generator, (d_model, d_ff), ("fsdp", "tp"), dtype),
+        "wv": dense_param(generator, (d_ff, d_model), ("tp", "fsdp"), dtype),
+        "wr": dense_param(generator, (d_model, d_model), ("fsdp", "tp"), dtype),
+    }
+    return split_tree({**draws, "mu": scale_param((2, d_model), (None, None), torch.float32, 0.5,
+                                                  device=generator.device)})
+
+
+def _token_shift(x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) -> the previous token's x (zeros at t=0)."""
+    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _mix(x: torch.Tensor, x_shift: torch.Tensor, mu_row: torch.Tensor) -> torch.Tensor:
+    """lerp(x, x_shift, mu): the delta in float32, scaled, cast back."""
+    delta = (x_shift - x).to(torch.float32)
+    return x + (delta * mu_row).to(x.dtype)
+
+
+def _projections(params, x: torch.Tensor, x_shift: torch.Tensor, head_dim: int):
+    mu = params["mu"]
+    r = _mix(x, x_shift, mu[0]) @ params["wr"]
+    k = _mix(x, x_shift, mu[1]) @ params["wk"]
+    v = _mix(x, x_shift, mu[2]) @ params["wv"]
+    g = _mix(x, x_shift, mu[3]) @ params["wg"]
+    lora_h = torch.tanh(_mix(x, x_shift, mu[4]) @ params["w_lora_a"])
+    lora = (lora_h @ params["w_lora_b"]).to(torch.float32)
+    w = torch.exp(-torch.exp(lora + params["w0"]))  # (B, S, D) in (0, 1)
+    b, s, d = x.shape
+
+    def heads(t):
+        return t.reshape(b, s, d // head_dim, head_dim)
+
+    return heads(r), heads(k), heads(v), g, heads(w)
+
+
+def _group_norm(y: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
+    """Per-head LayerNorm of the readout (RWKV's group norm), the variance
+    the population's, as ``jnp.var``: y (B, S, H, hd) -> (B, S, H*hd)."""
+    yf = y.to(torch.float32)
+    mean = torch.mean(yf, dim=-1, keepdim=True)
+    var = torch.var(yf, dim=-1, keepdim=True, correction=0)
+    normed = (yf - mean) * torch.rsqrt(var + eps)
+    b, s, h, hd = y.shape
+    return normed.reshape(b, s, h * hd) * scale
+
+
+def rwkv_time_mix(params, x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Full-sequence RWKV-6 time mix. x: (B, S, D) -> (B, S, D)."""
+    b, s, d = x.shape
+    r, k, v, g, w = _projections(params, x, _token_shift(x), head_dim)
+    s_u = torch.sum((r * k).to(torch.float32) * params["bonus_u"], dim=-1)  # (B, S, H)
+    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
+    state = x.new_zeros((b, d // head_dim, head_dim, head_dim), dtype=torch.float32)
+    ys = []
+    for t in range(s):
+        y = torch.einsum("bhi,bhij->bhj", rf[:, t], state) + s_u[:, t, :, None] * vf[:, t]
+        state = w[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(y)
+    y = _group_norm(torch.stack(ys, dim=1), params["ln_scale"]).to(x.dtype)
+    y = y * torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype)
+    return (y @ params["wo"]).to(x.dtype)
+
+
+def rwkv_channel_mix(params, x: torch.Tensor) -> torch.Tensor:
+    """RWKV's squared-ReLU FFN with token shift. x: (B, S, D) -> (B, S, D)."""
+    mu = params["mu"]
+    x_shift = _token_shift(x)
+    k = _mix(x, x_shift, mu[0]) @ params["wk"]
+    k = torch.square(torch.relu(k.to(torch.float32))).to(x.dtype)
+    r = torch.sigmoid((_mix(x, x_shift, mu[1]) @ params["wr"]).to(torch.float32)).to(x.dtype)
+    return r * (k @ params["wv"])

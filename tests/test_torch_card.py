@@ -387,6 +387,64 @@ def test_lm_vmapped_gradient_equals_plain_backward(card):
         assert float((got - want).abs().max()) <= SUBSET_GRAD_RTOL * float(want.abs().max())
 
 
+# ------------------------------------------------------------------ the zoo
+
+ZOO_STEPS = 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", tscn.ZOO_FAMILIES)
+def test_zoo_graph_mode_equals_loop_mode_bitwise(card, family):
+    """Each family's LAD row: the captured round replayed equals the loop
+    bit for bit (the Mamba and RWKV token loops and the MoE's one-hot
+    dispatch inside the capture)."""
+    smoke = _chip_smoke()
+    row = tscn.zoo_sweep((family,))[family][0]
+    kw = dict(arch=tscn.zoo_arch(family), seed=1, device="cuda")
+    loop = tscn.run_lm_scenario(row, ZOO_STEPS, mode="loop", **kw)
+    graph = tscn.run_lm_scenario(row, ZOO_STEPS, mode="graph", **kw)
+    assert smoke.same_bits(loop, graph)
+    assert bool(torch.isfinite(graph.metrics["loss"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", tscn.ZOO_FAMILIES)
+def test_zoo_sweep_lanes_equal_standalone_runs_on_card(card, family):
+    """``run_zoo_sweep`` in graph mode: every lane bit for bit its row's
+    standalone graph-mode run."""
+    smoke = _chip_smoke()
+    sweep = tscn.run_zoo_sweep(ZOO_STEPS, families=(family,), seed=2, device="cuda")[family]
+    for row in tscn.zoo_sweep((family,))[family]:
+        alone = tscn.run_lm_scenario(row, ZOO_STEPS, arch=tscn.zoo_arch(family), seed=2, device="cuda",
+                                     mode="graph")
+        assert smoke.same_bits(sweep[row.name], alone), row.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ("jamba", "moe", "rwkv", "audio"))
+def test_zoo_gradients_are_deterministic_and_a_plain_backward(card, family):
+    """The subset gradients twice give the same bits (the MoE's dispatch
+    and combine are one-hot products, no atomic scatter-add), and subset
+    1's row is a plain ``backward()`` within SUBSET_GRAD_RTOL of each
+    leaf's largest magnitude."""
+    from repro_torch import models, pytree
+    from repro_torch.core.coding import flatten_pytree, unflatten_pytree
+
+    arch = tscn.zoo_arch(family)
+    x0, spec, grads, _ = tscn._lm_fns(arch)
+    data = tscn._lm_problem(arch, seed=0, n_subsets=4, sigma_h=0.5, per_subset=2, seq_len=16,
+                            device=torch.device("cuda"))
+    x = x0.to("cuda")
+    stack = grads(data, x)
+    assert torch.equal(stack, grads(data, x))
+    tree = pytree.map_tree(lambda a: a.detach().clone().requires_grad_(True), unflatten_pytree(x, spec))
+    batch = dict(zip(("tokens", "labels", "frontend"), (d[1] for d in data)))
+    models.loss_fn(tree, None, arch, batch)[0].backward()
+    plain = flatten_pytree(pytree.map_tree(lambda a: a.grad, tree))[0]
+    for want, got in zip(pytree.leaves(unflatten_pytree(plain, spec)), pytree.leaves(unflatten_pytree(stack[1], spec))):
+        assert float((got - want).abs().max()) <= SUBSET_GRAD_RTOL * float(want.abs().max())
+
+
 # ------------------------------------------------------------ the train step
 
 

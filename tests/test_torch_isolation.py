@@ -45,7 +45,8 @@ def test_port_imports_with_jax_blocked():
         "repro_torch.core.engine, repro_torch.core.byzantine, repro_torch.kernels.ops, "
         "repro_torch.core.participation, repro_torch.core.coding, repro_torch.kernels.quantize, "
         "repro_torch.models, repro_torch.configs.archs, repro_torch.core.theory, repro_torch.pytree, "
-        "repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.launch.train\n"
+        "repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.launch.train, "
+        "repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.rwkv, repro_torch.models.precision\n"
         "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
@@ -55,6 +56,10 @@ def test_port_imports_with_jax_blocked():
         "assert r.metrics['n_report'].tolist() == [13.0, 13.0]\n"
         "r = S.run_lm_scenario(S.lm_sweep()[0], 1, device='cpu')\n"
         "assert r.metrics['loss'].shape == (1,)\n"
+        "z = S.run_zoo_sweep(1, families=('moe', 'audio'), device='cpu', mode='loop')\n"
+        "assert sorted(z) == ['audio', 'moe'] and all(r.metrics['loss'].shape == (1,) for f in z.values() "
+        "for r in f.values())\n"
+        "assert S.zoo_arch('jamba').name == 'zoo-jamba' and len(S.zoo_sweep()) == len(S.ZOO_FAMILIES) == 7\n"
         "from repro_torch.launch import train as T\n"
         "tr = T.Trainer(S.lm_arch(), T.TrainConfig(protocol_impl='engine', n_subsets=4, n_byz=1), device='cpu')\n"
         "toks = torch.randint(0, 64, (4, 9), generator=torch.Generator().manual_seed(0))\n"
