@@ -86,6 +86,28 @@ and prints one JSON line per phase:
                  first graph step's (with the captures), each mode's peak
                  memory, finite losses, loop bit for bit graph, and the
                  optimizer apply alone against its byte bound;
+  serve          the serving path (prefill, cached decode, ``serve_traffic``)
+                 at the zoo's scale in fp32, for the seven ``ZOO_FAMILIES``
+                 and a whisper arch whose first block is cross-attention:
+                 prefill 13 tokens, decode 7, each step within
+                 tests/test_serving.py's 5e-2 of the full forward (``moe``
+                 and ``jamba``, whose capacity cut depends on the tokens
+                 routed together, reported and held card against CPU
+                 instead); the card's logits against the CPU's; loop bit
+                 for bit graph mode; the chunked attention at 2,100 tokens
+                 against the plain one, forward and backward; and train to
+                 serve (``Trainer``, ``save``, ``restore_for_serving`` bit
+                 for bit, the same served tokens);
+  serve_wide     smollm-360m at its published widths, depth and dtype:
+                 ``decode_32k`` at its batch of 128 against a full
+                 8,192-slot ring (ms a step beside the byte bound, tokens/s,
+                 peak memory, loop bit for bit graph, the bytes a step's
+                 copies move, where a step's kernel time goes, one layer's
+                 decode attention against its bound and the library call),
+                 ``prefill_32k`` at batch 1 (ms beside the FLOP bound, then
+                 8 decode steps; one layer's chunked attention likewise),
+                 conformance past 4,096 tokens, ``long_500k`` decode, and
+                 whisper-small whole through ``serve_traffic``;
   wide_round     protocol rounds at the gradient width of smollm-360m
                  (Q = 361,821,120; N=8, d=2), each after a warm-up round:
                  CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
@@ -105,7 +127,7 @@ and prints one JSON line per phase:
                  could take; ``median`` through the CWTM kernel bitwise
                  against the plain version at N = 8, 41 and 100; plus its
                  launches during the phases above, which must all be above
-                 0 (``lm_launches``: those of the six LM phases, counted
+                 0 (``lm_launches``: those of the eight LM phases, counted
                  from 0 before them, where the encode, attack and CWTM
                  kernels must be above 0), and the launches that graph
                  replays ran on the card
@@ -152,6 +174,7 @@ STEPS = 200
 # bytes/s and fp32 FLOP/s outside the tensor cores. Only the card this
 # script has run on is listed; another card needs its own entry.
 _PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+_TENSOR_PEAKS = {"NVIDIA H100 80GB HBM3": 989e12}  # dense bf16 FLOP/s on the tensor cores, the same sheet
 
 TPU_KERNELS = {
     "gather_combine": ("src/repro_torch/csrc/gather_combine.cu", "src/repro/kernels/coded_combine.py:70"),
@@ -175,6 +198,12 @@ def peaks(name: str) -> tuple[float, float]:
     if name not in _PEAKS:
         raise RuntimeError(f"no published peak rates for {name!r} in _PEAKS: add the card's own")
     return _PEAKS[name]
+
+
+def tensor_peak(name: str) -> float:
+    if name not in _TENSOR_PEAKS:
+        raise RuntimeError(f"no published bf16 tensor-core peak for {name!r} in _TENSOR_PEAKS: add the card's own")
+    return _TENSOR_PEAKS[name]
 
 
 def nvidia_smi() -> str:
@@ -1548,6 +1577,482 @@ def train_wide_phase(T, models, pytree, archs, synthetic, hbm: float, fp32: floa
     return out
 
 
+# ------------------------------------------------------------------ serving
+
+
+SERVE_S0, SERVE_TOTAL = 13, 20  # prompt, and prompt plus decoded tokens, as tests/test_serving.py
+SERVE_CONFORMANCE = {"jamba": 2e-1, "moe": 1e-1}  # tests/test_serving.py's bounds; 5e-2 for the rest
+SERVE_ROUTED = ("moe", "jamba")  # an expert's capacity is a function of the tokens routed together
+SERVE_FLASH_S = 2100  # past PLAIN_THRESHOLD, a multiple of neither chunk
+
+
+def cross_first_audio(archs, base):
+    """tests/test_serving.py's audio arch whose first block is
+    cross-attention: its cache length never advances in decode."""
+    return archs.reduced(archs.ARCHS["whisper-small"]).scaled(
+        name="audio-cross-first", n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64, vocab=64,
+        period=(base.BlockSpec(mixer="cross", mlp="dense"), base.BlockSpec(mixer="attn_nope", mlp="none")),
+        encoder=base.EncoderConfig(n_frontend_tokens=8, d_frontend=16, n_encoder_layers=1))
+
+
+def serve_inputs(arch, seed: int, b: int, t: int):
+    """(tokens (b, t) int32, frontend or None), drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, arch.vocab, (b, t), generator=gen, dtype=torch.int32)
+    frontend = None
+    if arch.family in ("vlm", "audio"):
+        enc = arch.encoder
+        frontend = torch.randn((b, enc.n_frontend_tokens, enc.d_frontend), generator=gen)
+    return tokens, frontend
+
+
+def teacher_forced(models, params, arch, tokens, frontend, s0: int, capacity: int):
+    """The prefill's logits on ``tokens[:, :s0]`` and each decode step's on
+    the rest, fed in order: (B, T - s0 + 1, V) float32, and the last state."""
+    logits, state = models.prefill(params, None, arch, tokens[:, :s0], frontend=frontend, capacity=capacity)
+    out = [logits]
+    for t in range(s0, tokens.shape[1]):
+        logits, state = models.decode_step(params, None, arch, tokens[:, t:t + 1], state)
+        out.append(logits)
+    return torch.stack(out, dim=1), state
+
+
+def bound_share(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)``: at most 1 where
+    ``allclose(rtol, atol)`` holds."""
+    return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+
+
+def flash_against_plain(attn) -> dict:
+    """The chunked path (padded as ``multihead_attention`` pads) against the
+    plain attention at ``SERVE_FLASH_S`` tokens on the card, forward and
+    the gradients of q, k and v under one cotangent, float32."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    s = SERVE_FLASH_S
+    q = torch.randn((1, s, 1, 2, 16), generator=gen, device="cuda").requires_grad_()
+    k, v = (torch.randn((1, s, 1, 16), generator=gen, device="cuda").requires_grad_() for _ in range(2))
+    ct = torch.randn((1, s, 1, 2, 16), generator=gen, device="cuda")
+    pos = torch.arange(s, device="cuda")[None]
+    pad = torch.nn.functional.pad
+    pq, pk = (-s) % attn.Q_CHUNK, (-s) % attn.KV_CHUNK
+    flash = attn._flash_attention(pad(q, (0, 0, 0, 0, 0, 0, 0, pq)), pad(k, (0, 0, 0, 0, 0, pk)),
+                                  pad(v, (0, 0, 0, 0, 0, pk)), pad(pos, (0, pq)), pad(pos, (0, pk), value=-1), True,
+                                  None)[:, :s]
+    plain = attn._plain_attention(q, k, v, pos, pos, True, None)
+    shares = {"out": bound_share(flash, plain, RTOL, ATOL)}
+    for name, a, b in zip(("dq", "dk", "dv"), torch.autograd.grad(flash, (q, k, v), ct),
+                          torch.autograd.grad(plain, (q, k, v), ct)):
+        shares[name] = bound_share(a, b, RTOL, ATOL)
+    for name, share in shares.items():
+        check(share <= 1.0, f"serve: flash {name} against plain at {s} tokens, {share:.3g} of rtol {RTOL}/atol {ATOL}")
+    return {"tokens": s, "rtol": RTOL, "atol": ATOL, "allowance_share": shares}
+
+
+def serve_phase(S, models, pytree, archs, base, serve, checkpoint, T, synthetic, tmp: Path) -> dict:
+    """The serving path at the zoo's scale, float32: the seven
+    ``ZOO_FAMILIES`` and the cross-first audio arch of tests/test_serving.py.
+
+      * prefill 13 tokens (capacity 22), then decode 7 fed in order: every
+        step's logits against the full forward's at that position, within
+        tests/test_serving.py's bounds (5e-2) for the families that do not
+        route; for ``moe`` and ``jamba`` the gap is reported, not held (an
+        expert's capacity depends on the tokens routed together, so a
+        13-token prefill and one-token steps drop other tokens than a
+        20-token forward; the reference's own ``moe`` case misses its
+        1e-1 at its seed, 0.95);
+      * the card's prefill and decode logits against the CPU's on the same
+        weights: rtol 1e-5 / atol 1e-6 where nothing routes, the
+        conformance bound for ``moe`` and ``jamba``;
+      * ``serve_traffic`` loop against graph mode, bit for bit, tokens and
+        the final decode state, and their times;
+      * the chunked attention at 2,100 tokens against the plain one;
+      * train to serve at ``lm_arch()``: the port's ``Trainer`` (N=10, LAD
+        d=2, CWTM, 2 sign-flipping devices, AdamW) 4 steps, ``save``,
+        ``restore_for_serving`` bit for bit its params, and
+        ``serve_traffic`` on them giving the tokens of serving the
+        trainer's own params."""
+    out = {"phase": "serve", "s0": SERVE_S0, "decoded": SERVE_TOTAL - SERVE_S0, "capacity": SERVE_TOTAL + 2,
+           "families": {}}
+    for name in list(S.ZOO_FAMILIES) + ["audio-cross-first"]:
+        arch = cross_first_audio(archs, base) if name == "audio-cross-first" else S.zoo_arch(name)
+        params, _ = models.init(torch.Generator().manual_seed(0), arch)
+        tokens, frontend = serve_inputs(arch, 1, 2, SERVE_TOTAL)
+        side = {}
+        for dev in ("cuda", "cpu"):
+            p = pytree.map_tree(lambda a: a.to(dev), params)
+            f = None if frontend is None else frontend.to(dev)
+            full, _ = models.forward(p, None, arch, tokens.to(dev), frontend=f)
+            steps, state = teacher_forced(models, p, arch, tokens.to(dev), f, SERVE_S0, SERVE_TOTAL + 2)
+            check(int(state["pos"]) == SERVE_TOTAL, f"serve {name}: pos {int(state['pos'])}")
+            side[dev] = (full[:, SERVE_S0 - 1:].cpu(), steps.cpu())
+        (full, steps), (_, cpu_steps) = side["cuda"], side["cpu"]
+        tol = SERVE_CONFORMANCE.get(name, 5e-2)
+        row = {"conformance_share": bound_share(steps, full, tol, tol), "conformance_bound": tol,
+               "conformance_max_abs": float((steps - full).abs().max())}
+        if name in SERVE_ROUTED:
+            row["conformance_held"] = False
+            row["card_vs_cpu_share"] = bound_share(steps, cpu_steps, tol, tol)
+            row["card_vs_cpu_bound"] = tol
+        else:
+            check(row["conformance_share"] <= 1.0, f"serve {name}: decode parts from the full forward ({row})")
+            row["card_vs_cpu_share"] = bound_share(steps, cpu_steps, RTOL, ATOL)
+            row["card_vs_cpu_bound"] = [RTOL, ATOL]
+        row["card_vs_cpu_max_abs"] = float((steps - cpu_steps).abs().max())
+        check(row["card_vs_cpu_share"] <= 1.0, f"serve {name}: card against CPU ({row})")
+        p = pytree.map_tree(lambda a: a.to("cuda"), params)
+        res = {mode: serve.serve_traffic(arch, p, None, tokens[:, :SERVE_S0], frontend=frontend,
+                                         new_tokens=SERVE_TOTAL - SERVE_S0, mode=mode, device="cuda")
+               for mode in ("loop", "graph")}
+        check(torch.equal(res["loop"]["tokens"], res["graph"]["tokens"])
+              and tree_equal(res["loop"]["state"], res["graph"]["state"], pytree),
+              f"serve {name}: graph mode differs from loop mode")
+        row["loop_bitwise_graph"] = True
+        for mode, r in res.items():
+            row[mode] = {"prefill_ms": r["prefill_s"] * 1e3, "decode_ms_per_token": r["decode_s"] * 1e3 / 7,
+                         "decode_host_ms_per_token": r["decode_host_s"] * 1e3 / 7}
+        out["families"][name] = row
+    out["flash"] = flash_against_plain(models.attention)
+
+    arch = S.lm_arch()
+    tcfg = train_tcfg(T, arch)
+    trainer = T.Trainer(arch, tcfg, device="cuda")
+    trainer.run(train_batches(synthetic, arch, 10, 1, TRAIN_STEPS))
+    ck = str(tmp / "serve_ck")
+    trainer.save(ck)
+    restored, specs, step = checkpoint.restore_for_serving(ck, arch, device="cuda")
+    check(step == TRAIN_STEPS and specs == trainer.specs and tree_equal(restored, trainer.params, pytree),
+          "serve: restore_for_serving is not the trainer's params bit for bit")
+    tokens, _ = serve_inputs(arch, 2, 4, 12)
+    served = [serve.serve_traffic(arch, p, specs, tokens, new_tokens=8, device="cuda")["tokens"]
+              for p in (restored, trainer.params)]
+    check(torch.equal(*served), "serve: the restored params serve other tokens than the trainer's")
+    out["train_to_serve"] = {"steps": step, "restore_bitwise": True, "tokens_equal": True,
+                             "tokens": served[0].tolist()}
+    return out
+
+
+SERVE_WIDE_PEAK_GB = 76.0  # the card has 80
+DECODE_LOOP_STEPS, DECODE_GRAPH_STEPS, LONG_STEPS = 4, 16, 16
+PREFILL_32K_BATCH = 1  # cut from prefill_32k's 32: the chunked path's eager chunk pairs (PERF.md §5)
+CONFORMANCE_S0, CONFORMANCE_DECODE = 4100, 8
+WHISPER_PROMPT, WHISPER_DECODE, WHISPER_BATCH = 16, 16, 4
+
+
+def refill(state: dict, filled: int, seed: int) -> None:
+    """The caches' K/V drawn anew from ``seed`` (standard normal), every
+    ``length`` and ``pos`` set to ``filled``: the same state on every call."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, c in state.items():
+        if name != "pos":
+            c.k.normal_(generator=gen)
+            c.v.normal_(generator=gen)
+            c.length.fill_(filled)
+    state["pos"].fill_(filled)
+
+
+def state_digest(state: dict, slots: int) -> dict:
+    """What two decodes from one state must agree on bit for bit: ``pos``,
+    every ``length``, the first ``slots`` ring slots of every cache, and
+    each period's int64 sum of the bit patterns of its whole K and V."""
+    out = {"pos": state["pos"].clone()}
+    for name, c in state.items():
+        if name == "pos":
+            continue
+        out[name + "/length"] = c.length.clone()
+        for f in ("k", "v"):
+            t = getattr(c, f)
+            out[f"{name}/{f}/slots"] = t[:, :, :slots].clone()
+            out[f"{name}/{f}/bits"] = torch.stack([torch.sum(t[p].view(torch.int16), dtype=torch.int64)
+                                                   for p in range(t.shape[0])])
+    return out
+
+
+def copy_bytes(fn) -> dict:
+    """The bytes ``fn``'s copies move (``aten.clone``, ``copy_`` and
+    ``_to_copy``: each output written and its input read once), found by
+    a dispatch mode that sees every aten op, and the largest of them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.moved, self.largest = 0, (0, None)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            if func.overloadpacket in (torch.ops.aten.clone, torch.ops.aten.copy_, torch.ops.aten._to_copy):
+                nbytes = 2 * res.numel() * res.element_size()
+                self.moved += nbytes
+                self.largest = max(self.largest, (nbytes, f"{func} {tuple(res.shape)} {res.dtype}"),
+                                   key=lambda x: x[0])
+            return res
+
+    with Copies() as mode:
+        fn()
+    torch.cuda.synchronize()
+    return {"bytes": mode.moved, "largest": mode.largest[1], "largest_bytes": mode.largest[0]}
+
+
+def kernel_split(fn, top: int = 6) -> dict | None:
+    """Where one call of ``fn`` spends the card's time, as ``torch.profiler``
+    sees its kernels: their summed ms, that sum's share of the call's
+    CUDA-event ms (1 less it is the idle share), and the ``top`` kernels by
+    ms; ``None`` if the profiler sees no kernel."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+    ms = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+            ms[e.name[:100]] += e.time_range.elapsed_us() / 1e3
+    if not ms:
+        return None
+    busy, wall = sum(ms.values()), ev[0].elapsed_time(ev[1])
+    return {"kernel_ms": busy, "call_ms": wall, "busy_share": busy / wall, "kernels": len(ms),
+            "top": [[name, t] for name, t in ms.most_common(top)]}
+
+
+def step_times(step, n: int) -> list[float]:
+    """CUDA-event ms of each of ``n`` calls of ``step``."""
+    times = []
+    for _ in range(n):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        step()
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return times
+
+
+def sdpa_ms(q, k, v, causal: bool) -> float:
+    """``scaled_dot_product_attention`` on (B, H, S, D) inputs, K and V
+    repeated to the query heads beforehand, its fused backends only (the
+    math one would hold the (H, S, S) scores): the library call that
+    computes what the port's eager attention does, timed and used nowhere
+    in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal))
+
+
+def smollm_flops(arch, s: int, causal_pairs: float) -> float:
+    """Tensor-core products of a prefill of ``s`` tokens a row: the
+    projections, the MLP and ``causal_pairs`` (query, key) pairs of QK and
+    PV in every layer, and the head at the last position."""
+    hd, h, kv = arch.resolved_head_dim, arch.n_heads, arch.n_kv_heads
+    proj = 2 * s * arch.d_model * hd * (2 * h + 2 * kv)
+    mlp = 2 * s * 3 * arch.d_model * arch.d_ff
+    attn = 2 * 2 * causal_pairs * h * hd
+    return arch.n_layers * (proj + mlp + attn) + 2 * arch.d_model * arch.vocab
+
+
+def serve_wide_phase(models, pytree, archs, base, serve, hbm: float, tensor: float) -> dict:
+    """smollm-360m at its published widths, depth and dtype (bf16, P =
+    361,821,120), shapes from ``configs.base.INPUT_SHAPES``, and
+    whisper-small whole:
+
+      (a) ``decode_32k`` at its batch of 128 against a full cache
+          (``init_decode_state(cfg, 128, 32768)``: 8,192 ``long_window``
+          slots a layer, K/V drawn from a seed): 4 loop steps and 16 graph
+          steps from the same state, ms a step by CUDA events beside the
+          byte bound, tokens/s, peak GB, loop bit for bit graph
+          (``state_digest``); the bytes one step's copies move; one layer's
+          decode attention alone against its byte bound;
+      (b) ``prefill_32k`` at batch ``PREFILL_32K_BATCH`` (cut from 32), the
+          chunked path at 32,768 tokens: ms, tokens/s, peak GB and the
+          FLOP bound, then 8 graph decode steps from its rolled ring; one
+          layer's chunked attention alone against its FLOP bound;
+      (c) conformance at full width: batch 2, a 4,100-token prompt, 8
+          steps fed in order, each within 5e-2 of the full forward over
+          4,108 tokens;
+      (d) ``long_500k``: batch 1, 524,288 tokens filled, 16 graph steps
+          against its 8,192-slot ring;
+      (e) whisper-small whole: 1,500 frames, a 16-token prompt, batch 4,
+          16 decoded tokens through ``serve_traffic`` (graph), and its
+          teacher-forced steps within 5e-2 of its forward."""
+    arch = archs.ARCHS["smollm-360m"]
+    start = time.perf_counter()
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    q = sum(v.numel() for v in pytree.leaves(params))
+    check(q == WIDE_Q, f"smollm-360m has {q} parameters, not {WIDE_Q}")
+    weight_bytes = sum(v.numel() * v.element_size() for v in pytree.leaves(params))
+    out = {"phase": "serve_wide", "arch": arch.name, "params": q, "dtype": arch.param_dtype,
+           "init_s": time.perf_counter() - start, "weight_bytes": weight_bytes}
+    decode_fn = serve.build_decode_fn(arch, specs)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    # (a) decode_32k
+    shape = base.INPUT_SHAPES["decode_32k"]
+    b, filled = shape.global_batch, shape.seq_len
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = models.init_decode_state(arch, b, filled, device="cuda")
+    cache_bytes = sum(c.k.numel() * c.k.element_size() * 2 for n, c in state.items() if n != "pos")
+    cap = state["blk0"].capacity
+    tok = torch.randint(0, arch.vocab, (b, 1), generator=gen, device="cuda", dtype=torch.int32)
+    refill(state, filled, 11)
+    loop = serve.GreedyDecoder(decode_fn, params, tok, state, DECODE_LOOP_STEPS, "loop")
+    loop_ms = step_times(loop, DECODE_LOOP_STEPS)
+    loop_tokens, loop_digest = loop.bufs["out"].clone(), state_digest(state, DECODE_LOOP_STEPS)
+    del loop
+    refill(state, filled, 11)
+    graph = serve.GreedyDecoder(decode_fn, params, tok, state, DECODE_GRAPH_STEPS, "graph")
+    graph_ms = step_times(graph, DECODE_LOOP_STEPS)
+    digest = state_digest(state, DECODE_LOOP_STEPS)
+    check(torch.equal(graph.bufs["out"][:, :DECODE_LOOP_STEPS], loop_tokens)
+          and all(torch.equal(digest[k], loop_digest[k]) for k in digest),
+          "serve_wide decode_32k: graph mode differs from loop mode")
+    graph_ms += step_times(graph, DECODE_GRAPH_STEPS - DECODE_LOOP_STEPS - 1)
+    split = {"graph_replay": kernel_split(graph)}  # the last step, profiled
+    check(int(state["pos"]) == filled + DECODE_GRAPH_STEPS, "serve_wide decode_32k: pos did not advance")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split["eager_step"] = kernel_split(lambda: decode_fn(params, tok, state))
+    del graph
+    nbytes = cache_bytes + weight_bytes
+    ms = statistics.median(graph_ms)
+    copies = copy_bytes(lambda: decode_fn(params, tok, state))
+    mixer = pytree.map_tree(lambda a: a[0], params["periods"]["blk0"]["mixer"])
+    c0 = models.attention.KVCache(k=state["blk0"].k[0], v=state["blk0"].v[0], length=state["blk0"].length[0])
+    x = torch.randn((b, 1, arch.d_model), generator=gen, device="cuda", dtype=arch.dtype)
+    attend = lambda: models.attention.decode_attention(mixer, x, c0, n_heads=arch.n_heads,  # noqa: E731
+                                                       n_kv_heads=arch.n_kv_heads, rope_theta=arch.rope_theta)
+    layer_bytes = 2 * c0.k.numel() * c0.k.element_size()
+    q_heads = torch.randn((b, arch.n_heads, 1, arch.resolved_head_dim), generator=gen, device="cuda", dtype=arch.dtype)
+    library_ms = sdpa_ms(q_heads, c0.k.transpose(1, 2), c0.v.transpose(1, 2), False)
+    out["decode_32k"] = {
+        "batch": b, "filled": filled, "capacity": cap, "cache_gb": cache_bytes / 1e9,
+        "graph_ms_per_step": ms, "graph_ms": graph_ms, "loop_ms": loop_ms, "tokens_per_s": b / ms * 1e3,
+        "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes", "bound_bytes": nbytes, "peak_gb": peak,
+        "loop_bitwise_graph": True, "copies_a_step": copies, "where_the_time_goes": split,
+        "decode_attention_layer": {"ms": time_ms(attend), "bound_ms": layer_bytes / hbm * 1e3, "bound_by": "bytes",
+                                   "calls_a_step": arch.n_layers, "kernels_a_call": device_kernels(attend),
+                                   "copies": copy_bytes(attend), "library_ms": library_ms,
+                                   "library": "scaled_dot_product_attention, K/V repeated to 15 heads"}}
+    check(peak < SERVE_WIDE_PEAK_GB, f"serve_wide decode_32k: peak {peak:.1f} GB")
+    del state, c0, q_heads
+    torch.cuda.empty_cache()
+
+    # (b) prefill_32k, batch cut
+    s = base.INPUT_SHAPES["prefill_32k"].seq_len
+    tokens = torch.randint(0, arch.vocab, (PREFILL_32K_BATCH, s), generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host = time.perf_counter()
+    ev[0].record()
+    logits, state = models.prefill(params, specs, arch, tokens)
+    ev[1].record()
+    ev[1].synchronize()
+    host = time.perf_counter() - host
+    pre_ms, peak = ev[0].elapsed_time(ev[1]), torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(logits).all()) and int(state["pos"]) == s and state["blk0"].capacity == cap,
+          "serve_wide prefill_32k: bad logits or state")
+    flops = PREFILL_32K_BATCH * smollm_flops(arch, s, s * (s + 1) / 2)
+    dec = serve.GreedyDecoder(decode_fn, params, torch.argmax(logits, dim=-1).to(torch.int32)[:, None], state, 8,
+                              "graph")
+    after_ms = step_times(dec, 8)
+    check(int(state["pos"]) == s + 8, "serve_wide prefill_32k: decode did not advance")
+    del dec, state
+    qg = torch.randn((1, s, arch.n_kv_heads, arch.n_heads // arch.n_kv_heads, arch.resolved_head_dim),
+                     generator=gen, device="cuda", dtype=arch.dtype)
+    kv = torch.randn((1, s, arch.n_kv_heads, arch.resolved_head_dim), generator=gen, device="cuda",
+                     dtype=arch.dtype)
+    pos = torch.arange(s, device="cuda")[None]
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev[0].record()
+    with torch.no_grad():
+        models.attention._flash_attention(qg, kv, kv, pos, pos, True, None)
+    ev[1].record()
+    ev[1].synchronize()
+    small = 4096
+    kernels = device_kernels(lambda: models.attention._flash_attention(qg[:, :small], kv[:, :small], kv[:, :small],
+                                                                       pos[:, :small], pos[:, :small], True, None))
+    layer_flops = 2 * 2 * (s * (s + 1) / 2) * arch.n_heads * arch.resolved_head_dim
+    library_ms = sdpa_ms(qg.reshape(1, s, arch.n_heads, -1).transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2),
+                         True)
+    out["prefill_32k"] = {
+        "batch": PREFILL_32K_BATCH, "batch_published": base.INPUT_SHAPES["prefill_32k"].global_batch,
+        "batch_cut": "the chunked path computes every (query, key) chunk pair, masked ones too, in eager ops "
+                     "(64 x 32 pairs a layer): one row takes the ms below; 32 would take about 32 times that",
+        "seq_len": s, "ms": pre_ms, "host_ms": host * 1e3, "tokens_per_s": PREFILL_32K_BATCH * s / pre_ms * 1e3,
+        "bound_ms": flops / tensor * 1e3, "bound_by": "operations", "flops_causal": flops, "peak_gb": peak,
+        "decode_after_ms": after_ms, "ring": cap,
+        "flash_attention_layer": {"ms": ev[0].elapsed_time(ev[1]), "bound_ms": layer_flops / tensor * 1e3,
+                                  "bound_by": "operations", "calls_a_prefill": arch.n_layers,
+                                  "chunk_pairs_a_call": (s // 512) * (s // 1024),
+                                  f"kernels_a_call_at_{small}_tokens": kernels,
+                                  f"chunk_pairs_at_{small}_tokens": (small // 512) * (small // 1024),
+                                  "library_ms": library_ms,
+                                  "library": "scaled_dot_product_attention, causal, K/V repeated to 15 heads"}}
+    del logits, qg, kv
+    torch.cuda.empty_cache()
+
+    # (c) conformance at full width past the plain threshold
+    tokens = torch.randint(0, arch.vocab, (2, CONFORMANCE_S0 + CONFORMANCE_DECODE), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    with torch.no_grad():
+        full, _ = models.forward(params, specs, arch, tokens)
+    full = full[:, CONFORMANCE_S0 - 1:]
+    steps, state = teacher_forced(models, params, arch, tokens, None, CONFORMANCE_S0, tokens.shape[1])
+    share = bound_share(steps, full, 5e-2, 5e-2)
+    check(share <= 1.0, f"serve_wide: decode at {CONFORMANCE_S0} tokens parts from the full forward ({share:.3g})")
+    out["conformance_4100"] = {"batch": 2, "prompt": CONFORMANCE_S0, "decoded": CONFORMANCE_DECODE,
+                               "bound": 5e-2, "share": share, "max_abs": float((steps - full).abs().max()),
+                               "largest_logit": float(full.abs().max())}
+    del full, steps, state
+    torch.cuda.empty_cache()
+
+    # (d) long_500k
+    shape = base.INPUT_SHAPES["long_500k"]
+    state = models.init_decode_state(arch, shape.global_batch, shape.seq_len, device="cuda")
+    refill(state, shape.seq_len, 12)
+    tok = torch.randint(0, arch.vocab, (shape.global_batch, 1), generator=gen, device="cuda", dtype=torch.int32)
+    dec = serve.GreedyDecoder(decode_fn, params, tok, state, LONG_STEPS, "graph")
+    long_ms = step_times(dec, LONG_STEPS)
+    check(int(state["pos"]) == shape.seq_len + LONG_STEPS, "serve_wide long_500k: pos did not advance")
+    nbytes = weight_bytes + sum(c.k.numel() * c.k.element_size() * 2 for n, c in state.items() if n != "pos")
+    out["long_500k"] = {"batch": shape.global_batch, "filled": shape.seq_len, "capacity": state["blk0"].capacity,
+                        "graph_ms_per_step": statistics.median(long_ms), "graph_ms": long_ms,
+                        "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes"}
+    del dec, state, params
+    torch.cuda.empty_cache()
+
+    # (e) whisper-small whole
+    arch = archs.ARCHS["whisper-small"]
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    tokens, frontend = serve_inputs(arch, 6, WHISPER_BATCH, WHISPER_PROMPT + WHISPER_DECODE)
+    tokens, frontend = tokens.cuda(), frontend.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.serve_traffic(arch, params, specs, tokens[:, :WHISPER_PROMPT], frontend=frontend,
+                              new_tokens=WHISPER_DECODE, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        full, _ = models.forward(params, specs, arch, tokens, frontend=frontend)
+    full = full[:, WHISPER_PROMPT - 1:]
+    steps, _ = teacher_forced(models, params, arch, tokens, frontend, WHISPER_PROMPT, tokens.shape[1])
+    share = bound_share(steps, full, 5e-2, 5e-2)
+    check(share <= 1.0, f"serve_wide whisper-small: decode parts from the full forward ({share:.3g})")
+    out["whisper_small"] = {"params": sum(v.numel() for v in pytree.leaves(params)), "frames": arch.encoder.n_frontend_tokens,
+                            "batch": WHISPER_BATCH, "prompt": WHISPER_PROMPT, "decoded": WHISPER_DECODE,
+                            "prefill_ms": res["prefill_s"] * 1e3, "decode_ms_per_token": res["decode_s"] * 1e3 /
+                            WHISPER_DECODE, "decode_tokens_per_s": res["decode_tokens_per_s"], "peak_gb": peak,
+                            "conformance_share": share, "conformance_bound": 5e-2}
+    return out
+
+
 # ---------------------------------------------------------------- wide round
 
 
@@ -1737,7 +2242,8 @@ def main() -> int:
     from repro_torch.data import synthetic
     from repro_torch.data.synthetic import linear_regression_problem
     from repro_torch.kernels import _build, ops, quantize, ref
-    from repro_torch.launch import train
+    from repro_torch.configs import base
+    from repro_torch.launch import serve, train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1786,7 +2292,10 @@ def main() -> int:
                   lambda: zoo_wide_phase(scenarios, byzantine, models, coding, pytree, archs),
                   lambda: train_phase(train, models, pytree, ops, byzantine, checkpoint, synthetic,
                                       scenarios.lm_arch(), tmp),
-                  lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32)):
+                  lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32),
+                  lambda: serve_phase(scenarios, models, pytree, archs, base, serve, checkpoint, train, synthetic,
+                                      tmp),
+                  lambda: serve_wide_phase(models, pytree, archs, base, serve, hbm, tensor_peak(kind))):
         start = time.perf_counter()
         line = phase()
         line["phase_s"] = time.perf_counter() - start

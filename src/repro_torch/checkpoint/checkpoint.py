@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch import pytree
+from repro_torch.device import resolve_device
+from repro_torch.models import init
 
 __all__ = ["save_checkpoint", "load_checkpoint", "restore_for_serving"]
 
@@ -58,11 +60,12 @@ def save_checkpoint(path: str, tree: Any, step: int = 0, specs: Any = None) -> N
     os.replace(tmp_json, path + ".json")
 
 
-def load_checkpoint(path: str, like: Any) -> tuple[Any, int]:
+def load_checkpoint(path: str, like: Any, device: torch.device | str | None = None) -> tuple[Any, int]:
     """Restore into the structure of ``like``: each leaf a tensor of the
-    stored dtype, on the device of ``like``'s leaf at that path (the CPU
-    where that leaf is not a tensor). Returns ``(tree, step)``; raises
-    ``ValueError`` when the file's keys are not ``like``'s."""
+    stored dtype, on ``device`` where given, else on the device of
+    ``like``'s leaf at that path (the CPU where that leaf is not a tensor).
+    Returns ``(tree, step)``; raises ``ValueError`` when the file's keys are
+    not ``like``'s."""
     with np.load(path + ".npz") as data, open(path + ".json") as f:
         meta = json.load(f)
         like_flat = dict(pytree.paths(like))
@@ -72,12 +75,30 @@ def load_checkpoint(path: str, like: Any) -> tuple[Any, int]:
             raise ValueError(f"checkpoint mismatch: missing={missing} extra={extra}")
         flat = {}
         for k, ref in like_flat.items():
-            device = ref.device if isinstance(ref, torch.Tensor) else "cpu"
+            dev = device if device is not None else ref.device if isinstance(ref, torch.Tensor) else "cpu"
             dtype = getattr(torch, meta["dtypes"][k])
-            flat[k] = torch.from_numpy(np.array(data[k])).to(device=device, dtype=dtype)
+            flat[k] = torch.from_numpy(np.array(data[k])).to(device=dev, dtype=dtype)
     return pytree.with_paths(like, flat), int(meta["step"])
 
 
-def restore_for_serving(path: str, cfg) -> tuple[Any, Any, int]:
-    """Restoring a checkpoint into the serving path comes with serving."""
-    raise ValueError("restore_for_serving waits for the port of serving (ROADMAP A.8)")
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: ``models.init``
+    with it builds the parameter tree's shapes, dtypes and specs and
+    allocates no weight."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def restore_for_serving(path: str, cfg, *, device: torch.device | str | None = None) -> tuple[Any, Any, int]:
+    """A training checkpoint straight into the serving path: the parameter
+    structure of ``cfg`` built on the ``meta`` device (no weight allocated),
+    the file loaded into it on ``device`` (the card unless the caller names
+    another). Returns ``(params, specs, step)``, ``specs`` as ``models.init``
+    gives them, ready for ``launch.serve``. A trainer saves with
+    ``save_checkpoint``; a serving process needs only the ``ArchConfig`` and
+    this path."""
+    like, specs = init(_MetaGenerator(), cfg)
+    params, step = load_checkpoint(path, like, device=resolve_device(device))
+    return params, specs, step

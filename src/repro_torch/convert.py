@@ -8,6 +8,9 @@ the port's tensors on a chosen device; ``result_to_numpy`` turns a
 ``lm_params_from_numpy`` carries the LM's parameter tree across, leaf for
 leaf, and ``opt_state_from_numpy`` its optimizer state (step and moments),
 so the port can start from the reference's mid-run state.
+``decode_state_from_numpy`` carries a serving decode state across (the
+caches, ``KVCache``, ``MambaState`` and ``RWKVState``, and ``pos``), and
+``decode_state_to_numpy`` takes one back.
 """
 from __future__ import annotations
 
@@ -18,9 +21,15 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.core.engine import TrajectoryResult
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba import MambaState
+from repro_torch.models.rwkv import RWKVState
 from repro_torch.optim import OptState
 
-__all__ = ["TrainerState", "state_from_numpy", "result_to_numpy", "lm_params_from_numpy", "opt_state_from_numpy"]
+__all__ = ["TrainerState", "state_from_numpy", "result_to_numpy", "lm_params_from_numpy", "opt_state_from_numpy",
+           "decode_state_from_numpy", "decode_state_to_numpy"]
+
+_CACHES = {cls.__name__: cls for cls in (KVCache, MambaState, RWKVState)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +95,34 @@ def opt_state_from_numpy(state, *, device: torch.device | str = "cpu") -> OptSta
     with their bits and dtypes (``()`` stays ``()``)."""
     moments = {k: pytree.map_tree(lambda a: _leaf(a, device), getattr(state, k)) for k in ("mu", "nu")}
     return OptState(step=_step(state.step, device), **moments)
+
+
+def decode_state_from_numpy(state, *, device: torch.device | str = "cpu") -> dict:
+    """The reference's decode state (``{"blk<i>": cache, ..., "pos": ...}``,
+    each cache a ``KVCache``, ``MambaState`` or ``RWKVState`` whose fields
+    are numpy arrays, as ``jax.device_get`` gives them) as the port's on
+    ``device``: each cache the port's class of the same name, its fields
+    leaf for leaf with their bits and dtypes, ``pos`` a 0-d int32 tensor."""
+    out = {}
+    for name, cache in state.items():
+        if name == "pos":
+            out[name] = _step(cache, device)
+            continue
+        fields = {f.name: _leaf(getattr(cache, f.name), device) for f in dataclasses.fields(cache)}
+        out[name] = _CACHES[type(cache).__name__](**fields)
+    return out
+
+
+def decode_state_to_numpy(state: dict) -> dict:
+    """A port decode state as numpy: ``pos`` an int32 array, each cache a
+    dict of its fields (bfloat16 widened to float32), with ``"kind"`` its
+    class's name, from which the reference's dataclass is rebuilt."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+
+    out = {"pos": arr(state["pos"])}
+    for name, cache in state.items():
+        if name != "pos":
+            out[name] = {"kind": type(cache).__name__,
+                         **{f.name: arr(getattr(cache, f.name)) for f in dataclasses.fields(cache)}}
+    return out

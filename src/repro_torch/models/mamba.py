@@ -1,5 +1,5 @@
-"""Mamba (selective SSM) mixer, the Jamba hybrid's recurrent block, over a
-full sequence.
+"""Mamba (selective SSM) mixer, the Jamba hybrid's recurrent block: over a
+full sequence, and one token at a time against its state (decode).
 
 The Mamba-1 block: in-projection to (x, z), causal depthwise conv,
 input-dependent (Δ, B, C) selection and the diagonal recurrence
@@ -9,16 +9,20 @@ input-dependent (Δ, B, C) selection and the diagonal recurrence
 gated by SiLU(z) and projected out. The reference's ``lax.scan`` over the
 sequence is a Python loop over the tokens here, the state in float32: a
 few launches a token, forward and backward, which graph mode captures with
-the rest of the round (PERF.md counts them). The decode step and its state
-come with serving (ROADMAP A.8).
+the rest of the round (PERF.md counts them). ``mamba(...,
+return_state=True)`` also returns the ``MambaState`` a prefill leaves (the
+conv window's last ``d_conv - 1`` inputs and the final SSM state), from
+which ``mamba_decode`` takes single steps.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
 
-__all__ = ["mamba_init", "mamba"]
+__all__ = ["mamba_init", "mamba", "MambaState", "init_mamba_state", "mamba_decode"]
 
 
 def mamba_init(generator: torch.Generator, d_model: int, d_state: int, d_conv: int, expand: int,
@@ -43,6 +47,18 @@ def mamba_init(generator: torch.Generator, d_model: int, d_state: int, d_conv: i
         "a_log": (a_log, ("tp", None)),
         "d_skip": scale_param((d_inner,), ("tp",), torch.float32, 1.0, device=dev),
     })
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaState:
+    conv: torch.Tensor  # (B, d_conv - 1, d_inner): the last inputs of the conv window
+    h: torch.Tensor  # (B, d_inner, d_state) float32 SSM state
+
+
+def init_mamba_state(batch: int, d_inner: int, d_state: int, d_conv: int, dtype: torch.dtype,
+                     device: torch.device | str | None = None) -> MambaState:
+    return MambaState(conv=torch.zeros((batch, d_conv - 1, d_inner), dtype=dtype, device=device),
+                      h=torch.zeros((batch, d_inner, d_state), dtype=torch.float32, device=device))
 
 
 def _causal_depthwise_conv(xz: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,8 +89,9 @@ def _selection(params, x_in: torch.Tensor, d_state: int):
     return dt, b_sel.to(torch.float32), c_sel.to(torch.float32)
 
 
-def mamba(params, x: torch.Tensor, d_state: int) -> torch.Tensor:
-    """Full-sequence selective scan. x: (B, S, D) -> (B, S, D)."""
+def mamba(params, x: torch.Tensor, d_state: int, return_state: bool = False):
+    """Full-sequence selective scan. x: (B, S, D) -> (B, S, D), and with
+    ``return_state`` the ``MambaState`` after the last token as well."""
     b, s, _ = x.shape
     xz = x @ params["in_proj"]
     x_raw, z = torch.chunk(xz, 2, dim=-1)
@@ -91,5 +108,27 @@ def mamba(params, x: torch.Tensor, d_state: int) -> torch.Tensor:
         ys.append(torch.einsum("bis,bs->bi", h, c_sel[:, t]))
     y = torch.stack(ys, dim=1) + x_in.to(torch.float32) * params["d_skip"]
     y = y.to(x.dtype) * torch.nn.functional.silu(z.to(torch.float32)).to(x.dtype)
-    return y @ params["out_proj"]
+    out = y @ params["out_proj"]
+    if not return_state:
+        return out
+    d_conv = params["conv_w"].shape[0]
+    tail = torch.nn.functional.pad(x_raw, (0, 0, max(d_conv - 1 - s, 0), 0))[:, -(d_conv - 1):]
+    return out, MambaState(conv=tail, h=h)
+
+
+def mamba_decode(params, x: torch.Tensor, state: MambaState, d_state: int):
+    """One token. x: (B, 1, D) -> (y (B, 1, D), the new ``MambaState``)."""
+    xz = torch.einsum("bsd,di->bsi", x, params["in_proj"])
+    x_in, z = torch.chunk(xz, 2, dim=-1)  # (B, 1, di)
+    window = torch.cat([state.conv, x_in], dim=1)  # (B, d_conv, di)
+    conv_out = torch.einsum("bki,ki->bi", window, params["conv_w"]) + params["conv_b"]
+    x_t = torch.nn.functional.silu(conv_out.to(torch.float32)).to(x.dtype)  # (B, di)
+    dt, b_sel, c_sel = _selection(params, x_t, d_state)
+    a = -torch.exp(params["a_log"])
+    decay = torch.exp(dt[..., None] * a[None])
+    h = decay * state.h + (dt * x_t.to(torch.float32))[..., None] * b_sel[:, None, :]
+    y = torch.einsum("bis,bs->bi", h, c_sel) + params["d_skip"][None] * x_t.to(torch.float32)
+    y = y.to(x.dtype) * torch.nn.functional.silu(z[:, 0].to(torch.float32)).to(x.dtype)
+    out = torch.einsum("bi,id->bd", y, params["out_proj"])[:, None, :]
+    return out, MambaState(conv=window[:, 1:], h=h)
 

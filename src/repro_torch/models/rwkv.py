@@ -1,5 +1,4 @@
-"""RWKV-6 ("Finch") time-mix and channel-mix blocks over a full sequence
-[arXiv:2404.05892].
+"""RWKV-6 ("Finch") time-mix and channel-mix blocks [arXiv:2404.05892].
 
 Token-shift interpolation with learned per-channel mixing coefficients,
 receptance/key/value/gate projections, the data-dependent decay ``w_t =
@@ -14,15 +13,21 @@ does. The reference's ``lax.scan`` over the sequence is a Python loop over
 the tokens here, the state in float32 (graph mode captures it; PERF.md
 counts its launches a token). The readout is group-normed per head and
 gated by SiLU(g). The channel mix is RWKV's squared-ReLU FFN with token
-shift. The decode states come with serving (ROADMAP A.8).
+shift. Given a ``state`` (``RWKVState``), both mixes continue from it: the
+token shift starts from the carried last input and the time mix from the
+carried WKV matrix, so a decode step is the same functions on one token;
+``return_state`` asks for what a prefill or a step leaves.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
 
-__all__ = ["rwkv_time_mix_init", "rwkv_channel_mix_init", "rwkv_time_mix", "rwkv_channel_mix"]
+__all__ = ["rwkv_time_mix_init", "rwkv_channel_mix_init", "rwkv_time_mix", "rwkv_channel_mix", "RWKVState",
+           "init_rwkv_state"]
 
 
 def rwkv_time_mix_init(generator: torch.Generator, d_model: int, head_dim: int, decay_lora: int,
@@ -55,9 +60,27 @@ def rwkv_channel_mix_init(generator: torch.Generator, d_model: int, d_ff: int, d
                                                   device=generator.device)})
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> the previous token's x (zeros at t=0)."""
-    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+@dataclasses.dataclass(frozen=True)
+class RWKVState:
+    x_prev: torch.Tensor  # (B, d_model) the last token's input to the time mix (its token shift)
+    wkv: torch.Tensor  # (B, H, head_dim, head_dim) float32 WKV state
+    ffn_x_prev: torch.Tensor  # (B, d_model) the channel mix's token shift
+
+
+def init_rwkv_state(batch: int, d_model: int, head_dim: int, dtype: torch.dtype,
+                    device: torch.device | str | None = None) -> RWKVState:
+    n_heads = d_model // head_dim
+    return RWKVState(x_prev=torch.zeros((batch, d_model), dtype=dtype, device=device),
+                     wkv=torch.zeros((batch, n_heads, head_dim, head_dim), dtype=torch.float32, device=device),
+                     ffn_x_prev=torch.zeros((batch, d_model), dtype=dtype, device=device))
+
+
+def _token_shift(x: torch.Tensor, x_prev_first: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, S, D) -> the previous token's x: at t=0 zeros, or
+    ``x_prev_first`` (B, D) carried from the last step."""
+    if x_prev_first is None:
+        return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([x_prev_first[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _mix(x: torch.Tensor, x_shift: torch.Tensor, mu_row: torch.Tensor) -> torch.Tensor:
@@ -94,28 +117,35 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5) -> tor
     return normed.reshape(b, s, h * hd) * scale
 
 
-def rwkv_time_mix(params, x: torch.Tensor, head_dim: int) -> torch.Tensor:
-    """Full-sequence RWKV-6 time mix. x: (B, S, D) -> (B, S, D)."""
+def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state: RWKVState | None = None,
+                  return_state: bool = False):
+    """RWKV-6 time mix. x: (B, S, D) -> (B, S, D), from zeros or from
+    ``state``'s ``x_prev`` and ``wkv``; with ``return_state``, ``(out, the
+    final WKV state, x[:, -1])``."""
     b, s, d = x.shape
-    r, k, v, g, w = _projections(params, x, _token_shift(x), head_dim)
+    r, k, v, g, w = _projections(params, x, _token_shift(x, None if state is None else state.x_prev), head_dim)
     s_u = torch.sum((r * k).to(torch.float32) * params["bonus_u"], dim=-1)  # (B, S, H)
     rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
-    state = x.new_zeros((b, d // head_dim, head_dim, head_dim), dtype=torch.float32)
+    wkv = x.new_zeros((b, d // head_dim, head_dim, head_dim), dtype=torch.float32) if state is None else state.wkv
     ys = []
     for t in range(s):
-        y = torch.einsum("bhi,bhij->bhj", rf[:, t], state) + s_u[:, t, :, None] * vf[:, t]
-        state = w[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        y = torch.einsum("bhi,bhij->bhj", rf[:, t], wkv) + s_u[:, t, :, None] * vf[:, t]
+        wkv = w[:, t, :, :, None] * wkv + kf[:, t, :, :, None] * vf[:, t, :, None, :]
         ys.append(y)
     y = _group_norm(torch.stack(ys, dim=1), params["ln_scale"]).to(x.dtype)
     y = y * torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype)
-    return (y @ params["wo"]).to(x.dtype)
+    out = (y @ params["wo"]).to(x.dtype)
+    return (out, wkv, x[:, -1, :]) if return_state else out
 
 
-def rwkv_channel_mix(params, x: torch.Tensor) -> torch.Tensor:
-    """RWKV's squared-ReLU FFN with token shift. x: (B, S, D) -> (B, S, D)."""
+def rwkv_channel_mix(params, x: torch.Tensor, state_prev: torch.Tensor | None = None, return_state: bool = False):
+    """RWKV's squared-ReLU FFN with token shift. x: (B, S, D) -> (B, S, D),
+    the shift starting from ``state_prev`` (B, D) where given; with
+    ``return_state``, ``(out, x[:, -1])``."""
     mu = params["mu"]
-    x_shift = _token_shift(x)
+    x_shift = _token_shift(x, state_prev)
     k = _mix(x, x_shift, mu[0]) @ params["wk"]
     k = torch.square(torch.relu(k.to(torch.float32))).to(x.dtype)
     r = torch.sigmoid((_mix(x, x_shift, mu[1]) @ params["wr"]).to(torch.float32)).to(x.dtype)
-    return r * (k @ params["wv"])
+    out = r * (k @ params["wv"])
+    return (out, x[:, -1, :]) if return_state else out

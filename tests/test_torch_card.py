@@ -553,3 +553,40 @@ def test_train_step_launches_its_server_kernel(card, kw, kernel):
     step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
     graph = smoke.drive(step, params, opt.init(params), batches)
     assert smoke.tree_equal(loop[0], graph[0], pytree) and torch.equal(loop[2], graph[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", tscn.ZOO_FAMILIES)
+def test_serve_traffic_graph_equals_loop(card, family):
+    """``serve_traffic`` in graph mode (one captured decode step and its
+    argmax, replayed) gives loop mode's tokens and final decode state bit
+    for bit, for every zoo family; the prefill's chunked path past 2048
+    tokens equals the plain attention on the card."""
+    from repro_torch import models, pytree
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as tattn
+
+    arch = tscn.zoo_arch(family)
+    params, _ = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    tokens = torch.randint(0, arch.vocab, (2, 13), generator=card, device="cuda")
+    frontend = None
+    if arch.family in ("vlm", "audio"):
+        enc = arch.encoder
+        frontend = torch.randn((2, enc.n_frontend_tokens, enc.d_frontend), generator=card, device="cuda")
+    out = {mode: serve.serve_traffic(arch, params, None, tokens, frontend=frontend, new_tokens=7, mode=mode,
+                                     device="cuda") for mode in ("loop", "graph")}
+    assert torch.equal(out["loop"]["tokens"], out["graph"]["tokens"]) and out["graph"]["pos"] == 20
+    for (ka, a), (kb, b) in zip(pytree.paths(out["loop"]["state"]), pytree.paths(out["graph"]["state"]),
+                                strict=True):
+        assert ka == kb and torch.equal(a, b), ka
+    q = torch.randn((1, 2100, 1, 2, 16), generator=card, device="cuda")
+    k, v = (torch.randn((1, 2100, 1, 16), generator=card, device="cuda") for _ in range(2))
+    pos = torch.arange(2100, device="cuda")[None]
+    pad = torch.nn.functional.pad
+    pq, pk = (-2100) % tattn.Q_CHUNK, (-2100) % tattn.KV_CHUNK  # as multihead_attention pads
+    flash = tattn._flash_attention(pad(q, (0, 0, 0, 0, 0, 0, 0, pq)), pad(k, (0, 0, 0, 0, 0, pk)),
+                                   pad(v, (0, 0, 0, 0, 0, pk)), pad(pos, (0, pq)), pad(pos, (0, pk), value=-1), True,
+                                   None)
+    plain = tattn._plain_attention(q, k, v, pos, pos, True, None)
+    torch.testing.assert_close(flash[:, :2100], plain, rtol=RTOL, atol=ATOL)

@@ -104,8 +104,17 @@ def test_mismatched_tree_raises(tmp_path, case):
 
 
 def test_restore_for_serving_waits_for_serving(tmp_path):
-    with pytest.raises(ValueError, match="A.8"):
-        checkpoint.restore_for_serving(str(tmp_path / "ck"), _arch(ARCHS))
+    """``restore_for_serving`` (ported with serving) reads the reference's
+    checkpoint of the bf16 arch: its params bit for bit on the CPU, the
+    step, and the specs of ``init``."""
+    ref, specs = _reference_state()
+    jsave(str(tmp_path / "ck"), ref["params"], step=3, specs=specs)
+    params, r_specs, step = checkpoint.restore_for_serving(str(tmp_path / "ck"), _arch(ARCHS), device="cpu")
+    assert step == 3 and r_specs == models.init(torch.Generator(), _arch(ARCHS))[1]
+    want = convert.lm_params_from_numpy(ref["params"])
+    for (k, a), (kb, b) in zip(pytree.paths(params), pytree.paths(want), strict=True):
+        assert k == kb and a.dtype == b.dtype and a.device.type == "cpu", k
+        np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=k)
 
 
 def _tiny_cfg():

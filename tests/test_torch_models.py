@@ -241,16 +241,26 @@ def test_multihead_attention_matches(carried, window):
 
 
 def test_long_sequences_and_other_families_raise():
-    """The reference's flash path (sequences over 2048) waits for A.8. The
-    other families are ported (tests/test_torch_zoo_ops.py): they build,
-    and the frontend families refuse a batch without their frontend."""
+    """Past 2048 tokens attention takes the chunked online-softmax path
+    (ported with serving): at PLAIN_THRESHOLD + 1 tokens its output, K and
+    V are the reference's (tests/test_torch_serving.py holds the path's
+    gradients). The other families are ported
+    (tests/test_torch_zoo_ops.py): they build, and the frontend families
+    refuse a batch without their frontend."""
     arch = tscn.lm_arch()
-    params, _ = models.init(torch.Generator().manual_seed(0), arch)
-    x = torch.zeros((1, tattn.PLAIN_THRESHOLD + 1, arch.d_model))
-    pos = torch.arange(tattn.PLAIN_THRESHOLD + 1)[None]
-    mixer = pytree.map_tree(lambda a: a[0], params["periods"]["blk0"]["mixer"])
-    with pytest.raises(ValueError, match="A.8"):
-        tattn.multihead_attention(mixer, x, pos, n_heads=arch.n_heads, n_kv_heads=arch.n_kv_heads, rope_theta=1e4)
+    params, _ = jmodels.init(jax.random.PRNGKey(0), jscn.lm_arch())
+    tparams = convert.lm_params_from_numpy(jax.device_get(params))
+    s = tattn.PLAIN_THRESHOLD + 1
+    x = np.random.default_rng(9).standard_normal((1, s, arch.d_model)).astype(np.float32)
+    pos = np.arange(s, dtype=np.int32)[None]
+    jmixer = jax.tree.map(lambda a: a[0], params["periods"]["blk0"]["mixer"])
+    mixer = pytree.map_tree(lambda a: a[0], tparams["periods"]["blk0"]["mixer"])
+    kw = dict(n_heads=arch.n_heads, n_kv_heads=arch.n_kv_heads, rope_theta=1e4)
+    want = jattn.multihead_attention(jmixer, jnp.asarray(x), jnp.asarray(pos), **kw)
+    got = tattn.multihead_attention(mixer, torch.from_numpy(x), torch.from_numpy(pos), **kw)
+    close(got[0], want[0], atol=1e-5 * float(np.abs(np.asarray(want[0])).max()), what="out")
+    for g, w, what in zip(got[1:], want[1:], ("k", "v")):
+        close(g, w, what=what)
     tokens = torch.zeros((1, 8), dtype=torch.long)
     for name in ("granite-moe-3b-a800m", "rwkv6-1.6b", "whisper-small", "jamba-1.5-large-398b"):
         arch = treduced(TARCHS[name])

@@ -217,7 +217,9 @@ def test_frontend_problem_layout():
 
 def test_every_arch_trains_and_what_waits_still_raises():
     """``models.init`` and ``loss_fn`` take every family of the table (at
-    ``reduced`` widths); attention past 2048 tokens still waits for A.8."""
+    ``reduced`` widths); attention past 2048 tokens (the whisper encoder
+    over PLAIN_THRESHOLD + 1 frames, the chunked online-softmax path ported
+    with serving) gives the reference's loss."""
     from repro_torch.configs.archs import reduced
 
     for name, arch in TARCHS.items():
@@ -228,9 +230,11 @@ def test_every_arch_trains_and_what_waits_still_raises():
             batch["frontend"] = torch.zeros((1, arch.encoder.n_frontend_tokens, arch.encoder.d_frontend))
         loss, parts = models.loss_fn(params, None, arch, batch)
         assert bool(torch.isfinite(loss)), name
-    arch = tscn.zoo_arch("audio")
-    params, _ = models.init(torch.Generator().manual_seed(0), arch)
-    with pytest.raises(ValueError, match="A.8"):
-        models.loss_fn(params, None, arch, {"tokens": torch.zeros((1, 8), dtype=torch.long),
-                                            "labels": torch.zeros((1, 8), dtype=torch.long),
-                                            "frontend": torch.zeros((1, tattn.PLAIN_THRESHOLD + 1, 16))})
+    params, specs = jmodels.init(jax.random.PRNGKey(0), jscn.zoo_arch("audio"))
+    rng = np.random.default_rng(12)
+    data = {"tokens": rng.integers(0, 64, (1, 8)), "labels": rng.integers(0, 64, (1, 8)),
+            "frontend": rng.standard_normal((1, tattn.PLAIN_THRESHOLD + 1, 16)).astype(np.float32)}
+    want, _ = jmodels.loss_fn(params, specs, jscn.zoo_arch("audio"), {k: jnp.asarray(v) for k, v in data.items()})
+    got, _ = models.loss_fn(convert.lm_params_from_numpy(jax.device_get(params)), None, tscn.zoo_arch("audio"),
+                            {k: torch.from_numpy(v) for k, v in data.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-6)
