@@ -86,6 +86,24 @@ and prints one JSON line per phase:
                  first graph step's (with the captures), each mode's peak
                  memory, finite losses, loop bit for bit graph, and the
                  optimizer apply alone against its byte bound;
+  protomath      the ``"protomath"`` train step (``core/protomath.py``'s
+                 per-parameter exchange) at ``lm_arch()`` in fp32, N=8 on
+                 one rank under a 1-rank NCCL group, 4 steps, for CWTM
+                 under ALIE, CWTM-NNM under sign-flip and CWTM under the
+                 gaussian attack with QSGD (``quant:4``): the ``sharded``
+                 server (its ``all_to_all``) bit for bit the ``gather``
+                 one, the key-free setups' losses on the card against the
+                 CPU's, one exchange through the kernels against the plain
+                 versions, each kernel's launches in the exchange;
+  protomath_wide the ``"protomath"`` step on smollm-360m at its published
+                 widths, depth and dtype, ``train_wide``'s settings, under
+                 the NCCL group: 3 steps after a warm-up step, card and
+                 host ms a step, peak memory beside ``train_wide``'s, the
+                 parameters exchanged a step (all P) and the attack and
+                 CWTM launches, and the exchange alone against its byte
+                 bound (the (8, P) fp32 blocks read once, the result
+                 written once) and the bytes the attack and CWTM kernels
+                 move as they run it;
   serve          the serving path (prefill, cached decode, ``serve_traffic``)
                  at the zoo's scale in fp32, for the seven ``ZOO_FAMILIES``
                  and a whisper arch whose first block is cross-attention:
@@ -129,7 +147,12 @@ and prints one JSON line per phase:
                  launches during the phases above, which must all be above
                  0 (``lm_launches``: those of the eight LM phases, counted
                  from 0 before them, where the encode, attack and CWTM
-                 kernels must be above 0), and the launches that graph
+                 kernels must be above 0; ``protomath_launches``: those of
+                 the two protomath phases' train steps, the warm-up step
+                 included, counted in each step run's own window (not the
+                 exchanges held against their plain versions or timed
+                 alone), where the attack, CWTM, Gram and QSGD kernels
+                 must be above 0), and the launches that graph
                  replays ran on the card
                  beside them, which no counter sees (``coded_combine``, which
                  no path of the reference runs, carries ``"on_path": false``
@@ -158,6 +181,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1577,6 +1601,214 @@ def train_wide_phase(T, models, pytree, archs, synthetic, hbm: float, fp32: floa
     return out
 
 
+# ---------------------------------------------------------------- protomath
+
+PROTOMATH_STEPS = 4
+PROTOMATH_SETUPS = {  # LAD d=2, 2 Byzantine of N=8, CWTM trim 0.25: two key-free setups and Com-LAD under QSGD
+    "cwtm-alie": dict(aggregator="cwtm", attack="alie"),
+    "cwtm_nnm-sign_flip": dict(aggregator="cwtm-nnm", attack="sign_flip"),
+    "cwtm-gaussian-quant4": dict(aggregator="cwtm", attack="gaussian", compression="quant", quant_levels=4),
+}
+PROTOMATH_KERNELS = ("attack", "cwtm", "gram", "quantize")  # the exchange's server and Com-LAD
+
+
+def protomath_tcfg(T, arch, **kw):
+    base = dict(arch=arch.name, protocol="lad", protocol_impl="protomath", d=2, trim_frac=0.25, n_byz=2,
+                optimizer="adamw", momentum_dtype="float32", lr=3e-3, steps=PROTOMATH_STEPS)
+    base.update(kw)
+    return T.TrainConfig(**base)
+
+
+def exchange_against_plain(protomath, comp_lib, protocol, shape) -> float:
+    """One exchange of an (N, *shape) stack through the kernels against the
+    same exchange on the CPU (the plain versions); returns the largest
+    error as a share of the allowance (rtol 1e-5, atol 1e-6 of the largest
+    value). A protocol with draws (compression, the gaussian attack) draws
+    them on its device, so there the QSGD kernel is held instead, bit for
+    bit its plain version on the same rows and uniforms."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((WIDE_N,) + tuple(shape), generator=gen, device="cuda")
+    if protocol.compression.name != "none":
+        rows, u = x.reshape(WIDE_N, -1), torch.rand((WIDE_N, math.prod(shape)), generator=gen, device="cuda")
+        got = comp_lib.compress_rows(protocol.compression, rows, quant_u=u).cpu()
+        check(torch.equal(got, comp_lib.compress_rows(protocol.compression, rows.cpu(), quant_u=u.cpu())),
+              "protomath: QSGD of the exchange's rows differs from its plain version")
+        return 0.0
+    got = protomath.robust_combine(protocol, x, ("fsdp", None)).cpu()
+    want = protomath.robust_combine(protocol, x.cpu(), ("fsdp", None))
+    atol = ATOL * float(want.abs().max())
+    check(torch.allclose(got, want, rtol=RTOL, atol=atol), "protomath: an exchange disagrees with its plain version")
+    return float(((got - want).abs() / (atol + RTOL * want.abs())).max())
+
+
+def protomath_phase(T, mesh_lib, protomath, comp_lib, models, pytree, ops, synthetic, arch, group) -> dict:
+    """The ``"protomath"`` train step at ``lm_arch()`` (fp32), N=8 on one
+    rank, 4 steps of 1 row of 16 tokens a block, AdamW (fp32 moments), for
+    each of ``PROTOMATH_SETUPS``:
+
+      * under the 1-rank NCCL ``group``, the ``sharded`` server (its
+        ``all_to_all``) bit for bit the ``gather`` one (its
+        ``all_gather``), params, state and losses; the exchange counts of
+        each and the kernels' launches in the step;
+      * the key-free setups on the card against the same steps on the CPU
+        (no group, the plain versions): every loss within relative
+        ``TRAIN_RTOL``; the quant setup's draws are on the step's device,
+        so its losses are only held finite;
+      * one exchange of an (8, 960, 2560) stack through the kernels against
+        the plain versions on the CPU (rtol 1e-5, atol 1e-6 of its largest
+        value; for the quant setup its QSGD, bit for bit)."""
+    out = {"phase": "protomath", "arch": arch.name, "n_devices": WIDE_N, "ranks": 1, "steps": PROTOMATH_STEPS,
+           "setups": {}}
+    params0, specs = models.init(torch.Generator().manual_seed(0), arch)
+    batches = train_batches(synthetic, arch, WIDE_N, 1, PROTOMATH_STEPS)
+    card_mesh = mesh_lib.make_host_mesh(WIDE_N, group=group)
+    cpu_mesh = mesh_lib.Mesh(data=WIDE_N, group=None, world=1, rank=0)
+    for name, kw in PROTOMATH_SETUPS.items():
+        res = {}
+        for server in ("sharded", "gather"):
+            tcfg = protomath_tcfg(T, arch, server=server, **kw)
+            step, opt = T.build_train_step(arch, tcfg, specs, mesh=card_mesh, device="cuda")
+            p = pytree.map_tree(lambda a: a.to("cuda"), params0)
+            before = ops.launch_counts()
+            protomath.reset_exchange_counts()
+            start = time.perf_counter()
+            run = drive(step, p, opt.init(p), batches)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3 / PROTOMATH_STEPS
+            after = ops.launch_counts()
+            res[server] = run
+            res[server + "_info"] = {"ms_per_step": ms, "exchanges": protomath.exchange_counts(),
+                                     "launches": {k: after[k] - before[k] for k in PROTOMATH_KERNELS}}
+        check(bool(torch.isfinite(res["sharded"][2]).all()), f"protomath {name}: loss not finite")
+        check(tree_equal(res["sharded"][:2], res["gather"][:2], pytree) and torch.equal(res["sharded"][2],
+                                                                                        res["gather"][2]),
+              f"protomath {name}: the sharded server differs from the gather server")
+        check(res["sharded_info"]["exchanges"]["sharded_calls"] > 0, f"protomath {name}: no all_to_all exchange")
+        line = {"loss": res["sharded"][2].tolist(), "sharded_bitwise_gather": True,
+                "sharded": res["sharded_info"], "gather": res["gather_info"]}
+        if "compression" not in kw:
+            tcfg = protomath_tcfg(T, arch, **kw)
+            step, opt = T.build_train_step(arch, tcfg, specs, mesh=cpu_mesh, device="cpu")
+            cpu_loss = drive(step, params0, opt.init(params0), batches)[2]
+            card_loss = res["sharded"][2].cpu()
+            rel = float(((card_loss - cpu_loss) / cpu_loss).abs().max())
+            check(rel <= TRAIN_RTOL, f"protomath {name} card vs CPU loss: rel {rel} > {TRAIN_RTOL}")
+            line["card_vs_cpu"] = {"max_rel_loss": rel, "tolerance": TRAIN_RTOL}
+        line["exchange_vs_plain_share"] = exchange_against_plain(
+            protomath, comp_lib, T.make_protocol(protomath_tcfg(T, arch, **kw), cpu_mesh), (960, 2560))
+        out["setups"][name] = line
+    for kernel in PROTOMATH_KERNELS:
+        check(any(s[srv]["launches"][kernel] > 0 for s in out["setups"].values() for srv in ("sharded", "gather")),
+              f"protomath: kernel {kernel} was not launched in the exchange")
+    return out
+
+
+PROTOMATH_WIDE_STEPS = 3
+
+
+def leaves_with_specs(params, specs, prefix: str = ""):
+    """(path, tensor, logical axes) of every leaf, in ``pytree``'s order."""
+    if isinstance(params, dict):
+        for k in sorted(params):
+            yield from leaves_with_specs(params[k], specs[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], params, tuple(specs)
+EXCHANGE_ROWS = 8 + 1  # the exchange as a function: the (8, P) fp32 blocks read once, the (P,) result written once
+KERNEL_ROWS = 8 + 8 + 8 + 1  # as the kernels run it: the attack reads 8 rows and writes 8, CWTM reads 8 and writes 1
+
+
+def protomath_wide_phase(T, mesh_lib, protomath, models, pytree, ops, archs, synthetic, hbm: float, group,
+                         train_wide: dict) -> dict:
+    """smollm-360m at its published widths, depth and dtype (bf16 weights,
+    P = 361,821,120) through the ``"protomath"`` step under the 1-rank NCCL
+    ``group``, ``train_wide``'s settings: AdamW with bf16 moments, N=8, LAD
+    d=2, 2 Byzantine, CWTM trim 0.25 under ALIE, 2 rows of 16 tokens a
+    block, the sharded server. One untimed warm-up step, then 3: per step
+    the card's ms (CUDA events) and the host's, peak memory beside
+    ``train_wide``'s, finite losses, the parameters each step exchanges
+    (all P, the tied table once, through the head) and the attack and CWTM
+    launches; then the exchange alone (every leaf's (8, *w) fp32 block
+    through ``robust_combine``) against its byte bound."""
+    arch = archs.ARCHS["smollm-360m"]
+    tcfg = T.TrainConfig(arch=arch.name, protocol="lad", protocol_impl="protomath", d=2, aggregator="cwtm",
+                         trim_frac=0.25, n_byz=2, attack="alie")
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    q = sum(v.numel() for v in pytree.leaves(params))
+    check(q == WIDE_Q, f"smollm-360m has {q} parameters, not {WIDE_Q}")
+    batches = train_batches(synthetic, arch, WIDE_N, 2, 1 + PROTOMATH_WIDE_STEPS)
+    mesh = mesh_lib.make_host_mesh(WIDE_N, group=group)
+    step, opt = T.build_train_step(arch, tcfg, specs, mesh=mesh, device="cuda")
+    out = {"phase": "protomath_wide", "arch": arch.name, "params": q, "n_devices": WIDE_N, "ranks": mesh.world,
+           "backend": torch.distributed.get_backend(group), "d": 2, "n_byz": 2, "aggregator": "cwtm",
+           "trim_frac": 0.25, "attack": "alie", "server": tcfg.server, "per_block_rows": 2, "seq_len": 16,
+           "optimizer": tcfg.optimizer, "momentum_dtype": tcfg.momentum_dtype}
+    state = opt.init(params)
+    warm = ops.launch_counts()
+    params, state, loss, _ = step(params, state, batches[0], 0)  # the untimed warm-up step
+    warm = {k: v - warm[k] for k, v in ops.launch_counts().items()}
+    check(bool(torch.isfinite(loss)), "protomath_wide: warm-up loss not finite")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, losses = [], []
+    before = ops.launch_counts()
+    protomath.reset_exchange_counts()
+    for i, b in enumerate(batches[1:], start=1):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev[0].record()
+        params, state, loss, _ = step(params, state, b, i)
+        ev[1].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[1].synchronize()
+        rows.append({"card_ms": ev[0].elapsed_time(ev[1]), "host_ms": host_ms,
+                     "wall_ms": (time.perf_counter() - t0) * 1e3})
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = ops.launch_counts()
+    ex = protomath.exchange_counts()
+    check(all(map(math.isfinite, losses)), "protomath_wide: loss not finite")
+    check(ex["elements"] == PROTOMATH_WIDE_STEPS * WIDE_Q,
+          f"protomath_wide: {ex['elements']} parameters exchanged in {PROTOMATH_WIDE_STEPS} steps, not P each")
+    launches = {k: after[k] - before[k] for k in ("attack", "cwtm")}
+    check(all(v > 0 for v in launches.values()), f"protomath_wide: exchange kernels not launched: {launches}")
+    out.update({"steps": rows, "loss": losses, "peak_gb": peak, "exchanges_a_step": {
+        k: v // PROTOMATH_WIDE_STEPS for k, v in ex.items()}, "launches_a_step": {
+        k: v // PROTOMATH_WIDE_STEPS for k, v in launches.items()},
+        # the path's launches: the warm-up step's and the timed steps', not the exchange timed alone below
+        "path_launches": {k: warm[k] + after[k] - before[k] for k in after}})
+    out["train_wide"] = {"loop_card_ms": [r["card_ms"] for r in train_wide["loop"]["steps"]],
+                         "graph_card_ms": [r["card_ms"] for r in train_wide["graph"]["steps"]],
+                         "loop_peak_gb": train_wide["loop"]["peak_gb"], "graph_peak_gb": train_wide["graph"]["peak_gb"]}
+    del state
+    torch.cuda.empty_cache()
+
+    # the exchange alone: every leaf's (8, *w) fp32 blocks, one robust_combine a leaf (each period's its own)
+    protocol = T.make_protocol(tcfg, mesh)
+    leaves = []  # (block shape, logical axes)
+    for path, v, spec in leaves_with_specs(params, specs):
+        stacked = path.startswith("periods/")
+        leaves += [(tuple(v.shape[1:]), tuple(spec[1:]))] * v.shape[0] if stacked else [(tuple(v.shape), spec)]
+    shapes = [s for s, _ in leaves]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    biggest = max(math.prod(s) for s in shapes)
+    pool = torch.randn((WIDE_N * biggest,), generator=gen, device="cuda") * 1e-3
+
+    def exchange_all():
+        for s, spec in leaves:
+            protomath.robust_combine(protocol, pool[:WIDE_N * math.prod(s)].view((WIDE_N,) + s), spec, group=group)
+
+    check(sum(math.prod(s) for s in shapes) == WIDE_Q, "protomath_wide: the exchanged leaves are not all of P")
+    ex_ms = time_ms(exchange_all, iters=3)
+    nbytes, kernel_bytes = EXCHANGE_ROWS * 4 * WIDE_Q, KERNEL_ROWS * 4 * WIDE_Q
+    out["exchange_alone"] = {"ms": ex_ms, "leaves": len(shapes), "bound_ms": nbytes / hbm * 1e3, "bytes": nbytes,
+                             "bound_by": "bytes", "rows": "fp32 (8, P) read once, (P,) written once",
+                             "kernels_bound_ms": kernel_bytes / hbm * 1e3, "kernels_bytes": kernel_bytes,
+                             "kernels_rows": "attack reads 8 rows and writes 8, CWTM reads 8 and writes 1"}
+    del pool
+    return out
+
+
 # ------------------------------------------------------------------ serving
 
 
@@ -2243,6 +2475,8 @@ def main() -> int:
     from repro_torch.data.synthetic import linear_regression_problem
     from repro_torch.kernels import _build, ops, quantize, ref
     from repro_torch.configs import base
+    from repro_torch.core import protomath
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve, train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2286,26 +2520,59 @@ def main() -> int:
     ops.reset_launch_counts()
     tmp = ROOT / "build" / "chip_smoke"
     tmp.mkdir(parents=True, exist_ok=True)
-    for phase in (lambda: lm_phase(scenarios, byzantine, replayed),
-                  lambda: lm_wide_phase(scenarios, byzantine, models, coding, pytree, archs),
-                  lambda: zoo_phase(scenarios, byzantine, models, pytree, replayed),
-                  lambda: zoo_wide_phase(scenarios, byzantine, models, coding, pytree, archs),
-                  lambda: train_phase(train, models, pytree, ops, byzantine, checkpoint, synthetic,
-                                      scenarios.lm_arch(), tmp),
-                  lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32),
-                  lambda: serve_phase(scenarios, models, pytree, archs, base, serve, checkpoint, train, synthetic,
-                                      tmp),
-                  lambda: serve_wide_phase(models, pytree, archs, base, serve, hbm, tensor_peak(kind))):
-        start = time.perf_counter()
-        line = phase()
-        line["phase_s"] = time.perf_counter() - start
-        emit(line)
-        torch.cuda.empty_cache()
+    lines = {}
+
+    def run_phases(phases) -> None:
+        for name, phase in phases:
+            start = time.perf_counter()
+            line = phase()
+            line["phase_s"] = time.perf_counter() - start
+            emit(line)
+            lines[name] = line
+            torch.cuda.empty_cache()
+
+    run_phases([("lm", lambda: lm_phase(scenarios, byzantine, replayed)),
+                ("lm_wide", lambda: lm_wide_phase(scenarios, byzantine, models, coding, pytree, archs)),
+                ("zoo", lambda: zoo_phase(scenarios, byzantine, models, pytree, replayed)),
+                ("zoo_wide", lambda: zoo_wide_phase(scenarios, byzantine, models, coding, pytree, archs)),
+                ("train", lambda: train_phase(train, models, pytree, ops, byzantine, checkpoint, synthetic,
+                                              scenarios.lm_arch(), tmp)),
+                ("train_wide", lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32))])
     lm = ops.launch_counts()
+
+    # the protomath step, under a 1-rank NCCL group: its own counts, from 0
+    ops.reset_launch_counts()
+    rendezvous = tmp / "nccl_rendezvous"
+    rendezvous.unlink(missing_ok=True)
+    torch.distributed.init_process_group("nccl", init_method=f"file://{rendezvous}", world_size=1, rank=0)
+    try:
+        group = torch.distributed.group.WORLD
+        run_phases([("protomath", lambda: protomath_phase(train, mesh_lib, protomath, compression, models, pytree, ops,
+                                                          synthetic, scenarios.lm_arch(), group)),
+                    ("protomath_wide", lambda: protomath_wide_phase(train, mesh_lib, protomath, models, pytree, ops,
+                                                                    archs, synthetic, hbm, group,
+                                                                    lines["train_wide"]))])
+    finally:
+        torch.distributed.destroy_process_group()
+    # the path's launches are the steps' own windows: not the exchanges held
+    # against their plain versions, nor the exchange timed alone
+    pm = dict(lines["protomath_wide"]["path_launches"])
+    for setup in lines["protomath"]["setups"].values():
+        for server in ("sharded", "gather"):
+            for name, n in setup[server]["launches"].items():
+                pm[name] += n
+    for name in PROTOMATH_KERNELS:
+        check(pm[name] > 0, f"kernel {name} was not launched on the protomath path")
+
+    ops.reset_launch_counts()
+    run_phases([("serve", lambda: serve_phase(scenarios, models, pytree, archs, base, serve, checkpoint, train,
+                                              synthetic, tmp)),
+                ("serve_wide", lambda: serve_wide_phase(models, pytree, archs, base, serve, hbm, tensor_peak(kind)))])
+    lm = {name: lm[name] + n for name, n in ops.launch_counts().items()}
     for name in LM_KERNELS:
         check(lm[name] > 0, f"kernel {name} was not launched on the LM path")
 
-    launches = {name: linear[name] + lm[name] + wide[name] for name in ops.KERNELS}
+    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
@@ -2316,7 +2583,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
-         "lm_launches": lm[name], "graph_replay_launches": replayed[name],
+         "lm_launches": lm[name], "protomath_launches": pm[name], "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
         for name in TPU_KERNELS
     ]})

@@ -623,7 +623,7 @@ def run_grid(
       loss_fn: optional ``(data, xs (l, T, Q)) -> (l, T)`` metric hook; the
         rounds are handed over in slices that bound its temporaries.
       shard: ``"none"``; spreading the lanes over several cards waits for
-        ROADMAP A.9 and raises.
+        ROADMAP A.9b and raises.
       max_lanes_per_device: lanes per chunk: the lanes run in equal chunks,
         one after another, the last one padded by replicating its last lane
         (sliced off afterwards); ``None`` runs them all at once. ``"auto"``
@@ -638,7 +638,7 @@ def run_grid(
       how the lanes ran.
     """
     if shard != "none":
-        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9")
+        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9b")
     dev = resolve_device(device)
     _check_mode(mode, dev)
     cfgs = list(cfgs)

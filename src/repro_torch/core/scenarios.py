@@ -738,7 +738,7 @@ def run_lm_grid(
 
     Every lane equals ``run_lm_scenario`` of its row with the same seed bit
     for bit. All rows must share ``sigma_h`` (a bucket shares one data
-    tensor). ``shard`` other than ``"none"`` waits for ROADMAP A.9.
+    tensor). ``shard`` other than ``"none"`` waits for ROADMAP A.9b.
     """
     scns = list(scenarios)
     if not scns:
@@ -749,7 +749,7 @@ def run_lm_grid(
             f"run_lm_grid rows must share sigma_h (got {sorted(sigmas)}): the LM sweep trains on one "
             "shared problem per bucket, so data heterogeneity cannot vary per lane")
     if shard != "none":
-        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9")
+        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9b")
     dev = resolve_device(device)
     arch = arch if arch is not None else lm_arch()
     x0, _, lm_subset_grads, lm_loss = _lm_fns(arch)

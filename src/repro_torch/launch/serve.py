@@ -16,7 +16,7 @@ modes that give the same tokens and state bit for bit:
 Nothing is read back to the host until the last step has run.
 
 The mesh pspecs of the decode state and of the serve inputs wait for the
-sharded step (ROADMAP A.9).
+sharded step (ROADMAP A.9b).
 """
 from __future__ import annotations
 
@@ -57,11 +57,11 @@ def build_decode_fn(cfg: ArchConfig, specs: Any) -> Callable:
 
 
 def decode_state_pspecs(state_shapes: Any, mesh: Any) -> Any:
-    raise ValueError("the decode state's mesh pspecs wait for the sharded step (ROADMAP A.9)")
+    raise ValueError("the decode state's mesh pspecs wait for the sharded step (ROADMAP A.9b)")
 
 
 def serve_input_specs(cfg: ArchConfig, shape: Any, mesh: Any) -> Any:
-    raise ValueError("the serve inputs' mesh specs wait for the sharded step (ROADMAP A.9)")
+    raise ValueError("the serve inputs' mesh specs wait for the sharded step (ROADMAP A.9b)")
 
 
 def _small_leaves(state: dict) -> dict[str, torch.Tensor]:

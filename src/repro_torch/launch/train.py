@@ -1,21 +1,38 @@
-"""The LM train step through the protocol engine, and a thin trainer around it.
+"""The LM train steps, and a thin trainer around them.
 
-``build_engine_step`` is the reference's ``protocol_impl="engine"`` step:
-the transformer's gradients go through ``byzantine.protocol_round``, the
-assignment -> eq.-(5) encode -> compress -> attack -> robust-aggregate
-pipeline of the linear-regression runs, at whole-model granularity. Per
-microbatch, every data subset's gradient comes from one ``torch.func.vmap``
-of ``grad_and_value`` over the N blocks of the batch, each leaf cast to fp32
-into its slice of an ``(N, P)`` stack, and one protocol round aggregates the
-stack. The optimizer then steps on the aggregate, unflattened into the
-parameters' leaves, at the step's ``linear_warmup_cosine`` learning rate.
+``build_train_step`` builds one of two realizations of the step, chosen by
+``TrainConfig.protocol_impl``, as in the reference:
 
-A round's records are a function of ``(tcfg.seed, step_idx, j)`` alone (``j``
+``"protomath"`` (the reference's default): the per-parameter exchange of
+``core.protomath`` over a ``launch.mesh`` data group. The batch gets its
+cyclic ``d``-fold redundancy (``redundant_batch``); each rank takes its
+``N/W`` device blocks of it, splits each block's rows into the
+microbatches, and runs the forward and backward under
+``protocol_context``: every parameter's cotangent is computed per device
+block, compressed, attacked and robustly aggregated inside the backward
+(``sharded`` or ``gather`` server). The aggregates are summed in fp32
+over the microbatches and divided by their count, the optimizer steps at
+the ``linear_warmup_cosine`` learning rate, and the loss and metrics are
+averaged over the ranks. No ``(N, P)`` stack exists: the largest buffer is
+one parameter's ``(N, *w)`` block. Loop mode only; ``tcfg.remat`` changes
+no value (nothing is recomputed, so no draw moves).
+
+``"engine"`` (``build_engine_step``): the transformer's gradients go
+through ``byzantine.protocol_round``, the assignment -> eq.-(5) encode ->
+compress -> attack -> robust-aggregate pipeline of the linear-regression
+runs, at whole-model granularity. Per microbatch, every data subset's
+gradient comes from one ``torch.func.vmap`` of ``grad_and_value`` over the
+N blocks of the batch, each leaf cast to fp32 into its slice of an ``(N,
+P)`` stack, and one protocol round aggregates the stack. The optimizer
+then steps on the aggregate, unflattened into the parameters' leaves, at
+the step's ``linear_warmup_cosine`` learning rate.
+
+A step's draws are a function of ``(tcfg.seed, step_idx, j)`` alone (``j``
 the microbatch), drawn on the step's device: the counterpart of the
 reference's ``fold_in(fold_in(PRNGKey(seed), step_idx), j)``, which is what
 makes a resumed run equal the uninterrupted one bit for bit.
 
-Two modes run the same step:
+The engine step runs in two modes:
 
   * ``"loop"``: eager PyTorch;
   * ``"graph"`` (CUDA only; the reference's cached compiled programs): the
@@ -30,8 +47,8 @@ The programs (and in graph mode their captures) are cached across
 (``engine_program_cache_info``), so a warm step, and a second step built
 from an equal configuration, capture nothing.
 
-Sharded steps (``TrainConfig.shard``), the GSPMD ``"protomath"`` step and a
-device mesh wait for ROADMAP A.9.
+The sharded engine step (``TrainConfig.shard``) and N from a mesh wait for
+ROADMAP A.9b.
 """
 from __future__ import annotations
 
@@ -48,15 +65,32 @@ from repro_torch.core import compression as comp_lib
 from repro_torch.core import engine as engine_lib
 from repro_torch.core.byzantine import ProtocolConfig, RoundRandomness, protocol_round, sample_round_randomness
 from repro_torch.core.coding import tree_spec, unflatten_pytree
+from repro_torch.core.protomath import BlockedProtocol, fold_seed, protocol_context
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.transformer import unstack_periods
 from repro_torch.numerics import stable_mean0
 from repro_torch.optim import OptState, linear_warmup_cosine, make_optimizer
 
-__all__ = ["make_round_config", "redundant_batch", "round_seed", "build_engine_step", "build_train_step",
-           "engine_program_cache_info", "engine_program_cache_clear", "Trainer"]
+__all__ = ["make_protocol", "make_round_config", "redundant_batch", "round_seed", "build_protomath_step",
+           "build_engine_step", "build_train_step", "engine_program_cache_info", "engine_program_cache_clear",
+           "Trainer"]
 
 RoundProvider = Callable[[int, int], RoundRandomness]
+
+
+def make_protocol(tcfg: TrainConfig, mesh: Mesh) -> BlockedProtocol:
+    """The ``BlockedProtocol`` of a run on ``mesh``: N its data size."""
+    return BlockedProtocol(
+        n_devices=mesh.data,
+        aggregator=tcfg.aggregator,
+        trim_frac=tcfg.trim_frac,
+        n_byz=tcfg.n_byz,
+        attack=attack_lib.AttackSpec(name=tcfg.attack, n_byz=tcfg.n_byz),
+        compression=comp_lib.spec_from(tcfg.compression, q_hat_frac=tcfg.q_hat_frac, levels=tcfg.quant_levels),
+        server=tcfg.server,
+        honest_mean=(tcfg.protocol == "none"),
+    )
 
 
 def make_round_config(tcfg: TrainConfig, n_subsets: int) -> ProtocolConfig:
@@ -93,21 +127,11 @@ def redundant_batch(batch: Any, d: int, n_devices: int) -> Any:
     return pytree.map_tree(leaf, batch)
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _splitmix64(z: int) -> int:
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
-
-
 def round_seed(seed: int, step_idx: int, j: int) -> int:
     """The generator seed of round ``(step_idx, j)`` of a run seeded
     ``seed``: splitmix64 folded over the three, 63 bits (the CPU generator
     reads its low 32, all of them mixed)."""
-    return _splitmix64(_splitmix64(_splitmix64(seed) ^ step_idx) ^ j) >> 1
+    return fold_seed(seed, step_idx, j)
 
 
 # Programs cached across build_engine_step calls, keyed on exactly the
@@ -265,8 +289,8 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
         schedule, ``seed``, ``microbatches``). ``tcfg.remat`` is accepted
         and changes no value: ``torch.utils.checkpoint`` does not compose
         with ``torch.func.vmap``, so the port does not recompute.
-      specs: the logical-axis tree of ``models.init``; read by nothing
-        until the sharded step (ROADMAP A.9).
+      specs: the logical-axis tree of ``models.init``; the engine step
+        reads none of it.
       device: where the step runs; ``cuda`` when not given.
       mode: ``"loop"`` or ``"graph"`` (CUDA only), see the module docstring.
       randomness: ``(step_idx, j) -> RoundRandomness`` in place of the
@@ -275,9 +299,9 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
     """
     del specs
     if tcfg.shard != "none":
-        raise ValueError(f"shard={tcfg.shard!r}: the sharded engine step waits for ROADMAP A.9")
+        raise ValueError(f"shard={tcfg.shard!r}: the sharded engine step waits for ROADMAP A.9b")
     if tcfg.n_subsets is None:
-        raise ValueError("tcfg.n_subsets is required: taking N from a device mesh waits for ROADMAP A.9")
+        raise ValueError("tcfg.n_subsets is required: taking N from a device mesh waits for ROADMAP A.9b")
     dev = resolve_device(device)
     engine_lib._check_mode(mode, dev)
     n_sub, m = tcfg.n_subsets, max(1, tcfg.microbatches)
@@ -330,37 +354,136 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
     return step, apply_prog.opt
 
 
-def build_train_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
+def _grad_leaves(params) -> Any:
+    """``params`` with the periods (and the encoder's layers) as
+    per-period views, each leaf detached to a tensor of its own that
+    requires grad: a gradient comes out per period, with no zero-filled
+    stack per layer."""
+    return pytree.map_tree(lambda a: a.detach().requires_grad_(), unstack_periods(params))
+
+
+def _restack(grads) -> Any:
+    """Per-period gradients (``_grad_leaves``' layout) stacked back into
+    the parameters' layout."""
+    out = dict(grads)
+    for key in ("periods", "encoder"):
+        if isinstance(grads.get(key), list):
+            out[key] = pytree.map_tree(lambda *xs: torch.stack(xs), *grads[key])
+    return out
+
+
+def build_protomath_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, mesh: Mesh,
+                         device: torch.device | str | None = None):
+    """The ``"protomath"`` train step over ``mesh``'s data group.
+
+    Returns ``(step, optimizer)``; ``step(params, opt_state, batch,
+    step_idx) -> (new_params, new_opt_state, loss, metrics)`` on every rank,
+    ``batch`` the global ``(N * rows, S)`` batch (each rank takes its own
+    blocks of it), ``params`` the same on every rank and equal again after
+    the step. Per microbatch ``j`` the forward and backward run under
+    ``protocol_context`` seeded ``round_seed(tcfg.seed, step_idx, j)``; the
+    local loss is scaled by ``1/W`` so that each block's cotangent is its
+    contribution to the global mean loss. Loss and metrics are each rank's
+    local means averaged over the ranks (``stable_mean0`` over the
+    microbatches). The step never writes into its inputs."""
+    if tcfg.shard != "none":
+        raise ValueError(f"shard={tcfg.shard!r} is an engine-path option (protocol_impl='engine'); the protomath "
+                         "step is spread by its mesh")
+    dev = resolve_device(device)
+    protocol = make_protocol(tcfg, mesh)
+    n, world, rank, n_local = protocol.n_devices, mesh.world, mesh.rank, mesh.local_devices
+    opt = make_optimizer(tcfg.optimizer, momentum_dtype=tcfg.momentum_dtype)
+    schedule = linear_warmup_cosine(tcfg.lr, warmup=max(tcfg.steps // 20, 1), total_steps=tcfg.steps)
+    d = 1 if tcfg.protocol == "none" else tcfg.d
+    m = max(1, tcfg.microbatches)
+
+    def rank_mean(v: torch.Tensor) -> torch.Tensor:
+        if mesh.group is None:
+            return v
+        v = v.detach().clone()
+        torch.distributed.all_reduce(v, group=mesh.group)
+        return v * (1.0 / world)
+
+    def step(params, opt_state: OptState, batch: dict, step_idx):
+        step_idx = int(step_idx)
+        if batch["tokens"].shape[0] % n != 0:
+            raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does not split into {n} device blocks")
+        full = redundant_batch({k: v.to(dev) for k, v in batch.items()}, d, n)
+        db = full["tokens"].shape[0] // n  # rows a device block, its d-fold redundancy included
+        # this rank's blocks, (n_local, db, ...)
+        local = {k: v.reshape((n, db) + tuple(v.shape[1:]))[rank * n_local:(rank + 1) * n_local]
+                 for k, v in full.items()}
+        if db % m != 0:
+            raise ValueError(f"{db} rows a device block do not split into {m} microbatches")
+        sl = db // m
+        leaves_tree = _grad_leaves(params)
+        leaves = pytree.leaves(leaves_tree)
+        acc, per = None, []
+        for j in range(m):
+            mb = {k: v[:, j * sl:(j + 1) * sl].reshape((n_local * sl,) + tuple(v.shape[2:])) for k, v in local.items()}
+            with protocol_context(protocol, round_seed(tcfg.seed, step_idx, j), group=mesh.group):
+                loss, metrics = models.loss_fn(leaves_tree, specs, cfg, mb)
+                grads = torch.autograd.grad(loss * (1.0 / world), leaves, allow_unused=True)
+            grads = [torch.zeros_like(a) if g is None else g for g, a in zip(grads, leaves)]
+            per.append((rank_mean(loss), {k: rank_mean(v) for k, v in metrics.items()}))
+            if m == 1:
+                acc = grads
+            else:  # fp32, in microbatch order
+                grads = [g.to(torch.float32) for g in grads]
+                acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+        if m > 1:
+            acc = [a / m for a in acc]
+        grads = _restack(pytree.from_leaves(leaves_tree, acc))
+        loss = per[0][0] if m == 1 else stable_mean0(torch.stack([l for l, _ in per]))
+        metrics = per[0][1] if m == 1 else {k: stable_mean0(torch.stack([met[k] for _, met in per]))
+                                            for k in per[0][1]}
+        lr = schedule(torch.tensor(step_idx, dtype=torch.int32, device=dev))
+        new_params, new_state = opt.update(params, grads, opt_state, lr, weight_decay=tcfg.weight_decay)
+        return new_params, new_state, loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    return step, opt
+
+
+def build_train_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, mesh: Mesh | None = None,
                      device: torch.device | str | None = None, mode: str = "loop",
                      randomness: RoundProvider | None = None):
-    """Returns ``(step, optimizer)``: ``build_engine_step`` for
-    ``tcfg.protocol_impl == "engine"``. The GSPMD ``"protomath"`` step
-    waits for ROADMAP A.9."""
+    """Returns ``(step, optimizer)``: ``build_protomath_step`` over ``mesh``
+    for ``tcfg.protocol_impl == "protomath"`` (loop mode, seeded draws),
+    ``build_engine_step`` for ``"engine"`` (one rank)."""
     if tcfg.protocol_impl == "protomath":
-        raise ValueError("protocol_impl='protomath', the GSPMD-sharded step, waits for ROADMAP A.9; "
-                         "use protocol_impl='engine'")
+        if mesh is None:
+            raise ValueError("protocol_impl='protomath' needs a mesh (launch.mesh.make_host_mesh)")
+        if mode != "loop":
+            raise ValueError(f"mode={mode!r}: the protomath step runs in loop mode")
+        if randomness is not None:
+            raise ValueError("the protomath step draws its own randomness (protomath's per-site generators)")
+        return build_protomath_step(cfg, tcfg, specs, mesh=mesh, device=device)
     if tcfg.protocol_impl != "engine":
         raise ValueError(f"unknown protocol_impl {tcfg.protocol_impl!r}")
+    if mesh is not None and mesh.world > 1:
+        raise ValueError("the engine step over several ranks waits for ROADMAP A.9b")
     return build_engine_step(cfg, tcfg, specs, device=device, mode=mode, randomness=randomness)
 
 
 @dataclasses.dataclass
 class Trainer:
-    """A thin trainer over the engine step: the model initialised
-    from a CPU generator seeded ``tcfg.seed`` (the same weights on every
-    device) and moved to ``device``, the step, and the optimizer state."""
+    """A thin trainer over the train step: the model initialised from a
+    CPU generator seeded ``tcfg.seed`` (the same weights on every device
+    and rank) and moved to ``device``, the step (``"protomath"`` over
+    ``mesh``, or the engine's), and the optimizer state."""
 
     cfg: ArchConfig
     tcfg: TrainConfig
     device: torch.device | str | None = None
     mode: str = "loop"
+    mesh: Mesh | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         params, self.specs = models.init(torch.Generator().manual_seed(self.tcfg.seed), self.cfg)
         self.params = pytree.map_tree(lambda a: a.to(self.device), params)
-        self.step_fn, self.opt = build_train_step(self.cfg, self.tcfg, self.specs, device=self.device,
-                                                  mode=self.mode)
+        self.step_fn, self.opt = build_train_step(self.cfg, self.tcfg, self.specs, mesh=self.mesh,
+                                                  device=self.device, mode=self.mode)
         self.opt_state = self.opt.init(self.params)
         self.step = 0
 

@@ -9,7 +9,9 @@ takes the reference's chunked online softmax (``_flash_attention``): a
 Python loop over query chunks of ``Q_CHUNK`` and, inside it, over key
 chunks of ``KV_CHUNK``, so no ``(B, H, S, S)`` logits tensor is ever held;
 its backward is written by hand (a ``torch.autograd.Function``) and
-recomputes each chunk's probabilities from the saved log-sum-exp. Sliding
+recomputes each chunk's probabilities from the saved log-sum-exp. The
+projections go through ``core.protomath.pmm`` (the LAD exchange under a
+protocol context), the decode step's stay plain, as in the reference. Sliding
 windows are masks over a full sequence and a ring buffer in decode, whose
 cache holds ``capacity`` slots.
 """
@@ -19,6 +21,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.protomath import pmm
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.module import dense_param, split_tree
 
@@ -221,10 +224,10 @@ def multihead_attention(
 
     Returns (output (B,S,Dm), k, v)."""
     g = n_heads // n_kv_heads
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q = pmm("bsd,dhk->bshk", x, params["wq"], w_spec=("fsdp", "tp", None))
     kv_src = x if kv_override is None else kv_override
-    k = torch.einsum("bsd,dhk->bshk", kv_src, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_src, params["wv"])
+    k = pmm("bsd,dhk->bshk", kv_src, params["wk"], w_spec=("fsdp", "tp", None))
+    v = pmm("bsd,dhk->bshk", kv_src, params["wv"], w_spec=("fsdp", "tp", None))
     kpos = positions if kv_positions is None else kv_positions
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
@@ -242,7 +245,7 @@ def multihead_attention(
                                pad(v, (0, 0, 0, 0, 0, pk)), pad(positions, (0, pq)), pad(kpos, (0, pk), value=-1),
                                causal, window)[:, :sq]
     out = out.reshape(b, sq, n_heads, q.shape[-1])
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), k, v
+    return pmm("bshk,hkd->bsd", out, params["wo"], w_spec=("tp", None, "fsdp")), k, v
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,9 @@
 """Shared layers: norms, embeddings, RoPE, SwiGLU MLP.
 
-The reference routes every parameter through ``core.protomath``'s ``pmm``
-/ ``plookup`` / ``pscale``, which outside a protocol context are a plain
-einsum, take and product; here they are those plain ops (the protocol hooks
-come with the sharded step, ROADMAP A.9).
+Every parameter goes through ``core.protomath``'s ``pmm`` / ``plookup`` /
+``pscale``, as in the reference: outside a protocol context they are the
+plain einsum, lookup and product; under one (the ``"protomath"`` train
+step) their backward runs the LAD exchange.
 
 A row lookup (``lookup``: the embedding, and the label rows of the loss) is
 written as a one-hot product. Its forward equals the gather exactly (each
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.protomath import lookup, plookup, pmm, pscale
 from repro_torch.models.module import dense_param, scale_param, split_tree
 
 __all__ = ["rmsnorm_init", "rmsnorm", "lookup", "embedding_init", "embed", "unembed", "rope_frequencies",
@@ -33,30 +34,23 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * params["scale"]).to(x.dtype)
+    return pscale(out, params["scale"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
-def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` (rows of a ``(V, D)`` table) as a one-hot product: the
-    gather's values, with a deterministic matrix-product backward."""
-    onehot = (ids[..., None] == torch.arange(table.shape[0], device=ids.device)).to(table.dtype)
-    return onehot @ table
-
-
 def embedding_init(generator: torch.Generator, vocab: int, d_model: int, dtype: torch.dtype):
     return split_tree({"table": dense_param(generator, (vocab, d_model), ("tp", "fsdp"), dtype, scale=1.0)})
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return lookup(params["table"], tokens)
+    return plookup(params["table"], tokens, w_spec=("tp", "fsdp"))
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     """Logits via the (tied or untied) embedding table: (..., d) @ (V, d)^T."""
-    return (x @ params["table"].T).to(torch.float32)
+    return pmm("...d,vd->...v", x, params["table"], w_spec=("tp", "fsdp")).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +95,7 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, dtype: torch.d
 
 
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
+    gate = pmm("bsd,df->bsf", x, params["w_gate"], w_spec=("fsdp", "tp"))
+    up = pmm("bsd,df->bsf", x, params["w_up"], w_spec=("fsdp", "tp"))
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype) * up
-    return act @ params["w_down"]
+    return pmm("bsf,fd->bsd", act, params["w_down"], w_spec=("tp", "fsdp"))

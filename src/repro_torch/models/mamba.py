@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.protomath import block_tap, pbias, pmm, pscale
 from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
 
 __all__ = ["mamba_init", "mamba", "MambaState", "init_mamba_state", "mamba_decode"]
@@ -68,8 +69,8 @@ def _causal_depthwise_conv(xz: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
     pad = torch.nn.functional.pad(xz, (0, 0, k - 1, 0))
     out = torch.zeros_like(xz)
     for i in range(k):
-        out = out + pad[:, i:i + s, :] * w[i]
-    return out + b
+        out = out + pscale(pad[:, i:i + s, :], w[i])
+    return pbias(out, b)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -82,10 +83,10 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _selection(params, x_in: torch.Tensor, d_state: int):
     """Input-dependent Δ (fp32, softplus), B, C. x_in: (..., d_inner)."""
     dt_rank = params["dt_proj"].shape[0]
-    proj = x_in @ params["x_proj"]
+    proj = pmm("...i,ir->...r", x_in, params["x_proj"], w_spec=("tp", None))
     dt_raw, b_sel, c_sel = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = (dt_raw @ params["dt_proj"]).to(torch.float32)
-    dt = softplus(dt + params["dt_bias"])
+    dt = pmm("...r,ri->...i", dt_raw, params["dt_proj"], w_spec=(None, "tp")).to(torch.float32)
+    dt = softplus(pbias(dt, params["dt_bias"]))
     return dt, b_sel.to(torch.float32), c_sel.to(torch.float32)
 
 
@@ -93,22 +94,28 @@ def mamba(params, x: torch.Tensor, d_state: int, return_state: bool = False):
     """Full-sequence selective scan. x: (B, S, D) -> (B, S, D), and with
     ``return_state`` the ``MambaState`` after the last token as well."""
     b, s, _ = x.shape
-    xz = x @ params["in_proj"]
+    xz = pmm("bsd,di->bsi", x, params["in_proj"], w_spec=("fsdp", "tp"))
     x_raw, z = torch.chunk(xz, 2, dim=-1)
     x_in = _causal_depthwise_conv(x_raw, params["conv_w"], params["conv_b"])
     x_in = torch.nn.functional.silu(x_in.to(torch.float32)).to(x.dtype)
 
     dt, b_sel, c_sel = _selection(params, x_in, d_state)
-    a = -torch.exp(params["a_log"])  # (di, ds)
+    a_b, nb = block_tap(-torch.exp(params["a_log"]))  # (nb, di, ds): one A a device block
+    if b % nb != 0:
+        raise ValueError(f"batch {b} does not split into {nb} device blocks")
     dtx = dt * x_in.to(torch.float32)  # (B, S, di)
-    h = x.new_zeros((b, a.shape[0], d_state), dtype=torch.float32)
+    h = x.new_zeros((b, a_b.shape[1], d_state), dtype=torch.float32)
     ys = []
     for t in range(s):
-        h = torch.exp(dt[:, t, :, None] * a) * h + dtx[:, t, :, None] * b_sel[:, t, None, :]
+        if nb == 1:
+            decay = torch.exp(dt[:, t, :, None] * a_b[0])
+        else:  # each block's rows against its own A
+            decay = torch.exp(dt[:, t].reshape(nb, b // nb, -1)[..., None] * a_b[:, None]).reshape(h.shape)
+        h = decay * h + dtx[:, t, :, None] * b_sel[:, t, None, :]
         ys.append(torch.einsum("bis,bs->bi", h, c_sel[:, t]))
-    y = torch.stack(ys, dim=1) + x_in.to(torch.float32) * params["d_skip"]
+    y = torch.stack(ys, dim=1) + pscale(x_in.to(torch.float32), params["d_skip"])
     y = y.to(x.dtype) * torch.nn.functional.silu(z.to(torch.float32)).to(x.dtype)
-    out = y @ params["out_proj"]
+    out = pmm("bsi,id->bsd", y, params["out_proj"], w_spec=("tp", "fsdp"))
     if not return_state:
         return out
     d_conv = params["conv_w"].shape[0]

@@ -9,9 +9,11 @@ tuple of *logical axis names* (one per tensor dim), as in the reference:
   * ``None``    — replicated dim
   * ``"stack"`` — the leading period-stacking dim
 
-The specs are carried as plain tuples; mapping them onto a device mesh
-comes with the sharded train step (ROADMAP A.9). Random initializers draw
-from a ``torch.Generator``, on its device, in the order they are called.
+The placement is explicit in the port: ``logical_to_mesh`` says, for each
+leaf, which dim the sharded server of the ``"protomath"`` step cuts over
+the mesh's ranks (its ``fsdp`` dim, where that divides), and nothing else;
+the ``"tp"`` axis waits for ROADMAP A.9c. Random initializers draw from a
+``torch.Generator``, on its device, in the order they are called.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ from typing import Any
 import torch
 
 from repro_torch import pytree
+from repro_torch.core.protomath import sharded_dim
 
-__all__ = ["truncated_normal_init", "dense_param", "scale_param", "zeros_param", "split_tree", "tree_size",
-           "tree_bytes"]
+__all__ = ["truncated_normal_init", "dense_param", "scale_param", "zeros_param", "split_tree", "logical_to_mesh",
+           "tree_size", "tree_bytes"]
 
 Params = Any  # nested dict of tensors
 Specs = Any  # matching nested dict of tuples of logical axis names
@@ -78,6 +81,16 @@ def split_tree(pairs: dict) -> tuple[Params, Specs]:
             p, s = val
         params[name], specs[name] = p, s
     return params, specs
+
+
+def logical_to_mesh(specs: Specs, mesh, shapes: Params) -> Any:
+    """For each leaf of ``specs`` (with ``shapes``' tensors beside it), the
+    dim the sharded server cuts over ``mesh``'s ``world`` ranks: its
+    ``fsdp`` dim where that divides by ``world``, else ``None`` (the leaf
+    takes the gather server)."""
+    if isinstance(specs, dict):
+        return {k: logical_to_mesh(specs[k], mesh, shapes[k]) for k in specs}
+    return sharded_dim(specs, tuple(shapes.shape), mesh.world)
 
 
 def tree_size(params) -> int:

@@ -16,11 +16,19 @@ gather or scatter exactly (one ``1.0 * v`` product and exact zeros, or the
 same few products summed); backward, each is a matrix product, where an
 indexed scatter-add's atomics on CUDA would add in an order that changes
 from run to run.
+
+Under a protocol context the batch routes per local LAD device block, as
+the reference dispatches: each block's tokens route into its own ``(E, C,
+D)`` slots, an expert's capacity counted from the block's ``t = (B/N) S``
+tokens, and the router and expert products go through ``protomath.pmm``
+with the device axis as their leading index (``pre_blocked``), so each
+block's expert-weight cotangent stays its own for the exchange.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.protomath import current_protocol, pmm
 from repro_torch.models.module import dense_param, split_tree
 
 __all__ = ["moe_init", "expert_capacity", "moe"]
@@ -58,7 +66,7 @@ def _top(values: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _combine_weights(probs: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
-    """The combine weights ``(1, T, E)`` of the chosen experts ``(1, T, k,
+    """The combine weights ``(n, T, E)`` of the chosen experts ``(n, T, k,
     E)``: their probabilities renormalised over the token's ``k``, zero at
     the other experts."""
     gate_vals = torch.sum(chosen * probs[:, :, None, :], dim=-1)  # probs at the chosen experts, exactly
@@ -67,13 +75,13 @@ def _combine_weights(probs: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
 
 
 def _route(params, xb: torch.Tensor, top_k: int, capacity_factor: float):
-    """The routing of the ``(1, T, D)`` tokens ``xb``: the router's
-    probabilities ``(1, T, E)``, each token's chosen experts one-hot ``(1,
-    T, k, E)``, the combine weights ``(1, T, E)`` (the renormalised gate
-    values at the chosen experts, zero elsewhere) and every expert's
-    ``C`` token indices ``(1, E, C)``."""
+    """The routing of the ``(n, T, D)`` tokens ``xb``, ``n`` device blocks
+    of ``T``: the router's probabilities ``(n, T, E)``, each token's chosen
+    experts one-hot ``(n, T, k, E)``, the combine weights ``(n, T, E)`` (the
+    renormalised gate values at the chosen experts, zero elsewhere) and
+    every expert's ``C`` token indices ``(n, E, C)``."""
     n_experts = params["router"].shape[1]
-    logits = torch.einsum("ntd,de->nte", xb.to(torch.float32), params["router"])
+    logits = pmm("ntd,de->nte", xb.to(torch.float32), params["router"], w_spec=("fsdp", None), pre_blocked=True)
     probs = torch.softmax(logits, dim=-1)
     chosen = _one_hot(_top(probs, top_k), n_experts, torch.float32)  # (n, T, k, E)
     combine = _combine_weights(probs, chosen)
@@ -82,21 +90,29 @@ def _route(params, xb: torch.Tensor, top_k: int, capacity_factor: float):
     return probs, chosen, combine, token_idx
 
 
+def _n_blocks() -> int:
+    ctx = current_protocol()
+    return 1 if ctx is None else ctx.p.n_devices // ctx.world
+
+
 def moe(params, x: torch.Tensor, *, top_k: int, aux_coef: float = 0.01, capacity_factor: float = 1.25):
     """x: (B, S, D) -> (out (B, S, D), aux loss (fp32 scalar))."""
     b, s, d = x.shape
     n_experts = params["router"].shape[1]
-    t = b * s
-    xb = x.reshape(1, t, d)
+    nb = _n_blocks()
+    if b % nb != 0:
+        raise ValueError(f"batch {b} does not split into {nb} device blocks")
+    t = (b // nb) * s  # tokens a block
+    xb = x.reshape(nb, t, d)
     probs, chosen, combine, token_idx = _route(params, xb, top_k, capacity_factor)
     slot = _one_hot(token_idx, t, torch.float32)  # (n, E, C, T)
     weights_ec = torch.sum(slot * combine.transpose(1, 2)[:, :, None, :], dim=-1)  # combine at token_idx, exactly
 
     x_ec = torch.einsum("nect,ntd->necd", slot.to(x.dtype), xb)  # dispatch
-    gate = torch.einsum("necd,edf->necf", x_ec, params["w_gate"])
-    up = torch.einsum("necd,edf->necf", x_ec, params["w_up"])
+    gate = pmm("necd,edf->necf", x_ec, params["w_gate"], w_spec=("tp", "fsdp", None), pre_blocked=True)
+    up = pmm("necd,edf->necf", x_ec, params["w_up"], w_spec=("tp", "fsdp", None), pre_blocked=True)
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype) * up
-    y_ec = torch.einsum("necf,efd->necd", act, params["w_down"])
+    y_ec = pmm("necf,efd->necd", act, params["w_down"], w_spec=("tp", None, "fsdp"), pre_blocked=True)
 
     contrib = (y_ec * weights_ec[..., None].to(y_ec.dtype)).to(torch.float32)
     y = torch.einsum("nect,necd->ntd", slot, contrib)  # combine

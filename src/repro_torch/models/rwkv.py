@@ -17,6 +17,10 @@ shift. Given a ``state`` (``RWKVState``), both mixes continue from it: the
 token shift starts from the carried last input and the time mix from the
 carried WKV matrix, so a decode step is the same functions on one token;
 ``return_state`` asks for what a prefill or a step leaves.
+
+Every parameter goes through ``core.protomath`` at the reference's call
+sites; the u-bonus readout is outside the recurrence, so ``bonus_u`` is
+exchanged once, not a token.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.protomath import pbias, pmm, pscale
 from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
 
 __all__ = ["rwkv_time_mix_init", "rwkv_channel_mix_init", "rwkv_time_mix", "rwkv_channel_mix", "RWKVState",
@@ -86,18 +91,18 @@ def _token_shift(x: torch.Tensor, x_prev_first: torch.Tensor | None = None) -> t
 def _mix(x: torch.Tensor, x_shift: torch.Tensor, mu_row: torch.Tensor) -> torch.Tensor:
     """lerp(x, x_shift, mu): the delta in float32, scaled, cast back."""
     delta = (x_shift - x).to(torch.float32)
-    return x + (delta * mu_row).to(x.dtype)
+    return x + pscale(delta, mu_row).to(x.dtype)
 
 
 def _projections(params, x: torch.Tensor, x_shift: torch.Tensor, head_dim: int):
     mu = params["mu"]
-    r = _mix(x, x_shift, mu[0]) @ params["wr"]
-    k = _mix(x, x_shift, mu[1]) @ params["wk"]
-    v = _mix(x, x_shift, mu[2]) @ params["wv"]
-    g = _mix(x, x_shift, mu[3]) @ params["wg"]
-    lora_h = torch.tanh(_mix(x, x_shift, mu[4]) @ params["w_lora_a"])
-    lora = (lora_h @ params["w_lora_b"]).to(torch.float32)
-    w = torch.exp(-torch.exp(lora + params["w0"]))  # (B, S, D) in (0, 1)
+    r = pmm("bsd,de->bse", _mix(x, x_shift, mu[0]), params["wr"], w_spec=("fsdp", "tp"))
+    k = pmm("bsd,de->bse", _mix(x, x_shift, mu[1]), params["wk"], w_spec=("fsdp", "tp"))
+    v = pmm("bsd,de->bse", _mix(x, x_shift, mu[2]), params["wv"], w_spec=("fsdp", "tp"))
+    g = pmm("bsd,de->bse", _mix(x, x_shift, mu[3]), params["wg"], w_spec=("fsdp", "tp"))
+    lora_h = torch.tanh(pmm("bsd,dr->bsr", _mix(x, x_shift, mu[4]), params["w_lora_a"], w_spec=("fsdp", None)))
+    lora = pmm("bsr,re->bse", lora_h, params["w_lora_b"], w_spec=(None, "tp")).to(torch.float32)
+    w = torch.exp(-torch.exp(pbias(lora, params["w0"])))  # (B, S, D) in (0, 1)
     b, s, d = x.shape
 
     def heads(t):
@@ -114,7 +119,7 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5) -> tor
     var = torch.var(yf, dim=-1, keepdim=True, correction=0)
     normed = (yf - mean) * torch.rsqrt(var + eps)
     b, s, h, hd = y.shape
-    return normed.reshape(b, s, h * hd) * scale
+    return pscale(normed.reshape(b, s, h * hd), scale)
 
 
 def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state: RWKVState | None = None,
@@ -124,7 +129,7 @@ def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state: RWKVState | Non
     final WKV state, x[:, -1])``."""
     b, s, d = x.shape
     r, k, v, g, w = _projections(params, x, _token_shift(x, None if state is None else state.x_prev), head_dim)
-    s_u = torch.sum((r * k).to(torch.float32) * params["bonus_u"], dim=-1)  # (B, S, H)
+    s_u = torch.sum(pscale((r * k).to(torch.float32), params["bonus_u"]), dim=-1)  # (B, S, H)
     rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
     wkv = x.new_zeros((b, d // head_dim, head_dim, head_dim), dtype=torch.float32) if state is None else state.wkv
     ys = []
@@ -134,7 +139,7 @@ def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state: RWKVState | Non
         ys.append(y)
     y = _group_norm(torch.stack(ys, dim=1), params["ln_scale"]).to(x.dtype)
     y = y * torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype)
-    out = (y @ params["wo"]).to(x.dtype)
+    out = pmm("bsd,de->bse", y, params["wo"], w_spec=("tp", "fsdp")).to(x.dtype)
     return (out, wkv, x[:, -1, :]) if return_state else out
 
 
@@ -144,8 +149,9 @@ def rwkv_channel_mix(params, x: torch.Tensor, state_prev: torch.Tensor | None = 
     ``return_state``, ``(out, x[:, -1])``."""
     mu = params["mu"]
     x_shift = _token_shift(x, state_prev)
-    k = _mix(x, x_shift, mu[0]) @ params["wk"]
+    k = pmm("bsd,df->bsf", _mix(x, x_shift, mu[0]), params["wk"], w_spec=("fsdp", "tp"))
     k = torch.square(torch.relu(k.to(torch.float32))).to(x.dtype)
-    r = torch.sigmoid((_mix(x, x_shift, mu[1]) @ params["wr"]).to(torch.float32)).to(x.dtype)
-    out = r * (k @ params["wv"])
+    r_in = pmm("bsd,de->bse", _mix(x, x_shift, mu[1]), params["wr"], w_spec=("fsdp", "tp"))
+    r = torch.sigmoid(r_in.to(torch.float32)).to(x.dtype)
+    out = r * pmm("bsf,fd->bsd", k, params["wv"], w_spec=("tp", "fsdp"))
     return (out, x[:, -1, :]) if return_state else out

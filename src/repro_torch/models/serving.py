@@ -171,7 +171,7 @@ def decode_step(params, specs, cfg: ArchConfig, token: torch.Tensor, state: dict
     family's sinusoidal embedding. The caches' K/V are written in place
     (the module docstring): the returned state holds ``state``'s cache
     buffers, and ``state`` is not to be used again."""
-    del specs  # sharding specs wait for ROADMAP A.9
+    del specs  # sharding specs wait for ROADMAP A.9b
     pos = state["pos"]
     table = params["embed"]["table"]
     x = torch.nn.functional.embedding(token, table)  # (B, 1, D), the reference's jnp.take

@@ -18,6 +18,12 @@ encoder tokens), ``mamba`` and ``rwkv``. MLPs: ``dense`` (SwiGLU), ``moe``,
 embeddings ``(B, n_frontend_tokens, d_frontend)``, projected to d_model;
 audio runs them through its encoder stack, with sinusoidal positions on
 the frames and on the tokens.
+
+Every parameter goes through ``core.protomath`` (in the layers, and here
+the frontend projection and the head): under a protocol context the loops
+over the periods, the encoder's layers and the loss's chunks each share
+their body's call sites (``protomath.shared_sites``), as the reference's
+scans trace their body once.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.configs.base import ArchConfig, BlockSpec
+from repro_torch.core.protomath import plookup, pmm, shared_sites
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
@@ -181,12 +188,14 @@ def _encode_frontend(params, cfg: ArchConfig, frontend: torch.Tensor) -> torch.T
     through the encoder stack and its final norm."""
     proj = params["frontend_proj"]
     f = frontend.to(cfg.dtype)
-    src = f.to(torch.promote_types(f.dtype, proj.dtype)) @ proj
+    src = pmm("bsf,fd->bsd", f.to(torch.promote_types(f.dtype, proj.dtype)), proj, w_spec=(None, "fsdp"))
     if cfg.family == "audio" and cfg.encoder.n_encoder_layers > 0:
         src = src + L.sinusoidal_positions(src.shape[1], cfg.d_model, device=src.device)[None].to(src.dtype)
         positions = torch.arange(src.shape[1], device=src.device).expand(src.shape[:2])
+        sites = shared_sites()
         for layer in unstack_periods(params)["encoder"]:
-            src, _ = _block_apply(cfg, ENCODER_BLOCK, layer, src, positions, None)
+            with sites:
+                src, _ = _block_apply(cfg, ENCODER_BLOCK, layer, src, positions, None)
         src = L.rmsnorm({"scale": params["encoder_ln"]}, src, cfg.norm_eps)
     return src
 
@@ -195,7 +204,7 @@ def hidden_states(params, specs, cfg: ArchConfig, tokens: torch.Tensor, *, front
     """Backbone forward to the final norm: tokens (B, S) (and, for vlm and
     audio, the frontend (B, F, d_frontend)) -> (hidden (B, S, D), the MoE
     aux loss (fp32 scalar), the embedding table)."""
-    del specs  # sharding specs wait for the sharded step (ROADMAP A.9)
+    del specs  # the call sites name their parameters' logical axes
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
     if cfg.family == "audio":
@@ -207,11 +216,13 @@ def hidden_states(params, specs, cfg: ArchConfig, tokens: torch.Tensor, *, front
             raise ValueError(f"{cfg.name} ({cfg.family}) needs frontend embeddings")
         cross_src = _encode_frontend(params, cfg, frontend)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sites = shared_sites()
     for period in unstack_periods(params)["periods"]:
         aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, spec in enumerate(cfg.period):
-            x, a = _block_apply(cfg, spec, period[f"blk{i}"], x, positions, cross_src)
-            aux_p = aux_p + a
+        with sites:
+            for i, spec in enumerate(cfg.period):
+                x, a = _block_apply(cfg, spec, period[f"blk{i}"], x, positions, cross_src)
+                aux_p = aux_p + a
         aux = aux + aux_p
     x = L.rmsnorm({"scale": params["ln_f"]}, x, cfg.norm_eps)
     return x, aux, params["embed"]["table"]
@@ -225,24 +236,26 @@ def forward(params, specs, cfg: ArchConfig, tokens: torch.Tensor, *, frontend: t
     """Full-sequence forward: tokens (B, S) -> (logits (B, S, V) fp32, aux)."""
     x, aux, emb_table = hidden_states(params, specs, cfg, tokens, frontend=frontend)
     head = _unembed_table(params, cfg, emb_table)
-    return (x @ head.T).to(torch.float32), aux
+    return pmm("bsd,vd->bsv", x, head, w_spec=("tp", "fsdp")).to(torch.float32), aux
 
 
 def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy over sequence chunks of ``CE_CHUNK``:
     ``nll = logsumexp(x @ head^T) - <x, head[label]>``, the label logit from
-    the label's row of the head (``layers.lookup``), never a V-sized
+    the label's row of the head (``protomath.plookup``), never a V-sized
     one-hot of the logits."""
     b, s, d = x.shape
     chunk = min(CE_CHUNK, s)
     if s % chunk != 0:
         raise ValueError(f"sequence length {s} is not a multiple of the CE chunk {chunk}")
     nll = []
+    sites = shared_sites()
     for start in range(0, s, chunk):
         xc, lc = x[:, start:start + chunk], labels[:, start:start + chunk]
-        logits = (xc @ head.T).to(torch.float32)
+        with sites:
+            logits = pmm("bsd,vd->bsv", xc, head, w_spec=("tp", "fsdp")).to(torch.float32)
+            lab_rows = plookup(head, lc, w_spec=("tp", "fsdp")).to(torch.float32)  # (B, chunk, D)
         lse = torch.logsumexp(logits, dim=-1)  # (B, chunk)
-        lab_rows = L.lookup(head, lc).to(torch.float32)  # (B, chunk, D)
         nll.append(lse - torch.sum(xc.to(torch.float32) * lab_rows, dim=-1))
     return torch.mean(torch.stack(nll))
 

@@ -21,7 +21,10 @@ graph mode (one captured round replayed) equals loop mode bit for bit, for
 the rows that ``chip_smoke.py``'s ``graph`` phase runs. A grid of small
 buckets in graph mode equals the loop-mode grid and each lane's standalone
 graph run bit for bit, and the kernels launch folded lane counts above the
-grid's 65535 blocks in slices, equal to their plain versions.
+grid's 65535 blocks in slices, equal to their plain versions. The
+protomath exchange through the kernels agrees with the plain versions
+(rtol 1e-5, atol 1e-6 of its largest value), and the protomath step's
+losses on the card with the CPU's within relative 2e-6.
 """
 from __future__ import annotations
 
@@ -553,6 +556,58 @@ def test_train_step_launches_its_server_kernel(card, kw, kernel):
     step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
     graph = smoke.drive(step, params, opt.init(params), batches)
     assert smoke.tree_equal(loop[0], graph[0], pytree) and torch.equal(loop[2], graph[2])
+
+
+# ------------------------------------------------------- the protomath step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg,attack,kernels", [("cwtm", "alie", ("attack", "cwtm")),
+                                                ("cwtm-nnm", "sign_flip", ("attack", "gram", "cwtm")),
+                                                ("median", "ipm", ("attack", "cwtm")),
+                                                ("mean-nnm", "zero", ("gram", "cwtm"))],
+                         ids=["cwtm-alie", "cwtm_nnm-sign_flip", "median-ipm", "mean_nnm-zero"])
+def test_protomath_exchange_kernels_match_plain(card, agg, attack, kernels):
+    """One exchange (``robust_combine``) of an (8, 96, 1000) stack through
+    the kernels against the same exchange on the CPU (the plain
+    versions), rtol 1e-5 and atol 1e-6 of its largest value; each of its
+    kernels launches."""
+    from repro_torch.core import protomath
+    from repro_torch.core.attacks import AttackSpec
+
+    p = protomath.BlockedProtocol(n_devices=8, aggregator=agg, trim_frac=0.25, n_byz=2,
+                                  attack=AttackSpec(name=attack, n_byz=2))
+    x = torch.randn((8, 96, 1000), generator=card, device="cuda")
+    before = tops.launch_counts()
+    got = protomath.robust_combine(p, x, ("fsdp", None)).cpu()
+    after = tops.launch_counts()
+    want = protomath.robust_combine(p, x.cpu(), ("fsdp", None))
+    assert torch.allclose(got, want, rtol=RTOL, atol=ATOL * float(want.abs().max()))
+    assert all(after[k] > before[k] for k in kernels), (before, after)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(aggregator="cwtm", attack="alie"),
+                                dict(aggregator="cwtm-nnm", attack="sign_flip", microbatches=2)],
+                         ids=["cwtm-alie", "cwtm_nnm-sign_flip-mb2"])
+def test_protomath_step_card_against_cpu(card, kw):
+    """The protomath step at lm_arch(), N=8 on one rank, 4 steps: the
+    card's losses within relative 2e-6 of the CPU's, a second card run
+    equal bit for bit."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import make_host_mesh
+
+    smoke, train, pytree, arch, params, specs = _train_parts()
+    tcfg = smoke.protomath_tcfg(train, arch, **kw)
+    batches = smoke.train_batches(synthetic, arch, 8, tcfg.microbatches, 4)
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        step, opt = train.build_train_step(arch, tcfg, specs, mesh=make_host_mesh(8), device=dev)
+        p = pytree.map_tree(lambda a: a.to(dev), params)
+        runs.append(smoke.drive(step, p, opt.init(p), batches))
+    assert smoke.tree_equal(runs[0][:2], runs[1][:2], pytree) and torch.equal(runs[0][2], runs[1][2])
+    card_loss, cpu_loss = runs[0][2].cpu(), runs[2][2]
+    assert float(((card_loss - cpu_loss) / cpu_loss).abs().max()) <= smoke.TRAIN_RTOL
 
 
 @pytest.mark.cuda

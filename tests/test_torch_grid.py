@@ -199,7 +199,7 @@ def test_grid_refusals(case):
             tscn.run_grid(rows, 2, dim=8, device="cpu")
         else:
             tscn.run_grid(rows, 2, max_lanes_per_device=0, **kw)
-    want = {"auto": "A.11", "shard": "A.9", "no-lanes": "at least one",
+    want = {"auto": "A.11", "shard": "A.9b", "no-lanes": "at least one",
             "mode": "mode", "graph-on-cpu": "CUDA", "zero-per-device": ">= 1"}[case]
     assert want in str(err.value)
 

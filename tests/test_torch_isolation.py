@@ -46,7 +46,8 @@ def test_port_imports_with_jax_blocked():
         "repro_torch.core.participation, repro_torch.core.coding, repro_torch.kernels.quantize, "
         "repro_torch.models, repro_torch.configs.archs, repro_torch.core.theory, repro_torch.pytree, "
         "repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.launch.train, "
-        "repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.rwkv, repro_torch.models.precision\n"
+        "repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.rwkv, repro_torch.models.precision, "
+        "repro_torch.core.protomath, repro_torch.core.distributed, repro_torch.launch.mesh\n"
         "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
@@ -63,6 +64,9 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.launch import train as T\n"
         "tr = T.Trainer(S.lm_arch(), T.TrainConfig(protocol_impl='engine', n_subsets=4, n_byz=1), device='cpu')\n"
         "toks = torch.randint(0, 64, (4, 9), generator=torch.Generator().manual_seed(0))\n"
+        "assert len(tr.run([{'tokens': toks[:, :-1], 'labels': toks[:, 1:]}])) == 1\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "tr = T.Trainer(S.lm_arch(), T.TrainConfig(n_byz=1, attack='alie'), device='cpu', mesh=make_host_mesh(4))\n"
         "assert len(tr.run([{'tokens': toks[:, :-1], 'labels': toks[:, 1:]}])) == 1\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules "
         "if sys.modules[m] is not None)\n"

@@ -116,11 +116,11 @@ def test_chunked_lm_grid_is_bitwise_unchunked():
 @pytest.mark.parametrize("case", ["empty", "sigma_h", "shard", "mode", "graph-on-cpu", "params"])
 def test_lm_validation(case):
     """The reference's refusals (no rows, rows of several sigma_h), the
-    sharded grid waiting for A.9, an unknown mode, graph mode off the card,
+    sharded grid waiting for A.9b, an unknown mode, graph mode off the card,
     and a parameter tree of the wrong size."""
     rows = tscn.lm_sweep(methods=(("lad", 2),), attacks=("sign_flip",), compressors=("none",))
     kw = dict(device="cpu", mode="loop")
-    want = {"empty": "at least one scenario", "sigma_h": "sigma_h", "shard": "A.9", "mode": "mode",
+    want = {"empty": "at least one scenario", "sigma_h": "sigma_h", "shard": "A.9b", "mode": "mode",
             "graph-on-cpu": "CUDA", "params": "tree of leaves"}[case]
     with pytest.raises(ValueError, match=want):
         if case == "empty":

@@ -300,13 +300,13 @@ def test_equal_configs_share_their_programs(lm_params):
 
 @pytest.mark.parametrize("case", ["protomath", "shard", "n_subsets", "graph-on-cpu", "rows", "microbatches"])
 def test_step_refusals(lm_params, case):
-    """The GSPMD step and the sharded step wait for A.9 (as does N from a
-    mesh); graph mode needs the card; a batch must block into N subsets and
-    its rows into the microbatches."""
+    """The protomath step needs a mesh; the sharded engine step waits for
+    A.9b (as does N from a mesh); graph mode needs the card; a batch must
+    block into N subsets and its rows into the microbatches."""
     params, specs = lm_params
     arch = tscn.lm_arch()
-    want = {"protomath": "A.9", "shard": "A.9", "n_subsets": "A.9", "graph-on-cpu": "CUDA", "rows": "subsets",
-            "microbatches": "microbatches"}[case]
+    want = {"protomath": "needs a mesh", "shard": "A.9b", "n_subsets": "A.9b", "graph-on-cpu": "CUDA",
+            "rows": "subsets", "microbatches": "microbatches"}[case]
     with pytest.raises(ValueError, match=want):
         if case == "protomath":
             train.build_train_step(arch, TrainConfig(arch=arch.name, **_kw(protocol_impl="protomath")), device="cpu")
@@ -323,6 +323,38 @@ def test_step_refusals(lm_params, case):
             if case == "rows":
                 batch = {k: v[:-1] for k, v in batch.items()}
             step(params, opt.init(params), batch, 0)
+
+
+def test_protomath_step_builds_and_trains(lm_params):
+    """``build_train_step`` builds the protomath step over a one-rank mesh
+    of N=10: it never writes its inputs, repeats bit for bit, and its loss
+    falls over the steps; it refuses graph mode, replayed records and a
+    ``shard=``. (Its parity with the reference is in
+    tests/test_torch_protomath_step.py.)"""
+    from repro_torch.launch.mesh import make_host_mesh as port_mesh
+
+    params, specs = lm_params
+    arch = tscn.lm_arch()
+    mesh = port_mesh(N)
+    tcfg = TrainConfig(arch=arch.name, **_kw(protocol_impl="protomath", steps=6))
+    step, opt = train.build_train_step(arch, tcfg, specs, mesh=mesh, device="cpu")
+    before = [v.clone() for v in pytree.leaves(params)]
+    batches = _torch_batches()
+    p, s, losses = params, opt.init(params), []
+    for i in range(6):
+        p, s, loss, metrics = step(p, s, batches[i % len(batches)], i)
+        losses.append(float(loss))
+        assert set(metrics) == {"nll", "aux"}
+    assert all(torch.equal(a, b) for a, b in zip(pytree.leaves(params), before))
+    again = step(params, opt.init(params), batches[0], 0)
+    first = step(params, opt.init(params), batches[0], 0)
+    assert all(torch.equal(a, b) for a, b in zip(pytree.leaves(again[0]), pytree.leaves(first[0])))
+    assert losses[-1] < losses[0], losses
+    for kw, match in ((dict(mode="graph"), "loop mode"), (dict(randomness=lambda i, j: None), "own randomness")):
+        with pytest.raises(ValueError, match=match):
+            train.build_train_step(arch, tcfg, specs, mesh=mesh, device="cpu", **kw)
+    with pytest.raises(ValueError, match="engine-path option"):
+        train.build_train_step(arch, dataclasses.replace(tcfg, shard="pmap"), specs, mesh=mesh, device="cpu")
 
 
 # ----------------------------------------------------------------- Trainer
