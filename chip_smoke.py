@@ -104,6 +104,17 @@ and prints one JSON line per phase:
                  bound (the (8, P) fp32 blocks read once, the result
                  written once) and the bytes the attack and CWTM kernels
                  move as they run it;
+  engine_shard   the engine over the ranks of that NCCL group
+                 (``shard="shard_map"``): smollm-360m at ``train_wide``'s
+                 settings, 3 loop steps sharded and 3 unsharded from one
+                 state, bit for bit, with card and host ms a step and peak
+                 memory, and a round as 2, 3 and 4 ranks compute it (each
+                 share run in turn) against the unsharded round: losses bit
+                 for bit, the aggregate's largest difference;
+                 ``section7_grid()`` through ``run_grid`` in graph
+                 mode, sharded bit for bit unsharded; the audio family's
+                 engine step with its ``frontend``, sharded on the card,
+                 against the CPU within 2e-6 a step;
   serve          the serving path (prefill, cached decode, ``serve_traffic``)
                  at the zoo's scale in fp32, for the seven ``ZOO_FAMILIES``
                  and a whisper arch whose first block is cross-attention:
@@ -152,7 +163,11 @@ and prints one JSON line per phase:
                  included, counted in each step run's own window (not the
                  exchanges held against their plain versions or timed
                  alone), where the attack, CWTM, Gram and QSGD kernels
-                 must be above 0), and the launches that graph
+                 must be above 0; ``engine_shard_launches``: those of the
+                 ``engine_shard`` phase's sharded steps and first sharded
+                 grid call, never the unsharded runs they are held to, where
+                 the encode, attack and CWTM kernels must be above 0), and
+                 the launches that graph
                  replays ran on the card
                  beside them, which no counter sees (``coded_combine``, which
                  no path of the reference runs, carries ``"on_path": false``
@@ -1809,6 +1824,252 @@ def protomath_wide_phase(T, mesh_lib, protomath, models, pytree, ops, archs, syn
     return out
 
 
+# ------------------------------------------------------------- engine_shard
+
+ENGINE_SHARD_STEPS = 3
+ENGINE_SHARD_PEAK_GB = 76.0  # reckoned 52 to 54: train_wide's 41 to 42 GB and the gathered (8, P) fp32 stack; of 80
+ENGINE_SHARD_KERNELS = ("gather_combine", "attack", "cwtm")  # LAD's encode, ALIE and sign-flip, the CWTM server
+AUDIO_N = 10
+ENGINE_SHARD_WORLDS = (2, 3, 4)  # N=8 over 3 pads to 9
+
+
+def rank_split_round(T, engine, arch, pcfg, dev, params, blocks, rand, worlds) -> dict[int, dict]:
+    """For each ``world``: the engine step's round as ``world`` ranks
+    compute it, held against the unsharded round (``(loss, metrics, g)``
+    of ``T._Round``), every rank's share run in turn on this one device.
+    A share is the vmapped gradient over that rank's ``N_pad / world``
+    blocks, so the batch count the device's kernels see differs from N.
+    ``engine.gather_ranks`` is stood in for: the first pass keeps each
+    rank's local gradient rows and loss columns and stops at the second
+    gather; the second pass, as rank 0, receives their concatenation in
+    rank order and runs the round on it.
+
+    Returns ``{world: {bitwise, loss_bitwise, metrics_bitwise,
+    g_max_abs_diff, g_max_abs}}``."""
+    real = engine.gather_ranks
+
+    class Gathered(Exception):
+        pass
+
+    def share(world: int, rank: int) -> list[torch.Tensor]:
+        mine = []
+
+        def record(x, group, w):
+            mine.append(x)
+            if len(mine) == 2:  # the gradient rows, then the losses and metrics
+                raise Gathered
+            return x[:1].expand((x.shape[0] * w,) + tuple(x.shape[1:]))  # the shape only: no copy
+
+        engine.gather_ranks = record
+        try:
+            T._Round(arch, pcfg, dev, (None, world, rank))(params, blocks, rand)
+        except Gathered:
+            return mine
+        raise AssertionError("the sharded round did not gather")
+
+    want = T._Round(arch, pcfg, dev, None)(params, blocks, rand)
+    out = {}
+    try:
+        for world in worlds:
+            shares = [share(world, r) for r in range(world)]
+            feed = iter([torch.cat([s[i] for s in shares]) for i in range(2)])
+            del shares
+            engine.gather_ranks = lambda x, group, w: next(feed)
+            loss, metrics, g = T._Round(arch, pcfg, dev, (None, world, 0))(params, blocks, rand)
+            engine.gather_ranks = real
+            same = {"loss_bitwise": torch.equal(loss, want[0]),
+                    "metrics_bitwise": all(torch.equal(metrics[k], want[1][k]) for k in want[1]),
+                    "g_bitwise": torch.equal(g, want[2])}
+            out[world] = {"bitwise": all(same.values()), **same,
+                          "g_max_abs_diff": float((g - want[2]).abs().max()), "g_max_abs": float(want[2].abs().max())}
+            del loss, metrics, g, feed
+    finally:
+        engine.gather_ranks = real
+    return out
+
+
+def with_frontend(arch, batches: list[dict], seed: int) -> list[dict]:
+    """``batches`` with the audio family's stub ``frontend`` embeddings,
+    standard normals from a CPU generator seeded ``seed``, one a row."""
+    gen = torch.Generator().manual_seed(seed)
+    enc = arch.encoder
+    return [{**b, "frontend": torch.randn((b["tokens"].shape[0], enc.n_frontend_tokens, enc.d_frontend),
+                                          generator=gen)} for b in batches]
+
+
+def engine_shard_phase(T, S, engine, models, pytree, ops, byz, archs, synthetic, smi: str,
+                       replayed: dict[str, int]) -> dict:
+    """The engine over the ranks of the 1-rank NCCL group ``main`` opens
+    (``shard="shard_map"``: the fan-out, the NCCL all-gather of the
+    gradient rows, losses and metrics, the replicated round; NCCL takes
+    one rank a card, so agreement across ranks is the CPU tests'):
+
+      (a) smollm-360m at its published widths, depth and dtype with
+          ``train_wide``'s settings (bf16, AdamW with bf16 moments, N=8,
+          LAD d=2, CWTM trim 0.25 under ALIE with 2 Byzantine, 2 rows of 16
+          tokens a subset): one untimed unsharded warm-up step, then 3 loop
+          steps unsharded and 3 sharded from its state, on the same
+          batches. Per step card ms (CUDA events) and host ms, each run's
+          peak memory; params, optimizer state and losses bit for bit.
+          Then one round as 2, 3 and 4 ranks compute it, each rank's
+          share run in turn on this card (``rank_split_round``): the
+          losses and metrics bit for bit the unsharded round's, the
+          aggregate's largest difference from it (at this width a rank's
+          backward rounds differently from the whole batch's: ROADMAP
+          C.12);
+      (b) ``section7_grid()`` through ``scenarios.run_grid`` in graph mode,
+          unsharded, sharded, sharded, unsharded (each mode once first and
+          once second, since each call captures its own graphs): every
+          lane bit for bit, the grid spread over the group's devices;
+      (c) C.10 on the card: ``zoo_arch("audio")``'s engine step with its
+          ``frontend`` leaf, sharded, N=10, AdamW, 3 steps, on records drawn
+          on the CPU; the same steps on the CPU (unsharded: a CPU tensor
+          cannot take the NCCL gather, and the CPU tests hold sharded bit
+          for bit unsharded): every loss within relative ``TRAIN_RTOL``.
+
+    The kernels' launches are counted in the windows of the sharded steps,
+    the first sharded grid call and the sharded audio steps only
+    (``path_launches``): never the unsharded runs they are held to."""
+    group = torch.distributed.group.WORLD
+    out = {"phase": "engine_shard", "shard": "shard_map", "ranks": torch.distributed.get_world_size(group),
+           "backend": torch.distributed.get_backend(group), "nvidia_smi": smi}
+    launches = {k: 0 for k in ops.KERNELS}
+
+    def window(fn):
+        before = ops.launch_counts()
+        res = fn()
+        after = ops.launch_counts()
+        for k in launches:
+            launches[k] += after[k] - before[k]
+        return res
+
+    # (a) the full-width step, sharded against unsharded
+    arch = archs.ARCHS["smollm-360m"]
+    base = dict(arch=arch.name, protocol="lad", protocol_impl="engine", n_subsets=WIDE_N, d=2, aggregator="cwtm",
+                trim_frac=0.25, n_byz=2, attack="alie")
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    q = sum(v.numel() for v in pytree.leaves(params))
+    check(q == WIDE_Q, f"smollm-360m has {q} parameters, not {WIDE_Q}")
+    batches = train_batches(synthetic, arch, WIDE_N, 2, 1 + ENGINE_SHARD_STEPS)
+    step, opt = T.build_train_step(arch, T.TrainConfig(**base), specs, device="cuda")
+    state = opt.init(params)
+    params, state, loss, _ = step(params, state, batches[0], 0)  # the untimed warm-up step, unsharded
+    check(bool(torch.isfinite(loss)), "engine_shard: warm-up loss not finite")
+    wide = {"arch": arch.name, "params": q, "n_devices": WIDE_N, "d": 2, "n_byz": 2, "aggregator": "cwtm",
+            "trim_frac": 0.25, "attack": "alie", "per_subset": 2, "seq_len": 16, "optimizer": "adamw",
+            "momentum_dtype": T.TrainConfig(**base).momentum_dtype}
+    ends = {}
+    for shard in ("none", "shard_map"):
+        step, _ = T.build_train_step(arch, T.TrainConfig(**base, shard=shard), specs, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p, s, rows, losses = params, state, [], []
+        for i, b in enumerate(batches[1:], start=1):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev[0].record()
+            p, s, loss, _ = window(lambda: step(p, s, b, i)) if shard != "none" else step(p, s, b, i)
+            ev[1].record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev[1].synchronize()
+            rows.append({"card_ms": ev[0].elapsed_time(ev[1]), "host_ms": host_ms,
+                         "wall_ms": (time.perf_counter() - t0) * 1e3})
+            losses.append(loss)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = torch.stack(losses)
+        check(bool(torch.isfinite(losses).all()), f"engine_shard {shard}: loss not finite")
+        check(peak < ENGINE_SHARD_PEAK_GB, f"engine_shard {shard}: peak {peak:.1f} GB >= {ENGINE_SHARD_PEAK_GB}")
+        wide[shard] = {"steps": rows, "loss": losses.tolist(), "peak_gb": peak}
+        ends[shard] = (p, s, losses)
+        del p, s
+    check(tree_equal(ends["none"][:2], ends["shard_map"][:2], pytree) and torch.equal(ends["none"][2],
+                                                                                     ends["shard_map"][2]),
+          "engine_shard: the sharded step differs from the unsharded one")
+    wide["sharded_bitwise_unsharded"] = True
+    wide["gathered_stack_gb"] = WIDE_N * q * 4 / 1e9
+    p_end = ends["none"][0]
+    del ends, params, state
+    T.engine_program_cache_clear()
+    torch.cuda.empty_cache()
+    # each rank's share of 2 to 4 ranks at this width, on this card: a round bit for bit the unsharded one
+    tcfg = T.TrainConfig(**base)
+    pcfg = T.make_round_config(tcfg, WIDE_N)
+    blocks = T.block_batch({k: v.to("cuda") for k, v in batches[1].items()}, WIDE_N)
+    rand = byz.sample_round_randomness(pcfg, q, torch.Generator(device="cuda").manual_seed(
+        T.round_seed(tcfg.seed, 1, 0)))
+    worlds = rank_split_round(T, engine, arch, pcfg, torch.device("cuda"), p_end, blocks, rand, ENGINE_SHARD_WORLDS)
+    for w, r in worlds.items():  # the forward is the same at every split; the backward's last bits are not (C.12)
+        check(r["loss_bitwise"] and r["metrics_bitwise"], f"engine_shard: the {w}-rank split changes the loss")
+        check(math.isfinite(r["g_max_abs_diff"]), f"engine_shard: the {w}-rank split's aggregate is not finite")
+    wide["rank_split"] = {str(w): r for w, r in worlds.items()}
+    out["wide"] = wide
+    del p_end, blocks, rand
+    torch.cuda.empty_cache()
+
+    # (b) section7_grid() in graph mode, sharded against unsharded
+    rows = S.section7_grid()
+    grid, call_ms = {}, {"none": [], "shard_map": []}
+    for shard in ("none", "shard_map", "shard_map", "none"):  # each mode first once and second once
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run = lambda: S.run_grid(rows, STEPS, seed=0, device="cuda", shard=shard)  # noqa: E731
+        res = window(run) if shard != "none" and shard not in grid else run()  # the first sharded call counts
+        torch.cuda.synchronize()
+        call_ms[shard].append((time.perf_counter() - start) * 1e3)
+        if shard in grid:
+            check(all(same_bits(res[r.name], grid[shard][0][r.name]) for r in rows),
+                  f"engine_shard grid: {shard} differs between its two calls")
+        else:
+            grid[shard] = (res, engine.last_grid_chunk_info()["devices"])
+    res, none = grid["shard_map"][0], grid["none"][0]
+    for row in rows:
+        check(same_bits(res[row.name], none[row.name]), f"engine_shard grid: {row.name} differs from unsharded")
+    seen = set()
+    for row in rows:
+        stats = res[row.name].grid
+        if id(stats) not in seen:
+            seen.add(id(stats))
+            for g in stats.graphs:
+                for k, v in g.captured_launches.items():
+                    replayed[k] += v * g.replays
+    check(grid["shard_map"][1] == out["ranks"], "engine_shard grid: not spread over the group")
+    out["grid"] = {"rows": len(rows), "rounds": STEPS, "mode": "graph", "buckets": len(seen),
+                   "devices": grid["shard_map"][1], "order": "none, shard_map, shard_map, none",
+                   "call_ms": call_ms, "sharded_bitwise_unsharded": True}
+    del grid, res, none
+
+    # (c) C.10 on the card: the audio family's frontend through the sharded step
+    arch = S.zoo_arch("audio")
+    params0, specs = models.init(torch.Generator().manual_seed(0), arch)
+    audio = with_frontend(arch, train_batches(synthetic, arch, AUDIO_N, 1, TRAIN_STEPS), seed=3)
+    tcfg = train_tcfg(T, arch)
+    pcfg = T.make_round_config(tcfg, AUDIO_N)
+    qa = sum(v.numel() for v in pytree.leaves(params0))
+    gen = torch.Generator().manual_seed(7)
+    recs = {(i, 0): byz.sample_round_randomness(pcfg, qa, gen) for i in range(TRAIN_STEPS)}
+    side = {}
+    for dev, shard in (("cuda", "shard_map"), ("cpu", "none")):
+        step, opt = T.build_train_step(arch, dataclasses.replace(tcfg, shard=shard), specs, device=dev,
+                                       randomness=lambda i, j: recs[(i, j)])
+        p = pytree.map_tree(lambda a: a.to(dev), params0)
+        side[dev] = window(lambda: drive(step, p, opt.init(p), audio)) if dev == "cuda" else drive(
+            step, p, opt.init(p), audio)
+    card_loss, cpu_loss = side["cuda"][2].cpu(), side["cpu"][2]
+    check(bool(torch.isfinite(card_loss).all()), "engine_shard audio: loss not finite")
+    rel = float(((card_loss - cpu_loss).abs() / cpu_loss.abs()).max())
+    check(rel <= TRAIN_RTOL, f"engine_shard audio card vs CPU loss: rel {rel} > {TRAIN_RTOL}")
+    out["audio"] = {"arch": arch.name, "n_devices": AUDIO_N, "steps": TRAIN_STEPS, "frontend": list(
+        audio[0]["frontend"].shape), "loss_card": card_loss.tolist(), "max_rel_loss": rel, "tolerance": TRAIN_RTOL}
+    T.engine_program_cache_clear()
+
+    for kernel in ENGINE_SHARD_KERNELS:
+        check(launches[kernel] > 0, f"engine_shard: kernel {kernel} was not launched")
+    out["path_launches"] = launches
+    return out
+
+
 # ------------------------------------------------------------------ serving
 
 
@@ -2470,7 +2731,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import checkpoint, models, numerics, pytree
     from repro_torch.configs import archs
-    from repro_torch.core import aggregators, attacks, byzantine, coding, compression, participation, scenarios
+    from repro_torch.core import aggregators, attacks, byzantine, coding, compression, engine, participation, scenarios
     from repro_torch.data import synthetic
     from repro_torch.data.synthetic import linear_regression_problem
     from repro_torch.kernels import _build, ops, quantize, ref
@@ -2552,6 +2813,10 @@ def main() -> int:
                     ("protomath_wide", lambda: protomath_wide_phase(train, mesh_lib, protomath, models, pytree, ops,
                                                                     archs, synthetic, hbm, group,
                                                                     lines["train_wide"]))])
+        # the engine over the group's ranks: its own counts, from 0
+        ops.reset_launch_counts()
+        run_phases([("engine_shard", lambda: engine_shard_phase(train, scenarios, engine, models, pytree, ops,
+                                                                byzantine, archs, synthetic, smi, replayed))])
     finally:
         torch.distributed.destroy_process_group()
     # the path's launches are the steps' own windows: not the exchanges held
@@ -2563,6 +2828,7 @@ def main() -> int:
                 pm[name] += n
     for name in PROTOMATH_KERNELS:
         check(pm[name] > 0, f"kernel {name} was not launched on the protomath path")
+    es = lines["engine_shard"]["path_launches"]
 
     ops.reset_launch_counts()
     run_phases([("serve", lambda: serve_phase(scenarios, models, pytree, archs, base, serve, checkpoint, train,
@@ -2572,7 +2838,7 @@ def main() -> int:
     for name in LM_KERNELS:
         check(lm[name] > 0, f"kernel {name} was not launched on the LM path")
 
-    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] for name in ops.KERNELS}
+    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] + es[name] for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
@@ -2583,7 +2849,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
-         "lm_launches": lm[name], "protomath_launches": pm[name], "graph_replay_launches": replayed[name],
+         "lm_launches": lm[name], "protomath_launches": pm[name], "engine_shard_launches": es[name],
+         "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
         for name in TPU_KERNELS
     ]})

@@ -21,7 +21,12 @@ Lanes whose configurations draw the same records from the same seed share
 one draw group: its records are drawn once and read by each of its lanes.
 ``run_trajectory`` is the grid's one-lane case: both run ``_run_lanes``.
 Every reduction in a round is a fixed tree or a kernel, so a lane's bits do
-not depend on how many lanes ride beside it.
+not depend on how many lanes ride beside it. That is also what lets
+``run_grid(shard=...)`` spread the lanes over the ranks of a
+``torch.distributed`` data group (the reference's ``shard_map``/``pmap``
+over its devices): each rank runs its contiguous share of every chunk and
+the results are gathered in rank order, so every rank returns the whole
+grid, each lane bit for bit its unsharded value.
 
 Under an active participation schedule a round also carries the schedule
 state (the previous mask, which ``"markov"`` evolves), draws its mask from
@@ -46,6 +51,7 @@ import dataclasses
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import pytree
 from repro_torch.core.byzantine import (
@@ -66,7 +72,7 @@ from repro_torch.optim import OptState, make_optimizer
 
 __all__ = ["TrajectoryResult", "GraphStats", "GridStats", "RandomnessProvider", "run_trajectory",
            "run_grid", "protocol_rounds", "pad_lanes", "padded_lane_count", "last_grid_chunk_info",
-           "draw_rounds", "stack_rounds", "select_round"]
+           "draw_rounds", "stack_rounds", "select_round", "SHARD_MODES", "engine_ranks", "gather_ranks"]
 
 RandomnessProvider = Callable[[int], RoundRandomness]
 
@@ -488,13 +494,44 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
     return live["out"], live["x"], live["p_state"], stats, live["state"]
 
 
+# ------------------------------------------------------------------- ranks
+
+# The reference's shard substrates. Here both name the one rank split: the
+# reference holds its two bit for bit equal, so a config reads the same in
+# both packages.
+SHARD_MODES = ("none", "pmap", "shard_map")
+
+
+def engine_ranks(group: Any = None) -> tuple[Any, int, int]:
+    """``(group, world, rank)`` of the engine's sharded paths, the
+    counterpart of the reference's ``make_engine_mesh`` (``world`` its
+    ``engine_device_count``): the ranks of ``group``, else of the default
+    process group when one is initialised, else one rank with no group
+    (and no collective)."""
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    if group is None:
+        return None, 1, 0
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def gather_ranks(x: torch.Tensor, group: Any, world: int) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all ranks) concatenated along the
+    leading axis in rank order; ``x`` itself with no group."""
+    if group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous(), group=group)  # a list of outputs: gloo and NCCL both take it
+    return parts[0] if world == 1 else torch.cat(parts)
+
+
 # ------------------------------------------------------------------- grid
 
 
 def padded_lane_count(n: int, n_devices: int = 1) -> int:
-    """``n`` lanes rounded up to a multiple of ``n_devices`` (one card for
-    now). Padding replicates the last lane, so zero lanes cannot be padded
-    and raise."""
+    """``n`` lanes rounded up to a multiple of ``n_devices`` (the ranks of
+    a sharded run). Padding replicates the last lane, so zero lanes cannot
+    be padded and raise."""
     if n < 1:
         raise ValueError(
             f"cannot pad a lane axis of length {n}: padding replicates the last lane, "
@@ -588,6 +625,7 @@ def run_grid(
     grad_scale: float = 1.0,
     loss_fn: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
     shard: str = "none",
+    group: Any = None,
     max_lanes_per_device: int | str | None = None,
     device: torch.device | str | None = None,
     mode: str = "loop",
@@ -622,12 +660,20 @@ def run_grid(
         shared; every lane has its own moments.
       loss_fn: optional ``(data, xs (l, T, Q)) -> (l, T)`` metric hook; the
         rounds are handed over in slices that bound its temporaries.
-      shard: ``"none"``; spreading the lanes over several cards waits for
-        ROADMAP A.9b and raises.
-      max_lanes_per_device: lanes per chunk: the lanes run in equal chunks,
-        one after another, the last one padded by replicating its last lane
-        (sliced off afterwards); ``None`` runs them all at once. ``"auto"``
-        (the tuner) is not ported and raises.
+      shard: ``"none"``, or ``"shard_map"``/``"pmap"`` (one program, the
+        two names the reference's): the lanes spread over the ``W`` ranks of
+        ``group`` (``engine_ranks``). A chunk is padded to a multiple of
+        ``W`` by replicating its last lane; rank ``r`` runs the ``r``-th
+        contiguous share of the chunk's (sorted) lanes, and the results are
+        gathered in rank order (eagerly, after the chunk's rounds), so every
+        rank returns the whole, shape-identical result. Every rank must
+        make the same call.
+      group: the data group of a sharded run; see ``engine_ranks``.
+      max_lanes_per_device: lanes per rank and chunk: the lanes run in
+        equal chunks of ``max_lanes_per_device x W``, one after another, the
+        last one padded by replicating its last lane (sliced off
+        afterwards); ``None`` runs them all at once. ``"auto"`` (the tuner)
+        is not ported and raises.
       device / mode / with_metrics: as in ``run_trajectory``; under
         ``"graph"`` each chunk captures one round and replays it.
 
@@ -637,15 +683,18 @@ def run_grid(
       participation state; ``.lane(i)`` gives lane ``i``, and ``grid`` says
       how the lanes ran.
     """
-    if shard != "none":
-        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9b")
+    if shard not in SHARD_MODES:
+        raise ValueError(f"unknown shard mode {shard!r}")
+    sharded = shard != "none"
+    group, world, rank = engine_ranks(group) if sharded else (None, 1, 0)
     dev = resolve_device(device)
     _check_mode(mode, dev)
     cfgs = list(cfgs)
     n_lanes = len(cfgs)
     if n_lanes == 0:
         raise ValueError("run_grid needs at least one lane")
-    chunk = _resolve_chunk(n_lanes, max_lanes_per_device)
+    chunk = _resolve_chunk(n_lanes, max_lanes_per_device, devices=world)
+    per = chunk // world  # lanes a rank runs of every chunk
     tmpl = cfgs[0]
     for c in cfgs:
         if dataclasses.replace(c, attack=tmpl.attack, aggregator=tmpl.aggregator) != tmpl:
@@ -680,29 +729,34 @@ def run_grid(
     outs, graphs, n_branches = [], [], 0
     for start in range(0, n_lanes, chunk):
         take = min(chunk, n_lanes - start)
-        idx = pad_lanes(torch.tensor(order[start:start + take], device=dev), chunk - take)
+        padded = pad_lanes(torch.tensor(order[start:start + take], device=dev), chunk - take)
+        idx = padded[rank * per:(rank + 1) * per]  # this rank's contiguous share, in sorted order
+        keep = per if sharded else take  # a sharded rank keeps its padding lanes until the gather
         ids = idx.tolist()
         lanes = _chunk_lanes(tmpl, [cfgs[i] for i in ids], [keys[i] for i in ids], [draw_ids[i] for i in ids],
                              len(sources), draws.noisy, dev)
         n_branches += len(lanes.attacks) + len(lanes.servers)
         chunk_data = _take_lanes(data, idx) if data is not None and data_batched else data
-        x = x0.expand(chunk, q).clone()
+        x = x0.expand(per, q).clone()
         p_state = None
         if tmpl.participation.active:
-            p_state = init_participation_state(tmpl.participation, tmpl.n_devices, device=dev, lanes=chunk)
+            p_state = init_participation_state(tmpl.participation, tmpl.n_devices, device=dev, lanes=per)
         raw, x, p_state, stats, state = _run_lanes(
             lanes, records, x, lambda x, d=chunk_data: subset_grad_fn(d, x), steps=steps,
             lr=lr if lr_lanes is None else lr_lanes.index_select(0, idx), grad_scale=grad_scale, opt=opt,
             state=opt.init(x), p_state=p_state, mode=mode, dev=dev, with_metrics=with_metrics)
-        raw = {k: v.transpose(0, 1)[:take] for k, v in raw.items()}  # (lanes, steps, ...)
+        raw = {k: v.transpose(0, 1)[:keep] for k, v in raw.items()}  # (lanes, steps, ...)
         bound_loss = None
         if loss_fn is not None:
-            real = chunk_data  # the loss reads the chunk's real lanes only
-            if data is not None and data_batched and take < chunk:
-                real = _take_lanes(chunk_data, torch.arange(take, device=dev))
+            real = chunk_data  # unsharded, the loss reads the chunk's real lanes only
+            if data is not None and data_batched and keep < per:
+                real = _take_lanes(chunk_data, torch.arange(keep, device=dev))
             bound_loss = _sliced_loss(loss_fn, real, tmpl.n_devices * q)
-        outs.append((x[:take], _finalize_metrics(raw, bound_loss, None) if with_metrics else {},
-                     None if p_state is None else p_state[:take], _map_state(state, lambda v: v[:take])))
+        # the chunk's real lanes; sharded, every rank's share gathered in rank order first
+        real_lanes = (lambda v: gather_ranks(v, group, world)[:take]) if sharded else (lambda v: v[:take])
+        chunk_metrics = _finalize_metrics(raw, bound_loss, None) if with_metrics else {}
+        outs.append((real_lanes(x), {k: real_lanes(v) for k, v in chunk_metrics.items()},
+                     None if p_state is None else real_lanes(p_state), _map_state(state, real_lanes)))
         if stats is not None:
             graphs.append(stats)
     # undo the sort: sorted position j holds input lane order[j]

@@ -406,7 +406,8 @@ class _BucketProblem:
 
 
 def _run_bucket(group: list[Scenario], steps: int, prob: _BucketProblem, gens: list[torch.Generator], *,
-                device: torch.device, mode: str, max_lanes_per_device, randomness) -> dict[str, TrajectoryResult]:
+                device: torch.device, mode: str, max_lanes_per_device, randomness, shard: str = "none",
+                data_group: Any = None) -> dict[str, TrajectoryResult]:
     """One compile bucket as one ``engine.run_grid`` call.
 
     ``gens[i]`` is lane ``i``'s generator, seeded and advanced as its
@@ -428,7 +429,8 @@ def _run_bucket(group: list[Scenario], steps: int, prob: _BucketProblem, gens: l
     res = engine_lib.run_grid(
         cfgs, prob.x0, prob.subset_grad_fn, steps=steps, lr=[s.lr for s in group], randomness=sources,
         draw_ids=draw_ids, data=prob.data, data_batched=prob.data_batched, grad_scale=prob.grad_scale,
-        loss_fn=prob.loss_fn, max_lanes_per_device=max_lanes_per_device, device=device, mode=mode)
+        loss_fn=prob.loss_fn, shard=shard, group=data_group, max_lanes_per_device=max_lanes_per_device,
+        device=device, mode=mode)
     return {s.name: res.lane(i) for i, s in enumerate(group)}
 
 
@@ -456,6 +458,8 @@ def run_grid(
     dim: int = 100,
     mode: str = "graph",
     exact: bool = True,
+    shard: str = "none",
+    group: Any = None,
     max_lanes_per_device: int | str | None = None,
     randomness: Callable[[Scenario], RandomnessProvider | None] | None = None,
     device: torch.device | str | None = None,
@@ -477,7 +481,10 @@ def run_grid(
 
     ``max_lanes_per_device`` streams a bucket through equal chunks of that
     many lanes (bitwise equal to unchunked); ``"auto"`` waits for the
-    lane-capacity tuner (ROADMAP A.11) and raises.
+    lane-capacity tuner (ROADMAP A.11) and raises. ``shard``
+    (``"shard_map"`` or ``"pmap"``) spreads each bucket's lanes over the
+    ranks of the data ``group`` (``engine.run_grid``): every rank makes the
+    same call and returns every row, each bit for bit its unsharded run.
 
     ``randomness`` maps a row to its round provider (replaying another
     trainer's draws), or to ``None`` for the row's own seeded generator,
@@ -491,9 +498,9 @@ def run_grid(
     for s in scns:
         buckets.setdefault(_bucket_signature(s, exact=exact), []).append(s)
     out: dict[str, TrajectoryResult] = {}
-    for group in buckets.values():
-        prob, gens = _linreg_bucket(group, seed=seed, problem=problem, dim=dim, device=dev)
-        out.update(_run_bucket(group, steps, prob, gens, device=dev, mode=mode,
+    for bucket in buckets.values():
+        prob, gens = _linreg_bucket(bucket, seed=seed, problem=problem, dim=dim, device=dev)
+        out.update(_run_bucket(bucket, steps, prob, gens, device=dev, mode=mode, shard=shard, data_group=group,
                                max_lanes_per_device=max_lanes_per_device, randomness=randomness))
     return {s.name: out[s.name] for s in scns}
 
@@ -726,6 +733,7 @@ def run_lm_grid(
     mode: str = "graph",
     exact: bool = True,
     shard: str = "none",
+    group: Any = None,
     max_lanes_per_device: int | None = None,
     device: torch.device | str | None = None,
 ) -> dict[str, TrajectoryResult]:
@@ -738,7 +746,8 @@ def run_lm_grid(
 
     Every lane equals ``run_lm_scenario`` of its row with the same seed bit
     for bit. All rows must share ``sigma_h`` (a bucket shares one data
-    tensor). ``shard`` other than ``"none"`` waits for ROADMAP A.9b.
+    tensor). ``shard`` and ``group`` spread each bucket's lanes over the
+    ranks, as in ``run_grid``.
     """
     scns = list(scenarios)
     if not scns:
@@ -748,8 +757,6 @@ def run_lm_grid(
         raise ValueError(
             f"run_lm_grid rows must share sigma_h (got {sorted(sigmas)}): the LM sweep trains on one "
             "shared problem per bucket, so data heterogeneity cannot vary per lane")
-    if shard != "none":
-        raise ValueError(f"shard={shard!r}: spreading lanes over several cards waits for ROADMAP A.9b")
     dev = resolve_device(device)
     arch = arch if arch is not None else lm_arch()
     x0, _, lm_subset_grads, lm_loss = _lm_fns(arch)
@@ -757,12 +764,12 @@ def run_lm_grid(
     for s in scns:
         buckets.setdefault(_bucket_signature(s, exact=exact), []).append(s)
     out: dict[str, TrajectoryResult] = {}
-    for group in buckets.values():
-        data = _lm_problem(arch, seed=seed, n_subsets=group[0].n_devices, sigma_h=group[0].sigma_h,
+    for bucket in buckets.values():
+        data = _lm_problem(arch, seed=seed, n_subsets=bucket[0].n_devices, sigma_h=bucket[0].sigma_h,
                            per_subset=per_subset, seq_len=seq_len, device=dev)
         prob = _BucketProblem(lm_subset_grads, lm_loss, x0.to(dev), data, False, 1.0)
-        gens = [torch.Generator(device=dev).manual_seed(seed) for _ in group]
-        out.update(_run_bucket(group, steps, prob, gens, device=dev, mode=mode,
+        gens = [torch.Generator(device=dev).manual_seed(seed) for _ in bucket]
+        out.update(_run_bucket(bucket, steps, prob, gens, device=dev, mode=mode, shard=shard, data_group=group,
                                max_lanes_per_device=max_lanes_per_device, randomness=None))
     return {s.name: out[s.name] for s in scns}
 

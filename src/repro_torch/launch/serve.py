@@ -15,8 +15,9 @@ modes that give the same tokens and state bit for bit:
 
 Nothing is read back to the host until the last step has run.
 
-The mesh pspecs of the decode state and of the serve inputs wait for the
-sharded step (ROADMAP A.9b).
+The mesh pspecs of the decode state and of the serve inputs split the
+caches over the ``model`` axis as well as the data axis: they wait for the
+model axis and sharded storage (ROADMAP A.9c).
 """
 from __future__ import annotations
 
@@ -57,11 +58,11 @@ def build_decode_fn(cfg: ArchConfig, specs: Any) -> Callable:
 
 
 def decode_state_pspecs(state_shapes: Any, mesh: Any) -> Any:
-    raise ValueError("the decode state's mesh pspecs wait for the sharded step (ROADMAP A.9b)")
+    raise ValueError("the decode state's mesh pspecs wait for the model axis and sharded storage (ROADMAP A.9c)")
 
 
 def serve_input_specs(cfg: ArchConfig, shape: Any, mesh: Any) -> Any:
-    raise ValueError("the serve inputs' mesh specs wait for the sharded step (ROADMAP A.9b)")
+    raise ValueError("the serve inputs' mesh specs wait for the model axis and sharded storage (ROADMAP A.9c)")
 
 
 def _small_leaves(state: dict) -> dict[str, torch.Tensor]:

@@ -20,12 +20,27 @@ no value (nothing is recomputed, so no draw moves).
 ``"engine"`` (``build_engine_step``): the transformer's gradients go
 through ``byzantine.protocol_round``, the assignment -> eq.-(5) encode ->
 compress -> attack -> robust-aggregate pipeline of the linear-regression
-runs, at whole-model granularity. Per microbatch, every data subset's
+runs, at whole-model granularity. Every leaf of the batch (``tokens``,
+``labels`` and the vlm and audio families' ``frontend``) is blocked into
+the N subsets (``block_batch``). Per microbatch, every data subset's
 gradient comes from one ``torch.func.vmap`` of ``grad_and_value`` over the
-N blocks of the batch, each leaf cast to fp32 into its slice of an ``(N,
-P)`` stack, and one protocol round aggregates the stack. The optimizer
-then steps on the aggregate, unflattened into the parameters' leaves, at
-the step's ``linear_warmup_cosine`` learning rate.
+N blocks, each leaf cast to fp32 into its slice of an ``(N, P)`` stack,
+and one protocol round aggregates the stack. The optimizer then steps on
+the aggregate, unflattened into the parameters' leaves, at the step's
+``linear_warmup_cosine`` learning rate.
+
+With ``TrainConfig.shard`` ``"shard_map"`` or ``"pmap"`` (the reference's
+two substrates; here one program) the subset fan-out is spread over the
+``W`` ranks of the mesh's data group (``engine.engine_ranks``), as the
+reference's ``_build_round_program``'s ``per_device``: N is padded to a
+multiple of ``W`` by replicating the last subset's block, each rank runs
+the vmapped gradient of its ``N_pad / W`` contiguous subsets, and the
+losses, metrics and ``(n_local, P)`` gradient rows are gathered in rank
+order into the ``(N, P)`` stack, the padding rows dropped. Every rank then
+runs the same round (its own records, from the same seed) and the same
+apply, so every rank holds the same parameters, bit for bit those of
+``shard="none"``. Loop mode only: the gather sits inside the round, and
+graph mode of the sharded step waits for ROADMAP A.14.
 
 A step's draws are a function of ``(tcfg.seed, step_idx, j)`` alone (``j``
 the microbatch), drawn on the step's device: the counterpart of the
@@ -47,8 +62,8 @@ The programs (and in graph mode their captures) are cached across
 (``engine_program_cache_info``), so a warm step, and a second step built
 from an equal configuration, capture nothing.
 
-The sharded engine step (``TrainConfig.shard``) and N from a mesh wait for
-ROADMAP A.9b.
+``tcfg.n_subsets=None`` takes N from the mesh's data size, as the
+reference's ``tcfg.n_subsets or n_data_devices(mesh)``.
 """
 from __future__ import annotations
 
@@ -72,9 +87,9 @@ from repro_torch.models.transformer import unstack_periods
 from repro_torch.numerics import stable_mean0
 from repro_torch.optim import OptState, linear_warmup_cosine, make_optimizer
 
-__all__ = ["make_protocol", "make_round_config", "redundant_batch", "round_seed", "build_protomath_step",
-           "build_engine_step", "build_train_step", "engine_program_cache_info", "engine_program_cache_clear",
-           "Trainer"]
+__all__ = ["make_protocol", "make_round_config", "block_batch", "redundant_batch", "round_seed",
+           "build_protomath_step", "build_engine_step", "build_train_step", "engine_program_cache_info",
+           "engine_program_cache_clear", "Trainer"]
 
 RoundProvider = Callable[[int, int], RoundRandomness]
 
@@ -112,19 +127,29 @@ def make_round_config(tcfg: TrainConfig, n_subsets: int) -> ProtocolConfig:
     )
 
 
-def redundant_batch(batch: Any, d: int, n_devices: int) -> Any:
+def block_batch(batch: dict, n: int, what: str = "subsets") -> dict:
+    """Every leaf of ``batch`` blocked ``(n * rows, ...) -> (n, rows, ...)``,
+    as the reference's ``jax.tree.map(blocked, batch)``; raises when a
+    leaf's rows do not split into ``n`` ``what``."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n != 0:
+            raise ValueError(f"batch leaf {k!r} of {v.shape[0]} rows does not split into {n} {what}")
+        out[k] = v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+    return out
+
+
+def redundant_batch(batch: dict, d: int, n_devices: int) -> dict:
     """Cyclic gradient-coding redundancy in the global view: the batch's
     leading axis is device-blocked ``(N * b, ...)``, and device ``i`` also
     gets blocks ``i+1 .. i+d-1`` (mod N), as ``(N * d * b, ...)``."""
     if d <= 1:
         return batch
-
-    def leaf(x: torch.Tensor) -> torch.Tensor:
-        blocks = x.reshape((n_devices, x.shape[0] // n_devices) + tuple(x.shape[1:]))
-        out = torch.cat([torch.roll(blocks, -j, dims=0) for j in range(d)], dim=1)  # (N, d*b, ...)
-        return out.reshape((x.shape[0] * d,) + tuple(x.shape[1:]))
-
-    return pytree.map_tree(leaf, batch)
+    out = {}
+    for k, blocks in block_batch(batch, n_devices, "device blocks").items():
+        rolled = torch.cat([torch.roll(blocks, -j, dims=0) for j in range(d)], dim=1)  # (N, d*b, ...)
+        out[k] = rolled.reshape((-1,) + tuple(blocks.shape[2:]))
+    return out
 
 
 def round_seed(seed: int, step_idx: int, j: int) -> int:
@@ -193,40 +218,58 @@ class _Capture:
 
 
 class _Round:
-    """``(params, tokens, labels, rand) -> (loss, metrics, g)``: every
-    subset's gradient and loss, one protocol round on the ``(N, P)`` stack,
-    the subsets' mean loss and metrics (``stable_mean0``)."""
+    """``(params, blocks, rand) -> (loss, metrics, g)``: every subset's
+    gradient and loss from the ``(N, rows, ...)`` blocked (micro)batch
+    ``blocks``, one protocol round on the ``(N, P)`` stack, the subsets'
+    mean loss and metrics (``stable_mean0``).
 
-    def __init__(self, cfg: ArchConfig, pcfg: ProtocolConfig, dev: torch.device):
-        self.pcfg, self.dev = pcfg, dev
+    With ``ranks = (group, world, rank)`` the fan-out is spread over the
+    ranks: the blocks padded to ``N_pad`` (a multiple of ``world``) by
+    replicating the last one, this rank's ``N_pad / world`` contiguous
+    blocks through the vmapped gradient, the losses, metrics and gradient
+    rows gathered in rank order and the padding dropped; the round runs on
+    the whole stack on every rank."""
 
-        def subset_loss(params, tokens, labels):
-            return models.loss_fn(params, None, cfg, {"tokens": tokens, "labels": labels})
+    def __init__(self, cfg: ArchConfig, pcfg: ProtocolConfig, dev: torch.device,
+                 ranks: tuple[Any, int, int] | None = None):
+        self.pcfg, self.dev, self.ranks = pcfg, dev, ranks
 
-        self.per_subset = torch.func.vmap(torch.func.grad_and_value(subset_loss, has_aux=True),
-                                          in_dims=(None, 0, 0))
+        def subset_loss(params, sub_batch):
+            return models.loss_fn(params, None, cfg, sub_batch)
+
+        self.per_subset = torch.func.vmap(torch.func.grad_and_value(subset_loss, has_aux=True), in_dims=(None, 0))
         self.captures: dict[tuple, _Capture] = {}
 
-    def __call__(self, params, tokens, labels, rand):
+    def __call__(self, params, blocks: dict, rand):
+        n = self.pcfg.n_devices
+        if self.ranks is not None:
+            group, world, rank = self.ranks
+            per = engine_lib.padded_lane_count(n, world) // world
+            blocks = {k: engine_lib.pad_lanes(v, per * world - n)[rank * per:(rank + 1) * per]
+                      for k, v in blocks.items()}
         # per-period views: a leaf's gradient comes out per period, with no
         # zero-filled (n_periods, ...) stack per layer
-        grads, (losses, metrics) = self.per_subset(unstack_periods(params), tokens, labels)
+        grads, (losses, metrics) = self.per_subset(unstack_periods(params), blocks)
         spec = tree_spec(params)
-        stack = torch.empty((tokens.shape[0], sum(s.numel() for s in pytree.leaves(params))),
+        stack = torch.empty((losses.shape[0], sum(s.numel() for s in pytree.leaves(params))),
                             dtype=torch.float32, device=self.dev)
         for g, dst in zip(pytree.leaves(grads), pytree.leaves(unstack_periods(unflatten_pytree(stack, spec),
                                                                                lead=1))):
             dst.copy_(g)  # the leaf's gradient, cast to fp32, into its slice of every subset's row
         del grads
+        if self.ranks is not None:  # the (N, P) stack, the losses and the metrics, in rank order: two gathers
+            stack = engine_lib.gather_ranks(stack, group, world)[:n]
+            cols = engine_lib.gather_ranks(torch.stack([losses, *metrics.values()], dim=1), group, world)[:n]
+            losses, metrics = cols[:, 0], {k: cols[:, i + 1] for i, k in enumerate(metrics)}
         g = protocol_round(self.pcfg, stack, rand, device=self.dev)
         return stable_mean0(losses), {k: stable_mean0(v) for k, v in metrics.items()}, g
 
-    def captured(self, params, tokens, labels, rand):
-        key = tuple(tokens.shape)
+    def captured(self, params, blocks: dict, rand):
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(blocks.items()))
         if key not in self.captures:
-            self.captures[key] = _Capture(self, (params, tokens, labels, rand), self.dev)
+            self.captures[key] = _Capture(self, (params, blocks, rand), self.dev)
             _ENGINE_CAPTURES["round"] += 1
-        return self.captures[key](params, tokens, labels, rand)
+        return self.captures[key](params, blocks, rand)
 
 
 class _Apply:
@@ -267,7 +310,7 @@ def _program(key: tuple, build: Callable):
     return prog
 
 
-def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
+def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, mesh: Mesh | None = None,
                       device: torch.device | str | None = None, mode: str = "loop",
                       randomness: RoundProvider | None = None):
     """The protocol-engine train step.
@@ -275,38 +318,53 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
     Returns ``(step, optimizer)``; ``step(params, opt_state, batch,
     step_idx) -> (new_params, new_opt_state, loss, metrics)``, where
     ``params`` is the model's tree in ``cfg.dtype`` (norm scales fp32),
-    ``batch`` holds ``tokens`` and ``labels`` ``(N * rows, S)`` whose leading
-    axis is blocked into the ``N = tcfg.n_subsets`` subsets, and
-    ``step_idx`` an int (or a 0-d integer tensor). Per microbatch ``j`` (a
-    slice of every block's rows), one round under round ``(step_idx, j)``'s
-    records; with ``tcfg.microbatches > 1`` the aggregates are summed in
-    fp32 in microbatch order and divided by the count, and the loss and
+    ``batch`` holds ``tokens`` and ``labels`` ``(N * rows, S)`` (and for the
+    vlm and audio families ``frontend``, ``(N * rows, n_frontend_tokens,
+    d_frontend)``), every leaf's leading axis blocked into the N subsets,
+    and ``step_idx`` an int (or a 0-d integer tensor). Per microbatch ``j``
+    (a slice of every block's rows), one round under round ``(step_idx,
+    j)``'s records; with ``tcfg.microbatches > 1`` the aggregates are summed
+    in fp32 in microbatch order and divided by the count, and the loss and
     metrics are ``stable_mean0`` over the subsets, then over the
-    microbatches. The step never writes into its inputs.
+    microbatches. The step never writes into its inputs. Sharded, every
+    rank of the group calls it with the same global batch and gets the
+    same result.
 
     Args:
       cfg, tcfg: the architecture and the run (protocol, optimizer,
-        schedule, ``seed``, ``microbatches``). ``tcfg.remat`` is accepted
-        and changes no value: ``torch.utils.checkpoint`` does not compose
-        with ``torch.func.vmap``, so the port does not recompute.
+        schedule, ``seed``, ``microbatches``, ``shard``). N is
+        ``tcfg.n_subsets``, or ``mesh.data`` when that is ``None``.
+        ``tcfg.remat`` is accepted and changes no value:
+        ``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``,
+        so the port does not recompute.
       specs: the logical-axis tree of ``models.init``; the engine step
         reads none of it.
+      mesh: ``launch.mesh.make_host_mesh``'s mesh: N when
+        ``tcfg.n_subsets`` is ``None``, and the data group a sharded step
+        spreads over (without a mesh, ``engine.engine_ranks()``'s).
       device: where the step runs; ``cuda`` when not given.
-      mode: ``"loop"`` or ``"graph"`` (CUDA only), see the module docstring.
+      mode: ``"loop"`` or ``"graph"`` (CUDA only, unsharded), see the
+        module docstring.
       randomness: ``(step_idx, j) -> RoundRandomness`` in place of the
-        seeded draws (the tests replay the reference's keys); its records
-        are checked with ``RoundRandomness.validate``.
+        seeded draws (the tests replay the reference's keys), called on
+        every rank; its records are checked with
+        ``RoundRandomness.validate``.
     """
     del specs
-    if tcfg.shard != "none":
-        raise ValueError(f"shard={tcfg.shard!r}: the sharded engine step waits for ROADMAP A.9b")
-    if tcfg.n_subsets is None:
-        raise ValueError("tcfg.n_subsets is required: taking N from a device mesh waits for ROADMAP A.9b")
+    if tcfg.shard not in engine_lib.SHARD_MODES:
+        raise ValueError(f"unknown engine shard mode {tcfg.shard!r}: expected 'none', 'pmap' or 'shard_map'")
+    n_sub = tcfg.n_subsets or (None if mesh is None else mesh.data)
+    if n_sub is None:
+        raise ValueError("tcfg.n_subsets is None and no mesh is given to take N from")
+    if tcfg.shard != "none" and mode == "graph":
+        raise ValueError(f"mode='graph' with shard={tcfg.shard!r}: graph mode of the sharded engine step waits "
+                         "for ROADMAP A.14; run it in loop mode")
     dev = resolve_device(device)
     engine_lib._check_mode(mode, dev)
-    n_sub, m = tcfg.n_subsets, max(1, tcfg.microbatches)
+    ranks = None if tcfg.shard == "none" else engine_lib.engine_ranks(None if mesh is None else mesh.group)
+    m = max(1, tcfg.microbatches)
     pcfg = make_round_config(tcfg, n_sub)
-    round_prog = _program(("round", cfg, pcfg, dev), lambda: _Round(cfg, pcfg, dev))
+    round_prog = _program(("round", cfg, pcfg, dev, ranks), lambda: _Round(cfg, pcfg, dev, ranks))
     apply_prog = _program(("apply", tcfg.optimizer, tcfg.momentum_dtype, tcfg.lr, tcfg.steps, tcfg.weight_decay,
                            dev), lambda: _Apply(tcfg, dev))
     run_round = round_prog if mode == "loop" else round_prog.captured
@@ -323,19 +381,16 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *,
     def step(params, opt_state: OptState, batch: dict, step_idx):
         step_idx = int(step_idx)
         q = sum(v.numel() for v in pytree.leaves(params))
-        tokens, labels = (batch[k].to(dev) for k in ("tokens", "labels"))
-        if tokens.shape[0] % n_sub != 0:
-            raise ValueError(f"batch of {tokens.shape[0]} rows does not split into {n_sub} subsets")
-        rows = tokens.shape[0] // n_sub
+        blocks = block_batch({k: v.to(dev) for k, v in batch.items()}, n_sub)
+        rows = blocks["tokens"].shape[1]
         if rows % m != 0:
             raise ValueError(f"{rows} rows a subset do not split into {m} microbatches")
-        tokens, labels = (x.reshape((n_sub, rows) + tuple(x.shape[1:])) for x in (tokens, labels))
         sl = rows // m
         g = None
         per = []
         for j in range(m):
-            loss_j, metrics_j, g_j = run_round(params, tokens[:, j * sl:(j + 1) * sl].contiguous(),
-                                               labels[:, j * sl:(j + 1) * sl].contiguous(), records(step_idx, j, q))
+            loss_j, metrics_j, g_j = run_round(params, {k: v[:, j * sl:(j + 1) * sl].contiguous()
+                                                        for k, v in blocks.items()}, records(step_idx, j, q))
             per.append(_clone((loss_j, metrics_j)))  # a replay overwrites a capture's outputs
             if m == 1:
                 g = g_j
@@ -406,13 +461,9 @@ def build_protomath_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, 
 
     def step(params, opt_state: OptState, batch: dict, step_idx):
         step_idx = int(step_idx)
-        if batch["tokens"].shape[0] % n != 0:
-            raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does not split into {n} device blocks")
-        full = redundant_batch({k: v.to(dev) for k, v in batch.items()}, d, n)
-        db = full["tokens"].shape[0] // n  # rows a device block, its d-fold redundancy included
-        # this rank's blocks, (n_local, db, ...)
-        local = {k: v.reshape((n, db) + tuple(v.shape[1:]))[rank * n_local:(rank + 1) * n_local]
-                 for k, v in full.items()}
+        full = block_batch(redundant_batch({k: v.to(dev) for k, v in batch.items()}, d, n), n, "device blocks")
+        local = {k: v[rank * n_local:(rank + 1) * n_local] for k, v in full.items()}  # this rank's (n_local, db, ...)
+        db = local["tokens"].shape[1]  # rows a device block, its d-fold redundancy included
         if db % m != 0:
             raise ValueError(f"{db} rows a device block do not split into {m} microbatches")
         sl = db // m
@@ -449,7 +500,8 @@ def build_train_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, m
                      randomness: RoundProvider | None = None):
     """Returns ``(step, optimizer)``: ``build_protomath_step`` over ``mesh``
     for ``tcfg.protocol_impl == "protomath"`` (loop mode, seeded draws),
-    ``build_engine_step`` for ``"engine"`` (one rank)."""
+    ``build_engine_step`` for ``"engine"`` (N and, under ``tcfg.shard``, the
+    ranks from ``mesh``)."""
     if tcfg.protocol_impl == "protomath":
         if mesh is None:
             raise ValueError("protocol_impl='protomath' needs a mesh (launch.mesh.make_host_mesh)")
@@ -460,9 +512,7 @@ def build_train_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, m
         return build_protomath_step(cfg, tcfg, specs, mesh=mesh, device=device)
     if tcfg.protocol_impl != "engine":
         raise ValueError(f"unknown protocol_impl {tcfg.protocol_impl!r}")
-    if mesh is not None and mesh.world > 1:
-        raise ValueError("the engine step over several ranks waits for ROADMAP A.9b")
-    return build_engine_step(cfg, tcfg, specs, device=device, mode=mode, randomness=randomness)
+    return build_engine_step(cfg, tcfg, specs, mesh=mesh, device=device, mode=mode, randomness=randomness)
 
 
 @dataclasses.dataclass
@@ -470,7 +520,8 @@ class Trainer:
     """A thin trainer over the train step: the model initialised from a
     CPU generator seeded ``tcfg.seed`` (the same weights on every device
     and rank) and moved to ``device``, the step (``"protomath"`` over
-    ``mesh``, or the engine's), and the optimizer state."""
+    ``mesh``, or the engine's, over ``mesh``'s ranks under
+    ``tcfg.shard``), and the optimizer state."""
 
     cfg: ArchConfig
     tcfg: TrainConfig
@@ -503,8 +554,9 @@ class Trainer:
         save_checkpoint(path, self.params, step=self.step, specs=self.specs)
 
     def eval_loss(self, batch: dict) -> float:
-        """Next-token loss of the current params on one batch."""
+        """Next-token loss of the current params on one batch (every leaf,
+        ``frontend`` included)."""
         with torch.no_grad():
             loss, _ = models.loss_fn(self.params, self.specs, self.cfg,
-                                     {k: batch[k].to(self.device) for k in ("tokens", "labels")})
+                                     {k: v.to(self.device) for k, v in batch.items()})
         return float(loss)

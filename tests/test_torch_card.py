@@ -24,7 +24,10 @@ graph run bit for bit, and the kernels launch folded lane counts above the
 grid's 65535 blocks in slices, equal to their plain versions. The
 protomath exchange through the kernels agrees with the plain versions
 (rtol 1e-5, atol 1e-6 of its largest value), and the protomath step's
-losses on the card with the CPU's within relative 2e-6.
+losses on the card with the CPU's within relative 2e-6. The engine step
+and the grid sharded over a 1-rank NCCL group equal their unsharded runs
+bit for bit, and at ``zoo_arch`` widths so does the round as 2, 3 and 4
+ranks compute it, each rank's share run in turn on the card.
 """
 from __future__ import annotations
 
@@ -556,6 +559,96 @@ def test_train_step_launches_its_server_kernel(card, kw, kernel):
     step, opt = train.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
     graph = smoke.drive(step, params, opt.init(params), batches)
     assert smoke.tree_equal(loop[0], graph[0], pytree) and torch.equal(loop[2], graph[2])
+
+
+# --------------------------------------------------- the engine over ranks
+
+
+@pytest.fixture
+def nccl_group(card, tmp_path):
+    """A 1-rank NCCL group (``file://`` rendezvous), destroyed after."""
+    torch.distributed.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
+                                         rank=0)
+    yield torch.distributed.group.WORLD
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kw", [("transformer", dict()), ("transformer", dict(shard="pmap")),
+                                       ("transformer", dict(microbatches=2, compression="quant", quant_levels=4)),
+                                       ("audio", dict())],
+                         ids=["lm", "lm-pmap", "lm-mb2-quant", "audio"])
+def test_engine_shard_step_equals_unsharded_on_card(nccl_group, family, kw):
+    """The engine step at N=10, 3 loop steps, sharded over a 1-rank NCCL
+    group (its all-gather of the gradient rows) against ``shard="none"``:
+    params, optimizer state and losses bit for bit; the audio family with
+    its ``frontend``."""
+    from repro_torch import models
+    from repro_torch.data import synthetic
+
+    smoke, train, pytree, _, _, _ = _train_parts()
+    arch = tscn.zoo_arch(family)
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    rows = kw.get("microbatches", 1)
+    batches = smoke.train_batches(synthetic, arch, 10, rows, 3)
+    if family == "audio":
+        batches = smoke.with_frontend(arch, batches, seed=3)
+    runs = []
+    for shard in ("none", kw.get("shard", "shard_map")):
+        tcfg = smoke.train_tcfg(train, arch, **{**kw, "shard": shard})
+        step, opt = train.build_train_step(arch, tcfg, specs, device="cuda")
+        runs.append(smoke.drive(step, params, opt.init(params), batches))
+    assert smoke.tree_equal(runs[0][:2], runs[1][:2], pytree) and torch.equal(runs[0][2], runs[1][2])
+
+
+@pytest.mark.cuda
+def test_engine_shard_grid_equals_unsharded_on_card(nccl_group):
+    """A grid of two buckets in graph mode, sharded over a 1-rank NCCL
+    group, in chunks of 2 lanes: every lane bit for bit the unsharded
+    grid's."""
+    from repro_torch.core import engine
+
+    smoke = _chip_smoke()
+    rows = tscn.synthetic_sweep(5, n_devices=10, n_byz=2) + tscn.section7_grid(
+        methods=(("lad", 10),), compressors=("none",))
+    none = tscn.run_grid(rows, 20, dim=16, device="cuda")
+    got = tscn.run_grid(rows, 20, dim=16, device="cuda", shard="shard_map", max_lanes_per_device=2)
+    assert engine.last_grid_chunk_info()["devices"] == 1
+    for row in rows:
+        assert smoke.same_bits(got[row.name], none[row.name]), row.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["transformer", "audio"])
+@pytest.mark.parametrize("kw", [dict(), dict(compression="quant", quant_levels=4, attack="alie")],
+                         ids=["lad-cwtm", "quant4-alie"])
+def test_engine_rank_shares_equal_unsharded_round_on_card(card, family, kw):
+    """The engine step's round at N=10 as 2, 3 and 4 ranks compute it
+    (3 to 5 blocks and a padding block through each rank's vmapped
+    gradient, the shares concatenated in rank order in place of the
+    all-gather, every share run on this card): loss, metrics and the
+    aggregate bit for bit the unsharded round's at these widths (at
+    smollm-360m's they are not: ROADMAP C.12, ``chip_smoke.py``'s
+    ``engine_shard``)."""
+    from repro_torch import models
+    from repro_torch.core import byzantine, engine
+    from repro_torch.data import synthetic
+
+    smoke, train, pytree, _, _, _ = _train_parts()
+    arch = tscn.zoo_arch(family)
+    params, _ = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    batch = smoke.train_batches(synthetic, arch, 10, 2, 1)
+    if family == "audio":
+        batch = smoke.with_frontend(arch, batch, seed=3)
+    tcfg = smoke.train_tcfg(train, arch, **kw)
+    pcfg = train.make_round_config(tcfg, 10)
+    q = sum(v.numel() for v in pytree.leaves(params))
+    blocks = train.block_batch({k: v.to("cuda") for k, v in batch[0].items()}, 10)
+    rand = byzantine.sample_round_randomness(pcfg, q, torch.Generator(device="cuda").manual_seed(5))
+    worlds = smoke.rank_split_round(train, engine, arch, pcfg, torch.device("cuda"), params, blocks, rand, (2, 3, 4))
+    assert {w: r["bitwise"] for w, r in worlds.items()} == {2: True, 3: True, 4: True}, worlds
 
 
 # ------------------------------------------------------- the protomath step

@@ -190,7 +190,7 @@ def test_grid_refusals(case):
             tscn.run_grid(rows, 2, max_lanes_per_device="auto", **kw)
         elif case == "shard":
             tengine.run_grid([r.protocol() for r in rows], torch.zeros(4), None, steps=2, lr=1.0,
-                             randomness=[torch.Generator()] * 3, device="cpu", shard="shard_map")
+                             randomness=[torch.Generator()] * 3, device="cpu", shard="gspmd")
         elif case == "no-lanes":
             tengine.run_grid([], torch.zeros(4), None, steps=2, lr=1.0, randomness=[], device="cpu")
         elif case == "mode":
@@ -199,7 +199,7 @@ def test_grid_refusals(case):
             tscn.run_grid(rows, 2, dim=8, device="cpu")
         else:
             tscn.run_grid(rows, 2, max_lanes_per_device=0, **kw)
-    want = {"auto": "A.11", "shard": "A.9b", "no-lanes": "at least one",
+    want = {"auto": "A.11", "shard": "unknown shard mode 'gspmd'", "no-lanes": "at least one",
             "mode": "mode", "graph-on-cpu": "CUDA", "zero-per-device": ">= 1"}[case]
     assert want in str(err.value)
 

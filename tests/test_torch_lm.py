@@ -115,12 +115,12 @@ def test_chunked_lm_grid_is_bitwise_unchunked():
 
 @pytest.mark.parametrize("case", ["empty", "sigma_h", "shard", "mode", "graph-on-cpu", "params"])
 def test_lm_validation(case):
-    """The reference's refusals (no rows, rows of several sigma_h), the
-    sharded grid waiting for A.9b, an unknown mode, graph mode off the card,
-    and a parameter tree of the wrong size."""
+    """The reference's refusals (no rows, rows of several sigma_h), an
+    unknown shard mode, an unknown mode, graph mode off the card, and a
+    parameter tree of the wrong size."""
     rows = tscn.lm_sweep(methods=(("lad", 2),), attacks=("sign_flip",), compressors=("none",))
     kw = dict(device="cpu", mode="loop")
-    want = {"empty": "at least one scenario", "sigma_h": "sigma_h", "shard": "A.9b", "mode": "mode",
+    want = {"empty": "at least one scenario", "sigma_h": "sigma_h", "shard": "unknown shard mode", "mode": "mode",
             "graph-on-cpu": "CUDA", "params": "tree of leaves"}[case]
     with pytest.raises(ValueError, match=want):
         if case == "empty":
@@ -128,7 +128,7 @@ def test_lm_validation(case):
         elif case == "sigma_h":
             tscn.run_lm_grid(rows + [dataclasses.replace(rows[0], name="x", sigma_h=0.1)], 2, **kw)
         elif case == "shard":
-            tscn.run_lm_grid(rows, 2, shard="shard_map", **kw)
+            tscn.run_lm_grid(rows, 2, shard="gspmd", **kw)
         elif case == "mode":
             tscn.run_lm_grid(rows, 2, device="cpu", mode="scan")
         elif case == "graph-on-cpu":

@@ -419,8 +419,8 @@ def test_serve_traffic_greedy_is_decode_step_argmax():
 
 
 def test_serve_refuses_what_waits():
-    """Graph mode needs a card; the mesh specs wait for A.9b; a decoder
-    refuses a step past its output's columns."""
+    """Graph mode needs a card; the mesh specs wait for the model axis
+    (A.9c); a decoder refuses a step past its output's columns."""
     _, tarch, _, _, tparams = carried("transformer")
     logits, state = models.prefill(tparams, None, tarch, torch.zeros((1, 4), dtype=torch.int32), capacity=6)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -433,7 +433,7 @@ def test_serve_refuses_what_waits():
         serve.serve_traffic(tarch, tparams, None, torch.zeros((1, 4), dtype=torch.int32), mode="graph",
                             device="cpu")
     for fn, args in ((serve.decode_state_pspecs, (None, None)), (serve.serve_input_specs, (tarch, None, None))):
-        with pytest.raises(ValueError, match="A.9b"):
+        with pytest.raises(ValueError, match="A.9c"):
             fn(*args)
 
 

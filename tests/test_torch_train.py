@@ -183,8 +183,7 @@ def test_adamw_round_and_apply_on_the_reference_state(case):
         jloss, _, jg = ref["round"](params, {k: jnp.asarray(v) for k, v in blocks.items()},
                                    jax.random.fold_in(jax.random.fold_in(base, i), 0))
         tparams = convert.lm_params_from_numpy(params)
-        tloss, _, tg = round_prog(tparams, *(torch.from_numpy(blocks[k]).long() for k in ("tokens", "labels")),
-                                  replay(i, 0))
+        tloss, _, tg = round_prog(tparams, {k: torch.from_numpy(v).long() for k, v in blocks.items()}, replay(i, 0))
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=RTOL)
         np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=RTOL, atol=ATOL, err_msg=f"aggregate {i}")
         jp, js = jax.device_get(ref["apply"](params, state, jg, jnp.asarray(i, jnp.int32)))
@@ -202,6 +201,92 @@ def test_adamw_loss_curve_matches_reference(case):
     _, state, losses = _port_run(case)
     np.testing.assert_allclose(losses, _reference(case)["losses"], rtol=TRAJECTORY_RTOL)
     assert state.mu["embed"]["table"].dtype == getattr(torch, CASES[case]["momentum_dtype"])
+
+
+# ------------------------------------------------- every zoo family (C.10)
+
+
+ZOO_STEPS = 3
+ZOO_KW = dict(optimizer="sgd_momentum", momentum_dtype="float32", lr=1e-2)
+
+
+def _zoo_batches(arch, seed: int = 5) -> list[dict[str, np.ndarray]]:
+    """``ZOO_STEPS`` batches of 1 row a subset, with the frontend
+    embeddings of the vlm and audio families, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(ZOO_STEPS):
+        t = rng.integers(0, arch.vocab, (N, SEQ + 1)).astype(np.int32)
+        b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        if arch.family in ("vlm", "audio"):
+            enc = arch.encoder
+            b["frontend"] = rng.standard_normal((N, enc.n_frontend_tokens, enc.d_frontend)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _zoo_reference(family: str) -> dict:
+    """The reference's engine step on ``zoo_arch(family)``: its initial
+    weights and every step's loss."""
+    cfg = jscn.zoo_arch(family)
+    jt = JTrainConfig(arch=cfg.name, **_kw(**ZOO_KW))
+    params, specs = jmodels.init(jax.random.PRNGKey(0), cfg)
+    step, opt = jtrain.build_train_step(cfg, jt, make_host_mesh(1, 1), specs)
+    state, params0, losses = opt.init(params), jax.device_get(params), []
+    for i, b in enumerate(_zoo_batches(cfg)):
+        params, state, loss, _ = step(params, state, {k: jnp.asarray(v) for k, v in b.items()},
+                                      jnp.asarray(i, jnp.int32))
+        losses.append(float(loss))
+    return {"params0": params0, "losses": np.array(losses), "params": jax.device_get(params)}
+
+
+@pytest.mark.parametrize("family", jscn.ZOO_FAMILIES)
+def test_engine_step_matches_reference_on_every_zoo_family(family):
+    """C.10: every family's engine step, the vlm and audio families'
+    ``frontend`` leaf blocked with the rest of the batch, against the
+    reference's ``build_train_step(protocol_impl="engine")`` from its
+    ``PRNGKey(0)`` weights under its replayed round keys, SGD-momentum, 3
+    steps: every step's loss within relative 2e-6."""
+    ref = _zoo_reference(family)
+    arch = tscn.zoo_arch(family)
+    tcfg = TrainConfig(arch=arch.name, **_kw(**ZOO_KW))
+    params = convert.lm_params_from_numpy(ref["params0"])
+    q = sum(v.numel() for v in pytree.leaves(params))
+    pcfg = train.make_round_config(tcfg, N)
+    base = jax.random.PRNGKey(tcfg.seed)
+    step, opt = train.build_engine_step(arch, tcfg, device="cpu", randomness=lambda i, j: jax_round_randomness(
+        pcfg, jax.random.fold_in(jax.random.fold_in(base, i), j), q))
+    state, losses = opt.init(params), []
+    for i, b in enumerate(_zoo_batches(arch)):
+        params, state, loss, _ = step(params, state, {k: torch.from_numpy(v) for k, v in b.items()}, i)
+        losses.append(float(loss))
+    np.testing.assert_allclose(losses, ref["losses"], rtol=TRAJECTORY_RTOL)
+
+
+@pytest.mark.parametrize("family", ["cross", "audio"])
+def test_trainer_eval_loss_reads_the_frontend(family):
+    """C.10: ``Trainer.eval_loss`` on the vlm and audio families passes the
+    whole batch, ``frontend`` included: at the reference ``Trainer``'s
+    weights (an Auto-axis 1 x 1 mesh, ROADMAP C.4) it equals the
+    reference's ``eval_loss`` (rtol 1e-5, atol 1e-6); the port's engine
+    ``Trainer`` then trains a step on frontend batches."""
+    from jax.sharding import AxisType
+
+    from repro.launch.train import Trainer as JTrainer
+
+    jarch, arch = jscn.zoo_arch(family), tscn.zoo_arch(family)
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    jtr = JTrainer(cfg=jarch, tcfg=JTrainConfig(arch=jarch.name, **_kw(**ZOO_KW)), mesh=mesh)
+    tr = train.Trainer(cfg=arch, tcfg=TrainConfig(arch=arch.name, **_kw(**ZOO_KW)), device="cpu")
+    tr.params = convert.lm_params_from_numpy(jax.device_get(jtr.params))
+    batches = _zoo_batches(arch, seed=9)
+    want = jtr.eval_loss({k: jnp.asarray(v) for k, v in batches[0].items()})
+    got = tr.eval_loss({k: torch.from_numpy(v) for k, v in batches[0].items()})
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    hist = tr.run(({k: torch.from_numpy(v) for k, v in b.items()} for b in batches[1:]), log_every=1)
+    assert tr.step == 2 and all(np.isfinite(l) for _, l in hist)
+    assert tr.eval_loss({k: torch.from_numpy(v) for k, v in batches[0].items()}) != got
 
 
 # ------------------------------------------------------------------ lowering
@@ -298,22 +383,29 @@ def test_equal_configs_share_their_programs(lm_params):
     assert train.engine_program_cache_info()["programs"] == info["programs"] + 1  # a new apply, the same round
 
 
-@pytest.mark.parametrize("case", ["protomath", "shard", "n_subsets", "graph-on-cpu", "rows", "microbatches"])
+@pytest.mark.parametrize("case", ["protomath", "shard", "n_subsets", "unknown-shard", "graph-on-cpu", "rows",
+                                  "frontend-rows", "microbatches"])
 def test_step_refusals(lm_params, case):
-    """The protomath step needs a mesh; the sharded engine step waits for
-    A.9b (as does N from a mesh); graph mode needs the card; a batch must
-    block into N subsets and its rows into the microbatches."""
+    """The protomath step needs a mesh; graph mode of the sharded engine
+    step waits for A.14; N needs ``n_subsets`` or a mesh; an unknown shard
+    mode is refused with the reference's message; graph mode needs the
+    card; every leaf of a batch must block into N subsets and its rows into
+    the microbatches."""
     params, specs = lm_params
     arch = tscn.lm_arch()
-    want = {"protomath": "needs a mesh", "shard": "A.9b", "n_subsets": "A.9b", "graph-on-cpu": "CUDA",
-            "rows": "subsets", "microbatches": "microbatches"}[case]
+    want = {"protomath": "needs a mesh", "shard": "A.14", "n_subsets": "no mesh", "graph-on-cpu": "CUDA",
+            "unknown-shard": "unknown engine shard mode", "rows": "'tokens' of 9 rows does not split into 10 subsets",
+            "frontend-rows": "'frontend' of 19 rows", "microbatches": "microbatches"}[case]
     with pytest.raises(ValueError, match=want):
         if case == "protomath":
             train.build_train_step(arch, TrainConfig(arch=arch.name, **_kw(protocol_impl="protomath")), device="cpu")
         elif case == "shard":
-            train.build_train_step(arch, TrainConfig(arch=arch.name, **_kw(shard="shard_map")), device="cpu")
+            train.build_train_step(arch, TrainConfig(arch=arch.name, **_kw(shard="shard_map")), device="cpu",
+                                   mode="graph")
         elif case == "n_subsets":
             train.build_engine_step(arch, TrainConfig(arch=arch.name, **_kw(n_subsets=None)), device="cpu")
+        elif case == "unknown-shard":
+            train.build_train_step(arch, TrainConfig(arch=arch.name, **_kw(shard="gspmd")), device="cpu")
         elif case == "graph-on-cpu":
             train.build_engine_step(arch, TrainConfig(arch=arch.name, **_kw()), device="cpu", mode="graph")
         else:
@@ -322,6 +414,8 @@ def test_step_refusals(lm_params, case):
             batch = _torch_batches()[0]
             if case == "rows":
                 batch = {k: v[:-1] for k, v in batch.items()}
+            elif case == "frontend-rows":  # the frontend leaf is blocked too, and checked
+                batch = {**batch, "frontend": torch.zeros((19, 8, 16))}
             step(params, opt.init(params), batch, 0)
 
 
