@@ -137,6 +137,22 @@ and prints one JSON line per phase:
                  8 decode steps; one layer's chunked attention likewise),
                  conformance past 4,096 tokens, ``long_500k`` decode, and
                  whisper-small whole through ``serve_traffic``;
+  fleet          real fleets of ``python -m repro_torch.launch.fleet``
+                 processes on the card at the paper's width (N=100, dim=100,
+                 d=20, 10 processes of 10 devices, the server's own block
+                 included; 20 rounds): (a) ``identity`` with the gloo
+                 identity layer, every device reporting, its losses within
+                 2e-6 of the same fleet on the CPU; (b) ``quant:4``, at
+                 least ``fleet_comlad_cases()``'s ratio fewer uplink bytes
+                 a round, measured frame bytes as predicted, within the
+                 erasure-decode envelope of (a); (c) a worker killed at
+                 round 5, its rows erased from then on; (d) the
+                 ``quant4_chaos_byz`` schedule, its faults tallied as
+                 erasures. Per row the final loss, the least report count,
+                 ``dead``, ``rejoins``, wire faults, Com-LAD bytes, the
+                 server's median ms a round and the start-up seconds apart;
+                 ``fleet_launches``: the servers' and the workers' kernel
+                 launches, counted in those fleets' processes alone;
   wide_round     protocol rounds at the gradient width of smollm-360m
                  (Q = 361,821,120; N=8, d=2), each after a warm-up round:
                  CWTM-NNM under ALIE and sign-flip, Com-LAD with quant:4
@@ -166,7 +182,9 @@ and prints one JSON line per phase:
                  must be above 0; ``engine_shard_launches``: those of the
                  ``engine_shard`` phase's sharded steps and first sharded
                  grid call, never the unsharded runs they are held to, where
-                 the encode, attack and CWTM kernels must be above 0), and
+                 the encode, attack and CWTM kernels must be above 0;
+                 ``fleet_launches``: those of the ``fleet`` phase's card
+                 fleets, server and workers summed), and
                  the launches that graph
                  replays ran on the card
                  beside them, which no counter sees (``coded_combine``, which
@@ -188,7 +206,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -2549,6 +2569,142 @@ def serve_wide_phase(models, pytree, archs, base, serve, hbm: float, tensor: flo
 # ---------------------------------------------------------------- wide round
 
 
+# --------------------------------------------------------------------- fleet
+
+FLEET = dict(procs=10, n_devices=100, d=20, dim=100, steps=20)  # Section VII's N and Q; 10 devices a process
+FLEET_KILLED, FLEET_KILL_ROUND = 9, 5  # (c): the last worker dies when it sees round 5
+FLEET_RTOL = 2e-6  # card against CPU, as the trajectory phase
+FLEET_ENVELOPE_RTOL = 1e-3  # benchmarks/fleet_bench.py's erasure-decode envelope
+FLEET_TIMEOUT_S = 90.0  # one fleet, start-up included
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tagged(out: str, tag: str) -> dict:
+    found = [ln for ln in out.splitlines() if ln.startswith(tag + "::")]
+    check(len(found) == 1, f"fleet: no {tag}:: line in {out[-2000:]!r}")
+    return json.loads(found[0][len(tag) + 2:])
+
+
+def run_fleet(fleet_lib, cfg, extra: dict[int, list[str]] | None = None, dies: tuple[int, ...] = ()) -> dict:
+    """One fleet, a fresh interpreter a process (never a fork of this one,
+    which holds the card) with its share of the host's cores, each given
+    ``FLEET_TIMEOUT_S``; the rest are killed
+    when one fails. The server must exit 0, every worker 0 but those in
+    ``dies`` (17, the kill hook). Returns the server's RESULT, the workers'
+    reports, and the start-up seconds (spawn to every worker joined) apart
+    from the rounds."""
+    # the processes share this host's cores: each gets its share of
+    # intra-op threads (with a full pool each, their threads spin against
+    # each other and a round slows many times over on the host)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // cfg.procs))}
+    spawned = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.fleet",
+                               *dataclasses.replace(cfg, proc_id=pid).to_argv(), *(extra or {}).get(pid, [])],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for pid in range(cfg.procs)]
+    try:
+        outs = [p.communicate(timeout=FLEET_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for pid, (p, (_, err)) in enumerate(zip(procs, outs)):
+        want = 17 if pid in dies else 0
+        check(p.returncode == want, f"fleet process {pid} exited {p.returncode}, not {want}: {err[-3000:]}")
+        check("torch.distributed unavailable" not in err, f"fleet process {pid}: {err[-2000:]}")
+    res, times = tagged(outs[0][0], "RESULT"), tagged(outs[0][0], "TIMES")
+    workers = [tagged(out, "RESULT") for pid, (out, _) in enumerate(outs) if pid and pid not in dies]
+    return {"result": res, "workers": workers, "startup_s": times["ready_at"] - spawned,
+            "round_ms_median": statistics.median(times["round_ms"]), "round_ms": times["round_ms"]}
+
+
+def fleet_row(run: dict) -> dict:
+    res = run["result"]
+    return {"final_loss": res["final_loss"], "first_loss": res["losses"][0], "n_report_min": min(res["n_report"]),
+            "dead": res["dead"], "rejoins": res["rejoins"],
+            "faults": {k: v for k, v in res["wire"]["faults"].items() if v}, "comlad": res["comlad"],
+            "server_round_ms_median": run["round_ms_median"], "startup_s": run["startup_s"],
+            "server_launches": {k: v for k, v in res["launches"].items() if v},
+            "worker_launches": {k: sum(w["launches"][k] for w in run["workers"])
+                                for k in res["launches"] if any(w["launches"][k] for w in run["workers"])}}
+
+
+def fleet_phase(fleet_lib, S) -> dict:
+    """The fleet on the card at the paper's width: rows (a) to (d) (see the
+    module docstring), each held to its checks. Counts the kernels the card
+    fleets' processes launched (their own counters, reset after each
+    process's warm-up), never the CPU fleet's."""
+    lr = S.PAPER_FIG6["Com-LAD-CWTM"].lr  # the paper's Com-LAD rate: quant:4's noise stays inside the envelope
+    base = fleet_lib.FleetConfig(**FLEET, lr=lr, distributed=False, device="cuda")
+    out = {"phase": "fleet", **FLEET, "lr": lr, "rows": {}}
+    runs = {}
+
+    def card(name: str, cfg, **kw) -> dict:
+        runs[name] = run_fleet(fleet_lib, dataclasses.replace(cfg, port=free_port()), **kw)
+        out["rows"][name] = fleet_row(runs[name])
+        return runs[name]["result"]
+
+    ident_cfg = dataclasses.replace(base, distributed=True)
+    a = card("identity", dataclasses.replace(ident_cfg, coordinator=f"127.0.0.1:{free_port()}"))
+    cpu = run_fleet(fleet_lib, dataclasses.replace(ident_cfg, device="cpu", port=free_port(),
+                                                   coordinator=f"127.0.0.1:{free_port()}"))["result"]
+    check(a["losses"][-1] < a["losses"][0], "fleet (a): the loss did not fall")
+    check(a["n_report"] == [FLEET["n_devices"]] * FLEET["steps"] and a["dead"] == [], "fleet (a): a device missed")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(a["losses"], cpu["losses"]))
+    check(rel <= FLEET_RTOL, f"fleet (a): card against CPU {rel:.3g} > {FLEET_RTOL}")
+    check(a["launches"]["masked_combine"] >= FLEET["steps"], "fleet (a): the decode did not launch every round")
+    out["rows"]["identity"]["card_vs_cpu_rel"] = rel
+
+    case = {c["name"]: c for c in S.fleet_comlad_cases(FLEET["procs"], FLEET["steps"])}
+    b = card("quant4", dataclasses.replace(base, compress=case["quant4"]["compress"]))
+    ratio = a["comlad"]["uplink_bytes_per_round"] / b["comlad"]["uplink_bytes_per_round"]
+    check(ratio >= case["quant4"]["min_ratio"], f"fleet (b): uplink only {ratio:.3g}x fewer bytes")
+    check(b["comlad"]["frame_bytes_measured"] == b["comlad"]["frame_bytes_predicted"],
+          f"fleet (b): frame bytes {b['comlad']}")
+    dev_b = abs(b["final_loss"] - a["final_loss"]) / abs(a["final_loss"])
+    check(dev_b <= FLEET_ENVELOPE_RTOL, f"fleet (b): {dev_b:.3g} outside the envelope")
+    for w in runs["quant4"]["workers"]:
+        check(w["rounds"] == FLEET["steps"] and w["launches"]["quantize"] == FLEET["steps"],
+              f"fleet (b): worker {w['proc']} rounds {w['rounds']}, quantize launches {w['launches']['quantize']}")
+    out["rows"]["quant4"].update(uplink_ratio=ratio, rel_dev=dev_b)
+
+    c = card("kill", base, extra={FLEET_KILLED: ["--die-after-round", str(FLEET_KILL_ROUND)]}, dies=(FLEET_KILLED,))
+    block = FLEET["n_devices"] // FLEET["procs"]
+    lo = FLEET_KILLED * block
+    check(c["dead"] == [FLEET_KILLED], f"fleet (c): dead {c['dead']}")
+    for t, mask in enumerate(c["mask_hist"]):
+        want = 0 if t >= FLEET_KILL_ROUND else 1
+        check(mask[lo:lo + block] == [want] * block and sum(mask) == FLEET["n_devices"] - (1 - want) * block,
+              f"fleet (c): round {t} mask {mask}")
+    dev_c = abs(c["final_loss"] - a["final_loss"]) / abs(a["final_loss"])
+    check(dev_c <= FLEET_ENVELOPE_RTOL, f"fleet (c): {dev_c:.3g} outside the envelope")
+    out["rows"]["kill"]["rel_dev"] = dev_c
+
+    byz = case["quant4_chaos_byz"]
+    chaos = json.dumps(byz["chaos"], sort_keys=True)
+    d = card("quant4_chaos_byz", dataclasses.replace(base, compress=byz["compress"]),
+             extra={pid: ["--chaos", chaos] for pid in range(1, FLEET["procs"])})
+    faults = d["wire"]["faults"]
+    injected = sum(len(f["rounds"]) for f in byz["chaos"]["faults"])
+    check(sum(faults.values()) >= injected and faults["wrong_shape"] + faults["bad_payload"] >= 1,
+          f"fleet (d): faults {faults}")
+    check(min(d["n_report"]) < FLEET["n_devices"], "fleet (d): no round erased")
+
+    out["fleet_launches"] = {
+        "server": {k: sum(r["result"]["launches"][k] for r in runs.values()) for k in a["launches"]},
+        "workers": {k: sum(w["launches"][k] for r in runs.values() for w in r["workers"]) for k in a["launches"]}}
+    check(out["fleet_launches"]["server"]["masked_combine"] > 0 and out["fleet_launches"]["workers"]["quantize"] > 0,
+          f"fleet: kernels not launched: {out['fleet_launches']}")
+    return out
+
+
 def _marked_round(byz, cfg, grads, rand, *, server=None, participation_mask=None):
     """A warm-up round with the default server (so no stage pays for
     cudaMalloc), then the timed round with CUDA events after each stage
@@ -2738,6 +2894,7 @@ def main() -> int:
     from repro_torch.configs import base
     from repro_torch.core import protomath
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import fleet as fleet_lib
     from repro_torch.launch import serve, train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2838,7 +2995,12 @@ def main() -> int:
     for name in LM_KERNELS:
         check(lm[name] > 0, f"kernel {name} was not launched on the LM path")
 
-    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] + es[name] for name in ops.KERNELS}
+    # the fleet: processes of their own, each counting its own launches
+    run_phases([("fleet", lambda: fleet_phase(fleet_lib, scenarios))])
+    fl = {name: sum(lines["fleet"]["fleet_launches"][side][name] for side in ("server", "workers"))
+          for name in ops.KERNELS}
+
+    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] + es[name] + fl[name] for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
@@ -2850,6 +3012,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
          "lm_launches": lm[name], "protomath_launches": pm[name], "engine_shard_launches": es[name],
+         "fleet_launches": fl[name],
          "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
         for name in TPU_KERNELS

@@ -11,7 +11,10 @@
     device) drawn outside the round;
   * ``top_k``: the biased top-k sparsification of the ablations, no draws.
 
-The fleet's payload codec (bit-packed frames) comes with the fleet.
+The fleet's payload codec (``pack_payload`` / ``unpack_payload``, numpy
+only) ships a block of compressed rows in its physically small form:
+bit-packed QSGD levels with per-chunk scales, or index and value records for
+the sparse compressors, byte for byte the reference's.
 
 ``CompressionSpec`` keeps the reference's one spelling of a condition:
 ``"identity" | "randk:8" | "randk:0.3" | "randk_shared:8" | "quant:4" |
@@ -21,7 +24,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import struct
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
@@ -39,6 +44,11 @@ __all__ = [
     "delta_of",
     "wire_bits",
     "SPARSE",
+    "PayloadError",
+    "quant_level_bits",
+    "packed_nbytes",
+    "pack_payload",
+    "unpack_payload",
 ]
 
 SPARSE = ("rand_sparse", "rand_sparse_shared")
@@ -251,4 +261,168 @@ def wire_bits(spec: CompressionSpec, q: int, value_bits: int = 32) -> float:
     if spec.name == "quant":
         bits = math.ceil(math.log2(2 * spec.levels + 1))
         return float(q * bits + -(-q // spec.chunk) * 32)
+    raise KeyError(spec.name)
+
+
+# ---------------------------------------------------------------------------
+# The payload codec (numpy only: it runs on the fleet's socket path). A
+# packed payload describes itself:
+#
+#     _CHDR(rows, q)  +  codec body
+#
+# quant body, per row: n_chunks x f32 chunk scales, then q coordinates
+#     bit-packed at quant_level_bits(levels) bits each (little bit order),
+#     each stored as the unsigned level u = yq + levels in [0, 2*levels].
+# sparse body (randk / randk_shared / topk), per row: u16 nonzero count,
+#     count x u32 strictly increasing indices, count x f32 values.
+# identity body: raw row-major f32 (the fleet ships identity rows as plain
+#     ROWS frames; the codec stays total for the tests).
+#
+# Lossless: the packed form is derived from the dense compressed rows (the
+# dequantized output), and unpacking repeats the dequantization's float32
+# op order, so unpack(pack(rows)) == rows bit for bit (up to +0.0 against
+# -0.0 at dropped sparse coordinates).
+# ---------------------------------------------------------------------------
+
+_CHDR = struct.Struct("!HI")  # (rows, q)
+_CNT = struct.Struct("!H")  # sparse per-row nonzero count
+
+
+class PayloadError(ValueError):
+    """A structurally invalid compressed payload. ``reason`` is one of the
+    fleet's wire-fault buckets: ``"wrong_shape"`` for a header that
+    disagrees with the agreed geometry, ``"bad_payload"`` for everything
+    else (truncation, out-of-range levels, unsorted or out-of-bounds sparse
+    indices)."""
+
+    def __init__(self, reason: str, detail: str = ""):
+        super().__init__(f"{reason}: {detail}" if detail else reason)
+        self.reason = reason
+
+
+def quant_level_bits(levels: int) -> int:
+    """Bits a coordinate for the unsigned level u in [0, 2*levels]."""
+    return max(1, math.ceil(math.log2(2 * levels + 1)))
+
+
+def _quant_geometry(spec: CompressionSpec, q: int) -> tuple[int, int, int]:
+    """(n_chunks, bits a coordinate, packed bytes a row) of the quant codec."""
+    n_chunks = -(-q // spec.chunk)
+    b = quant_level_bits(spec.levels)
+    return n_chunks, b, n_chunks * 4 + -(-(q * b) // 8)
+
+
+def packed_nbytes(spec: CompressionSpec, shape: tuple[int, int]) -> int:
+    """Payload bytes of an ``(R, Q)`` block: exact for identity and quant,
+    the most for the sparse compressors (every kept coordinate nonzero)."""
+    rows, q = shape
+    if spec.name in ("none", "identity"):
+        return _CHDR.size + rows * q * 4
+    if spec.name == "quant":
+        return _CHDR.size + rows * _quant_geometry(spec, q)[2]
+    if spec.name in ("rand_sparse", "rand_sparse_shared", "top_k"):
+        return _CHDR.size + rows * (_CNT.size + spec.kept(q) * 8)
+    raise KeyError(spec.name)
+
+
+def _pack_quant_row(spec: CompressionSpec, row: np.ndarray) -> bytes:
+    q = row.shape[0]
+    gc = np.pad(row, (0, (-q) % spec.chunk)).reshape(-1, spec.chunk)
+    # the argmax coordinate dequantizes to +/-scale exactly, so the chunk
+    # scale is read back from the dense output without a side channel
+    scale = np.max(np.abs(gc), axis=1, keepdims=True).astype(np.float32)
+    safe = np.where(scale > 0, scale, np.float32(1.0))
+    yq = np.rint(gc / safe * np.float32(spec.levels))  # integer recovery, error << 0.5
+    u = (yq.reshape(-1)[:q] + spec.levels).astype(np.uint32)
+    b = quant_level_bits(spec.levels)
+    bits = ((u[:, None] >> np.arange(b, dtype=np.uint32)) & 1).astype(np.uint8)
+    return scale.astype("<f4").tobytes() + np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+
+
+def _unpack_quant_row(spec: CompressionSpec, buf: memoryview, q: int) -> np.ndarray:
+    n_chunks, b, _ = _quant_geometry(spec, q)
+    scale = np.frombuffer(buf[: n_chunks * 4], dtype="<f4").reshape(-1, 1)
+    if not np.all(np.isfinite(scale)) or np.any(scale < 0):
+        raise PayloadError("bad_payload", "non-finite or negative chunk scale")
+    raw = np.unpackbits(np.frombuffer(buf[n_chunks * 4:], dtype=np.uint8), count=q * b, bitorder="little")
+    u = (raw.reshape(q, b).astype(np.uint32) << np.arange(b, dtype=np.uint32)).sum(axis=1)
+    if np.any(u > 2 * spec.levels):
+        raise PayloadError("bad_payload", "quant level out of range")
+    # the dequantization's float32 op order: yq / levels * safe, 0 where scale == 0
+    yq = np.pad(u.astype(np.float32) - np.float32(spec.levels), (0, (-q) % spec.chunk)).reshape(-1, spec.chunk)
+    safe = np.where(scale > 0, scale, np.float32(1.0))
+    out = np.where(scale > 0, yq / np.float32(spec.levels) * safe, np.float32(0.0))
+    return out.reshape(-1)[:q].astype(np.float32)
+
+
+def pack_payload(spec: CompressionSpec, rows: np.ndarray) -> bytes:
+    """The wire form of a dense ``(R, Q)`` float32 block of compressed rows
+    (layout above)."""
+    rows = np.asarray(rows, dtype=np.float32)
+    if rows.ndim != 2:
+        raise ValueError(f"expected a (rows, q) block, got shape {rows.shape}")
+    r, q = rows.shape
+    if r > 0xFFFF:
+        raise ValueError(f"too many rows to pack: {r}")
+    head = _CHDR.pack(r, q)
+    if spec.name in ("none", "identity"):
+        return head + rows.astype("<f4").tobytes()
+    if spec.name == "quant":
+        return head + b"".join(_pack_quant_row(spec, rows[i]) for i in range(r))
+    if spec.name in ("rand_sparse", "rand_sparse_shared", "top_k"):
+        parts = [head]
+        for i in range(r):
+            idx = np.flatnonzero(rows[i]).astype(np.uint32)
+            if idx.size > 0xFFFF:
+                raise ValueError(f"sparse row too dense to pack: {idx.size} nonzeros")
+            parts += [_CNT.pack(idx.size), idx.astype(">u4").tobytes(), rows[i, idx].astype(">f4").tobytes()]
+        return b"".join(parts)
+    raise KeyError(spec.name)
+
+
+def unpack_payload(spec: CompressionSpec, buf: bytes, expect_shape: tuple[int, int]) -> np.ndarray:
+    """``pack_payload``'s output back to the dense ``(R, Q)`` float32 block.
+    Raises :class:`PayloadError` on any structural fault, so the fleet tallies
+    a malformed payload as an erasure."""
+    mv = memoryview(buf)
+    if len(mv) < _CHDR.size:
+        raise PayloadError("bad_payload", "truncated header")
+    r, q = _CHDR.unpack_from(mv, 0)
+    if (r, q) != tuple(expect_shape):
+        raise PayloadError("wrong_shape", f"declared {(r, q)} != agreed {tuple(expect_shape)}")
+    body = mv[_CHDR.size:]
+    if spec.name in ("none", "identity"):
+        if len(body) != r * q * 4:
+            raise PayloadError("bad_payload", "identity body size mismatch")
+        return np.frombuffer(body, dtype="<f4").reshape(r, q).astype(np.float32)
+    if spec.name == "quant":
+        per_row = _quant_geometry(spec, q)[2]
+        if len(body) != r * per_row:
+            raise PayloadError("bad_payload", "quant body size mismatch")
+        out = np.empty((r, q), dtype=np.float32)
+        for i in range(r):
+            out[i] = _unpack_quant_row(spec, body[i * per_row:(i + 1) * per_row], q)
+        return out
+    if spec.name in ("rand_sparse", "rand_sparse_shared", "top_k"):
+        k_max = spec.kept(q)
+        out = np.zeros((r, q), dtype=np.float32)
+        off = 0
+        for i in range(r):
+            if len(body) - off < _CNT.size:
+                raise PayloadError("bad_payload", "truncated sparse row header")
+            (count,) = _CNT.unpack_from(body, off)
+            off += _CNT.size
+            if count > k_max:
+                raise PayloadError("bad_payload", f"sparse count {count} exceeds budget {k_max}")
+            if len(body) - off < count * 8:
+                raise PayloadError("bad_payload", "truncated sparse row body")
+            idx = np.frombuffer(body[off:off + count * 4], dtype=">u4")
+            vals = np.frombuffer(body[off + count * 4:off + count * 8], dtype=">f4").astype(np.float32)
+            off += count * 8
+            if count and (idx[-1] >= q or np.any(np.diff(idx.astype(np.int64)) <= 0)):
+                raise PayloadError("bad_payload", "sparse indices unsorted or out of range")
+            out[i, idx.astype(np.int64)] = vals
+        if off != len(body):
+            raise PayloadError("bad_payload", "trailing bytes after sparse rows")
+        return out
     raise KeyError(spec.name)

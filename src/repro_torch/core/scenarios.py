@@ -18,6 +18,9 @@
     at LM scale: the iterate is a transformer's flattened fp32 parameter
     vector (``lm_arch`` by default), each subset's gradient its full-model
     gradient on the subset's tokens.
+  * ``fleet_chaos_cases`` / ``fleet_comlad_cases`` — the fleet's fault
+    schedules and uplink compressors, as plain-data rows
+    (``launch/fleet.py``).
   * ``ZOO_FAMILIES`` / ``zoo_arch`` / ``zoo_sweep`` / ``run_zoo_sweep`` —
     the LM matrix over the model zoo: dense, Jamba's Mamba-MoE hybrid,
     RWKV-6, MoE, sliding-window, cross-attention and the whisper
@@ -50,7 +53,7 @@ from repro_torch.device import resolve_device
 __all__ = ["Scenario", "scenario_name", "section7_grid", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
            "participation_sweep", "synthetic_sweep", "run_scenario", "least_squares", "run_grid", "grid_finals",
            "lm_arch", "lm_sweep", "run_lm_scenario", "run_lm_grid", "ZOO_FAMILIES", "zoo_arch", "zoo_sweep",
-           "run_zoo_sweep"]
+           "run_zoo_sweep", "fleet_chaos_cases", "fleet_comlad_cases"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -513,6 +516,91 @@ def grid_finals(results: dict[str, TrajectoryResult]) -> dict[str, dict[str, flo
                "final_agg_dist": float(res.metrics["agg_dist"][-1])}
         for name, res in results.items()
     }
+
+
+def fleet_chaos_cases(procs: int = 3, steps: int = 8) -> list[dict]:
+    """The fleet's chaos-conformance row-family: one seeded fault schedule
+    per failure mode of the self-healing transport (``launch/chaos.py``).
+
+    Declarative plain-data rows (no launch import: the registry stays
+    engine-side): each case is ``{"name", "chaos", "within_margin"}`` where
+    ``chaos`` is a ``launch.chaos.parse_chaos`` schedule dict.  Every
+    default case keeps per-round erasures within ``erasure_margin(d)`` for
+    the bench's N=6 / d=3 / 2-rows-per-block geometry — one faulted worker
+    block is exactly the margin — so the K-of-N decode keeps recovering the
+    full gradient and the final loss must sit inside the erasure-decode
+    envelope (``benchmarks/fleet_bench.py`` asserts it).
+
+    ``partition_rejoin`` pads every round with a small honest ``delay`` on
+    worker 1 so the round cadence is slow enough for worker ``procs-1``'s
+    0.5 s partition to heal while training is still running — the rejoin
+    path is the subject under test, not a race.
+    """
+    if procs < 3:
+        raise ValueError(f"chaos cases need >= 2 workers (procs >= 3), got {procs}")
+    w1, w2 = 1, procs - 1
+    return [
+        {"name": "healthy", "within_margin": True,
+         "chaos": {"seed": 0, "faults": []}},
+        {"name": "dup", "within_margin": True,
+         "chaos": {"seed": 1, "faults": [
+             {"op": "dup", "proc": w1, "rounds": [1, 2, 3]}]}},
+        {"name": "corrupt", "within_margin": True,
+         "chaos": {"seed": 2, "faults": [
+             {"op": "corrupt", "proc": w2, "rounds": [2, 3]}]}},
+        {"name": "drop", "within_margin": True,
+         "chaos": {"seed": 3, "faults": [
+             {"op": "drop", "proc": w2, "rounds": [2]}]}},
+        {"name": "delay", "within_margin": True,
+         "chaos": {"seed": 4, "faults": [
+             {"op": "delay", "proc": w1, "rounds": [1, 2], "arg": 0.2}]}},
+        {"name": "partition_rejoin", "within_margin": True,
+         "chaos": {"seed": 5, "faults": [
+             {"op": "delay", "proc": w1, "rounds": list(range(steps)), "arg": 0.25},
+             {"op": "partition", "proc": w2, "rounds": [2], "arg": 0.5}]}},
+    ]
+
+
+def fleet_comlad_cases(procs: int = 3, steps: int = 8) -> list[dict]:
+    """The fleet's Com-LAD-over-the-wire row family: one case per uplink
+    compression spec, measured on the real TCP data plane.
+
+    Declarative plain-data rows (no launch import): each case is
+    ``{"name", "compress", "min_ratio", "within_envelope"}``.  ``compress``
+    is the registry spelling (``CompressionSpec.parse``); ``min_ratio`` is
+    the minimum measured uplink bytes/round reduction vs the identity case
+    that ``benchmarks/fleet_bench.py`` enforces; ``within_envelope`` asserts
+    the final loss lands within the erasure-decode envelope of the identity
+    fleet — claimed only for identity and quant (the sparse family at 25%
+    keep has 4x-scaled unbiased variance, and top_k is biased, so their
+    trajectories legitimately drift beyond float noise).  The headline
+    row is ``quant4`` — the paper's 4-level QSGD at >= 4x fewer uplink
+    bytes/round.  ``quant4_chaos_byz`` additionally runs the compressed
+    uplink under ``byz_payload`` + ``corrupt`` chaos faults: both must land
+    as tallied per-round erasures of the compressed frames, never a crash.
+    """
+    if procs < 3:
+        raise ValueError(f"comlad cases need >= 2 workers (procs >= 3), got {procs}")
+    w1, w2 = 1, procs - 1
+    return [
+        {"name": "identity", "compress": "identity",
+         "min_ratio": 1.0, "within_envelope": True, "chaos": None},
+        {"name": "quant4", "compress": "quant:4",
+         "min_ratio": 4.0, "within_envelope": True, "chaos": None},
+        {"name": "quant8", "compress": "quant:8",
+         "min_ratio": 3.0, "within_envelope": True, "chaos": None},
+        {"name": "randk16", "compress": "randk:16",
+         "min_ratio": 1.5, "within_envelope": False, "chaos": None},
+        {"name": "randk_shared16", "compress": "randk_shared:16",
+         "min_ratio": 1.5, "within_envelope": False, "chaos": None},
+        {"name": "topk16", "compress": "topk:16",
+         "min_ratio": 1.5, "within_envelope": False, "chaos": None},
+        {"name": "quant4_chaos_byz", "compress": "quant:4",
+         "min_ratio": 0.0, "within_envelope": False,
+         "chaos": {"seed": 6, "faults": [
+             {"op": "byz_payload", "proc": w1, "rounds": [2, 3]},
+             {"op": "corrupt", "proc": w2, "rounds": [3]}]}},
+    ]
 
 
 # --------------------------------------------------------------------------

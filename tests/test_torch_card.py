@@ -27,11 +27,17 @@ protomath exchange through the kernels agrees with the plain versions
 losses on the card with the CPU's within relative 2e-6. The engine step
 and the grid sharded over a 1-rank NCCL group equal their unsharded runs
 bit for bit, and at ``zoo_arch`` widths so does the round as 2, 3 and 4
-ranks compute it, each rank's share run in turn on the card.
+ranks compute it, each rank's share run in turn on the card. A ``quant:4``
+fleet (server and workers in threads of one process) gives the CPU's losses
+within relative 2e-6, its server's decode launching ``masked_combine`` once
+a round and every block's compression ``quantize`` once a round.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
+import socket
+import threading
 from pathlib import Path
 
 import pytest
@@ -40,6 +46,7 @@ import torch
 from repro_torch.core import scenarios as tscn
 from repro_torch.core.aggregators import coordinate_median, nnm_neighbours
 from repro_torch.core.coding import draco_decode
+from repro_torch.launch import fleet as tfleet
 from repro_torch.kernels import cwtm as tcwtm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tquant
@@ -738,3 +745,33 @@ def test_serve_traffic_graph_equals_loop(card, family):
                                    None)
     plain = tattn._plain_attention(q, k, v, pos, pos, True, None)
     torch.testing.assert_close(flash[:, :2100], plain, rtol=RTOL, atol=ATOL)
+
+
+def _fleet_in_threads(cfg) -> dict:
+    """A fleet with its workers in threads of this process; the server's
+    RESULT."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        cfg = dataclasses.replace(cfg, port=sock.getsockname()[1])
+    threads = [threading.Thread(target=tfleet.run_worker, args=(dataclasses.replace(cfg, proc_id=pid),), daemon=True)
+               for pid in range(1, cfg.procs)]
+    for th in threads:
+        th.start()
+    res = tfleet.run_server(cfg)
+    for th in threads:
+        th.join(60)
+        assert not th.is_alive()
+    return res
+
+
+@pytest.mark.cuda
+def test_fleet_quant4_card_against_cpu(card):
+    cfg = tfleet.FleetConfig(procs=3, n_devices=6, d=3, dim=64, steps=8, lr=1e-6, compress="quant:4",
+                             distributed=False, round_timeout=15.0)
+    got = _fleet_in_threads(cfg)
+    launches = tops.launch_counts()  # every block's process is a thread here: one set of counters
+    want = _fleet_in_threads(dataclasses.replace(cfg, device="cpu"))
+    assert got["n_report"] == want["n_report"] == [6] * 8 and got["wire"] == want["wire"]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"]))
+    assert rel <= 2e-6, rel
+    assert launches["masked_combine"] == cfg.steps and launches["quantize"] == cfg.procs * cfg.steps

@@ -47,7 +47,8 @@ def test_port_imports_with_jax_blocked():
         "repro_torch.models, repro_torch.configs.archs, repro_torch.core.theory, repro_torch.pytree, "
         "repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.launch.train, "
         "repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.rwkv, repro_torch.models.precision, "
-        "repro_torch.core.protomath, repro_torch.core.distributed, repro_torch.launch.mesh\n"
+        "repro_torch.core.protomath, repro_torch.core.distributed, repro_torch.launch.mesh, "
+        "repro_torch.launch.fleet, repro_torch.launch.chaos, repro_torch.timing\n"
         "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
@@ -79,7 +80,8 @@ def test_import_builds_nothing_and_needs_no_nvcc(tmp_path):
     build_dir = REPO / "build" / "repro_torch"
     before = sorted(build_dir.iterdir()) if build_dir.exists() else None
     code = (
-        "import repro_torch, repro_torch.kernels.ops, repro_torch.core.scenarios, repro_torch.core.coding\n"
+        "import repro_torch, repro_torch.kernels.ops, repro_torch.core.scenarios, repro_torch.core.coding, "
+        "repro_torch.launch.fleet\n"
         "from repro_torch.kernels import _build\n"
         "assert _build._entries == {}\n"
         "print(_build.BUILD_DIR)\n"
