@@ -39,6 +39,19 @@ and prints one JSON line per phase:
                  bucket its lanes, draw groups, captured launches and
                  replay ms a round, per call its ms, peak memory and, for
                  the sweeps, lanes x rounds a second;
+  tuner          ``max_lanes_per_device="auto"`` (``launch.tuner``, its
+                 store a fresh file under ``build/chip_smoke``): (a)
+                 ``synthetic_sweep(1000)`` at N=100, dim=100, 200 rounds in
+                 graph mode, bit for bit the unchunked sweep, and a warm
+                 call that probes nothing; (b) ``run_lm_grid`` on
+                 smollm-360m at full width (3 lanes of LAD d=2 CWTM under
+                 the three attacks, N=8, 2 rounds, graph mode), bit for bit
+                 ``max_lanes_per_device=1``, a warm call that probes
+                 nothing, its peak memory, and the allocated memory after
+                 the phase back at its level before; every probe's capacity
+                 and seconds a lane (``null``: out of memory), the phase's
+                 launches and the roofline of one captured round of (a)
+                 (``grid_launch_list``, ``roofline.analyze_launches``);
   participation  the K-of-N erasure sweep (N=16, d=4, dim=32, 400 rounds):
                  the erasure decode against the mean at e = 0..3 erased rows;
                  asserts N - e reports every round and that the decode's
@@ -204,6 +217,7 @@ repository's ``src/repro_torch`` beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -229,12 +243,6 @@ RTOL, ATOL = 1e-5, 1e-6  # kernel against plain, as tests/test_torch_kernels.py
 TRAJECTORY_RTOL = 2e-6  # card against CPU over 200 rounds, as tests/test_torch_engine.py
 STEPS = 200
 
-# Published peaks by card name (NVIDIA data sheet, SXM part at 700 W): HBM
-# bytes/s and fp32 FLOP/s outside the tensor cores. Only the card this
-# script has run on is listed; another card needs its own entry.
-_PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
-_TENSOR_PEAKS = {"NVIDIA H100 80GB HBM3": 989e12}  # dense bf16 FLOP/s on the tensor cores, the same sheet
-
 TPU_KERNELS = {
     "gather_combine": ("src/repro_torch/csrc/gather_combine.cu", "src/repro/kernels/coded_combine.py:70"),
     "attack": ("src/repro_torch/csrc/attack.cu", "src/repro/kernels/attacks.py:97"),
@@ -251,18 +259,6 @@ QUANT_LEVELS, QUANT_CHUNK = 4, 1024
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def peaks(name: str) -> tuple[float, float]:
-    if name not in _PEAKS:
-        raise RuntimeError(f"no published peak rates for {name!r} in _PEAKS: add the card's own")
-    return _PEAKS[name]
-
-
-def tensor_peak(name: str) -> float:
-    if name not in _TENSOR_PEAKS:
-        raise RuntimeError(f"no published bf16 tensor-core peak for {name!r} in _TENSOR_PEAKS: add the card's own")
-    return _TENSOR_PEAKS[name]
 
 
 def nvidia_smi() -> str:
@@ -381,7 +377,8 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     Gram is held against the plain version summed over blocks of PLAIN_Q
     columns, and QSGD on a window that starts on a block boundary and ends
     in the rows' ragged last block. Raises past the tolerance of
-    ``kernel_errors``."""
+    ``kernel_errors``. The bound is the bytes and operations of
+    ``ops.launch_work`` at the wide shape."""
     n, q = WIDE_N, WIDE_Q
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((n, q), generator=gen, device="cuda")
@@ -395,10 +392,10 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     tail = x[:, q - PLAIN_Q:].contiguous()
     mix = torch.zeros((n, n), device="cuda")
     mix.index_put_((rows[:, None].expand(n, 2), subsets), w.expand(n, 2), accumulate=True)
-    f32 = 4
     out = {}
 
-    def entry(name, kernel_ms, kernel_plain_q_ms, plain_ms, library_ms, nbytes, nops):
+    def entry(name, kernel_ms, kernel_plain_q_ms, plain_ms, library_ms, work):
+        nbytes, nops = work
         bound_bytes, bound_ops = nbytes / hbm * 1e3, nops / fp32 * 1e3
         out[name] = {
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -423,7 +420,7 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
           time_ms(lambda: ops.gather_combine(xp, subsets, w)),
           time_ms(lambda: ref.gather_combine_ref(xp, subsets, w)),
           time_ms(lambda: torch.mm(mix, x)),
-          f32 * 2 * n * q, 2 * 2 * n * q)
+          ops.launch_work("gather_combine", 1, n, q, d=2))
     hold("gather_combine", ops.gather_combine(x, subsets, w)[:, q - PLAIN_Q:],
          ref.gather_combine_ref(tail, subsets, w))
 
@@ -432,7 +429,7 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     entry("attack", by_mode["alie"],
           time_ms(lambda: ops.attack(xp, mask, "alie", 1.5)),
           time_ms(lambda: ref.attack_ref(xp, mask, "alie", 1.5)),
-          None, f32 * 2 * n * q, 8 * n * q)
+          None, ops.launch_work("attack", 1, n, q))
     out["attack"]["ms_by_mode"] = by_mode
     for name, param in modes:
         hold("attack", ops.attack(x, mask, name, param)[:, q - PLAIN_Q:],
@@ -442,12 +439,11 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     trim = 2
     table = agg.nnm_neighbours(ops.pairwise_sqdist(x), 2)
     k = table.shape[-1]
-    # mix (k adds and a product per value), sort, kept-row tree and product per coordinate
     entry("cwtm",
           time_ms(lambda: ops.cwtm(x, trim, table)),
           time_ms(lambda: ops.cwtm(xp, trim, table)),
           time_ms(lambda: ref.cwtm_ref(ref.nnm_mix_ref(xp, table), trim)),
-          None, f32 * (n * q + q), (n * (k + 1) + n * (n // 2) * 2 + (n - 2 * trim) + 1) * q)
+          None, ops.launch_work("cwtm", 1, n, q, trim=trim, k=k))
     # the old route: NNM's (N, N) mixing matrix through cuBLAS in fp32, then the CWTM kernel
     old_mix = torch.zeros((n, n), device="cuda").scatter_(1, table.long(), 1.0 / k)
     out["cwtm"].update({
@@ -465,7 +461,7 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
           time_ms(lambda: ops.gram(xp)),
           time_ms(lambda: ref.gram_ref(xp)),
           time_ms(lambda: torch.mm(x, x.T)),
-          f32 * (n * q + n * n + n), 2 * (n * n + n) * q)
+          ops.launch_work("gram", 1, n, q))
     gram, sq = ops.gram(x)
     want_gram, want_sq = torch.zeros_like(gram), torch.zeros_like(sq)
     for start in range(0, q, PLAIN_Q):
@@ -481,12 +477,11 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     u = torch.rand((n, q), generator=gen, device="cuda")
     up = u[:, :PLAIN_Q].contiguous()
     lv, ch = QUANT_LEVELS, QUANT_CHUNK
-    # abs, max, two divisions, two products, floor, subtract, compare, add per coordinate
     entry("quantize",
           time_ms(lambda: ops.stochastic_quantize(x, u, lv, ch)),
           time_ms(lambda: ops.stochastic_quantize(xp, up, lv, ch)),
           time_ms(lambda: quantize.plain(xp, up, lv, ch)),
-          None, f32 * 3 * n * q, 10 * n * q)
+          None, ops.launch_work("quantize", n, 1, q))
     # a window from a block boundary to the end: it ends in the ragged last block
     start = ((q - PLAIN_Q) // ch) * ch
     hold("quantize", ops.stochastic_quantize(x, u, lv, ch)[:, start:],
@@ -499,7 +494,7 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
           time_ms(lambda: ops.masked_combine(xp, rw)),
           time_ms(lambda: ref.masked_combine_ref(xp, rw)),
           time_ms(lambda: torch.matmul(rw, x)),
-          f32 * (n * q + q), 2 * n * q)
+          ops.launch_work("masked_combine", 1, n, q))
     hold("masked_combine", ops.masked_combine(x, rw)[q - PLAIN_Q:],
          ref.masked_combine_ref(x[:, q - PLAIN_Q:].contiguous(), rw))
 
@@ -513,7 +508,7 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
           time_ms(lambda: ops.coded_combine(sp, cw)),
           time_ms(lambda: ref.coded_combine_ref(sp, cw)),
           time_ms(lambda: torch.matmul(cw[:, None, :], stack)),
-          f32 * (2 * n * q + n * q), 2 * 2 * n * q)
+          ops.launch_work("coded_combine", n, 2, q))
     out["coded_combine"]["shape"] = [n, 2, q]
     hold("coded_combine", ops.coded_combine(stack, cw)[:, q - PLAIN_Q:],
          ref.coded_combine_ref(stack[:, :, q - PLAIN_Q:].contiguous(), cw))
@@ -798,6 +793,162 @@ def grid_phase(S, trajectory: dict, section7: dict, replayed: dict[str, int]) ->
     rows = S.synthetic_sweep(1000, n_devices=100, n_byz=20)
     sweep("sweep1000_n100", rows, 100, {0, len(rows) // 2, len(rows) - 1})
     out["bitwise"] = True
+    return out
+
+
+# --------------------------------------------------------------------- tuner
+
+TUNER_WIDE_ROUNDS = 2
+TUNER_MEM_SLACK = 1 << 30  # bytes: what the cuBLAS workspaces of the streams may keep where they cannot be dropped
+
+
+def settled_allocation() -> int:
+    """Bytes allocated once cyclic garbage is collected, cuBLAS's per-stream
+    workspaces are dropped (where the build can) and the cache emptied."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def tuner_phase(S, engine, tuner, roofline, archs, ops, tmp: Path, replayed: dict[str, int]) -> dict:
+    """``max_lanes_per_device="auto"``, the tuner's store a fresh file
+    under ``tmp`` for each part. (a) ``synthetic_sweep(1000, n_devices=100,
+    n_byz=20)`` at dim=100, 200 rounds in graph mode: bit for bit the
+    unchunked sweep, and a warm call that makes 0 probes with the same bits;
+    the roofline of one captured round at the chosen capacity. (b)
+    ``run_lm_grid`` on smollm-360m at full width: LAD d=2 CWTM (trim 2 a
+    side) under sign-flip, ALIE and IPM in one bucket of 3 lanes, N=8, 2
+    rounds in graph mode: bit for bit ``max_lanes_per_device=1``, a warm
+    call that makes 0 probes (its peak memory is the chosen capacity's),
+    and the allocated memory after the part back at its level before.
+    Prints every probe's capacity and seconds a lane (``None``: out of
+    memory) and the phase's launches; adds the replays of every sweep
+    (not of the probes, whose results are dropped) to ``replayed``."""
+    start = time.perf_counter()
+    counts0 = ops.launch_counts()
+    replayed0 = dict(replayed)
+    out = {"phase": "tuner"}
+
+    def fresh_store(name):
+        path = tmp / name
+        path.unlink(missing_ok=True)
+        return tuner.set_store_path(str(path))
+
+    def probes(store) -> tuple[int, dict]:
+        (rec,) = store.data["lane_capacity"].values()  # one bucket, one signature
+        return rec["capacity"], rec["per_lane_s"]
+
+    def replays(results) -> None:
+        for stats in {id(r.grid): r.grid for r in results.values()}.values():
+            for g in stats.graphs:
+                for k, v in g.captured_launches.items():
+                    replayed[k] += v * g.replays
+
+    # (a) the paper's width
+    store = fresh_store("tuner_paper.json")
+    rows = S.synthetic_sweep(1000, n_devices=100, n_byz=20)
+    kw = dict(seed=0, dim=100, device="cuda", mode="graph")
+    t0 = time.perf_counter()
+    auto = S.run_grid(rows, STEPS, max_lanes_per_device="auto", **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    info = engine.last_grid_chunk_info()
+    stats = tuner.tuner_stats()
+    capacity, per_lane = probes(store)
+    check(info["auto"] and info["max_lanes_per_device"] == capacity, f"tuner (a): chunk info {info}")
+    check(stats["probes"] == len(per_lane) and stats["misses"] == 1, f"tuner (a): stats {stats}")
+    whole = S.run_grid(rows, STEPS, max_lanes_per_device=None, **kw)
+    for row in rows:
+        lanes_equal(auto[row.name], whole[row.name], f"{row.name} auto")
+    replays(auto)
+    replays(whole)
+    del auto
+    tuner.reset_tuner_stats()
+    t0 = time.perf_counter()
+    warm = S.run_grid(rows, STEPS, max_lanes_per_device="auto", **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(tuner.tuner_stats()["probes"] == 0, f"tuner (a): the warm call probed: {tuner.tuner_stats()}")
+    for row in rows:
+        lanes_equal(warm[row.name], whole[row.name], f"{row.name} warm auto")
+    replays(warm)
+    stats_w = warm[rows[0].name].grid
+    replay_s = stats_w.replay_ms() / 1e3
+    work = S.grid_launch_list(rows, STEPS, max_lanes_per_device="auto", **kw)
+    roof = roofline.analyze_launches(work, "cuda")
+    first = stats_w.graphs[0]
+    check({k: len(v) for k, v in work.items()} == {k: first.captured_launches[k] for k in work},
+          f"tuner (a): launch list {[(k, len(v)) for k, v in work.items()]} vs {first.captured_launches}")
+    del warm, whole
+    out["paper"] = {"rows": len(rows), "n_devices": 100, "dim": 100, "rounds": STEPS, "capacity": capacity,
+                    "chunks": stats_w.chunks, "probes": stats["probes"], "per_lane_s": per_lane,
+                    "cold_call_s": cold_s, "warm_call_s": warm_s, "warm_probes": 0, "bitwise": True,
+                    "round_launches": roof["launches"], "round_bound_ms": roof["predicted_s"] * 1e3,
+                    "round_bound_by": roof["dominant"],
+                    "replay_ms_per_round": replay_s * 1e3 / STEPS,
+                    "kernels_percent_of_bound": roofline.percent_of_peak(roof, replay_s, calls=STEPS * stats_w.chunks)}
+
+    # (b) smollm-360m at full width
+    mem0 = settled_allocation()
+    store = fresh_store("tuner_wide.json")
+    arch = archs.ARCHS["smollm-360m"]
+    rows = S.lm_sweep((("lad", 2),), compressors=("none",), n_devices=WIDE_N, n_byz=2, trim_frac=0.25)
+    check(len(rows) == 3 and len({S._bucket_signature(r) for r in rows}) == 1, "tuner (b): not one bucket of 3")
+    kw = dict(arch=arch, seed=0, per_subset=2, seq_len=16, device="cuda", mode="graph")
+    def on_host(results) -> dict:
+        """Each lane's final iterate and metrics on the host: a card holds
+        one full-width result at a time."""
+        replays(results)
+        return {name: (r.x.cpu(), {k: v.cpu() for k, v in r.metrics.items()}) for name, r in results.items()}
+
+    def host_equal(a, b, what) -> None:
+        for name, (x, metrics) in b.items():
+            check(torch.equal(a[name][0], x) and all(torch.equal(a[name][1][k], v) for k, v in metrics.items()),
+                  f"tuner (b): {name} {what} differs")
+
+    t0 = time.perf_counter()
+    auto = on_host(S.run_lm_grid(rows, TUNER_WIDE_ROUNDS, max_lanes_per_device="auto", **kw))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    stats = tuner.tuner_stats()
+    capacity, per_lane = probes(store)
+    check(engine.last_grid_chunk_info()["auto"], "tuner (b): not an auto call")
+    check(stats["probes"] == len(per_lane), f"tuner (b): stats {stats}")
+    torch.cuda.empty_cache()
+    one = on_host(S.run_lm_grid(rows, TUNER_WIDE_ROUNDS, max_lanes_per_device=1, **kw))
+    host_equal(auto, one, "auto against max_lanes_per_device=1")
+    for name, (_, metrics) in one.items():
+        loss = metrics["loss"]
+        check(loss.shape == (TUNER_WIDE_ROUNDS,) and bool(torch.isfinite(loss).all()), f"{name}: bad loss")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tuner.reset_tuner_stats()
+    t0 = time.perf_counter()
+    warm = on_host(S.run_lm_grid(rows, TUNER_WIDE_ROUNDS, max_lanes_per_device="auto", **kw))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuner.tuner_stats()["probes"] == 0, f"tuner (b): the warm call probed: {tuner.tuner_stats()}")
+    host_equal(warm, one, "warm auto against max_lanes_per_device=1")
+    losses = {name: metrics["loss"].tolist() for name, (_, metrics) in one.items()}
+    del auto, one, warm
+    mem1 = settled_allocation()
+    check(mem1 <= mem0 + TUNER_MEM_SLACK, f"tuner (b): {mem1} bytes allocated after the part, {mem0} before")
+    out["wide"] = {"arch": arch.name, "params": WIDE_Q, "lanes": len(rows), "n_devices": WIDE_N, "d": 2,
+                   "rounds": TUNER_WIDE_ROUNDS, "capacity": capacity, "probes": stats["probes"],
+                   "per_lane_s": per_lane, "cold_call_s": cold_s, "warm_call_s": warm_s, "warm_probes": 0,
+                   "bitwise": True, "peak_gb_at_capacity": peak_gb, "allocated_before": mem0,
+                   "allocated_after": mem1, "loss": losses}
+    tuner.set_store_path(None)  # the rest of the script: an empty table, every kernel lane-batched
+    counts = ops.launch_counts()
+    out["launches"] = {k: counts[k] - counts0[k] for k in counts}
+    out["replayed_launches"] = {k: replayed[k] - replayed0[k] for k in replayed}
+    out["phase_s"] = time.perf_counter() - start
     return out
 
 
@@ -2895,13 +3046,15 @@ def main() -> int:
     from repro_torch.core import protomath
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import fleet as fleet_lib
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import roofline, serve, train, tuner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tuner.set_store_path(None)  # no store of the user's: an empty crossover table, every kernel lane-batched
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    hbm, fp32 = peaks(kind)
+    card_peaks = roofline.platform_peaks(0)  # raises for a card without its data sheet's rates
+    hbm, fp32 = card_peaks["mem_bw"], card_peaks["peak_flops"]
     build_s = _build.build_all()
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
@@ -2922,6 +3075,7 @@ def main() -> int:
     emit(line)
     emit(graph_phase(scenarios, replayed))
     emit(grid_phase(scenarios, trajectory, section7, replayed))
+    emit(tuner_phase(scenarios, engine, tuner, roofline, archs, ops, ROOT / "build" / "chip_smoke", replayed))
     emit(participation_phase(scenarios))
     linear = ops.launch_counts()
     del trajectory, section7
@@ -2990,7 +3144,8 @@ def main() -> int:
     ops.reset_launch_counts()
     run_phases([("serve", lambda: serve_phase(scenarios, models, pytree, archs, base, serve, checkpoint, train,
                                               synthetic, tmp)),
-                ("serve_wide", lambda: serve_wide_phase(models, pytree, archs, base, serve, hbm, tensor_peak(kind)))])
+                ("serve_wide", lambda: serve_wide_phase(models, pytree, archs, base, serve, hbm,
+                                                        card_peaks["tensor_flops"]))])
     lm = {name: lm[name] + n for name, n in ops.launch_counts().items()}
     for name in LM_KERNELS:
         check(lm[name] > 0, f"kernel {name} was not launched on the LM path")

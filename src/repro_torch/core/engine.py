@@ -48,6 +48,8 @@ Two modes run the same rounds:
 from __future__ import annotations
 
 import dataclasses
+import gc
+import traceback
 from typing import Any, Callable, Sequence
 
 import torch
@@ -67,11 +69,14 @@ from repro_torch.core.byzantine import (
 from repro_torch.core.participation import init_participation_state, sample_participation
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import tuner
 from repro_torch.numerics import stable_mean0, stable_norm, tree_sum
 from repro_torch.optim import OptState, make_optimizer
+from repro_torch.timing import block_time
 
 __all__ = ["TrajectoryResult", "GraphStats", "GridStats", "RandomnessProvider", "run_trajectory",
-           "run_grid", "protocol_rounds", "pad_lanes", "padded_lane_count", "last_grid_chunk_info",
+           "run_grid", "grid_launch_list", "protocol_rounds", "pad_lanes", "padded_lane_count",
+           "last_grid_chunk_info",
            "draw_rounds", "stack_rounds", "select_round", "SHARD_MODES", "engine_ranks", "gather_ranks"]
 
 RandomnessProvider = Callable[[int], RoundRandomness]
@@ -94,12 +99,15 @@ class GraphStats:
       captured_launches: per kernel counter, the launches recorded into the
         captured round; the card ran each ``replays`` times.
       replay_start / replay_end: CUDA events recorded around the replays.
+      captured_work: every launch of the captured round with its bytes and
+        fp32 operations (``kernels.ops.record_launches``).
     """
 
     replays: int
     captured_launches: dict[str, int]
     replay_start: torch.cuda.Event
     replay_end: torch.cuda.Event
+    captured_work: tuple[dict, ...] = ()
 
     def replay_ms(self) -> float:
         """Milliseconds from the first replay's start to the last one's end
@@ -440,6 +448,17 @@ def run_trajectory(
                             participation_state=None if p_state is None else p_state[0])
 
 
+_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """One stream a device for the warm-up round before a capture: a new
+    stream each call would leave a cuBLAS workspace behind for each."""
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    return _SIDE_STREAMS[dev]
+
+
 def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state, state: OptState, steps: int,
                   names: tuple[str, ...]):
     """Capture one round of ``one_round`` that reads round ``t``'s records
@@ -473,7 +492,7 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
             dst.copy_(src)
         t.add_(1)
 
-    side = torch.cuda.Stream(device=dev)
+    side = _side_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         step(buffers())  # on copies: first-use builds and kernel attributes stay outside the capture
@@ -481,8 +500,18 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
     live = buffers()
     graph = torch.cuda.CUDAGraph()
     before = kernel_ops.launch_counts()
-    with torch.cuda.graph(graph):
-        step(live)
+    try:
+        # the outer stream context puts the stream back even when the capture's own exit fails
+        with torch.cuda.stream(torch.cuda.current_stream(dev)), kernel_ops.record_launches() as work:
+            with torch.cuda.graph(graph):
+                step(live)
+    except Exception as exc:
+        oom = _oom_in(exc)
+        if oom is None or oom is exc:
+            raise
+        # an allocation that fails under capture can surface as the capture's own error
+        oom.add_note(f"raised inside a CUDA graph capture, which then failed with {exc!r}")
+        raise oom from None
     after = kernel_ops.launch_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -490,7 +519,7 @@ def _replay_graph(one_round, records: RoundRandomness, x: torch.Tensor, p_state,
         graph.replay()
     end.record()
     stats = GraphStats(replays=steps, captured_launches={k: after[k] - before[k] for k in after},
-                       replay_start=start, replay_end=end)
+                       replay_start=start, replay_end=end, captured_work=tuple(work))
     return live["out"], live["x"], live["p_state"], stats, live["state"]
 
 
@@ -566,22 +595,154 @@ def last_grid_chunk_info() -> dict[str, Any]:
     return dict(_LAST_GRID_CHUNK)
 
 
-def _resolve_chunk(n_lanes: int, max_lanes_per_device: int | str | None, devices: int = 1) -> int:
-    """Lanes per chunk of one grid call."""
+def _check_capacity(max_lanes_per_device: int | str | None) -> bool:
+    """Refuse a capacity that is not an int >= 1, None or ``"auto"``; True
+    for ``"auto"``."""
     if isinstance(max_lanes_per_device, str):
-        raise ValueError(
-            f"max_lanes_per_device={max_lanes_per_device!r}: the lane-capacity tuner is not "
-            "ported yet (ROADMAP A.11); pass an int or None")
+        if max_lanes_per_device != "auto":
+            raise ValueError(
+                f"max_lanes_per_device must be an int, None or 'auto'; got {max_lanes_per_device!r}")
+        return True
     if max_lanes_per_device is not None and max_lanes_per_device < 1:
         raise ValueError(f"max_lanes_per_device must be >= 1, got {max_lanes_per_device}")
+    return False
+
+
+def _resolve_chunk(n_lanes: int, max_lanes_per_device: int | None, devices: int = 1, auto: bool = False) -> int:
+    """Lanes per chunk of one grid call (``max_lanes_per_device`` checked by
+    ``_check_capacity``, and resolved when ``auto``)."""
     if max_lanes_per_device is None:
         chunk = padded_lane_count(n_lanes, devices)
     else:
         chunk = max_lanes_per_device * devices
     _LAST_GRID_CHUNK.clear()
     _LAST_GRID_CHUNK.update(max_lanes_per_device=max_lanes_per_device, chunk=chunk, n_lanes=n_lanes,
-                            devices=devices, auto=False)
+                            devices=devices, auto=auto)
     return chunk
+
+
+def _oom_in(exc: BaseException) -> BaseException | None:
+    """The out-of-memory error ``exc`` is, or carries in its chain of causes
+    and contexts (a capture's own error raised on top of it), else None."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if tuner._is_oom(exc):
+            return exc
+        seen.add(id(exc))
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+def _release(exc: BaseException, dev: torch.device) -> None:
+    """Free what a failed chunk held: the locals of the finished frames of
+    ``exc``'s chain (its graph, buffers and stacks), then the allocator's
+    cached blocks, so the next probe and the sweep start from the memory
+    they had before."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        traceback.clear_frames(exc.__traceback__)
+        exc = exc.__cause__ or exc.__context__
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _agree(values: list[float], op, group: Any, dev: torch.device) -> list[float]:
+    """``values`` reduced elementwise with ``op`` over the ranks of ``group``."""
+    v = torch.tensor(values, dtype=torch.float64, device=dev)
+    dist.all_reduce(v, op=op, group=group)
+    return v.tolist()
+
+
+def _probe_chunk(run_chunk: Callable, capacity: int, world: int, group: Any, dev: torch.device) -> float:
+    """Seconds of one chunk of ``capacity x world`` lanes through
+    ``run_chunk``, the sweep's own chunk path without its gather: one
+    untimed call, then one timed by ``timing.block_time``.
+
+    An out-of-memory error (also one a capture raised its own error on top
+    of) frees what the chunk held and goes out as itself. Over ranks every
+    rank probes, then the ranks agree once, after the chunk, so no rank
+    waits in a collective that another, out of memory, never reaches: the
+    largest time is every rank's, and an out-of-memory error (or another
+    error) on any rank is raised on all."""
+    err, status, seconds = None, 0, 0.0
+    try:
+        seconds = block_time(run_chunk, 0, capacity * world, False, iters=1, warmup=1, device=dev)
+    except Exception as exc:  # noqa: BLE001 - sorted into out of memory and the rest below
+        err = _oom_in(exc)
+        if err is None:
+            err, status = exc, 2
+        else:
+            status = 1
+            _release(exc, dev)
+        if group is None:
+            if err is exc:
+                raise
+            try:
+                raise err from None
+            finally:
+                err = None
+    if group is not None:
+        seconds, worst = _agree([seconds, float(status)], dist.ReduceOp.MAX, group, dev)
+        if err is not None:
+            try:
+                raise err
+            finally:
+                err = None  # no cycle through this frame's locals: the error's frames hold no memory after it
+        if worst == 1:
+            raise torch.OutOfMemoryError(f"out of memory on another rank at {capacity} lanes a rank")
+        if worst == 2:
+            raise RuntimeError(f"the probe of {capacity} lanes a rank failed on another rank")
+    return seconds
+
+
+def _device_kind(dev: torch.device) -> str:
+    return f"cuda/{torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else dev.type
+
+
+def _auto_capacity(run_chunk: Callable, n_lanes: int, world: int, group: Any, dev: torch.device,
+                   signature: tuple) -> int:
+    """Resolve ``max_lanes_per_device="auto"`` through ``launch.tuner``: the
+    store's capacity for this signature, device kind and world, else the
+    tuned one. Over ranks the stored value counts only when every rank holds
+    the same; otherwise every rank tunes (on a scratch store, so that all
+    of them probe) and records the result."""
+    probes = tuner.tuner_stats()["probes"]
+    try:
+        return _tuned_capacity(run_chunk, n_lanes, world, group, dev, signature)
+    finally:
+        if tuner.tuner_stats()["probes"] != probes:  # the sweep starts from the memory it had before the probes
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+
+def _tuned_capacity(run_chunk: Callable, n_lanes: int, world: int, group: Any, dev: torch.device,
+                    signature: tuple) -> int:
+    kind = _device_kind(dev)
+    store = tuner.get_store()
+    if group is not None:
+        key = tuner.signature_key((signature, kind, world))
+        held = store.capacity_for(key)
+        c = -1.0 if held is None else float(held)
+        low, neg_high = _agree([c, -c], dist.ReduceOp.MIN, group, dev)
+        if not (low == -neg_high == c >= 1):
+            scratch = tuner.TunerStore(None)
+            capacity = tuner.auto_max_lanes(lambda cap: _probe_chunk(run_chunk, cap, world, group, dev),
+                                            n_lanes=n_lanes, n_devices=world, signature=signature,
+                                            device_kind=kind, store=scratch)
+            store.record_capacity(key, scratch.data["lane_capacity"][key])
+            return capacity
+    return tuner.auto_max_lanes(lambda cap: _probe_chunk(run_chunk, cap, world, group, dev), n_lanes=n_lanes,
+                                n_devices=world, signature=signature, device_kind=kind, store=store)
+
+
+def _per_lane_sig(tree: Any, axis: int | None) -> tuple:
+    """(path, shape, dtype) of every tensor of ``tree``, without its lane
+    (or draw group) ``axis`` unless that is None."""
+    return tuple((path, tuple(v.shape[:axis] + v.shape[axis + 1:] if axis is not None else v.shape), str(v.dtype))
+                 for path, v in pytree.paths(tree) if isinstance(v, torch.Tensor))
 
 
 def _chunk_lanes(tmpl: ProtocolConfig, cfgs: list[ProtocolConfig], keys: list[tuple], groups: list[int],
@@ -607,6 +768,128 @@ def _runs(keys: list, cfgs: list[ProtocolConfig], make: Callable) -> tuple[LaneB
             runs.append(LaneBranch(start, i, make(cfgs[start])))
             start = i
     return tuple(runs)
+
+
+@dataclasses.dataclass(frozen=True)
+class _GridPlan:
+    """A grid call set up to run: ``run_chunk(start, chunk, gather=True)``
+    runs the sorted lanes ``[start, start + chunk)`` (see ``_plan_grid``),
+    ``signature()`` is the tuner's key for the call, the rest how the lanes
+    spread over the ranks and how to put them back in input order."""
+
+    run_chunk: Callable
+    signature: Callable[[], tuple]
+    n_lanes: int
+    n_sources: int
+    order: list[int]
+    world: int
+    group: Any
+    dev: torch.device
+
+
+def _plan_grid(cfgs, x0, subset_grad_fn, *, steps, lr, randomness, draw_ids=None, data=None, data_batched=True,
+               optimizer="sgd", momentum_dtype="float32", grad_scale=1.0, loss_fn=None, shard="none", group=None,
+               device=None, mode="loop", with_metrics=True) -> _GridPlan:
+    """Check a ``run_grid`` call (its arguments and defaults), draw its
+    records and set up its chunks."""
+    if shard not in SHARD_MODES:
+        raise ValueError(f"unknown shard mode {shard!r}")
+    sharded = shard != "none"
+    group, world, rank = engine_ranks(group) if sharded else (None, 1, 0)
+    dev = resolve_device(device)
+    _check_mode(mode, dev)
+    cfgs = list(cfgs)
+    n_lanes = len(cfgs)
+    if n_lanes == 0:
+        raise ValueError("run_grid needs at least one lane")
+    tmpl = cfgs[0]
+    for c in cfgs:
+        if dataclasses.replace(c, attack=tmpl.attack, aggregator=tmpl.aggregator) != tmpl:
+            raise ValueError("run_grid lanes must share all but attack and aggregator: bucket them first")
+    draw_ids = list(range(n_lanes)) if draw_ids is None else list(draw_ids)
+    sources = list(randomness)
+    if len(draw_ids) != n_lanes or sorted(set(draw_ids)) != list(range(len(sources))):
+        raise ValueError(f"draw_ids must map the {n_lanes} lanes onto the {len(sources)} sources, each used")
+    group_cfg = {}
+    for c, g in zip(cfgs, draw_ids):
+        if draw_signature(group_cfg.setdefault(g, c)) != draw_signature(c):
+            raise ValueError(f"lanes of draw group {g} draw different records")
+
+    if not with_metrics and loss_fn is not None:
+        raise ValueError("with_metrics=False is incompatible with loss_fn")
+    opt = make_optimizer(optimizer, momentum_dtype=momentum_dtype)
+    x0 = x0.to(dev)
+    q = x0.shape[-1]
+    draws = _Draws([group_cfg[g] for g in range(len(sources))], sources, q, dev)
+    records = draws.stacked(steps)
+    lr_lanes = None
+    if not (isinstance(lr, (int, float)) or callable(lr)):
+        lr_lanes = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    if lr_lanes is not None and lr_lanes.shape != (n_lanes,):
+        raise ValueError(f"lr must be a float or one per lane ({n_lanes},), got {tuple(lr_lanes.shape)}")
+
+    # one (server, attack) key per lane, numbered by first appearance; a stable sort makes runs
+    attacks, servers = {}, {}
+    keys = [(servers.setdefault(c.aggregator, len(servers)), attacks.setdefault(c.attack, len(attacks)))
+            for c in cfgs]
+    order = sorted(range(n_lanes), key=lambda i: keys[i])
+
+    def run_chunk(start: int, chunk: int, gather: bool = True):
+        """The lanes ``order[start:start + chunk]`` (the last one padded to
+        ``chunk``), this rank's share of them; every rank's share gathered
+        unless ``gather`` is False. Returns (the chunk's real lanes: x,
+        metrics, schedule state, optimizer state; ``GraphStats`` or None;
+        its attack and server runs)."""
+        per = chunk // world  # lanes a rank runs of the chunk
+        take = min(chunk, n_lanes - start)
+        padded = pad_lanes(torch.tensor(order[start:start + take], device=dev), chunk - take)
+        idx = padded[rank * per:(rank + 1) * per]  # this rank's contiguous share, in sorted order
+        keep = per if sharded else take  # a sharded rank keeps its padding lanes until the gather
+        ids = idx.tolist()
+        lanes = _chunk_lanes(tmpl, [cfgs[i] for i in ids], [keys[i] for i in ids], [draw_ids[i] for i in ids],
+                             len(sources), draws.noisy, dev)
+        chunk_data = _take_lanes(data, idx) if data is not None and data_batched else data
+        x = x0.expand(per, q).clone()
+        p_state = None
+        if tmpl.participation.active:
+            p_state = init_participation_state(tmpl.participation, tmpl.n_devices, device=dev, lanes=per)
+        raw, x, p_state, stats, state = _run_lanes(
+            lanes, records, x, lambda x, d=chunk_data: subset_grad_fn(d, x), steps=steps,
+            lr=lr if lr_lanes is None else lr_lanes.index_select(0, idx), grad_scale=grad_scale, opt=opt,
+            state=opt.init(x), p_state=p_state, mode=mode, dev=dev, with_metrics=with_metrics)
+        raw = {k: v.transpose(0, 1)[:keep] for k, v in raw.items()}  # (lanes, steps, ...)
+        bound_loss = None
+        if loss_fn is not None:
+            real = chunk_data  # unsharded, the loss reads the chunk's real lanes only
+            if data is not None and data_batched and keep < per:
+                real = _take_lanes(chunk_data, torch.arange(keep, device=dev))
+            bound_loss = _sliced_loss(loss_fn, real, tmpl.n_devices * q)
+        # the chunk's real lanes; sharded, every rank's share gathered in rank order first
+        real_lanes = ((lambda v: gather_ranks(v, group, world)[:take]) if sharded and gather else
+                      (lambda v: v[:take]))
+        chunk_metrics = _finalize_metrics(raw, bound_loss, None) if with_metrics else {}
+        out = (real_lanes(x), {k: real_lanes(v) for k, v in chunk_metrics.items()},
+               None if p_state is None else real_lanes(p_state), _map_state(state, real_lanes))
+        return out, stats, len(lanes.attacks) + len(lanes.servers)
+
+    def signature() -> tuple:
+        """What the capacity depends on, the lane count aside: sweeps of any
+        size share one tuning."""
+        return ("grid", tuple(sorted({repr(c) for c in cfgs})), steps, optimizer, str(momentum_dtype), mode,
+                shard, world, with_metrics, loss_fn is not None, _per_lane_sig(x0, None),
+                _per_lane_sig(data, 0 if data_batched else None), "lanes" if lr_lanes is not None else "shared",
+                _per_lane_sig(records, 1))
+
+    return _GridPlan(run_chunk=run_chunk, signature=signature, n_lanes=n_lanes, n_sources=len(sources),
+                     order=order, world=world, group=group, dev=dev)
+
+
+def _plan_chunk(plan: _GridPlan, max_lanes_per_device: int | str | None, auto: bool) -> int:
+    """Lanes per chunk of ``plan``'s call, ``"auto"`` resolved by the tuner."""
+    if auto:
+        max_lanes_per_device = _auto_capacity(plan.run_chunk, plan.n_lanes, plan.world, plan.group, plan.dev,
+                                              plan.signature())
+    return _resolve_chunk(plan.n_lanes, max_lanes_per_device, devices=plan.world, auto=auto)
 
 
 def run_grid(
@@ -672,8 +955,15 @@ def run_grid(
       max_lanes_per_device: lanes per rank and chunk: the lanes run in
         equal chunks of ``max_lanes_per_device x W``, one after another, the
         last one padded by replicating its last lane (sliced off
-        afterwards); ``None`` runs them all at once. ``"auto"`` (the tuner)
-        is not ported and raises.
+        afterwards); ``None`` runs them all at once. ``"auto"`` takes the
+        tuner's capacity (``launch.tuner``): the store's for this
+        signature (the configurations, ``steps``, the optimizer, ``mode``,
+        ``shard``, ``W``, each operand's per-lane shape and dtype, the
+        device kind), else the fastest that fits, probed on one chunk of
+        the sweep's own chunk path at capacities 1, 2, 4, ... (bisected
+        at an out-of-memory error) and then stored; every rank of a
+        sharded call agrees on each probe. Any capacity gives the same
+        bits; ``last_grid_chunk_info()`` says which ran.
       device / mode / with_metrics: as in ``run_trajectory``; under
         ``"graph"`` each chunk captures one round and replays it.
 
@@ -683,80 +973,18 @@ def run_grid(
       participation state; ``.lane(i)`` gives lane ``i``, and ``grid`` says
       how the lanes ran.
     """
-    if shard not in SHARD_MODES:
-        raise ValueError(f"unknown shard mode {shard!r}")
-    sharded = shard != "none"
-    group, world, rank = engine_ranks(group) if sharded else (None, 1, 0)
-    dev = resolve_device(device)
-    _check_mode(mode, dev)
-    cfgs = list(cfgs)
-    n_lanes = len(cfgs)
-    if n_lanes == 0:
-        raise ValueError("run_grid needs at least one lane")
-    chunk = _resolve_chunk(n_lanes, max_lanes_per_device, devices=world)
-    per = chunk // world  # lanes a rank runs of every chunk
-    tmpl = cfgs[0]
-    for c in cfgs:
-        if dataclasses.replace(c, attack=tmpl.attack, aggregator=tmpl.aggregator) != tmpl:
-            raise ValueError("run_grid lanes must share all but attack and aggregator: bucket them first")
-    draw_ids = list(range(n_lanes)) if draw_ids is None else list(draw_ids)
-    sources = list(randomness)
-    if len(draw_ids) != n_lanes or sorted(set(draw_ids)) != list(range(len(sources))):
-        raise ValueError(f"draw_ids must map the {n_lanes} lanes onto the {len(sources)} sources, each used")
-    group_cfg = {}
-    for c, g in zip(cfgs, draw_ids):
-        if draw_signature(group_cfg.setdefault(g, c)) != draw_signature(c):
-            raise ValueError(f"lanes of draw group {g} draw different records")
-
-    if not with_metrics and loss_fn is not None:
-        raise ValueError("with_metrics=False is incompatible with loss_fn")
-    opt = make_optimizer(optimizer, momentum_dtype=momentum_dtype)
-    x0 = x0.to(dev)
-    q = x0.shape[-1]
-    draws = _Draws([group_cfg[g] for g in range(len(sources))], sources, q, dev)
-    records = draws.stacked(steps)
-    lr_lanes = None
-    if not (isinstance(lr, (int, float)) or callable(lr)):
-        lr_lanes = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-    if lr_lanes is not None and lr_lanes.shape != (n_lanes,):
-        raise ValueError(f"lr must be a float or one per lane ({n_lanes},), got {tuple(lr_lanes.shape)}")
-
-    # one (server, attack) key per lane, numbered by first appearance; a stable sort makes runs
-    attacks, servers = {}, {}
-    keys = [(servers.setdefault(c.aggregator, len(servers)), attacks.setdefault(c.attack, len(attacks)))
-            for c in cfgs]
-    order = sorted(range(n_lanes), key=lambda i: keys[i])
+    auto = _check_capacity(max_lanes_per_device)
+    plan = _plan_grid(cfgs, x0, subset_grad_fn, steps=steps, lr=lr, randomness=randomness, draw_ids=draw_ids,
+                      data=data, data_batched=data_batched, optimizer=optimizer, momentum_dtype=momentum_dtype,
+                      grad_scale=grad_scale, loss_fn=loss_fn, shard=shard, group=group, device=device, mode=mode,
+                      with_metrics=with_metrics)
+    n_lanes, order, dev = plan.n_lanes, plan.order, plan.dev
+    chunk = _plan_chunk(plan, max_lanes_per_device, auto)
     outs, graphs, n_branches = [], [], 0
     for start in range(0, n_lanes, chunk):
-        take = min(chunk, n_lanes - start)
-        padded = pad_lanes(torch.tensor(order[start:start + take], device=dev), chunk - take)
-        idx = padded[rank * per:(rank + 1) * per]  # this rank's contiguous share, in sorted order
-        keep = per if sharded else take  # a sharded rank keeps its padding lanes until the gather
-        ids = idx.tolist()
-        lanes = _chunk_lanes(tmpl, [cfgs[i] for i in ids], [keys[i] for i in ids], [draw_ids[i] for i in ids],
-                             len(sources), draws.noisy, dev)
-        n_branches += len(lanes.attacks) + len(lanes.servers)
-        chunk_data = _take_lanes(data, idx) if data is not None and data_batched else data
-        x = x0.expand(per, q).clone()
-        p_state = None
-        if tmpl.participation.active:
-            p_state = init_participation_state(tmpl.participation, tmpl.n_devices, device=dev, lanes=per)
-        raw, x, p_state, stats, state = _run_lanes(
-            lanes, records, x, lambda x, d=chunk_data: subset_grad_fn(d, x), steps=steps,
-            lr=lr if lr_lanes is None else lr_lanes.index_select(0, idx), grad_scale=grad_scale, opt=opt,
-            state=opt.init(x), p_state=p_state, mode=mode, dev=dev, with_metrics=with_metrics)
-        raw = {k: v.transpose(0, 1)[:keep] for k, v in raw.items()}  # (lanes, steps, ...)
-        bound_loss = None
-        if loss_fn is not None:
-            real = chunk_data  # unsharded, the loss reads the chunk's real lanes only
-            if data is not None and data_batched and keep < per:
-                real = _take_lanes(chunk_data, torch.arange(keep, device=dev))
-            bound_loss = _sliced_loss(loss_fn, real, tmpl.n_devices * q)
-        # the chunk's real lanes; sharded, every rank's share gathered in rank order first
-        real_lanes = (lambda v: gather_ranks(v, group, world)[:take]) if sharded else (lambda v: v[:take])
-        chunk_metrics = _finalize_metrics(raw, bound_loss, None) if with_metrics else {}
-        outs.append((real_lanes(x), {k: real_lanes(v) for k, v in chunk_metrics.items()},
-                     None if p_state is None else real_lanes(p_state), _map_state(state, real_lanes)))
+        out, stats, branches = plan.run_chunk(start, chunk)
+        outs.append(out)
+        n_branches += branches
         if stats is not None:
             graphs.append(stats)
     # undo the sort: sorted position j holds input lane order[j]
@@ -770,9 +998,44 @@ def run_grid(
     state = outs[0][3]  # every chunk took the same steps
     opt_state = OptState(step=state.step, **dict(zip(("mu", "nu"), pytree.from_leaves(
         (state.mu, state.nu), [torch.cat(vs).index_select(0, inverse) for vs in zip(*moments)]))))
-    stats = GridStats(lanes=n_lanes, draw_groups=len(sources), chunk=chunk, chunks=len(outs),
+    stats = GridStats(lanes=n_lanes, draw_groups=plan.n_sources, chunk=chunk, chunks=len(outs),
                       branches=n_branches, graphs=tuple(graphs))
     return TrajectoryResult(x=x, opt_state=opt_state, metrics=metrics, participation_state=p_state, grid=stats)
+
+
+def grid_launch_list(
+    cfgs: Sequence[ProtocolConfig],
+    x0: torch.Tensor,
+    subset_grad_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+    *,
+    steps: int,
+    max_lanes_per_device: int | str | None = None,
+    **kw,
+) -> dict[str, list[dict]]:
+    """The kernel launches of one round of the first chunk a ``run_grid``
+    call with the same arguments runs (``"auto"`` resolved through the
+    tuner's store, probing if it holds nothing), per kernel: each launch's
+    lanes, shape, bytes and fp32 operations (``kernels.ops.launch_work``).
+    The counterpart of the reference's ``grid_compiled_hlo``, whose module
+    ``launch.roofline.analyze_launches`` reads.
+
+    In graph mode it is the chunk's captured round (``GraphStats.
+    captured_work``, one entry for each of its ``captured_launches``); in
+    loop mode one round of the chunk on the device it runs on, on the CPU
+    the launches the card would make. A sharded call lists this rank's
+    share of the chunk."""
+    one_round = _plan_grid(cfgs, x0, subset_grad_fn, steps=1, **kw)
+    if _check_capacity(max_lanes_per_device):  # tuned on the call's own rounds
+        chunk = _plan_chunk(_plan_grid(cfgs, x0, subset_grad_fn, steps=steps, **kw), "auto", True)
+    else:
+        chunk = _resolve_chunk(one_round.n_lanes, max_lanes_per_device, devices=one_round.world)
+    with kernel_ops.record_launches() as log:
+        _, stats, _ = one_round.run_chunk(0, chunk, False)
+    work = log if stats is None else stats.captured_work
+    out: dict[str, list[dict]] = {name: [] for name in kernel_ops.KERNELS if name != "cwtm_nnm"}
+    for launch in work:
+        out[launch["kernel"]].append(launch)
+    return out
 
 
 def _sliced_loss(loss_fn: Callable, data: Any, row_elements: int) -> Callable[[torch.Tensor], torch.Tensor]:

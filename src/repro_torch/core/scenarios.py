@@ -52,6 +52,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["Scenario", "scenario_name", "section7_grid", "PAPER_FIG4", "PAPER_FIG5", "PAPER_FIG6",
            "participation_sweep", "synthetic_sweep", "run_scenario", "least_squares", "run_grid", "grid_finals",
+           "grid_launch_list",
            "lm_arch", "lm_sweep", "run_lm_scenario", "run_lm_grid", "ZOO_FAMILIES", "zoo_arch", "zoo_sweep",
            "run_zoo_sweep", "fleet_chaos_cases", "fleet_comlad_cases"]
 
@@ -408,16 +409,9 @@ class _BucketProblem:
     grad_scale: float
 
 
-def _run_bucket(group: list[Scenario], steps: int, prob: _BucketProblem, gens: list[torch.Generator], *,
-                device: torch.device, mode: str, max_lanes_per_device, randomness, shard: str = "none",
-                data_group: Any = None) -> dict[str, TrajectoryResult]:
-    """One compile bucket as one ``engine.run_grid`` call.
-
-    ``gens[i]`` is lane ``i``'s generator, seeded and advanced as its
-    standalone run's. Lanes that draw alike (``draw_signature``) read one
-    draw group, drawn from its first lane's generator (every lane's
-    generator is seeded alike and has drawn alike); a lane that
-    ``randomness`` gives a provider draws from it alone."""
+def _bucket_sources(group: list[Scenario], gens: list[torch.Generator], randomness) -> tuple[list, list, list]:
+    """(the lanes' configurations, the draw groups' sources, each lane's
+    draw group) of a bucket; see ``_run_bucket``."""
     cfgs = [s.protocol() for s in group]
     groups: dict[object, int] = {}
     sources = []
@@ -429,6 +423,20 @@ def _run_bucket(group: list[Scenario], steps: int, prob: _BucketProblem, gens: l
             groups[key] = len(sources)
             sources.append(provider if provider is not None else gens[lane])
         draw_ids.append(groups[key])
+    return cfgs, sources, draw_ids
+
+
+def _run_bucket(group: list[Scenario], steps: int, prob: _BucketProblem, gens: list[torch.Generator], *,
+                device: torch.device, mode: str, max_lanes_per_device, randomness, shard: str = "none",
+                data_group: Any = None) -> dict[str, TrajectoryResult]:
+    """One compile bucket as one ``engine.run_grid`` call.
+
+    ``gens[i]`` is lane ``i``'s generator, seeded and advanced as its
+    standalone run's. Lanes that draw alike (``draw_signature``) read one
+    draw group, drawn from its first lane's generator (every lane's
+    generator is seeded alike and has drawn alike); a lane that
+    ``randomness`` gives a provider draws from it alone."""
+    cfgs, sources, draw_ids = _bucket_sources(group, gens, randomness)
     res = engine_lib.run_grid(
         cfgs, prob.x0, prob.subset_grad_fn, steps=steps, lr=[s.lr for s in group], randomness=sources,
         draw_ids=draw_ids, data=prob.data, data_batched=prob.data_batched, grad_scale=prob.grad_scale,
@@ -483,8 +491,10 @@ def run_grid(
     grid is held to.
 
     ``max_lanes_per_device`` streams a bucket through equal chunks of that
-    many lanes (bitwise equal to unchunked); ``"auto"`` waits for the
-    lane-capacity tuner (ROADMAP A.11) and raises. ``shard``
+    many lanes (bitwise equal to unchunked); ``"auto"`` lets the
+    lane-capacity tuner pick it per bucket (``engine.run_grid``: the
+    store's capacity, else probes of one chunk, then stored), with the same
+    bits as any capacity. ``shard``
     (``"shard_map"`` or ``"pmap"``) spreads each bucket's lanes over the
     ranks of the data ``group`` (``engine.run_grid``): every rank makes the
     same call and returns every row, each bit for bit its unsharded run.
@@ -506,6 +516,47 @@ def run_grid(
         out.update(_run_bucket(bucket, steps, prob, gens, device=dev, mode=mode, shard=shard, data_group=group,
                                max_lanes_per_device=max_lanes_per_device, randomness=randomness))
     return {s.name: out[s.name] for s in scns}
+
+
+def grid_launch_list(
+    scenarios: Sequence[Scenario],
+    steps: int,
+    *,
+    seed: int = 0,
+    problem: tuple[torch.Tensor, torch.Tensor] | None = None,
+    dim: int = 100,
+    mode: str = "graph",
+    exact: bool = True,
+    shard: str = "none",
+    group: Any = None,
+    max_lanes_per_device: int | str | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, list[dict]]:
+    """The kernel launches of one captured round of the chunk a
+    same-arguments ``run_grid`` call runs, per kernel, each with its bytes
+    and fp32 operations: the scenario-level face of
+    ``engine.grid_launch_list``, the counterpart of the reference's
+    ``grid_compiled_hlo`` (``launch.roofline.analyze_launches`` reads it).
+
+    The rows must form ONE compile bucket (e.g. a ``synthetic_sweep``): a
+    sweep of several buckets has one round per bucket and no single round
+    to list."""
+    scns = list(scenarios)
+    buckets: dict[tuple, list[Scenario]] = {}
+    for s in scns:
+        buckets.setdefault(_bucket_signature(s, exact=exact), []).append(s)
+    if len(buckets) != 1:
+        raise ValueError(f"grid_launch_list needs a single compile bucket, got {len(buckets)}: list each "
+                         "bucket's rows separately")
+    (rows,) = buckets.values()
+    dev = resolve_device(device)
+    prob, gens = _linreg_bucket(rows, seed=seed, problem=problem, dim=dim, device=dev)
+    cfgs, sources, draw_ids = _bucket_sources(rows, gens, None)
+    return engine_lib.grid_launch_list(
+        cfgs, prob.x0, prob.subset_grad_fn, steps=steps, lr=[s.lr for s in rows], randomness=sources,
+        draw_ids=draw_ids, data=prob.data, data_batched=prob.data_batched, grad_scale=prob.grad_scale,
+        loss_fn=prob.loss_fn, shard=shard, group=group, max_lanes_per_device=max_lanes_per_device,
+        device=dev, mode=mode)
 
 
 def grid_finals(results: dict[str, TrajectoryResult]) -> dict[str, dict[str, float]]:
@@ -822,11 +873,11 @@ def run_lm_grid(
     exact: bool = True,
     shard: str = "none",
     group: Any = None,
-    max_lanes_per_device: int | None = None,
+    max_lanes_per_device: int | str | None = None,
     device: torch.device | str | None = None,
 ) -> dict[str, TrajectoryResult]:
     """Sweep LM-scale scenarios: the buckets of ``run_grid`` (same
-    signature, ``exact`` and chunking), every bucket's lanes training the
+    signature, ``exact`` and chunking, ``"auto"`` included), every bucket's lanes training the
     transformer on one shared problem (``data_batched=False``) through
     ``engine.run_grid``. ``mode`` is how a bucket's rounds run, as in
     ``run_grid``: ``"graph"`` (one captured round replayed, CUDA only) or
@@ -946,8 +997,8 @@ def run_zoo_sweep(
     """Train the zoo under attack: one ``run_lm_grid`` a family on its
     ``zoo_arch``, ``{family: {row name: result}}``. Every lane equals
     ``run_lm_scenario(row, ..., arch=zoo_arch(family))`` bit for bit.
-    ``grid_kw`` (``device``, ``exact``, ``max_lanes_per_device``) goes to
-    ``run_lm_grid``."""
+    ``grid_kw`` (``device``, ``exact``, ``max_lanes_per_device``, ``"auto"``
+    included) goes to ``run_lm_grid``."""
     sweep = sweep if sweep is not None else zoo_sweep(families)
     return {fam: run_lm_grid(rows, steps, arch=zoo_arch(fam), seed=seed, per_subset=per_subset, seq_len=seq_len,
                              mode=mode, **grid_kw)

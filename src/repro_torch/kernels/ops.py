@@ -13,8 +13,22 @@ A kernel's grid spans its folded lanes (``gather_combine``: lanes x N rows)
 in one dimension of at most 65535 blocks, so a wrapper launches a larger
 fold in consecutive slices of lanes; lanes are independent, so the bits do
 not change, and each launch counts.
+
+The crossover table of ``launch.tuner`` may steer a kernel at a lane count
+to a loop of single-lane launches instead (``_lane_launch``): a single-lane
+launch is the ``L = 1`` batched launch, so the bits are the same either way,
+and an empty table answers ``"batched"``.
+
+``launch_work`` reckons a launch's bytes and fp32 operations from its shapes
+alone, whichever implementation runs: each fp32 stack read once and each
+output written once, and the operations a coordinate takes in the kernel's
+arithmetic. ``record_launches`` logs every launch with its work (on the CPU,
+the launches the card would make), which ``engine`` keeps for a captured
+round and ``launch.roofline.analyze_launches`` turns into a bound.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -24,6 +38,7 @@ from repro_torch.kernels import cwtm as _cwtm
 from repro_torch.kernels import nnm_dist as _nnm_dist
 from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels.ref import sqdist_from_gram
+from repro_torch.launch import tuner
 
 __all__ = [
     "gather_combine",
@@ -37,6 +52,8 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "launch_work",
+    "record_launches",
 ]
 
 # counter name -> launches in this process: one counter per CUDA kernel,
@@ -47,6 +64,13 @@ _launches = {"gather_combine": 0, "attack": 0, "cwtm": 0, "gram": 0,
 KERNELS = tuple(_launches)
 
 _MAX_GRID_Y = 65535
+
+# past this many lanes a per-lane loop costs more launches than any
+# crossover saves; the reference's bound on its unrolled loop
+_LOOP_UNROLL_MAX = 64
+
+_F32 = 4
+_recorders: list[list[dict]] = []
 
 
 def launch_counts() -> dict[str, int]:
@@ -77,15 +101,76 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no kernel and no plain path for device {dev}")
 
 
-def _launch_sliced(name: str, launch, out: torch.Tensor, per: int, *operands: torch.Tensor) -> torch.Tensor:
-    """Launch ``launch(*operand slices, out=out slice)`` over consecutive
-    slices of at most ``per`` lanes (the leading axis of every operand and
-    of ``out``), counting each launch under ``name``."""
-    lanes = out.shape[0]
-    for start in range(0, lanes, per):
-        stop = min(lanes, start + per)
+def launch_work(name: str, lanes: int, rows: int, q: int, *, d: int = 0, trim: int = 0,
+                k: int = 0) -> tuple[float, float]:
+    """(bytes, fp32 operations) of one launch of kernel ``name`` over
+    ``lanes`` lanes of ``rows`` x ``q`` fp32 values: each stack read once
+    and each output written once (index tables and weights not counted),
+    and per coordinate the operations of the kernel's arithmetic. ``d`` is
+    the encode's subsets per device; ``trim`` and ``k`` (0: no NNM mix) the
+    CWTM's trim and neighbours. ``quantize`` takes ``rows=1`` a lane."""
+    per_lane = {
+        # read the stack, write the coded stack; a product and an add per subset
+        "gather_combine": (2 * rows * q, 2 * d * rows * q),
+        "attack": (2 * rows * q, 8 * rows * q),
+        # the mix (k adds and a product per value), the sort network, the kept-row tree and its product
+        "cwtm": (rows * q + q, (rows * (k + 1) if k else 0) + rows * (rows // 2) * 2 + (rows - 2 * trim) + 1),
+        "gram": (rows * q + rows * rows + rows, 2 * (rows * rows + rows) * q),
+        # read g and u, write the result; abs, max, two divisions, two products, floor, subtract, compare, add
+        "quantize": (3 * rows * q, 10 * rows * q),
+        "masked_combine": (rows * q + q, 2 * rows * q),
+        "coded_combine": (rows * q + q, 2 * rows * q),
+    }
+    if name not in per_lane:
+        raise KeyError(f"no kernel {name!r}")
+    values, ops = per_lane[name]
+    if name == "cwtm":
+        ops *= q
+    return float(_F32 * values * lanes), float(ops * lanes)
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Log every kernel launch the wrappers make while the block runs, on
+    the card, or on the CPU the launches the card would make: a list of
+    ``{"kernel", "lanes", "rows", "q", "bytes", "flops", ...}`` (the
+    ``launch_work`` of each launch and its shape arguments)."""
+    log: list[dict] = []
+    _recorders.append(log)
+    try:
+        yield log
+    finally:
+        _recorders.remove(log)
+
+
+def _use_loop(name: str, lanes: int) -> bool:
+    """Whether the crossover table says single-lane launches beat one
+    batched launch for kernel ``name`` at ``lanes`` lanes."""
+    return 2 <= lanes <= _LOOP_UNROLL_MAX and tuner.lane_dispatch(name, lanes) == "loop"
+
+
+def _slices(name: str, lanes: int, per: int, **shape) -> list[tuple[int, int]]:
+    """The ``[start, stop)`` lane slices kernel ``name`` launches over
+    ``lanes`` folded lanes (one a lane where the crossover table says so,
+    else consecutive slices of at most ``per``), each logged with its work
+    to the active ``record_launches`` logs."""
+    step = 1 if _use_loop(name, lanes) else per
+    slices = [(a, min(lanes, a + step)) for a in range(0, lanes, step)]
+    for log in _recorders:
+        for a, b in slices:
+            nbytes, flops = launch_work(name, b - a, **shape)
+            log.append({"kernel": name, "lanes": b - a, **shape, "bytes": nbytes, "flops": flops})
+    return slices
+
+
+def _lane_launch(name: str, launch, out: torch.Tensor, slices: list[tuple[int, int]],
+                 *operands: torch.Tensor) -> torch.Tensor:
+    """Launch ``launch(*operand slices, out=out slice)`` over ``slices`` of
+    the lanes (the leading axis of every operand and of ``out``), counting
+    each launch under ``name``."""
+    for a, b in slices:
         _launches[name] += 1
-        launch(*(t[start:stop] for t in operands), out=out[start:stop])
+        launch(*(t[a:b] for t in operands), out=out[a:b])
     return out
 
 
@@ -115,14 +200,17 @@ def gather_combine(
     s = subsets.reshape(flat.shape[:2] + subsets.shape[-1:]).to(torch.int32).contiguous()
     w = weights.to(torch.float32).expand(lead + weights.shape[-1:]).reshape(
         flat.shape[:1] + weights.shape[-1:]).contiguous()
-    if not _on_card("gather_combine", flat, s, w):
+    on_card = _on_card("gather_combine", flat, s, w)
+    if on_card and n > _MAX_GRID_Y:
+        raise ValueError(f"gather_combine: N = {n} > {_MAX_GRID_Y}")
+    slices = _slices("gather_combine", flat.shape[0], max(1, _MAX_GRID_Y // n), rows=n, q=flat.shape[-1],
+                     d=s.shape[-1])
+    if not on_card:
         if s.numel() and (int(s.min()) < 0 or int(s.max()) >= n):
             raise IndexError(f"gather_combine: subset ids outside [0, {n})")
         return _coded_combine.gather_plain(flat, s, w).reshape(grads.shape)
-    if n > _MAX_GRID_Y:
-        raise ValueError(f"gather_combine: N = {n} > {_MAX_GRID_Y}")
-    return _launch_sliced("gather_combine", _coded_combine.gather_launch, torch.empty_like(flat),
-                          _MAX_GRID_Y // n, flat, s, w).reshape(grads.shape)
+    return _lane_launch("gather_combine", _coded_combine.gather_launch, torch.empty_like(flat), slices,
+                        flat, s, w).reshape(grads.shape)
 
 
 def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> torch.Tensor:
@@ -135,10 +223,12 @@ def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> t
         raise ValueError(f"attack: mask {tuple(mask.shape)} vs msgs {tuple(msgs.shape)}")
     flat, _ = _lanes(msgs, 2)
     flat_mask = mask.to(torch.float32).reshape(flat.shape[:2]).contiguous()
-    if not _on_card("attack", flat, flat_mask):
+    on_card = _on_card("attack", flat, flat_mask)
+    slices = _slices("attack", flat.shape[0], _MAX_GRID_Y, rows=flat.shape[1], q=flat.shape[-1])
+    if not on_card:
         return _attacks.plain(flat, flat_mask, name, param).reshape(msgs.shape)
-    return _launch_sliced("attack", lambda m, k, out: _attacks.launch(m, k, name, param, out=out),
-                          torch.empty_like(flat), _MAX_GRID_Y, flat, flat_mask).reshape(msgs.shape)
+    return _lane_launch("attack", lambda m, k, out: _attacks.launch(m, k, name, param, out=out),
+                        torch.empty_like(flat), slices, flat, flat_mask).reshape(msgs.shape)
 
 
 def cwtm(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) -> torch.Tensor:
@@ -159,18 +249,21 @@ def cwtm(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) 
         if neighbours.shape[:-1] != msgs.shape[:-1] or not 1 <= k <= n:
             raise ValueError(f"cwtm: neighbours {tuple(neighbours.shape)} vs msgs {tuple(msgs.shape)}")
         nb = neighbours.to(torch.int32).reshape(flat.shape[:2] + (k,)).contiguous()
-    if not _on_card("cwtm", flat, *(() if nb is None else (nb,))):
+    on_card = _on_card("cwtm", flat, *(() if nb is None else (nb,)))
+    max_n = _cwtm.MAX_N if nb is None else _cwtm.MAX_N_MIXED
+    if on_card and n > max_n:
+        raise ValueError(f"cwtm kernel takes N <= {max_n}{'' if nb is None else ' with neighbours'}, got {n}")
+    slices = _slices("cwtm", flat.shape[0], _MAX_GRID_Y, rows=n, q=flat.shape[-1], trim=trim,
+                     k=0 if nb is None else nb.shape[-1])
+    if not on_card:
         if nb is not None and nb.numel() and (
                 int(nb.min()) < 0 or int(nb.max()) >= n or bool((nb[..., 1:] <= nb[..., :-1]).any())):
             raise IndexError(f"cwtm: neighbour rows must be strictly ascending ids in [0, {n})")
         return _cwtm.plain(flat, trim, nb).reshape(lead + msgs.shape[-1:])
-    max_n = _cwtm.MAX_N if nb is None else _cwtm.MAX_N_MIXED
-    if n > max_n:
-        raise ValueError(f"cwtm kernel takes N <= {max_n}{'' if nb is None else ' with neighbours'}, got {n}")
     out = torch.empty((flat.shape[0], flat.shape[-1]), dtype=flat.dtype, device=flat.device)
     before = _launches["cwtm"]
-    _launch_sliced("cwtm", lambda m, *t, out: _cwtm.launch(m, trim, *t, out=out), out, _MAX_GRID_Y,
-                   flat, *(() if nb is None else (nb,)))
+    _lane_launch("cwtm", lambda m, *t, out: _cwtm.launch(m, trim, *t, out=out), out, slices,
+                 flat, *(() if nb is None else (nb,)))
     if nb is not None:
         _launches["cwtm_nnm"] += _launches["cwtm"] - before
     return out.reshape(lead + msgs.shape[-1:])
@@ -181,12 +274,14 @@ def gram(msgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sq (..., N))."""
     n = msgs.shape[-2]
     flat, lead = _lanes(msgs, 2)
-    if not _on_card("gram", flat):
+    on_card = _on_card("gram", flat)
+    if on_card and n > _nnm_dist.MAX_N:
+        raise ValueError(f"gram kernel takes N <= {_nnm_dist.MAX_N}, got {n}")
+    slices = _slices("gram", flat.shape[0], _MAX_GRID_Y, rows=n, q=flat.shape[-1])
+    if not on_card:
         g, sq = _nnm_dist.plain(flat)
     else:
-        if n > _nnm_dist.MAX_N:
-            raise ValueError(f"gram kernel takes N <= {_nnm_dist.MAX_N}, got {n}")
-        parts = [_nnm_dist.launch(flat[a:a + _MAX_GRID_Y]) for a in range(0, flat.shape[0], _MAX_GRID_Y)]
+        parts = [_nnm_dist.launch(flat[a:b]) for a, b in slices]
         _launches["gram"] += len(parts)
         g, sq = (parts[0] if len(parts) == 1 else
                  (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])))
@@ -205,13 +300,14 @@ def _row_combine(name: str, plain, x: torch.Tensor, weights: torch.Tensor) -> to
     r = x.shape[-2]
     flat, lead = _lanes(x, 2)
     w = weights.to(torch.float32).expand(x.shape[:-1]).reshape(flat.shape[:2]).contiguous()
-    if not _on_card(name, flat, w):
-        return plain(flat, w).reshape(lead + x.shape[-1:])
-    if r > _coded_combine.MAX_ROWS:
+    on_card = _on_card(name, flat, w)
+    if on_card and r > _coded_combine.MAX_ROWS:
         raise ValueError(f"{name} kernel takes at most {_coded_combine.MAX_ROWS} rows, got {r}")
+    slices = _slices(name, flat.shape[0], _MAX_GRID_Y, rows=r, q=flat.shape[-1])
+    if not on_card:
+        return plain(flat, w).reshape(lead + x.shape[-1:])
     out = torch.empty((flat.shape[0], flat.shape[-1]), dtype=flat.dtype, device=flat.device)
-    return _launch_sliced(name, _coded_combine.rows_launch, out, _MAX_GRID_Y, flat, w).reshape(
-        lead + x.shape[-1:])
+    return _lane_launch(name, _coded_combine.rows_launch, out, slices, flat, w).reshape(lead + x.shape[-1:])
 
 
 def masked_combine(msgs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -241,7 +337,9 @@ def stochastic_quantize(g: torch.Tensor, u: torch.Tensor, levels: int = 16, bloc
     qb = min(block, g.shape[-1])
     gf, _ = _lanes(g, 1)
     uf, _ = _lanes(u, 1)
-    if not _on_card("quantize", gf, uf):
+    on_card = _on_card("quantize", gf, uf)
+    slices = _slices("quantize", gf.shape[0], _MAX_GRID_Y, rows=1, q=gf.shape[-1])
+    if not on_card:
         return _quantize.plain(gf, uf, levels, qb).reshape(g.shape)
-    return _launch_sliced("quantize", lambda a, b, out: _quantize.launch(a, b, levels, qb, out=out),
-                          torch.empty_like(gf), _MAX_GRID_Y, gf, uf).reshape(g.shape)
+    return _lane_launch("quantize", lambda a, b, out: _quantize.launch(a, b, levels, qb, out=out),
+                        torch.empty_like(gf), slices, gf, uf).reshape(g.shape)

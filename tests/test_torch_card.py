@@ -31,6 +31,13 @@ ranks compute it, each rank's share run in turn on the card. A ``quant:4``
 fleet (server and workers in threads of one process) gives the CPU's losses
 within relative 2e-6, its server's decode launching ``masked_combine`` once
 a round and every block's compression ``quantize`` once a round.
+
+The tooling: a tuner probe whose captured round allocates past the card's
+memory is recorded as out of memory, the next probe runs, and the memory
+comes back; ``timing.block_time``'s CUDA events agree with a synchronised
+host clock within a factor 2; every kernel's per-lane loop of launches
+(the crossover table's ``"loop"``) equals its batched launch bit for bit at
+1, 3 and 8 lanes; and a captured round's launch list is the CPU's.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import dataclasses
 import importlib.util
 import socket
 import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -775,3 +783,161 @@ def test_fleet_quant4_card_against_cpu(card):
     rel = max(abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"]))
     assert rel <= 2e-6, rel
     assert launches["masked_combine"] == cfg.steps and launches["quantize"] == cfg.procs * cfg.steps
+
+
+# ------------------------------------------------------------------ tooling
+
+
+def _clear_workspaces() -> None:
+    """Drop cuBLAS's per-stream workspaces where the build can, so that
+    allocated memory counts what a run keeps."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+MEM_SLACK = 1 << 29  # bytes a run may leave: the cuBLAS workspaces of pooled streams, where they cannot be dropped
+
+
+@pytest.mark.cuda
+def test_probe_past_the_cards_memory_is_none_and_frees_it(card):
+    """A grid whose captured round allocates 0.55 of the card a lane (only
+    under capture): the probe of 2 lanes runs out of memory inside the
+    capture and raises the allocator's own error, the memory comes back,
+    the next probe (1 lane) runs; the tuner records 2 as ``None`` and
+    chooses 1, and the auto sweep equals loop mode bit for bit."""
+    from repro_torch.core import engine
+    from repro_torch.launch import tuner
+
+    per_lane = int(0.55 * torch.cuda.get_device_properties(0).total_memory) // 4
+
+    def grads(data, x):
+        if torch.cuda.is_current_stream_capturing():
+            torch.empty(x.shape[0] * per_lane, device=x.device).fill_(0.0)
+        return tscn._subset_grads(data, x)
+
+    rows = tscn.synthetic_sweep(4, n_devices=10, n_byz=2)
+    z, y = tscn.linear_regression_problem(torch.Generator(device="cuda").manual_seed(0), n=10, dim=16)
+
+    def kw(mode):
+        return dict(steps=3, lr=[r.lr for r in rows], data=(z, y), data_batched=False, loss_fn=tscn._loss,
+                    device="cuda", mode=mode,
+                    randomness=[torch.Generator(device="cuda").manual_seed(i) for i in range(4)])
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _clear_workspaces()
+    before = torch.cuda.memory_allocated()
+    plan = engine._plan_grid([r.protocol() for r in rows], torch.zeros(16), grads, **kw("graph"), draw_ids=None,
+                             optimizer="sgd", momentum_dtype="float32", grad_scale=1.0, shard="none", group=None,
+                             with_metrics=True)
+    with pytest.raises(torch.OutOfMemoryError):
+        engine._probe_chunk(plan.run_chunk, 2, 1, None, dev)
+    _clear_workspaces()
+    assert torch.cuda.memory_allocated() <= before + MEM_SLACK, (torch.cuda.memory_allocated(), before)
+    assert engine._probe_chunk(plan.run_chunk, 1, 1, None, dev) > 0
+    capacity, measured = tuner.tune_lane_capacity(lambda c: engine._probe_chunk(plan.run_chunk, c, 1, None, dev),
+                                                  n_lanes=4, n_devices=1)
+    assert capacity == 1 and measured[2] is None and measured[1] > 0, measured
+    del plan
+    store = tuner.set_store_path(None)
+    try:
+        auto = engine.run_grid([r.protocol() for r in rows], torch.zeros(16), grads, max_lanes_per_device="auto",
+                               **kw("graph"))
+        (rec,) = store.data["lane_capacity"].values()
+        assert rec["capacity"] == 1 and rec["per_lane_s"]["2"] is None, rec
+        loop = engine.run_grid([r.protocol() for r in rows], torch.zeros(16), grads, **kw("loop"))
+        assert torch.equal(auto.x, loop.x) and all(torch.equal(auto.metrics[k], loop.metrics[k]) for k in loop.metrics)
+    finally:
+        tuner.reset_store()
+    del auto, loop
+    _clear_workspaces()
+    assert torch.cuda.memory_allocated() <= before + MEM_SLACK, (torch.cuda.memory_allocated(), before)
+
+
+@pytest.mark.cuda
+def test_block_time_on_card_agrees_with_a_synchronised_clock(card):
+    from repro_torch.timing import block_time
+
+    a = torch.randn((4096, 4096), generator=card, device="cuda")
+
+    def fn():
+        for _ in range(8):
+            torch.mm(a, a)
+
+    events = block_time(fn, iters=5, warmup=2, device="cuda")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - start) / 5
+    assert 0.5 < events / host < 2.0, (events, host)
+
+
+def _lane_inputs(gen, lanes, n=8, q=(1 << 16) + 37):
+    """Each kernel's call on fixed inputs of ``lanes`` lanes."""
+    x = torch.randn((lanes, n, q), generator=gen, device="cuda")
+    subsets = torch.randint(0, n, (lanes, n, 2), generator=gen, device="cuda")
+    table = nnm_neighbours(tops.pairwise_sqdist(x), 2)
+    mask = (torch.arange(n, device="cuda") < 2).float().expand(lanes, n).contiguous()
+    g0 = x[:, 0].contiguous()
+    u = torch.rand(g0.shape, generator=gen, device="cuda")
+    rw = torch.rand((lanes, n), generator=gen, device="cuda")
+    stack, cw = x[:, :2].contiguous(), torch.rand((lanes, 2), generator=gen, device="cuda")
+    return {
+        "gather_combine": lambda: tops.gather_combine(x, subsets, torch.full((2,), 0.5, device="cuda")),
+        "attack": lambda: tops.attack(x, mask, "alie", 1.5),
+        "cwtm": lambda: (tops.cwtm(x, 2), tops.cwtm(x, 2, table)),
+        "gram": lambda: tops.gram(x),
+        "quantize": lambda: tops.stochastic_quantize(g0, u, 4, 1024),
+        "masked_combine": lambda: tops.masked_combine(x, rw),
+        "coded_combine": lambda: tops.coded_combine(stack, cw),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("kernel", ["gather_combine", "attack", "cwtm", "gram", "quantize", "masked_combine",
+                                    "coded_combine"])
+def test_lane_loop_dispatch_equals_batched_launch_on_card(card, kernel, lanes):
+    """The crossover table steering a kernel to one launch a lane gives the
+    batched launch's bits, with one launch a lane."""
+    from repro_torch.launch import tuner
+
+    store = tuner.set_store_path(None)
+    try:
+        calls = _lane_inputs(card, lanes)
+        batched = calls[kernel]()
+        tuner.record_crossover(kernel, lanes, batched_us=10.0, loop_us=1.0, store=store)
+        before = tops.launch_counts()[kernel]
+        looped = calls[kernel]()
+        launched = tops.launch_counts()[kernel] - before
+    finally:
+        tuner.reset_store()
+    for b, lp in zip(batched if isinstance(batched, tuple) else (batched,),
+                     looped if isinstance(looped, tuple) else (looped,)):
+        assert torch.equal(b, lp)
+    per_call = 2 if kernel == "cwtm" else 1  # CWTM is called with and without the mix
+    assert launched == per_call * lanes
+
+
+@pytest.mark.cuda
+def test_captured_launch_list_is_the_cpus(card):
+    """The launch list of a captured round on the card has one entry for
+    each captured launch, and the same kernels, shapes and work as the
+    CPU's loop-mode list: the work does not depend on which
+    implementation runs."""
+    from repro_torch.launch import roofline
+
+    rows = tscn.synthetic_sweep(5, n_devices=16, n_byz=3)
+    kw = dict(dim=24, max_lanes_per_device=2)
+    card_list = tscn.grid_launch_list(rows, 4, device="cuda", mode="graph", **kw)
+    cpu_list = tscn.grid_launch_list(rows, 4, device="cpu", mode="loop", **kw)
+    res = tscn.run_grid(rows, 4, device="cuda", mode="graph", **kw)
+    captured = res[rows[0].name].grid.graphs[0].captured_launches
+    assert {k: len(v) for k, v in card_list.items()} == {k: captured[k] for k in card_list}
+    assert card_list == cpu_list
+    bound = roofline.analyze_launches(card_list, "cuda")
+    assert bound["launches"] == sum(len(v) for v in card_list.values()) and bound["predicted_s"] > 0

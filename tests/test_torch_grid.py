@@ -186,8 +186,8 @@ def test_grid_refusals(case):
     rows = tscn.synthetic_sweep(3)
     kw = dict(dim=8, device="cpu", mode="loop")
     with pytest.raises(ValueError) as err:
-        if case == "auto":
-            tscn.run_grid(rows, 2, max_lanes_per_device="auto", **kw)
+        if case == "auto":  # "auto" is the tuner's; any other string is refused, as in the reference
+            tscn.run_grid(rows, 2, max_lanes_per_device="fastest", **kw)
         elif case == "shard":
             tengine.run_grid([r.protocol() for r in rows], torch.zeros(4), None, steps=2, lr=1.0,
                              randomness=[torch.Generator()] * 3, device="cpu", shard="gspmd")
@@ -199,7 +199,7 @@ def test_grid_refusals(case):
             tscn.run_grid(rows, 2, dim=8, device="cpu")
         else:
             tscn.run_grid(rows, 2, max_lanes_per_device=0, **kw)
-    want = {"auto": "A.11", "shard": "unknown shard mode 'gspmd'", "no-lanes": "at least one",
+    want = {"auto": "'auto'", "shard": "unknown shard mode 'gspmd'", "no-lanes": "at least one",
             "mode": "mode", "graph-on-cpu": "CUDA", "zero-per-device": ">= 1"}[case]
     assert want in str(err.value)
 

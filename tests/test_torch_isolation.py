@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``
-or ``chip_smoke.py``, and importing the package builds no kernel."""
+"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``,
+its examples (``examples/torch_*.py``) or ``chip_smoke.py``, and importing
+the package builds no kernel."""
 from __future__ import annotations
 
 import ast
@@ -11,7 +12,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + sorted((REPO / "examples").glob("torch_*.py"))
+              + [REPO / "chip_smoke.py"])
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -48,7 +50,8 @@ def test_port_imports_with_jax_blocked():
         "repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.launch.train, "
         "repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.rwkv, repro_torch.models.precision, "
         "repro_torch.core.protomath, repro_torch.core.distributed, repro_torch.launch.mesh, "
-        "repro_torch.launch.fleet, repro_torch.launch.chaos, repro_torch.timing\n"
+        "repro_torch.launch.fleet, repro_torch.launch.chaos, repro_torch.timing, repro_torch.launch.tuner, "
+        "repro_torch.launch.roofline\n"
         "import dataclasses, torch\n"
         "from repro_torch.core import scenarios as S\n"
         "r = S.run_scenario(S.PAPER_FIG4['LAD-CWTM-NNM-d10'], 2, device='cpu')\n"
@@ -69,6 +72,11 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.launch.mesh import make_host_mesh\n"
         "tr = T.Trainer(S.lm_arch(), T.TrainConfig(n_byz=1, attack='alie'), device='cpu', mesh=make_host_mesh(4))\n"
         "assert len(tr.run([{'tokens': toks[:, :-1], 'labels': toks[:, 1:]}])) == 1\n"
+        "from repro_torch.launch import roofline, tuner\n"
+        "tuner.set_store_path(None)\n"
+        "g = S.run_grid(S.synthetic_sweep(3), 2, dim=8, device='cpu', mode='loop', max_lanes_per_device='auto')\n"
+        "assert len(g) == 3 and tuner.tuner_stats()['probes'] > 0\n"
+        "assert roofline.active_params(S.lm_arch()) > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules "
         "if sys.modules[m] is not None)\n"
     )

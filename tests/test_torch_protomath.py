@@ -251,6 +251,52 @@ def test_zoo_blocks_refuse_a_batch_that_does_not_split(family):
         run()
 
 
+@pytest.mark.parametrize("family", ["mamba", "moe"])
+def test_reference_blocks_fall_back_on_a_batch_that_does_not_split(mesh, family):
+    """ROADMAP C.11: under ``BlockedProtocol(n_devices=4)`` a batch of 6
+    rows does not split into the device blocks, and the reference neither
+    splits it nor raises (``src/repro/models/mamba.py:96-97``,
+    ``moe.py:55-56``). Mamba keeps block 0's A for every row: with each
+    block's A made distinct, the 6-row forward equals the forward with no
+    protocol (block 0's A is the parameter), while an 8-row batch reads
+    each block's own. MoE routes the 6 rows as one block: with its
+    capacity binding, the forward equals the one-block forward with no
+    protocol, while 8 rows route per block. The port refuses such a batch
+    (``test_zoo_blocks_refuse_a_batch_that_does_not_split``)."""
+    from repro.models import mamba as jmamba
+    from repro.models import moe as jmoe
+
+    jp, _ = protocols("cwtm", "none", n_byz=0)
+    rng = np.random.default_rng(11)
+    if family == "mamba":
+        params, _ = jmamba.mamba_init(jax.random.PRNGKey(0), 8, 4, 4, 2, jnp.float32)
+        real = jmamba.block_tap
+
+        def distinct(w):  # block i's A is (i + 1) x the parameter
+            wb, n = real(w)
+            return wb * (1.0 + jnp.arange(n, dtype=wb.dtype)).reshape((n,) + (1,) * w.ndim), n
+
+        run = lambda x: jmamba.mamba(params, x, 4)  # noqa: E731
+    else:
+        params, _ = jmoe.moe_init(jax.random.PRNGKey(1), 8, 16, 4, jnp.float32)
+        run = lambda x: jmoe.moe(params, x, top_k=2, capacity_factor=0.5)[0]  # noqa: E731
+    same = {}
+    for rows in (6, 8):
+        x = jnp.asarray(rng.standard_normal((rows, 3, 8)).astype(np.float32))
+        with mesh:
+            alone = run(x)
+            if family == "mamba":
+                jmamba.block_tap = distinct
+            try:
+                with J.protocol_context(jp, jax.random.PRNGKey(0)):
+                    blocked = run(x)
+            finally:
+                if family == "mamba":
+                    jmamba.block_tap = real
+        same[rows] = np.array_equal(np.asarray(blocked), np.asarray(alone))
+    assert same == {6: True, 8: False}
+
+
 def test_shared_sites_rewind_each_pass():
     """A loop body's passes take the same sites; after the loop the
     counter stands past the body's, and a later op takes the next site."""
