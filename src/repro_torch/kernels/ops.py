@@ -14,10 +14,13 @@ in one dimension of at most 65535 blocks, so a wrapper launches a larger
 fold in consecutive slices of lanes; lanes are independent, so the bits do
 not change, and each launch counts.
 
-The crossover table of ``launch.tuner`` may steer a kernel at a lane count
-to a loop of single-lane launches instead (``_lane_launch``): a single-lane
-launch is the ``L = 1`` batched launch, so the bits are the same either way,
-and an empty table answers ``"batched"``.
+Inside a ``crossover(dispatch)`` block, a crossover table the caller passes
+in (``functools.partial(tuner.lane_dispatch, store=store)`` over a store
+whose pairs were measured) may steer a kernel at a lane count to a loop of
+single-lane launches instead (``_lane_launch``): a single-lane launch is the
+``L = 1`` batched launch, so the bits are the same either way. Outside such
+a block, and wherever the table answers ``"batched"``, a kernel launches
+its lanes batched; the wrappers read no store of their own.
 
 ``launch_work`` reckons a launch's bytes and fp32 operations from its shapes
 alone, whichever implementation runs: each fp32 stack read once and each
@@ -29,6 +32,7 @@ round and ``launch.roofline.analyze_launches`` turns into a bound.
 from __future__ import annotations
 
 import contextlib
+from typing import Callable
 
 import torch
 
@@ -38,7 +42,6 @@ from repro_torch.kernels import cwtm as _cwtm
 from repro_torch.kernels import nnm_dist as _nnm_dist
 from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels.ref import sqdist_from_gram
-from repro_torch.launch import tuner
 
 __all__ = [
     "gather_combine",
@@ -54,6 +57,7 @@ __all__ = [
     "reset_launch_counts",
     "launch_work",
     "record_launches",
+    "crossover",
 ]
 
 # counter name -> launches in this process: one counter per CUDA kernel,
@@ -71,6 +75,8 @@ _LOOP_UNROLL_MAX = 64
 
 _F32 = 4
 _recorders: list[list[dict]] = []
+# (kernel, lanes) -> "batched" or "loop", while a ``crossover`` block runs
+_dispatch: Callable[[str, int], str] | None = None
 
 
 def launch_counts() -> dict[str, int]:
@@ -143,10 +149,25 @@ def record_launches():
         _recorders.remove(log)
 
 
+@contextlib.contextmanager
+def crossover(dispatch: Callable[[str, int], str]):
+    """Dispatch the wrappers' launches by ``dispatch(kernel, lanes)`` ->
+    ``"batched"`` or ``"loop"`` while the block runs (a CUDA graph captured
+    inside keeps the launches it captured). Blocks nest; the outer table
+    comes back when the block ends."""
+    global _dispatch
+    outer, _dispatch = _dispatch, dispatch
+    try:
+        yield
+    finally:
+        _dispatch = outer
+
+
 def _use_loop(name: str, lanes: int) -> bool:
-    """Whether the crossover table says single-lane launches beat one
-    batched launch for kernel ``name`` at ``lanes`` lanes."""
-    return 2 <= lanes <= _LOOP_UNROLL_MAX and tuner.lane_dispatch(name, lanes) == "loop"
+    """Whether the crossover table of the active ``crossover`` block says
+    single-lane launches beat one batched launch for kernel ``name`` at
+    ``lanes`` lanes."""
+    return _dispatch is not None and 2 <= lanes <= _LOOP_UNROLL_MAX and _dispatch(name, lanes) == "loop"
 
 
 def _slices(name: str, lanes: int, per: int, **shape) -> list[tuple[int, int]]:

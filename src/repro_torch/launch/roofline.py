@@ -10,10 +10,14 @@ direction. ``platform_peaks`` raises for a CUDA card that has no entry,
 where the reference falls back to the CPU's figures for a GPU.
 
 ``RooflineTerms``, ``derive_terms`` and ``percent_of_peak`` are the
-reference's, copied as they are (``derive_terms`` on the TPU constants).
-``active_params`` and ``model_flops`` are the reference's on the port's
-models, their parameter shapes built on the ``meta`` device, so the zoo's
-largest archs need no memory. ``analyze_launches`` is the counterpart of
+reference's, copied as they are, but for one change: ``derive_terms`` takes
+its peaks from ``platform_peaks(device)`` for a device its caller must
+name, where the reference's divides by the TPU v5e constants, so it gives
+no TPU times for a card. ``active_params`` and ``model_flops`` are the
+reference's on the port's models, their parameter shapes built on the
+``meta`` device, so the zoo's largest archs need no memory. These four wait
+for their callers in the port, the dry run and the report of the
+production mesh; the tests hold them to the reference's. ``analyze_launches`` is the counterpart of
 ``analyze_compiled``: it reads the launch list of a captured round
 (``core.scenarios.grid_launch_list``). The reference's HLO parsers
 (``parse_collectives``, ``analyze_hlo``, ``analyze_compiled``) read XLA's
@@ -62,14 +66,19 @@ class RooflineTerms:
 
 
 def derive_terms(
-    cost: dict, collectives: dict, model_flops_total: float = 0.0, chips: int = 1
+    cost: dict, collectives: dict, model_flops_total: float = 0.0, chips: int = 1, *,
+    device: torch.device | str,
 ) -> RooflineTerms:
+    """The roofline terms of one chip's ``cost`` (``flops``, ``bytes
+    accessed``) and ``collectives`` (``total_wire_bytes``) at the peaks of
+    ``device`` (``platform_peaks``; ``"tpu"`` gives the reference's terms)."""
+    peaks = platform_peaks(device)
     flops = float(cost.get("flops", 0.0))
     byts = float(cost.get("bytes accessed", 0.0))
     wire = float(collectives.get("total_wire_bytes", 0.0))
-    compute_s = flops / PEAK_FLOPS
-    memory_s = byts / HBM_BW
-    collective_s = wire / LINK_BW
+    compute_s = flops / peaks["peak_flops"]
+    memory_s = byts / peaks["mem_bw"]
+    collective_s = wire / peaks["link_bw"]
     terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
     dominant = max(terms, key=terms.get)
     mf_chip = model_flops_total / max(chips, 1)

@@ -9,7 +9,9 @@ three changes:
     card and the reference's stay in stores of their own;
   * the probes are the port's: ``engine.run_grid`` probes one chunk through
     the same chunk path its sweep takes (in graph mode the capture and the
-    replays), and ``kernels.ops`` reads the crossover table.
+    replays), and the kernel wrappers read the crossover table only where
+    a caller passes it in (``kernels.ops.crossover(functools.partial(
+    lane_dispatch, store=store))``).
 
 ``engine.run_grid``'s ``max_lanes_per_device`` bounds device memory by
 streaming a sweep through equal-shaped chunks, but the capacity that is
@@ -37,7 +39,9 @@ The same store keeps the **crossover table** for the kernel wrappers: per
 (op, lane-count bucket), whether the lane-batched launch or the per-lane
 loop of single-lane launches measured faster. ``lane_dispatch`` answers
 from the nearest measured bucket and falls back to ``"batched"`` — the
-previous unconditional behavior — when nothing was ever measured.
+previous unconditional behavior — when nothing was ever measured. No code
+of the port writes the table yet: its writer is the kernel benchmark,
+which comes with the port's benchmark.
 
 Store location: ``$REPRO_TORCH_TUNER_CACHE`` if set, else
 ``~/.cache/repro_torch/tuner.json``; tests point it at a tmp dir via

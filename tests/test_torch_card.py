@@ -42,6 +42,8 @@ host clock within a factor 2; every kernel's per-lane loop of launches
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import importlib.util
 import socket
 import threading
@@ -791,6 +793,7 @@ def test_fleet_quant4_card_against_cpu(card):
 def _clear_workspaces() -> None:
     """Drop cuBLAS's per-stream workspaces where the build can, so that
     allocated memory counts what a run keeps."""
+    gc.collect()
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
     if clear is not None:
         clear()
@@ -798,7 +801,7 @@ def _clear_workspaces() -> None:
     torch.cuda.empty_cache()
 
 
-MEM_SLACK = 1 << 29  # bytes a run may leave: the cuBLAS workspaces of pooled streams, where they cannot be dropped
+MEM_SLACK = 4 << 20  # bytes a run may leave: a small cache of the allocator's; a probe or graph keeps nothing
 
 
 @pytest.mark.cuda
@@ -906,16 +909,14 @@ def test_lane_loop_dispatch_equals_batched_launch_on_card(card, kernel, lanes):
     batched launch's bits, with one launch a lane."""
     from repro_torch.launch import tuner
 
-    store = tuner.set_store_path(None)
-    try:
-        calls = _lane_inputs(card, lanes)
-        batched = calls[kernel]()
-        tuner.record_crossover(kernel, lanes, batched_us=10.0, loop_us=1.0, store=store)
-        before = tops.launch_counts()[kernel]
+    store = tuner.TunerStore(None)
+    calls = _lane_inputs(card, lanes)
+    batched = calls[kernel]()
+    tuner.record_crossover(kernel, lanes, batched_us=10.0, loop_us=1.0, store=store)
+    before = tops.launch_counts()[kernel]
+    with tops.crossover(functools.partial(tuner.lane_dispatch, store=store)):
         looped = calls[kernel]()
-        launched = tops.launch_counts()[kernel] - before
-    finally:
-        tuner.reset_store()
+    launched = tops.launch_counts()[kernel] - before
     for b, lp in zip(batched if isinstance(batched, tuple) else (batched,),
                      looped if isinstance(looped, tuple) else (looped,)):
         assert torch.equal(b, lp)

@@ -24,6 +24,7 @@ unsharded grid.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -356,14 +357,17 @@ def test_loop_dispatch_equals_batched_launch(mem_store):
     launch = lambda m, k, out: out.copy_(tattacks.plain(m, k, "alie", 1.5))  # noqa: E731
     batched_slices = ops._slices("attack", 5, ops._MAX_GRID_Y, rows=6, q=40)
     tuner.record_crossover("attack", 5, batched_us=10.0, loop_us=1.0)
-    loop_slices = ops._slices("attack", 5, ops._MAX_GRID_Y, rows=6, q=40)
+    assert ops._slices("attack", 5, ops._MAX_GRID_Y, rows=6, q=40) == batched_slices  # no table passed in
+    with ops.crossover(functools.partial(tuner.lane_dispatch, store=mem_store)):
+        loop_slices = ops._slices("attack", 5, ops._MAX_GRID_Y, rows=6, q=40)
+        assert ops._slices("attack", ops._LOOP_UNROLL_MAX + 1, ops._MAX_GRID_Y, rows=6, q=40) == [
+            (0, ops._LOOP_UNROLL_MAX + 1)]  # past the loop's bound, one launch
     assert batched_slices == [(0, 5)] and loop_slices == [(i, i + 1) for i in range(5)]
+    assert ops._dispatch is None
     before = ops.launch_counts()["attack"]
     got = ops._lane_launch("attack", launch, torch.empty_like(msgs), loop_slices, msgs, mask)
     assert ops.launch_counts()["attack"] - before == 5
     assert torch.equal(got, ops._lane_launch("attack", launch, torch.empty_like(msgs), batched_slices, msgs, mask))
-    assert ops._slices("attack", ops._LOOP_UNROLL_MAX + 1, ops._MAX_GRID_Y, rows=6, q=40) == [
-        (0, ops._LOOP_UNROLL_MAX + 1)]  # past the loop's bound, one launch
 
 
 LAUNCH_WORK = [  # (kernel, call, lanes, rows, q, kw): shapes the wrappers see
@@ -452,8 +456,9 @@ def test_block_time_on_the_cpu():
 def test_roofline_pure_functions_equal_the_references():
     cost, coll = {"flops": 3.2e12, "bytes accessed": 7.5e9}, {"total_wire_bytes": 1.1e9}
     for kw in (dict(), dict(model_flops_total=2.4e13, chips=4), dict(model_flops_total=1e12)):
-        assert roofline.derive_terms(cost, coll, **kw).as_dict() == jroof.derive_terms(cost, coll, **kw).as_dict()
-    assert roofline.derive_terms({}, {}).as_dict() == jroof.derive_terms({}, {}).as_dict()
+        assert (roofline.derive_terms(cost, coll, device="tpu", **kw).as_dict()
+                == jroof.derive_terms(cost, coll, **kw).as_dict())
+    assert roofline.derive_terms({}, {}, device="tpu").as_dict() == jroof.derive_terms({}, {}).as_dict()
     analysis = {"predicted_s": 0.004}
     for measured, calls in ((0.01, 1.0), (0.002, 3.0), (1e-9, 1.0)):
         assert roofline.percent_of_peak(analysis, measured, calls) == jroof.percent_of_peak(analysis, measured, calls)
@@ -474,6 +479,20 @@ def test_platform_peaks_has_the_h100_and_refuses_an_unknown_card(monkeypatch):
         roofline.platform_peaks(torch.device("cuda", 0))  # the reference would fall back to the CPU's
     with pytest.raises(KeyError):
         roofline.platform_peaks("NVIDIA A100-SXM4-80GB")
+
+
+def test_derive_terms_takes_the_named_devices_peaks(monkeypatch):
+    """``derive_terms`` divides by the peaks of the device its caller names:
+    the H100's for the card, and no TPU figures for a card without an entry."""
+    cost, coll = {"flops": 6.7e12, "bytes accessed": 3.35e9}, {"total_wire_bytes": 4.5e8}
+    got = roofline.derive_terms(cost, coll, device=roofline.H100)
+    assert got.compute_s == pytest.approx(0.1) and got.memory_s == pytest.approx(1e-3)
+    assert got.collective_s == pytest.approx(1e-3) and got.dominant == "compute"
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "NVIDIA A100-SXM4-80GB")
+    with pytest.raises(KeyError, match="A100"):
+        roofline.derive_terms(cost, coll, device=torch.device("cuda", 0))
+    with pytest.raises(TypeError):
+        roofline.derive_terms(cost, coll)  # the device is not optional
 
 
 def test_analyze_launches_bounds_the_listed_kernels_only():
