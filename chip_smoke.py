@@ -128,6 +128,19 @@ and prints one JSON line per phase:
                  mode, sharded bit for bit unsharded; the audio family's
                  engine step with its ``frontend``, sharded on the card,
                  against the CPU within 2e-6 a step;
+  protomath_tp   the ``"protomath"`` step over data 2 x model 2: four fresh
+                 interpreters on the card joined over ``gloo`` (NCCL takes one
+                 rank a card), every collective on the CUDA tensors; (a)
+                 ``lm_arch()`` with 4 heads over 2 kv heads in fp32, N=4, 3
+                 steps of each protomath setup under both servers: losses
+                 within 2e-6 of this process's model-1 run on the card,
+                 ``sharded`` bit for bit ``gather``, the gathered
+                 parameters equal on every rank; (b) smollm-360m at full
+                 width in bf16 (``protomath_wide``'s settings), N=8: each
+                 rank's param and moment bytes against the whole, peak
+                 memory, card ms a step, exchanges and kernel launches, the
+                 first loss against this process's model-1 step, one
+                 exchange of a tp slice against the plain versions;
   serve          the serving path (prefill, cached decode, ``serve_traffic``)
                  at the zoo's scale in fp32, for the seven ``ZOO_FAMILIES``
                  and a whisper arch whose first block is cross-attention:
@@ -196,6 +209,9 @@ and prints one JSON line per phase:
                  ``engine_shard`` phase's sharded steps and first sharded
                  grid call, never the unsharded runs they are held to, where
                  the encode, attack and CWTM kernels must be above 0;
+                 ``protomath_tp_launches``: those of the ``protomath_tp``
+                 phase's four ranks, their steps alone, where the attack,
+                 CWTM, Gram and QSGD kernels must be above 0;
                  ``fleet_launches``: those of the ``fleet`` phase's card
                  fleets, server and workers summed), and
                  the launches that graph
@@ -229,6 +245,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed
 
@@ -2000,6 +2017,224 @@ def protomath_wide_phase(T, mesh_lib, protomath, models, pytree, ops, archs, syn
     return out
 
 
+# ------------------------------------------------------------- protomath_tp
+
+TP_WORLD, TP_MODEL = 4, 2  # data 2 x model 2 on the one card
+TP_N = 4  # (a)'s logical devices: 2 blocks a data rank
+TP_STEPS = 3
+TP_TIMEOUT_S = 300.0  # one rank, start-up included
+TP_WIDE_LOSS_RTOL = 1e-3  # (b)'s first loss, bf16, against the one-process step: set in PERF.md before the first run
+
+
+def tp_arch(scenarios):
+    """``lm_arch()`` with 4 heads over 2 kv heads: every weight but the
+    norms cut over 2 model ranks."""
+    return scenarios.lm_arch().scaled(n_heads=4, n_kv_heads=2)
+
+
+def tp_wide_tcfg(T, arch):
+    """``protomath_wide``'s settings: AdamW with bf16 moments, LAD d=2, 2
+    Byzantine of N=8, CWTM trim 0.25 under ALIE, the sharded server."""
+    return T.TrainConfig(arch=arch.name, protocol="lad", protocol_impl="protomath", d=2, aggregator="cwtm",
+                         trim_frac=0.25, n_byz=2, attack="alie")
+
+
+def tp_rank(out: Path, rank: int) -> int:
+    """One rank of ``protomath_tp_phase``: a fresh interpreter on the card,
+    joined to the others over a ``gloo`` group (NCCL refuses two ranks on
+    one card) through a file under ``out``. Writes ``rank{rank}.json``
+    (its line) and ``rank{rank}.npz`` ((a)'s losses and gathered
+    parameters)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import models, pytree
+    from repro_torch.configs import archs
+    from repro_torch.core import protomath, scenarios
+    from repro_torch.core.coding import flatten_pytree
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as T
+    from repro_torch.models.module import tree_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group("gloo", init_method=f"file://{out / 'rendezvous'}", world_size=TP_WORLD,
+                                         rank=rank)
+    try:
+        mesh = mesh_lib.make_host_mesh(TP_N, TP_MODEL)
+        line = {"rank": rank, "data_rank": mesh.rank, "model_rank": mesh.model_rank, "a": {}}
+        arrays = {}
+        path_launches = dict.fromkeys(ops.KERNELS, 0)
+
+        def counted(fn):
+            before = ops.launch_counts()
+            result = fn()
+            torch.cuda.synchronize()
+            for k, v in ops.launch_counts().items():
+                path_launches[k] += v - before[k]
+            return result
+
+        # (a) fp32 parity at lm_arch() with cut heads
+        arch = tp_arch(scenarios)
+        params0, specs = models.init(torch.Generator().manual_seed(0), arch)
+        batches = train_batches(synthetic, arch, TP_N, 1, TP_STEPS)
+        for name, kw in PROTOMATH_SETUPS.items():
+            for server in ("sharded", "gather"):
+                step, opt = T.build_train_step(arch, protomath_tcfg(T, arch, server=server, **kw), specs, mesh=mesh,
+                                               device="cuda")
+                p = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(params0, step.placements, mesh))
+                params, _, losses = counted(lambda: drive(step, p, opt.init(p), batches))
+                whole = T.gather_tree(params, step.placements, mesh)
+                arrays[f"{name}/{server}/loss"] = losses.cpu().numpy()
+                arrays[f"{name}/{server}/params"] = flatten_pytree(pytree.map_tree(lambda a: a.cpu(), whole))[0].numpy()
+
+        # (b) smollm-360m at its published widths, depth and dtype
+        wide = archs.ARCHS["smollm-360m"]
+        wmesh = dataclasses.replace(mesh, data=WIDE_N)
+        tcfg = tp_wide_tcfg(T, wide)
+        whole0, wspecs = models.init(torch.Generator().manual_seed(0), wide)
+        step, opt = T.build_train_step(wide, tcfg, wspecs, mesh=wmesh, device="cuda")
+        params = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(whole0, step.placements, wmesh))
+        whole_bytes = tree_bytes(whole0)
+        del whole0
+        state = opt.init(params)
+        moments = tree_bytes(state.mu) + tree_bytes(state.nu)
+        line["b"] = {"param_bytes": tree_bytes(params), "param_bytes_whole": whole_bytes, "moment_bytes": moments,
+                     "moment_bytes_whole": 2 * WIDE_Q * 2, "n_local": wmesh.local_devices}
+        batches = train_batches(synthetic, wide, WIDE_N, 2, 1 + TP_STEPS)
+        params, state, loss, _ = counted(lambda: step(params, state, batches[0], 0))  # the first step, untimed
+        line["b"]["first_loss"] = float(loss)
+        torch.cuda.reset_peak_memory_stats()
+        protomath.reset_exchange_counts()
+        rows, losses = [], []
+        for i, b in enumerate(batches[1:], start=1):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev[0].record()
+            params, state, loss, _ = counted(lambda: step(params, state, b, i))
+            ev[1].record()
+            ev[1].synchronize()
+            rows.append({"card_ms": ev[0].elapsed_time(ev[1]), "wall_ms": (time.perf_counter() - t0) * 1e3})
+            losses.append(float(loss))
+        check(all(map(math.isfinite, losses)), f"protomath_tp rank {rank}: a loss is not finite")
+        ex = protomath.exchange_counts()
+        line["b"].update(steps=rows, loss=losses, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         exchanges_a_step={k: v // TP_STEPS for k, v in ex.items()})
+        del params, state
+
+        # one exchange of a tp slice (w_gate's: (960, 2560 / 2)) through the kernels against the plain versions
+        protocol = T.make_protocol(tcfg, wmesh)
+        gen = torch.Generator(device="cuda").manual_seed(13 + rank)
+        block = torch.randn((wmesh.local_devices, 960, 2560 // TP_MODEL), generator=gen, device="cuda") * 1e-3
+
+        def combine(x):
+            return protomath.robust_combine(protocol, x, ("fsdp", "tp"), seed=5, group=wmesh.group,
+                                            model_group=wmesh.model_group, cut=(None, "model"))
+
+        got, want = combine(block).cpu(), combine(block.cpu())
+        atol = ATOL * float(want.abs().max())
+        check(torch.allclose(got, want, rtol=RTOL, atol=atol),
+              f"protomath_tp rank {rank}: an exchange on a tp slice disagrees with its plain version")
+        line["b"]["exchange_vs_plain_share"] = float(((got - want).abs() / (atol + RTOL * want.abs())).max())
+        line["launches"] = path_launches
+        np.savez(out / f"rank{rank}.npz", **arrays)
+        (out / f"rank{rank}.json").write_text(json.dumps(line))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs, tmp: Path) -> dict:
+    """The ``"protomath"`` step over data 2 x model 2: four fresh
+    interpreters on the one card (``tp_rank``; never a fork of this
+    process, which holds the card), one ``gloo`` group, each with its
+    share of the host's cores and ``TP_TIMEOUT_S``; every collective of
+    the step runs on the CUDA tensors (gloo's CUDA path, no host staging).
+
+      (a) ``tp_arch()`` in fp32, N=4, 3 steps, each of
+          ``PROTOMATH_SETUPS`` under both servers: losses within relative
+          ``TRAIN_RTOL`` of the same steps in this process at model 1 on
+          the card, ``sharded`` bit for bit ``gather``, the gathered
+          parameters equal on every rank;
+      (b) smollm-360m at full width in bf16 (``protomath_wide``'s
+          settings), N=8, 3 steps after an untimed first step: each
+          rank's param and moment bytes against the whole, peak GB, card
+          ms a step, exchanges and kernel launches; the first step's loss
+          within ``TP_WIDE_LOSS_RTOL`` of this process's model-1 step; one
+          exchange of a tp slice against the plain versions.
+
+    Every kernel of ``PROTOMATH_KERNELS`` must launch on some rank."""
+    out = {"phase": "protomath_tp", "ranks": TP_WORLD, "data": TP_WORLD // TP_MODEL, "model": TP_MODEL,
+           "backend": "gloo", "host_staged_collectives": [], "steps": TP_STEPS}
+    arch = tp_arch(scenarios)
+    params0, specs = models.init(torch.Generator().manual_seed(0), arch)
+    batches = train_batches(synthetic, arch, TP_N, 1, TP_STEPS)
+    one_mesh = mesh_lib.Mesh(data=TP_N, group=None, world=1, rank=0)
+    one = {}
+    for name, kw in PROTOMATH_SETUPS.items():
+        step, opt = T.build_train_step(arch, protomath_tcfg(T, arch, **kw), specs, mesh=one_mesh, device="cuda")
+        p = pytree.map_tree(lambda a: a.to("cuda"), params0)
+        one[name] = drive(step, p, opt.init(p), batches)[2].cpu().numpy()
+    wide = archs.ARCHS["smollm-360m"]
+    whole0, wspecs = models.init(torch.Generator().manual_seed(0), wide)
+    step, opt = T.build_train_step(wide, tp_wide_tcfg(T, wide), wspecs, mesh=dataclasses.replace(one_mesh,
+                                                                                                   data=WIDE_N),
+                                   device="cuda")
+    p = pytree.map_tree(lambda a: a.to("cuda"), whole0)
+    one_first = float(step(p, opt.init(p), train_batches(synthetic, wide, WIDE_N, 2, 1)[0], 0)[2])
+    del whole0, p
+    torch.cuda.empty_cache()
+
+    work = tmp / "protomath_tp"
+    if work.exists():
+        for f in work.iterdir():
+            f.unlink()
+    work.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // TP_WORLD))}
+    started = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(work), str(r)], env=env,
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(TP_WORLD)]
+    try:
+        errs = [p.communicate(timeout=TP_TIMEOUT_S)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"protomath_tp rank {r} exited {p.returncode}: {err[-3000:]}")
+    out["ranks_s"] = time.perf_counter() - started
+    lines = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    arrays = [np.load(work / f"rank{r}.npz") for r in range(TP_WORLD)]
+    out["a"] = {}
+    for name in PROTOMATH_SETUPS:
+        for key in arrays[0].files:
+            if key.startswith(name + "/"):
+                check(all(np.array_equal(a[key], arrays[0][key]) for a in arrays[1:]),
+                      f"protomath_tp (a) {key}: the ranks disagree")
+        for what in ("loss", "params"):
+            check(np.array_equal(arrays[0][f"{name}/sharded/{what}"], arrays[0][f"{name}/gather/{what}"]),
+                  f"protomath_tp (a) {name}: the sharded server's {what} differ from the gather server's")
+        loss = arrays[0][f"{name}/sharded/loss"]
+        rel = float((np.abs(loss - one[name]) / np.abs(one[name])).max())
+        check(rel <= TRAIN_RTOL, f"protomath_tp (a) {name}: losses {rel:.3g} from the one-process run")
+        out["a"][name] = {"loss": loss.tolist(), "one_process_loss": one[name].tolist(), "max_rel_loss": rel,
+                          "sharded_bitwise_gather": True, "ranks_equal": True}
+    rel = max(abs(ln["b"]["first_loss"] - one_first) / abs(one_first) for ln in lines)
+    check(rel <= TP_WIDE_LOSS_RTOL, f"protomath_tp (b): first loss {rel:.3g} from the one-process step")
+    out["b"] = {"arch": wide.name, "params": WIDE_Q, "n_devices": WIDE_N, "one_process_first_loss": one_first,
+                "first_loss_max_rel": rel, "tolerance": TP_WIDE_LOSS_RTOL,
+                "ranks": [{"rank": ln["rank"], "data_rank": ln["data_rank"], "model_rank": ln["model_rank"], **ln["b"],
+                           "launches": {k: v for k, v in ln["launches"].items() if v}} for ln in lines]}
+    launches = {k: sum(ln["launches"][k] for ln in lines) for k in lines[0]["launches"]}
+    for kernel in PROTOMATH_KERNELS:
+        check(launches[kernel] > 0, f"protomath_tp: kernel {kernel} was not launched on any rank")
+    out["protomath_tp_launches"] = launches
+    return out
+
+
 # ------------------------------------------------------------- engine_shard
 
 ENGINE_SHARD_STEPS = 3
@@ -3134,6 +3369,10 @@ def main() -> int:
                                                                 byzantine, archs, synthetic, smi, replayed))])
     finally:
         torch.distributed.destroy_process_group()
+    # the step over data 2 x model 2: four processes of their own, each counting its own launches
+    run_phases([("protomath_tp", lambda: protomath_tp_phase(train, mesh_lib, models, pytree, synthetic, scenarios,
+                                                            archs, tmp))])
+    tp = lines["protomath_tp"]["protomath_tp_launches"]
     # the path's launches are the steps' own windows: not the exchanges held
     # against their plain versions, nor the exchange timed alone
     pm = dict(lines["protomath_wide"]["path_launches"])
@@ -3159,7 +3398,8 @@ def main() -> int:
     fl = {name: sum(lines["fleet"]["fleet_launches"][side][name] for side in ("server", "workers"))
           for name in ops.KERNELS}
 
-    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] + es[name] + fl[name] for name in ops.KERNELS}
+    launches = {name: linear[name] + lm[name] + wide[name] + pm[name] + es[name] + tp[name] + fl[name]
+                for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
@@ -3171,6 +3411,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": TPU_KERNELS[name][0],
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
          "lm_launches": lm[name], "protomath_launches": pm[name], "engine_shard_launches": es[name],
+         "protomath_tp_launches": tp[name],
          "fleet_launches": fl[name],
          "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
@@ -3182,4 +3423,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of the protomath_tp phase
+        sys.exit(tp_rank(Path(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -6,7 +6,7 @@ partial participation, the schedule state: the previous ``(N,)`` mask) into
 the port's tensors on a chosen device; ``result_to_numpy`` turns a
 ``TrajectoryResult`` back. Both sides then start from identical state.
 ``lm_params_from_numpy`` carries the LM's parameter tree across, leaf for
-leaf, and ``opt_state_from_numpy`` its optimizer state (step and moments),
+leaf (or a rank's cut of it), and ``opt_state_from_numpy`` its optimizer state (step and moments),
 so the port can start from the reference's mid-run state.
 ``decode_state_from_numpy`` carries a serving decode state across (the
 caches, ``KVCache``, ``MambaState`` and ``RWKVState``, and ``pos``), and
@@ -80,12 +80,18 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def lm_params_from_numpy(tree, *, device: torch.device | str = "cpu"):
+def lm_params_from_numpy(tree, *, device: torch.device | str = "cpu", placements=None, mesh=None):
     """The reference's LM parameter tree (nested dicts of numpy arrays) as
     the port's tree of tensors on ``device``, leaf for leaf, bits and dtypes
     unchanged: ``coding.flatten_pytree`` of the result is the reference's
-    flat vector of the same tree."""
-    return pytree.map_tree(lambda a: _leaf(a, device), tree)
+    flat vector of the same tree. With ``placements`` (``launch.train.
+    param_pspecs``) and ``mesh``, this rank's cut of it (``shard_tree``)."""
+    out = pytree.map_tree(lambda a: _leaf(a, "cpu"), tree)
+    if placements is not None:
+        from repro_torch.launch.train import shard_tree
+
+        out = shard_tree(out, placements, mesh)
+    return pytree.map_tree(lambda a: a.to(device), out)
 
 
 def opt_state_from_numpy(state, *, device: torch.device | str = "cpu") -> OptState:

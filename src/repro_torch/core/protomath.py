@@ -41,6 +41,28 @@ the honest mean, as in the reference (ROADMAP C.8). Lookups aggregate by
 the plain sum unless ``embedding_robust`` is set (the reference's default
 protocol adaptation); across ranks that sum is an ``all_reduce``.
 
+Tensor parallelism (``model_size > 1``, a ``model_group`` of that many
+ranks): ``protocol_context`` takes ``cuts``, each stored leaf's cut (one
+of ``"data"``, ``"model"`` or ``None`` a dim). A parameter-consuming op
+takes the weight's compute view as the reference's ``_pin_w`` does: the
+``data`` cut is all-gathered over the data group, the ``model`` cut kept.
+A model-cut dim of ``w`` that appears in the output makes a
+column-parallel product (its output stays cut; ``dx`` is all-reduced over
+the model group in the backward); a contracted one a row-parallel product
+(its output all-reduced, ``dx`` cut). ``plookup`` on a vocabulary-cut
+table is a vocabulary-parallel lookup: rows outside this rank's range give
+exact zeros, then the all-reduce; ``vocab_logsumexp`` is the log-sum-exp
+over such a cut vocabulary. The blocked cotangent is then this rank's tp
+slice of the leaf's, exchanged over the data group as above; the aggregate
+comes back as the stored cut (the ``sharded`` server's cut is already the
+``data`` cut, so its closing ``all_gather`` is skipped). Compression and
+the ``gaussian`` attack read or draw across a whole row: for a model-cut
+leaf the rows are all-gathered over the model group into the whole leaf's,
+transformed as at ``model_size = 1``, and this rank's slice taken, so a
+slice carries the bits ``model_size = 1`` gives its coordinates. The
+``-nnm`` Gram and squared norms of a slice are summed over the model group
+after the data cut's sum. Partial sums travel in fp32.
+
 Each exchanged call site draws from generators seeded by ``(seed, site,
 row, stream)``, ``seed`` the round's (``protocol_context``) and ``site``
 the call's order in one forward; a loop over periods, encoder layers or
@@ -68,7 +90,7 @@ from repro_torch.numerics import stable_mean0
 
 __all__ = ["BlockedProtocol", "protocol_context", "current_protocol", "shared_sites", "fold_seed", "sharded_dim",
            "robust_combine", "exchange_counts", "reset_exchange_counts", "lookup", "pmm", "plookup", "pscale",
-           "pbias", "block_tap"]
+           "pbias", "block_tap", "vocab_logsumexp"]
 
 DATA_AXES_1POD: tuple[str, ...] = ("data",)
 _COMPRESS, _NOISE = 0, 1  # draw streams of a site's rows
@@ -87,15 +109,15 @@ class BlockedProtocol:
     compression: comp_lib.CompressionSpec = dataclasses.field(default_factory=comp_lib.CompressionSpec)
     server: str = "sharded"  # sharded | gather
     honest_mean: bool = False  # protocol "none": the plain data-parallel mean
-    model_size: int = 1  # the "model" axis: tensor parallelism waits for ROADMAP A.9c
+    model_size: int = 1  # ranks of the "model" axis, over which each leaf's tp dim is cut
     # Lookup gradients are sparse over the vocabulary, so a coordinate-wise
     # trimmed mean would trim their signal away: by default they aggregate
     # by the plain sum, as in the reference; True exchanges them too.
     embedding_robust: bool = False
 
     def __post_init__(self):
-        if self.model_size != 1:
-            raise ValueError(f"model_size={self.model_size}: the tensor-parallel model axis waits for ROADMAP A.9c")
+        if self.model_size < 1:
+            raise ValueError(f"model_size={self.model_size}: expected at least 1")
         if self.server not in ("sharded", "gather"):
             raise ValueError(f"unknown server {self.server!r}: expected 'sharded' or 'gather'")
 
@@ -110,7 +132,14 @@ class _Context:
     group: Any  # a torch.distributed process group, or None: one rank, no collectives
     world: int
     rank: int
+    model_group: Any = None  # the model ranks of this data rank, or None
+    model_world: int = 1
+    model_rank: int = 0
+    cuts: dict = dataclasses.field(default_factory=dict)  # id(stored leaf) -> its cut
     site: int = 0
+
+    def cut_of(self, w: torch.Tensor) -> tuple | None:
+        return self.cuts.get(id(w))
 
 
 _ACTIVE: list[_Context] = []
@@ -121,14 +150,22 @@ def _world_rank(group: Any) -> tuple[int, int]:
 
 
 @contextmanager
-def protocol_context(p: BlockedProtocol, seed: int, group: Any = None):
+def protocol_context(p: BlockedProtocol, seed: int, group: Any = None, *, model_group: Any = None,
+                     cuts: dict | None = None):
     """Activate the LAD exchange for every protomath call inside, under the
     round's ``seed``, over the data ``group`` (``None``: this process holds
-    all ``N`` blocks and makes no collective call)."""
+    all ``N`` blocks and makes no collective call). ``model_group``: the
+    ``p.model_size`` ranks a leaf's tp dim is cut over (``None`` at one);
+    ``cuts``: ``{id(leaf): cut}`` for the stored leaves that are cut, a cut
+    holding ``"data"``, ``"model"`` or ``None`` a dim (the leaves must
+    outlive the context)."""
     world, rank = _world_rank(group)
+    model_world, model_rank = _world_rank(model_group)
     if p.n_devices % world != 0:
         raise ValueError(f"N={p.n_devices} blocks do not split over {world} ranks")
-    _ACTIVE.append(_Context(p, int(seed), group, world, rank))
+    if model_world != p.model_size:
+        raise ValueError(f"model_size={p.model_size}, but the model group holds {model_world} ranks")
+    _ACTIVE.append(_Context(p, int(seed), group, world, rank, model_group, model_world, model_rank, dict(cuts or {})))
     try:
         yield
     finally:
@@ -189,6 +226,9 @@ class _Site:
     group: Any
     world: int
     rank: int
+    model_group: Any = None
+    model_world: int = 1
+    model_rank: int = 0
 
     @property
     def n_local(self) -> int:
@@ -198,9 +238,13 @@ class _Site:
         return torch.Generator(device=device).manual_seed(fold_seed(self.seed, row, stream))
 
 
+def _site_of(ctx: _Context, seed: int) -> _Site:
+    return _Site(ctx.p, seed, ctx.group, ctx.world, ctx.rank, ctx.model_group, ctx.model_world, ctx.model_rank)
+
+
 def _take_site() -> _Site:
     ctx = _ACTIVE[-1]
-    site = _Site(ctx.p, fold_seed(ctx.seed, ctx.site), ctx.group, ctx.world, ctx.rank)
+    site = _site_of(ctx, fold_seed(ctx.seed, ctx.site))
     ctx.site += 1
     return site
 
@@ -213,18 +257,18 @@ def _trim_count(p: BlockedProtocol) -> int:
     return min(f, (p.n_devices - 1) // 2)
 
 
-def _apply_rule(p: BlockedProtocol, flat: torch.Tensor, gram_group: Any = None) -> torch.Tensor:
+def _apply_rule(p: BlockedProtocol, flat: torch.Tensor, gram_groups: tuple = ()) -> torch.Tensor:
     """(N, Q) fp32 -> (Q,). NNM's distances come from the Gram kernel
-    (summed over ``gram_group`` when the columns are a cut), its
-    neighbours by a stable sort, its mix inside the CWTM kernel."""
+    (summed over each of ``gram_groups`` in turn when the columns are a
+    cut), its neighbours by a stable sort, its mix inside the CWTM kernel."""
     name, n = p.aggregator, flat.shape[0]
     table = None
     if name.endswith("-nnm"):
         name = name[: -len("-nnm")]
         gram, sq = kernel_ops.gram(flat)
-        if gram_group is not None:
-            dist.all_reduce(gram, group=gram_group)
-            dist.all_reduce(sq, group=gram_group)
+        for g in gram_groups:
+            dist.all_reduce(gram, group=g)
+            dist.all_reduce(sq, group=g)
         table = aggregators.nnm_neighbours(sqdist_from_gram(gram, sq), p.n_byz)
     if name == "mean":
         return stable_mean0(flat) if table is None else kernel_ops.cwtm(flat, 0, table)
@@ -235,10 +279,10 @@ def _apply_rule(p: BlockedProtocol, flat: torch.Tensor, gram_group: Any = None) 
     raise KeyError(f"blocked protocol supports mean/median/cwtm[-nnm], got {p.aggregator!r}")
 
 
-def _device_side(site: _Site, rows: torch.Tensor) -> torch.Tensor:
+def _device_rows(site: _Site, rows: torch.Tensor) -> torch.Tensor:
     """Compression, then the ``gaussian`` attack, of this rank's (n_local,
-    Q) fp32 rows; row ``i`` is global block ``rank * n_local + i`` and draws
-    from its own generators."""
+    Q) fp32 rows of whole leaves; row ``i`` is global block ``rank *
+    n_local + i`` and draws from its own generators."""
     p, (n_local, q), dev = site.p, rows.shape, rows.device
     first = site.rank * n_local
     spec = p.compression
@@ -263,6 +307,24 @@ def _device_side(site: _Site, rows: torch.Tensor) -> torch.Tensor:
             noise = torch.randn((q,), generator=site.generator(first + i, _NOISE, dev), device=dev)
             rows[i] = p.attack.std * noise
     return rows
+
+
+def _device_side(site: _Site, rows: torch.Tensor, shape: tuple = (), tp_dim: int | None = None) -> torch.Tensor:
+    """``_device_rows`` of this rank's (n_local, prod(shape)) rows, its view
+    ``shape`` of a leaf cut over the model ranks on ``tp_dim`` (or whole):
+    a cut leaf's rows are all-gathered over the model group into the whole
+    leaf's, transformed, and this rank's slice taken."""
+    p = site.p
+    if p.compression.name in ("none", "identity") and not (p.n_byz > 0 and p.attack.name == "gaussian"):
+        return rows
+    if tp_dim is None:
+        return _device_rows(site, rows)
+    n_local, m = rows.shape[0], site.model_world
+    parts = _all_gather(rows.reshape((n_local,) + shape), site.model_group, m).reshape((m, n_local) + shape)
+    whole = torch.cat(parts.unbind(0), dim=1 + tp_dim)
+    done = _device_rows(site, whole.reshape(n_local, -1)).reshape(whole.shape)
+    cut = shape[tp_dim]
+    return done.narrow(1 + tp_dim, site.model_rank * cut, cut).reshape(n_local, -1).contiguous()
 
 
 def _server_side(p: BlockedProtocol, flat: torch.Tensor) -> torch.Tensor:
@@ -293,10 +355,14 @@ def _all_gather(x: torch.Tensor, group: Any, world: int) -> torch.Tensor:
 
 
 def robust_combine(p: BlockedProtocol, dw_local: torch.Tensor, w_spec: tuple | None = None, *, seed: int = 0,
-                   group: Any = None) -> torch.Tensor:
+                   group: Any = None, model_group: Any = None, cut: tuple | None = None) -> torch.Tensor:
     """The server: this rank's blocked cotangent ``(N/W, *w)`` -> the
-    aggregate ``(*w)`` in fp32, the same on every rank of ``group``."""
-    return _combine(_Site(p, seed, group, *_world_rank(group)), dw_local, w_spec)
+    aggregate in fp32, the same on every rank of ``group``. ``cut``: how
+    the stored leaf is cut (``None``: whole); ``w`` is then its compute
+    view (the ``data`` cut whole, the ``model`` cut this rank's slice over
+    ``model_group``) and the aggregate comes back as the stored cut."""
+    return _combine(_Site(p, seed, group, *_world_rank(group), model_group, *_world_rank(model_group)), dw_local,
+                    w_spec, cut)
 
 
 # exchanges in this process, by server: calls and the parameters they aggregated
@@ -314,35 +380,52 @@ def reset_exchange_counts() -> None:
         _EXCHANGES[name] = 0
 
 
-def _combine(site: _Site, dw_local: torch.Tensor, w_spec: tuple | None) -> torch.Tensor:
+def _dim_of(cut: tuple | None, axis: str) -> int | None:
+    return None if cut is None or axis not in cut else cut.index(axis)
+
+
+def _take(t: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
+    """Part ``index`` of ``parts`` equal parts of ``t`` along ``dim``."""
+    size = t.shape[dim] // parts
+    return t.narrow(dim, index * size, size)
+
+
+def _combine(site: _Site, dw_local: torch.Tensor, w_spec: tuple | None, cut: tuple | None = None) -> torch.Tensor:
     p, group, world = site.p, site.group, site.world
     n_local, w_shape = dw_local.shape[0], tuple(dw_local.shape[1:])
     if n_local != site.n_local:
         raise ValueError(f"{n_local} local blocks, expected {site.n_local} (N={p.n_devices} over {world} ranks)")
+    tp_dim, data_dim = _dim_of(cut, "model"), _dim_of(cut, "data")
     rows = dw_local.to(torch.float32).reshape(n_local, -1)
     if not p.honest_mean:
-        rows = _device_side(site, rows)
+        rows = _device_side(site, rows, w_shape, tp_dim)
+    model_sum = () if tp_dim is None else (site.model_group,)  # a slice's Gram, summed over the model ranks
     dim = sharded_dim(w_spec, w_shape, world) if p.server == "sharded" and group is not None else None
     _EXCHANGES["gather_calls" if dim is None else "sharded_calls"] += 1
     _EXCHANGES["elements"] += rows.shape[1]
     if dim is None:  # gather: every rank aggregates all N rows
         stack = rows if group is None else _all_gather(rows, group, world)
         flat = stack if p.honest_mean else _server_side(p, stack)
-        agg = stable_mean0(flat) if p.honest_mean else _apply_rule(p, flat)
-        return agg.reshape(w_shape)
+        agg = (stable_mean0(flat) if p.honest_mean else _apply_rule(p, flat, model_sum)).reshape(w_shape)
+        return agg if data_dim is None else _take(agg, data_dim, world, site.rank).contiguous()
+    if data_dim not in (None, dim):
+        raise ValueError(f"the leaf is stored cut on dim {data_dim}, the sharded server cuts dim {dim}")
     # sharded: the fsdp dim first, cut W ways, each rank receiving every row's cut of its own
     moved = rows.reshape((n_local,) + w_shape).movedim(1 + dim, 1)
     rest = tuple(moved.shape[2:])
-    cut = w_shape[dim] // world
-    send = moved.reshape((n_local, world, cut) + rest).transpose(0, 1).contiguous()  # (W, n_local, cut, ...)
+    cut_len = w_shape[dim] // world
+    send = moved.reshape((n_local, world, cut_len) + rest).transpose(0, 1).contiguous()  # (W, n_local, cut, ...)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)  # recv[s]: rank s's rows, this rank's cut
     flat = recv.reshape(p.n_devices, -1)
     if p.honest_mean:
         agg = stable_mean0(flat)
     else:
-        agg = _apply_rule(p, _server_side(p, flat), gram_group=group)
-    whole = _all_gather(agg.reshape((1, cut) + rest), group, world)  # (W, cut, ...)
+        agg = _apply_rule(p, _server_side(p, flat), (group,) + model_sum)
+    agg = agg.reshape((cut_len,) + rest)
+    if data_dim == dim:  # stored as this cut: no gather back
+        return agg.movedim(0, dim).contiguous()
+    whole = _all_gather(agg.unsqueeze(0), group, world)  # (W, cut, ...)
     return whole.reshape((w_shape[dim],) + rest).movedim(0, dim).contiguous()
 
 
@@ -386,30 +469,72 @@ def _product(spec: str, x: torch.Tensor, w: torch.Tensor, pre_blocked: bool) -> 
     return torch.einsum(spec, x, w)
 
 
+def _model_sum(t: torch.Tensor, site: _Site) -> torch.Tensor:
+    """``t`` summed over the model group, in fp32, cast back."""
+    total = t.to(torch.float32, copy=True)
+    dist.all_reduce(total, group=site.model_group)
+    return total.to(t.dtype)
+
+
+def _compute_view(w: torch.Tensor, cut: tuple | None, site: _Site) -> torch.Tensor:
+    """The stored cut ``w`` with its ``data`` cut all-gathered over the data
+    group (its ``model`` cut kept): the weight an op computes with."""
+    dim = _dim_of(cut, "data")
+    if dim is None:
+        return w
+    parts = _all_gather(w.movedim(dim, 0), site.group, site.world)
+    return parts.movedim(0, dim)
+
+
+def _tp_kind(spec: str, cut: tuple | None) -> str | None:
+    """``"column"`` when the weight's model-cut dim appears in the output,
+    ``"row"`` when it is contracted, ``None`` when the weight is not cut
+    over the model ranks."""
+    dim = _dim_of(cut, "model")
+    if dim is None:
+        return None
+    lhs, rhs, out = _parse(spec)
+    letter = rhs[dim]
+    if letter in out and letter not in lhs:
+        return "column"
+    if letter in lhs and letter not in out:
+        return "row"
+    raise ValueError(f"{spec}: a model-cut dim shared by the input and the output (expert parallelism) waits for "
+                     "ROADMAP A.9d")
+
+
 class _PMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, spec, w_spec, pre_blocked, site):
-        ctx.save_for_backward(x, w)
-        ctx.spec, ctx.w_spec, ctx.pre_blocked, ctx.site = spec, w_spec, pre_blocked, site
-        return _product(spec, x, w, pre_blocked)
+    def forward(ctx, x, w, spec, w_spec, pre_blocked, site, cut):
+        view = _compute_view(w, cut, site)
+        kind = _tp_kind(spec, cut)
+        ctx.save_for_backward(x, view)
+        ctx.spec, ctx.w_spec, ctx.pre_blocked, ctx.site, ctx.cut, ctx.kind = spec, w_spec, pre_blocked, site, cut, kind
+        out = _product(spec, x, view, pre_blocked)
+        return _model_sum(out, site) if kind == "row" else out
 
     @staticmethod
     def backward(ctx, ct):
         x, w = ctx.saved_tensors
         lhs, rhs, out = _parse(ctx.spec)
-        dx = torch.einsum(f"{out},{rhs}->{lhs}", ct, w).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum(f"{out},{rhs}->{lhs}", ct, w).to(x.dtype)
+            if ctx.kind == "column":  # each model rank holds its slice's share of dx
+                dx = _model_sum(dx, ctx.site)
         if ctx.pre_blocked:  # the operands carry the device axis as their first index (MoE)
             dw_n = torch.einsum(f"{lhs},{out}->n{rhs}", x, ct)
         else:
             n = ctx.site.n_local
             dw_n = torch.einsum(f"n{lhs},n{out}->n{rhs}", _block(x, n), _block(ct, n))
-        dw = _combine(ctx.site, dw_n, ctx.w_spec).to(w.dtype)
-        return dx, dw, None, None, None, None
+        dw = _combine(ctx.site, dw_n, ctx.w_spec, ctx.cut).to(w.dtype)
+        return dx, dw, None, None, None, None, None
 
 
 def pmm(spec: str, x: torch.Tensor, w: torch.Tensor, w_spec: tuple | None = None,
         pre_blocked: bool = False) -> torch.Tensor:
-    """Protocol-aware ``einsum(spec, x, w)``, ``w`` the parameter.
+    """Protocol-aware ``einsum(spec, x, w)``, ``w`` the parameter (its
+    stored cut under a context that cuts it).
 
     ``w_spec``, the parameter's logical axes, locates the ``fsdp`` dim the
     sharded server cuts (``None``: the leaf takes the gather server).
@@ -420,52 +545,123 @@ def pmm(spec: str, x: torch.Tensor, w: torch.Tensor, w_spec: tuple | None = None
         return _product(spec, x, w, pre_blocked)
     if pre_blocked and not spec.startswith("n"):
         raise ValueError(f"pre_blocked pmm needs an explicit n axis: {spec}")
-    return _PMM.apply(x, w, spec, w_spec, pre_blocked, _take_site())
+    return _PMM.apply(x, w, spec, w_spec, pre_blocked, _take_site(), ctx.cut_of(w))
 
 
-class _RankSum(torch.autograd.Function):
-    """Identity forward; backward, the gradient summed over the group."""
+class _FromData(torch.autograd.Function):
+    """Forward, the compute view of a stored cut (``_compute_view``);
+    backward, the view's gradient summed over the data group and cut back
+    to the stored cut: the lookups' plain sum over every block."""
 
     @staticmethod
-    def forward(ctx, w, group):
-        ctx.group = group
-        return w.view_as(w)
+    def forward(ctx, w, cut, site):
+        ctx.cut, ctx.site = cut, site
+        view = _compute_view(w, cut, site)
+        return w.view_as(w) if view is w else view
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        dist.all_reduce(g, group=ctx.site.group)
+        dim = _dim_of(ctx.cut, "data")
+        return (g if dim is None else _take(g, dim, ctx.site.world, ctx.site.rank).contiguous()), None, None
+
+
+class _ModelSum(torch.autograd.Function):
+    """Forward, the sum over the model group (``_model_sum``); backward,
+    the identity: the output's cotangent is the same on every model rank."""
+
+    @staticmethod
+    def forward(ctx, t, site):
+        return _model_sum(t, site)
+
+    @staticmethod
+    def backward(ctx, g):
         return g, None
+
+
+def _vocab_rows(view: torch.Tensor, ids: torch.Tensor, site: _Site) -> torch.Tensor:
+    """``lookup`` of the rows of ``view`` (this rank's vocabulary slice):
+    an id outside it gives a row of exact zeros."""
+    offset = site.model_rank * view.shape[0]
+    onehot = (ids[..., None] == torch.arange(offset, offset + view.shape[0], device=ids.device)).to(view.dtype)
+    return onehot @ view
+
+
+def _check_vocab_cut(cut: tuple | None) -> bool:
+    """Whether a table is cut over the model ranks (on its rows)."""
+    dim = _dim_of(cut, "model")
+    if dim not in (None, 0):
+        raise ValueError(f"a table cut over the model ranks on dim {dim}, not its rows, waits for ROADMAP A.9d")
+    return dim == 0
 
 
 class _PLookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids, w_spec, site):
+    def forward(ctx, table, ids, w_spec, site, cut):
+        view = _compute_view(table, cut, site)
         ctx.save_for_backward(ids)
-        ctx.w_spec, ctx.site, ctx.shape, ctx.dtype = w_spec, site, tuple(table.shape), table.dtype
-        return lookup(table, ids)
+        ctx.w_spec, ctx.site, ctx.cut, ctx.shape, ctx.dtype = w_spec, site, cut, tuple(view.shape), table.dtype
+        if _check_vocab_cut(cut):
+            return _model_sum(_vocab_rows(view, ids, site), site)
+        return lookup(view, ids)
 
     @staticmethod
     def backward(ctx, ct):
         (ids,) = ctx.saved_tensors
-        n, (v, d) = ctx.site.n_local, ctx.shape
+        site, (v, d) = ctx.site, ctx.shape
+        n = site.n_local
+        offset = site.model_rank * v if _check_vocab_cut(ctx.cut) else 0
         idb = _block(ids.reshape(-1), n)  # (n, T/n)
         ctb = _block(ct.reshape(-1, d), n).to(torch.float32)  # (n, T/n, D)
-        onehot = (idb[..., None] == torch.arange(v, device=ids.device)).to(torch.float32)
+        onehot = (idb[..., None] == torch.arange(offset, offset + v, device=ids.device)).to(torch.float32)
         dt_n = torch.einsum("ntv,ntd->nvd", onehot, ctb)  # each block's rows of the table, no scatter-add
-        return _combine(ctx.site, dt_n, ctx.w_spec).to(ctx.dtype), None, None, None
+        return _combine(site, dt_n, ctx.w_spec, ctx.cut).to(ctx.dtype), None, None, None, None
 
 
 def plookup(table: torch.Tensor, ids: torch.Tensor, w_spec: tuple | None = None) -> torch.Tensor:
-    """Protocol-aware ``table[ids]`` (``lookup``). Its gradient aggregates
+    """Protocol-aware ``table[ids]`` (``lookup``; vocabulary-parallel where
+    the table's rows are cut over the model ranks). Its gradient aggregates
     by the plain sum over the blocks (summed over the ranks) unless
     ``embedding_robust`` is set."""
     ctx = current_protocol()
     if ctx is None:
         return lookup(table, ids)
-    if not ctx.p.embedding_robust:
-        return lookup(table if ctx.group is None else _RankSum.apply(table, ctx.group), ids)
-    return _PLookup.apply(table, ids, w_spec, _take_site())
+    cut = ctx.cut_of(table)
+    if ctx.p.embedding_robust:
+        return _PLookup.apply(table, ids, w_spec, _take_site(), cut)
+    site = _site_of(ctx, 0)
+    view = table if ctx.group is None else _FromData.apply(table, cut, site)
+    if _check_vocab_cut(cut):
+        return _ModelSum.apply(_vocab_rows(view, ids, site), site)
+    return lookup(view, ids)
+
+
+class _VocabLSE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, site):
+        m = torch.amax(logits, dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=site.model_group)
+        total = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+        dist.all_reduce(total, group=site.model_group)
+        lse = m + torch.log(total)
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(logits - lse[..., None]), None
+
+
+def vocab_logsumexp(logits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits, -1)`` of fp32 ``logits = x @ table^T``: over the
+    whole vocabulary where ``table``'s rows are cut over the model ranks
+    (the max and the sum all-reduced over them)."""
+    ctx = current_protocol()
+    if ctx is None or not _check_vocab_cut(ctx.cut_of(table)):
+        return torch.logsumexp(logits, dim=-1)
+    return _VocabLSE.apply(logits, _site_of(ctx, 0))
 
 
 class _PAffine(torch.autograd.Function):

@@ -32,7 +32,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "PLATFORM_PEAKS", "H100", "RooflineTerms", "derive_terms",
-           "platform_peaks", "percent_of_peak", "analyze_launches", "active_params", "model_flops"]
+           "platform_peaks", "percent_of_peak", "analyze_launches", "param_shapes_and_specs", "active_params",
+           "model_flops"]
 
 # the reference's dry-run constants: TPU v5e
 PEAK_FLOPS = 197e12
@@ -180,17 +181,24 @@ class _OnMeta(TorchFunctionMode):
 
 def _param_shapes(cfg):
     """The parameters of ``cfg`` as tensors on the ``meta`` device."""
+    return param_shapes_and_specs(cfg)[0]
+
+
+def param_shapes_and_specs(cfg):
+    """``models.init(cfg)``'s (params, specs), the params on the ``meta``
+    device: shapes and dtypes with no memory."""
     from repro_torch import models
 
     with torch.device("meta"), _OnMeta():
-        return models.init(torch.Generator(), cfg)[0]
+        return models.init(torch.Generator(), cfg)
 
 
-def active_params(cfg) -> int:
-    """Total params counted with only top_k of n_experts active per MoE layer."""
+def active_params(cfg, shapes=None) -> int:
+    """Total params counted with only top_k of n_experts active per MoE layer
+    (``shapes``: ``cfg``'s parameters, built on ``meta`` when not given)."""
     from repro_torch import pytree
 
-    shapes = _param_shapes(cfg)
+    shapes = _param_shapes(cfg) if shapes is None else shapes
     total = sum(leaf.numel() for leaf in pytree.leaves(shapes))
     if cfg.moe is None:
         return total

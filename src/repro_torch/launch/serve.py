@@ -15,25 +15,40 @@ modes that give the same tokens and state bit for bit:
 
 Nothing is read back to the host until the last step has run.
 
-The mesh pspecs of the decode state and of the serve inputs split the
-caches over the ``model`` axis as well as the data axis: they wait for the
-model axis and sharded storage (ROADMAP A.9c).
+The placements of the reference's sharded serving (``decode_state_pspecs``,
+``batch_dim_pspec``, ``serve_input_specs``) are the reference's partition
+specs on a ``launch.mesh.Mesh``, one tuple a leaf, decided leaf by leaf
+from divisibility:
+
+  * the batch dim on the data axes where it divides (``decode_32k``: 128
+    over 16);
+  * else the KV cache's sequence on the data axes (``long_500k``: batch 1,
+    524,288 cache rows);
+  * heads, ``d_inner`` and ``d_model`` on ``model`` where they divide; a
+    cache whose kv heads do not divide puts its sequence on ``model``
+    instead (the reference's flash-decode cut).
+
+The dry run reads them. Serving over a mesh of more than one rank waits for
+ROADMAP A.9d.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable
 
 import torch
 
 from repro_torch import pytree
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.engine import _check_mode
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.models import serving
+from repro_torch.models.module import _axis_size
 
-__all__ = ["build_prefill_fn", "build_decode_fn", "GreedyDecoder", "serve_traffic", "decode_state_pspecs",
-           "serve_input_specs"]
+__all__ = ["build_prefill_fn", "build_decode_fn", "GreedyDecoder", "serve_traffic", "Placed", "decode_state_pspecs",
+           "batch_dim_pspec", "serve_input_specs"]
 
 
 def build_prefill_fn(cfg: ArchConfig, specs: Any, *, capacity: int | None = None) -> Callable:
@@ -57,12 +72,89 @@ def build_decode_fn(cfg: ArchConfig, specs: Any) -> Callable:
     return fn
 
 
-def decode_state_pspecs(state_shapes: Any, mesh: Any) -> Any:
-    raise ValueError("the decode state's mesh pspecs wait for the model axis and sharded storage (ROADMAP A.9c)")
+def _dax(mesh: Mesh):
+    axes = data_axes(mesh)
+    return axes if len(axes) > 1 else axes[0]
 
 
-def serve_input_specs(cfg: ArchConfig, shape: Any, mesh: Any) -> Any:
-    raise ValueError("the serve inputs' mesh specs wait for the model axis and sharded storage (ROADMAP A.9c)")
+def _div(n: int, mesh: Mesh, axis) -> bool:
+    size = _axis_size(mesh, axis)
+    return n % size == 0 and n >= size
+
+
+def _state_leaf_pspec(field: str, shp: tuple, mesh: Mesh) -> tuple:
+    """One decode-state leaf's partition spec (the leaves carry the
+    periods' leading dim), by its field's name."""
+    dax = _dax(mesh)
+    if field in ("k", "v"):  # (P, B, C, Hkv, Dh)
+        _, b, c, h, _ = shp
+        h_ax = "model" if _div(h, mesh, "model") else None
+        c_ax = None if h_ax else ("model" if _div(c, mesh, "model") else None)  # flash-decode: the sequence
+        if _div(b, mesh, dax):
+            return (None, dax, c_ax, h_ax, None)
+        if _div(c, mesh, dax):
+            return (None, None, dax, h_ax, None)
+        return (None, None, c_ax, h_ax, None)
+    if field == "length":
+        return (None,)
+    if field == "pos":
+        return ()
+    b_ax = dax if _div(shp[1], mesh, dax) else None
+    if field == "h":  # mamba (P, B, di, ds)
+        return (None, b_ax, "model" if _div(shp[2], mesh, "model") else None, None)
+    if field == "conv":  # (P, B, k-1, di)
+        return (None, b_ax, None, "model" if _div(shp[3], mesh, "model") else None)
+    if field == "wkv":  # (P, B, H, hd, hd)
+        return (None, b_ax, "model" if _div(shp[2], mesh, "model") else None, None, None)
+    if field in ("x_prev", "ffn_x_prev"):  # (P, B, D)
+        return (None, b_ax, "model" if _div(shp[2], mesh, "model") else None)
+    return (None,) * len(shp)
+
+
+def decode_state_pspecs(state_shapes: Any, mesh: Mesh) -> Any:
+    """The partition spec of every leaf of a decode state (its structure:
+    each cache's fields, and ``pos``, hold a spec each)."""
+    specs = {path: _state_leaf_pspec(path.split("/")[-1].lstrip("."), tuple(leaf.shape), mesh)
+             for path, leaf in pytree.paths(state_shapes)}
+    return pytree.with_paths(state_shapes, specs)
+
+
+def batch_dim_pspec(n: int, mesh: Mesh) -> tuple:
+    dax = _dax(mesh)
+    return (dax,) if _div(n, mesh, dax) else (None,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A ``meta`` tensor (or a tree of them) and its partition spec (or a
+    tree of them): the reference's ``ShapeDtypeStruct`` with a sharding."""
+
+    value: Any
+    placement: Any
+
+
+def serve_input_specs(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh) -> dict[str, Placed]:
+    """The serve inputs of ``shape`` as placed ``meta`` tensors:
+    ``tokens`` (and ``frontend``) for a prefill, ``token`` and the decode
+    ``state`` for a decode."""
+    b = shape.global_batch
+    lead = batch_dim_pspec(b, mesh)[0]
+
+    def meta(shp, dtype) -> torch.Tensor:
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "prefill":
+        out = {"tokens": Placed(meta((b, shape.seq_len), torch.int32), (lead, None))}
+        if cfg.family in ("vlm", "audio"):
+            enc = cfg.encoder
+            out["frontend"] = Placed(meta((b, enc.n_frontend_tokens, enc.d_frontend), torch.float32),
+                                     (lead, None, None))
+        return out
+    if shape.kind == "decode":
+        state = serving.init_decode_state(cfg, b, shape.seq_len, device="meta")
+        return {"token": Placed(meta((b, 1), torch.int32), (lead, None)),
+                "state": Placed(state, decode_state_pspecs(state, mesh))}
+    raise ValueError(shape.kind)
 
 
 def _small_leaves(state: dict) -> dict[str, torch.Tensor]:
@@ -160,7 +252,8 @@ class _Clock:
 
 
 def serve_traffic(cfg: ArchConfig, params, specs, tokens: torch.Tensor, *, frontend: torch.Tensor | None = None,
-                  new_tokens: int = 8, mode: str = "graph", device: torch.device | str | None = None) -> dict:
+                  new_tokens: int = 8, mode: str = "graph", device: torch.device | str | None = None,
+                  mesh: Mesh | None = None) -> dict:
     """Serve one batch: prefill the prompt ``tokens`` (B, s), then decode
     ``new_tokens`` tokens greedily (capacity ``s + new_tokens``). Each of
     prefill and decode runs once untimed first, as the reference compiles
@@ -171,7 +264,11 @@ def serve_traffic(cfg: ArchConfig, params, specs, tokens: torch.Tensor, *, front
     new_tokens) int32 and ``pos``, plus ``prefill_host_s``/``decode_host_s``
     and the final decode ``state``. On a card the seconds are the card's (CUDA
     events) with the host's beside them; on the CPU both are the host's
-    (``clock`` says which)."""
+    (``clock`` says which). ``mesh``: the reference's; one of one rank
+    serves here, one of more ranks waits for ROADMAP A.9d."""
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(f"serving over a mesh of {mesh.size} ranks (the decode state placed by "
+                         "decode_state_pspecs, its flash-decode cut of the cache) waits for ROADMAP A.9d")
     dev = resolve_device(device)
     _check_mode(mode, dev)
     params = pytree.map_tree(lambda a: a.to(dev), params)

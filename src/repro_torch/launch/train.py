@@ -4,7 +4,11 @@
 ``TrainConfig.protocol_impl``, as in the reference:
 
 ``"protomath"`` (the reference's default): the per-parameter exchange of
-``core.protomath`` over a ``launch.mesh`` data group. The batch gets its
+``core.protomath`` over a ``launch.mesh`` mesh of data and model ranks.
+Each rank stores only its cut of the parameters and the optimizer's
+moments (``param_pspecs``, ``shard_tree``): a leaf's ``fsdp`` dim cut over
+the data ranks, its ``tp`` dim over the model ranks, where each divides.
+The batch gets its
 cyclic ``d``-fold redundancy (``redundant_batch``); each rank takes its
 ``N/W`` device blocks of it, splits each block's rows into the
 microbatches, and runs the forward and backward under
@@ -12,10 +16,12 @@ microbatches, and runs the forward and backward under
 block, compressed, attacked and robustly aggregated inside the backward
 (``sharded`` or ``gather`` server). The aggregates are summed in fp32
 over the microbatches and divided by their count, the optimizer steps at
-the ``linear_warmup_cosine`` learning rate, and the loss and metrics are
-averaged over the ranks. No ``(N, P)`` stack exists: the largest buffer is
-one parameter's ``(N, *w)`` block. Loop mode only; ``tcfg.remat`` changes
-no value (nothing is recomputed, so no draw moves).
+the ``linear_warmup_cosine`` learning rate on the cuts, and the loss and
+metrics are averaged over the ranks. No ``(N, P)`` stack exists: the
+largest buffer is one parameter's ``(N/W, *w/model)`` block. Tensor
+parallelism (model > 1) takes the ``dense`` family; the other families,
+and ``attn_tp="head_dim"``, wait for ROADMAP A.9d. Loop mode only;
+``tcfg.remat`` changes no value (nothing is recomputed, so no draw moves).
 
 ``"engine"`` (``build_engine_step``): the transformer's gradients go
 through ``byzantine.protocol_round``, the assignment -> eq.-(5) encode ->
@@ -62,8 +68,9 @@ The programs (and in graph mode their captures) are cached across
 (``engine_program_cache_info``), so a warm step, and a second step built
 from an equal configuration, capture nothing.
 
-``tcfg.n_subsets=None`` takes N from the mesh's data size, as the
-reference's ``tcfg.n_subsets or n_data_devices(mesh)``.
+``tcfg.n_subsets=None`` takes N from the mesh's data axes, as the
+reference's ``tcfg.n_subsets or n_data_devices(mesh)``; the engine step
+leaves a mesh's model axis unused, as the reference's does.
 """
 from __future__ import annotations
 
@@ -80,14 +87,17 @@ from repro_torch.core import compression as comp_lib
 from repro_torch.core import engine as engine_lib
 from repro_torch.core.byzantine import ProtocolConfig, RoundRandomness, protocol_round, sample_round_randomness
 from repro_torch.core.coding import tree_spec, unflatten_pytree
-from repro_torch.core.protomath import BlockedProtocol, fold_seed, protocol_context
+from repro_torch.core.protomath import BlockedProtocol, _all_gather, fold_seed, protocol_context
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, data_axes, n_data_devices
+from repro_torch.launch.roofline import param_shapes_and_specs
+from repro_torch.models.module import logical_to_mesh
 from repro_torch.models.transformer import unstack_periods
 from repro_torch.numerics import stable_mean0
 from repro_torch.optim import OptState, linear_warmup_cosine, make_optimizer
 
-__all__ = ["make_protocol", "make_round_config", "block_batch", "redundant_batch", "round_seed",
+__all__ = ["make_protocol", "make_round_config", "param_mesh_rules", "param_pspecs", "batch_pspec",
+           "opt_state_shardings", "shard_tree", "gather_tree", "block_batch", "redundant_batch", "round_seed",
            "build_protomath_step", "build_engine_step", "build_train_step", "engine_program_cache_info",
            "engine_program_cache_clear", "Trainer"]
 
@@ -95,9 +105,11 @@ RoundProvider = Callable[[int, int], RoundRandomness]
 
 
 def make_protocol(tcfg: TrainConfig, mesh: Mesh) -> BlockedProtocol:
-    """The ``BlockedProtocol`` of a run on ``mesh``: N its data size."""
+    """The ``BlockedProtocol`` of a run on ``mesh``: N from its data axes,
+    ``model_size`` its model ranks."""
     return BlockedProtocol(
-        n_devices=mesh.data,
+        n_devices=n_data_devices(mesh),
+        data_axes=data_axes(mesh),
         aggregator=tcfg.aggregator,
         trim_frac=tcfg.trim_frac,
         n_byz=tcfg.n_byz,
@@ -105,6 +117,7 @@ def make_protocol(tcfg: TrainConfig, mesh: Mesh) -> BlockedProtocol:
         compression=comp_lib.spec_from(tcfg.compression, q_hat_frac=tcfg.q_hat_frac, levels=tcfg.quant_levels),
         server=tcfg.server,
         honest_mean=(tcfg.protocol == "none"),
+        model_size=mesh.model,
     )
 
 
@@ -125,6 +138,100 @@ def make_round_config(tcfg: TrainConfig, n_subsets: int) -> ProtocolConfig:
         attack=attack_lib.AttackSpec(name=tcfg.attack, n_byz=tcfg.n_byz),
         compression=comp_lib.spec_from(tcfg.compression, q_hat_frac=tcfg.q_hat_frac, levels=tcfg.quant_levels),
     )
+
+
+# --- placements: the reference's partition specs, one tuple a leaf --------------
+
+
+def param_mesh_rules(mesh: Mesh) -> dict:
+    axes = data_axes(mesh)
+    return {"fsdp": axes if len(axes) > 1 else axes[0], "tp": "model", "stack": None}
+
+
+def param_pspecs(specs: Any, mesh: Mesh, shapes: Any = None) -> Any:
+    """Each leaf's partition spec on ``mesh`` (``models.module.
+    logical_to_mesh`` under ``param_mesh_rules``): ``fsdp`` on the data
+    axes, ``tp`` on ``model``, a dim that does not divide replicated."""
+    return logical_to_mesh(specs, mesh, rules=param_mesh_rules(mesh), shapes=shapes)
+
+
+def batch_pspec(mesh: Mesh, extra_dims: int = 1) -> tuple:
+    axes = data_axes(mesh)
+    return (axes if len(axes) > 1 else axes[0],) + (None,) * extra_dims
+
+
+def opt_state_shardings(opt_shapes: OptState, param_placements: Any, mesh: Mesh) -> OptState:
+    """The optimizer state's placements: the moments mirror the params',
+    the step is replicated (``()``)."""
+    del mesh
+
+    def mirror(moment):
+        return () if moment == () or moment is None else param_placements
+
+    return OptState(step=(), mu=mirror(opt_shapes.mu), nu=mirror(opt_shapes.nu))
+
+
+def _ranks_along(mesh: Mesh, entry) -> tuple[int, int]:
+    """(ranks, this rank's index) along a placement entry."""
+    if entry is None:
+        return 1, 0
+    if entry == "model":
+        return mesh.model, mesh.model_rank
+    if (entry == "data" and not mesh.pod) or tuple(entry) == ("pod", "data"):
+        return mesh.world, mesh.rank
+    raise ValueError(f"no ranks for the placement entry {entry!r} on a mesh of axes {mesh.axis_names}")
+
+
+def _placed(fn: Callable, tree: Any, placements: Any) -> Any:
+    """``fn(leaf, placement)`` over a dict tree and its placements."""
+    if isinstance(tree, dict):
+        return {k: _placed(fn, v, placements[k]) for k, v in tree.items()}
+    return fn(tree, placements)
+
+
+def shard_tree(tree: Any, placements: Any, mesh: Mesh) -> Any:
+    """This rank's cut of a whole ``tree`` (a copy of each leaf's): each
+    dim placed on an axis narrowed to this rank's part of it. The port's
+    ``shardings_for`` and ``device_put``."""
+    def cut(leaf, placement):
+        for dim, entry in enumerate(placement):
+            n, i = _ranks_along(mesh, entry)
+            leaf = leaf.narrow(dim, i * (leaf.shape[dim] // n), leaf.shape[dim] // n)
+        return leaf.clone()
+
+    return _placed(cut, tree, placements)
+
+
+def gather_tree(tree: Any, placements: Any, mesh: Mesh) -> Any:
+    """The whole tree back from every rank's cut (``shard_tree``'s), on
+    every rank: each cut dim all-gathered over its group."""
+    def whole(leaf, placement):
+        for dim, entry in enumerate(placement):
+            n, _ = _ranks_along(mesh, entry)
+            if n > 1:
+                group = mesh.model_group if entry == "model" else mesh.group
+                leaf = _all_gather(leaf.movedim(dim, 0), group, n).movedim(0, dim)
+        return leaf.contiguous()
+
+    return _placed(whole, tree, placements)
+
+
+def _cuts(tree: Any, placements: Any, mesh: Mesh, out: dict) -> dict:
+    """``{id(leaf): cut}`` for every leaf of ``tree`` (``_grad_leaves``'
+    per-period form) that is cut on ``mesh``: per dim ``"model"``,
+    ``"data"`` or ``None``, an axis of one rank counting as no cut."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _cuts(v, placements[k], mesh, out)
+    elif isinstance(tree, list):  # per-period views of stacked leaves: the stack dim dropped
+        for v in tree:
+            _cuts(v, _placed(lambda _, pl: pl[1:], placements, placements), mesh, out)
+    else:
+        cut = tuple(None if _ranks_along(mesh, e)[0] == 1 else ("model" if e == "model" else "data")
+                    for e in placements)
+        if any(cut):
+            out[id(tree)] = cut
+    return out
 
 
 def block_batch(batch: dict, n: int, what: str = "subsets") -> dict:
@@ -333,7 +440,7 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, 
     Args:
       cfg, tcfg: the architecture and the run (protocol, optimizer,
         schedule, ``seed``, ``microbatches``, ``shard``). N is
-        ``tcfg.n_subsets``, or ``mesh.data`` when that is ``None``.
+        ``tcfg.n_subsets``, or ``n_data_devices(mesh)`` when that is ``None``.
         ``tcfg.remat`` is accepted and changes no value:
         ``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``,
         so the port does not recompute.
@@ -353,7 +460,7 @@ def build_engine_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, 
     del specs
     if tcfg.shard not in engine_lib.SHARD_MODES:
         raise ValueError(f"unknown engine shard mode {tcfg.shard!r}: expected 'none', 'pmap' or 'shard_map'")
-    n_sub = tcfg.n_subsets or (None if mesh is None else mesh.data)
+    n_sub = tcfg.n_subsets or (None if mesh is None else n_data_devices(mesh))
     if n_sub is None:
         raise ValueError("tcfg.n_subsets is None and no mesh is given to take N from")
     if tcfg.shard != "none" and mode == "graph":
@@ -429,24 +536,33 @@ def _restack(grads) -> Any:
 
 def build_protomath_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, mesh: Mesh,
                          device: torch.device | str | None = None):
-    """The ``"protomath"`` train step over ``mesh``'s data group.
+    """The ``"protomath"`` train step over ``mesh``'s data and model ranks.
 
     Returns ``(step, optimizer)``; ``step(params, opt_state, batch,
     step_idx) -> (new_params, new_opt_state, loss, metrics)`` on every rank,
-    ``batch`` the global ``(N * rows, S)`` batch (each rank takes its own
-    blocks of it), ``params`` the same on every rank and equal again after
-    the step. Per microbatch ``j`` the forward and backward run under
-    ``protocol_context`` seeded ``round_seed(tcfg.seed, step_idx, j)``; the
-    local loss is scaled by ``1/W`` so that each block's cotangent is its
-    contribution to the global mean loss. Loss and metrics are each rank's
-    local means averaged over the ranks (``stable_mean0`` over the
-    microbatches). The step never writes into its inputs."""
+    ``params`` and the moments of ``opt_state`` this rank's cut
+    (``shard_tree`` under ``param_pspecs``; on one data rank and one model
+    rank the whole tree), ``batch`` the global ``(N * rows, S)`` batch (each
+    data rank takes its own blocks of it). Per microbatch ``j`` the forward
+    and backward run under ``protocol_context`` seeded ``round_seed(
+    tcfg.seed, step_idx, j)``; the local loss is scaled by ``1/W`` (``W``
+    data ranks) so that each block's cotangent is its contribution to the
+    global mean loss. Loss and metrics are each rank's local means averaged
+    over the data ranks (``stable_mean0`` over the microbatches). The step
+    never writes into its inputs."""
     if tcfg.shard != "none":
         raise ValueError(f"shard={tcfg.shard!r} is an engine-path option (protocol_impl='engine'); the protomath "
                          "step is spread by its mesh")
+    if mesh.abstract:
+        raise ValueError("the mesh has no ranks (make_production_mesh, abstract_mesh): it places, it does not step")
+    if mesh.model > 1 and (cfg.family != "dense" or cfg.attn_tp != "heads"):
+        raise ValueError(f"model={mesh.model}: tensor parallelism of the {cfg.family!r} family with "
+                         f"attn_tp={cfg.attn_tp!r} waits for ROADMAP A.9d (the dense family, heads on tp, runs)")
     dev = resolve_device(device)
     protocol = make_protocol(tcfg, mesh)
     n, world, rank, n_local = protocol.n_devices, mesh.world, mesh.rank, mesh.local_devices
+    shapes, init_specs = param_shapes_and_specs(cfg)
+    placements = param_pspecs(init_specs if specs is None else specs, mesh, shapes)
     opt = make_optimizer(tcfg.optimizer, momentum_dtype=tcfg.momentum_dtype)
     schedule = linear_warmup_cosine(tcfg.lr, warmup=max(tcfg.steps // 20, 1), total_steps=tcfg.steps)
     d = 1 if tcfg.protocol == "none" else tcfg.d
@@ -469,10 +585,12 @@ def build_protomath_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, 
         sl = db // m
         leaves_tree = _grad_leaves(params)
         leaves = pytree.leaves(leaves_tree)
+        cuts = _cuts(leaves_tree, placements, mesh, {})
         acc, per = None, []
         for j in range(m):
             mb = {k: v[:, j * sl:(j + 1) * sl].reshape((n_local * sl,) + tuple(v.shape[2:])) for k, v in local.items()}
-            with protocol_context(protocol, round_seed(tcfg.seed, step_idx, j), group=mesh.group):
+            with protocol_context(protocol, round_seed(tcfg.seed, step_idx, j), group=mesh.group,
+                                  model_group=mesh.model_group, cuts=cuts):
                 loss, metrics = models.loss_fn(leaves_tree, specs, cfg, mb)
                 grads = torch.autograd.grad(loss * (1.0 / world), leaves, allow_unused=True)
             grads = [torch.zeros_like(a) if g is None else g for g, a in zip(grads, leaves)]
@@ -492,6 +610,7 @@ def build_protomath_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, 
         new_params, new_state = opt.update(params, grads, opt_state, lr, weight_decay=tcfg.weight_decay)
         return new_params, new_state, loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
+    step.placements = placements
     return step, opt
 
 
@@ -519,9 +638,10 @@ def build_train_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, *, m
 class Trainer:
     """A thin trainer over the train step: the model initialised from a
     CPU generator seeded ``tcfg.seed`` (the same weights on every device
-    and rank) and moved to ``device``, the step (``"protomath"`` over
-    ``mesh``, or the engine's, over ``mesh``'s ranks under
-    ``tcfg.shard``), and the optimizer state."""
+    and rank; under the protomath step each rank keeps its cut) and moved
+    to ``device``, the step (``"protomath"`` over ``mesh``, or the
+    engine's, over ``mesh``'s ranks under ``tcfg.shard``), and the
+    optimizer state."""
 
     cfg: ArchConfig
     tcfg: TrainConfig
@@ -532,9 +652,13 @@ class Trainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         params, self.specs = models.init(torch.Generator().manual_seed(self.tcfg.seed), self.cfg)
-        self.params = pytree.map_tree(lambda a: a.to(self.device), params)
         self.step_fn, self.opt = build_train_step(self.cfg, self.tcfg, self.specs, mesh=self.mesh,
                                                   device=self.device, mode=self.mode)
+        # the protomath step's ranks store their cuts; the engine's the whole tree
+        self.placements = getattr(self.step_fn, "placements", None)
+        if self.placements is not None:
+            params = shard_tree(params, self.placements, self.mesh)
+        self.params = pytree.map_tree(lambda a: a.to(self.device), params)
         self.opt_state = self.opt.init(self.params)
         self.step = 0
 
@@ -549,14 +673,26 @@ class Trainer:
                 history.append((i, float(loss)))
         return history
 
+    def whole_params(self) -> Any:
+        """The whole parameter tree, on every rank (``gather_tree`` of the
+        protomath step's cuts; every rank takes part)."""
+        if self.placements is None:
+            return self.params
+        return gather_tree(self.params, self.placements, self.mesh)
+
     def save(self, path: str) -> None:
-        """Write the current params, the step and the specs as a checkpoint."""
-        save_checkpoint(path, self.params, step=self.step, specs=self.specs)
+        """Write the whole params, the step and the specs as a checkpoint,
+        from the first rank (every rank takes part in gathering the cuts):
+        the files of a one-rank run."""
+        params = self.whole_params()
+        if self.mesh is None or (self.mesh.rank == 0 and self.mesh.model_rank == 0):
+            save_checkpoint(path, params, step=self.step, specs=self.specs)
 
     def eval_loss(self, batch: dict) -> float:
         """Next-token loss of the current params on one batch (every leaf,
         ``frontend`` included)."""
+        params = self.whole_params()
         with torch.no_grad():
-            loss, _ = models.loss_fn(self.params, self.specs, self.cfg,
+            loss, _ = models.loss_fn(params, self.specs, self.cfg,
                                      {k: v.to(self.device) for k, v in batch.items()})
         return float(loss)

@@ -222,8 +222,9 @@ def multihead_attention(
 ):
     """Self- or cross-attention over a full sequence.
 
-    Returns (output (B,S,Dm), k, v)."""
-    g = n_heads // n_kv_heads
+    Returns (output (B,S,Dm), k, v). Under a protocol context that cuts
+    the heads over the model ranks, ``q``, ``k`` and ``v`` hold this rank's
+    heads, and its q heads group onto its kv heads as the whole model's do."""
     q = pmm("bsd,dhk->bshk", x, params["wq"], w_spec=("fsdp", "tp", None))
     kv_src = x if kv_override is None else kv_override
     k = pmm("bsd,dhk->bshk", kv_src, params["wk"], w_spec=("fsdp", "tp", None))
@@ -233,7 +234,11 @@ def multihead_attention(
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, kpos, rope_theta)
     b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
-    qg = q.reshape(b, sq, n_kv_heads, g, q.shape[-1])
+    heads, kv_heads = q.shape[2], k.shape[2]  # this rank's, where the heads are cut over the model ranks
+    if heads * n_kv_heads != kv_heads * n_heads:
+        raise ValueError(f"{heads} of {n_heads} q heads against {kv_heads} of {n_kv_heads} kv heads: a cut of "
+                         "the q heads alone waits for ROADMAP A.9d")
+    qg = q.reshape(b, sq, kv_heads, heads // kv_heads, q.shape[-1])
     if max(sq, sk) <= PLAIN_THRESHOLD:
         out = _plain_attention(qg, k, v, positions, kpos, causal, window)
     else:
@@ -244,7 +249,7 @@ def multihead_attention(
         out = _flash_attention(pad(qg, (0, 0, 0, 0, 0, 0, 0, pq)), pad(k, (0, 0, 0, 0, 0, pk)),
                                pad(v, (0, 0, 0, 0, 0, pk)), pad(positions, (0, pq)), pad(kpos, (0, pk), value=-1),
                                causal, window)[:, :sq]
-    out = out.reshape(b, sq, n_heads, q.shape[-1])
+    out = out.reshape(b, sq, heads, q.shape[-1])
     return pmm("bshk,hkd->bsd", out, params["wo"], w_spec=("tp", None, "fsdp")), k, v
 
 

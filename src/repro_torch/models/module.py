@@ -9,10 +9,11 @@ tuple of *logical axis names* (one per tensor dim), as in the reference:
   * ``None``    — replicated dim
   * ``"stack"`` — the leading period-stacking dim
 
-The placement is explicit in the port: ``logical_to_mesh`` says, for each
-leaf, which dim the sharded server of the ``"protomath"`` step cuts over
-the mesh's ranks (its ``fsdp`` dim, where that divides), and nothing else;
-the ``"tp"`` axis waits for ROADMAP A.9c. Random initializers draw from a
+``logical_to_mesh`` maps a spec tree to the reference's partition specs for
+a ``launch.mesh.Mesh``: a tuple a leaf with one mesh axis (or ``None``) a
+dim, ``"tp"`` on ``"model"`` and ``"fsdp"`` on ``"data"`` by
+``DEFAULT_RULES``, a dim that does not divide by its axis's ranks
+downgraded to replicated. Random initializers draw from a
 ``torch.Generator``, on its device, in the order they are called.
 """
 from __future__ import annotations
@@ -23,15 +24,22 @@ from typing import Any
 import torch
 
 from repro_torch import pytree
-from repro_torch.core.protomath import sharded_dim
 
-__all__ = ["truncated_normal_init", "dense_param", "scale_param", "zeros_param", "split_tree", "logical_to_mesh",
+__all__ = ["DEFAULT_RULES", "truncated_normal_init", "dense_param", "scale_param", "zeros_param", "split_tree",
+           "logical_to_mesh",
            "tree_size", "tree_bytes"]
 
 Params = Any  # nested dict of tensors
 Specs = Any  # matching nested dict of tuples of logical axis names
 
 _SQRT2 = math.sqrt(2.0)
+
+DEFAULT_RULES = {
+    "tp": "model",
+    "fsdp": "data",
+    "stack": None,
+    None: None,
+}
 
 
 def truncated_normal_init(generator: torch.Generator, shape, dtype: torch.dtype, scale: float) -> torch.Tensor:
@@ -83,14 +91,33 @@ def split_tree(pairs: dict) -> tuple[Params, Specs]:
     return params, specs
 
 
-def logical_to_mesh(specs: Specs, mesh, shapes: Params) -> Any:
-    """For each leaf of ``specs`` (with ``shapes``' tensors beside it), the
-    dim the sharded server cuts over ``mesh``'s ``world`` ranks: its
-    ``fsdp`` dim where that divides by ``world``, else ``None`` (the leaf
-    takes the gather server)."""
+def _axis_size(mesh, mesh_axis) -> int:
+    if mesh_axis is None:
+        return 1
+    if isinstance(mesh_axis, (tuple, list)):
+        return math.prod(mesh.shape[a] for a in mesh_axis)
+    return mesh.shape[mesh_axis]
+
+
+def logical_to_mesh(specs: Specs, mesh, rules: dict | None = None, shapes: Params | None = None) -> Any:
+    """The partition spec of every leaf of ``specs`` on ``mesh``: a tuple of
+    one mesh axis (a name, a tuple of names, or ``None``) a dim. Where
+    ``shapes`` (a tree of tensors, ``meta`` ones too) is given, a dim that
+    does not divide by its axis's ranks is replicated."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+
+    def one(spec, shaped=None):
+        entries = []
+        for i, ax in enumerate(spec):
+            mesh_ax = rules.get(ax, None)
+            if mesh_ax is not None and shaped is not None and shaped.shape[i] % _axis_size(mesh, mesh_ax) != 0:
+                mesh_ax = None
+            entries.append(mesh_ax)
+        return tuple(entries)
+
     if isinstance(specs, dict):
-        return {k: logical_to_mesh(specs[k], mesh, shapes[k]) for k in specs}
-    return sharded_dim(specs, tuple(shapes.shape), mesh.world)
+        return {k: logical_to_mesh(specs[k], mesh, rules, None if shapes is None else shapes[k]) for k in specs}
+    return one(specs, shapes)
 
 
 def tree_size(params) -> int:

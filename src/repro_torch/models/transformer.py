@@ -33,7 +33,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.configs.base import ArchConfig, BlockSpec
-from repro_torch.core.protomath import plookup, pmm, shared_sites
+from repro_torch.core.protomath import plookup, pmm, shared_sites, vocab_logsumexp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
@@ -243,7 +243,10 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> to
     """Mean next-token cross entropy over sequence chunks of ``CE_CHUNK``:
     ``nll = logsumexp(x @ head^T) - <x, head[label]>``, the label logit from
     the label's row of the head (``protomath.plookup``), never a V-sized
-    one-hot of the logits."""
+    one-hot of the logits. Where the head's rows are cut over the model
+    ranks, the logits are this rank's vocabulary slice: the log-sum-exp is
+    all-reduced over the ranks, and the label rows come from the rank that
+    holds each (``plookup``'s vocabulary-parallel lookup)."""
     b, s, d = x.shape
     chunk = min(CE_CHUNK, s)
     if s % chunk != 0:
@@ -255,7 +258,7 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> to
         with sites:
             logits = pmm("bsd,vd->bsv", xc, head, w_spec=("tp", "fsdp")).to(torch.float32)
             lab_rows = plookup(head, lc, w_spec=("tp", "fsdp")).to(torch.float32)  # (B, chunk, D)
-        lse = torch.logsumexp(logits, dim=-1)  # (B, chunk)
+        lse = vocab_logsumexp(logits, head)  # (B, chunk), over the whole vocabulary where the head's rows are cut
         nll.append(lse - torch.sum(xc.to(torch.float32) * lab_rows, dim=-1))
     return torch.mean(torch.stack(nll))
 

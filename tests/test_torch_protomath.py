@@ -215,8 +215,11 @@ def test_ops_outside_a_context_are_plain():
 
 
 def test_context_refusals():
-    with pytest.raises(ValueError, match="A.9c"):
-        T.BlockedProtocol(model_size=2)
+    with pytest.raises(ValueError, match="model_size"):
+        T.BlockedProtocol(model_size=0)
+    with pytest.raises(ValueError, match="model group"):  # model_size=2 needs a model group of 2 ranks
+        with T.protocol_context(T.BlockedProtocol(n_devices=4, model_size=2), 0):
+            pass
     with pytest.raises(ValueError, match="server"):
         T.BlockedProtocol(server="ring")
     with pytest.raises(KeyError, match="mean/median/cwtm"):

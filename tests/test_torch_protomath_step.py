@@ -12,6 +12,10 @@ across ranks of a ``gloo`` group, on the CPU.
     losses agree within relative 2e-6. Com-LAD's random sparsification
     draws from keys the port cannot replay (ROADMAP C.9): the port's run
     is held to "trains", the bound the reference's test holds its own to.
+    The same runs on data x model = 2 x 2 (4 ``gloo`` ranks,
+    tests/torch_tp_ranks.py, from the initial weights, batches and
+    configurations the reference subprocess leaves behind) are held to the
+    same reference losses: relative 2e-6, Com-LAD "trains".
 (b) The port's step on 2 and 4 ``gloo`` ranks (tests/torch_protomath_ranks.py:
     ``lm_arch()`` and ``zoo_arch("jamba")``, one process a rank, joined
     through a file under the test's temporary directory) against the same
@@ -39,6 +43,7 @@ import numpy as np
 import pytest
 
 import torch_protomath_ranks as ranks
+import torch_tp_ranks
 
 REPO = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 2e-6
@@ -47,7 +52,8 @@ _SCRIPT = textwrap.dedent(
     """
     import os
     os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
-    import json, dataclasses, time
+    import json, dataclasses, sys, time
+    from pathlib import Path
     import jax, jax.numpy as jnp, numpy as np, torch
     from jax.sharding import AxisType
     from repro import models
@@ -64,7 +70,7 @@ _SCRIPT = textwrap.dedent(
     torch.set_num_threads(2)
     mesh = jax.make_mesh((4, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2, devices=jax.devices())
     cfg, tcfg_arch = reduced(ARCHS["smollm-360m"]), treduced(TARCHS["smollm-360m"])
-    out = {}
+    out, tags, shared = {}, {}, Path(sys.argv[1])
 
     def run(tag, reference=True, **kw):
         start = time.perf_counter()
@@ -76,6 +82,12 @@ _SCRIPT = textwrap.dedent(
             b = lm_batch_for_devices(jax.random.fold_in(key, i), cfg.vocab, n_subsets=4, per_subset=2, seq_len=32,
                                      sigma_h=0.5)
             batches.append({k: np.asarray(v).reshape(-1, v.shape[-1]) for k, v in b.items()})
+        tags[tag] = dataclasses.asdict(tcfg)  # the tp ranks' runs read these, and the inputs below
+        if not (shared / "inputs.npz").exists():
+            np.savez(shared / "inputs.npz",
+                     **{"param/" + "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(leaf)
+                        for path, leaf in jax.tree_util.tree_flatten_with_path(params0)[0]},
+                     **{f"batch{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
         ref = None
         if reference:
             tr = Trainer(cfg=cfg, tcfg=tcfg, mesh=mesh)
@@ -101,19 +113,54 @@ _SCRIPT = textwrap.dedent(
     run("com_lad", reference=False, protocol="lad", d=2, aggregator="cwtm", trim_frac=0.25,
         n_byz=1, attack="sign_flip", server="sharded", compression="rand_sparse",
         q_hat_frac=0.5, optimizer="adamw", microbatches=2)
+    (shared / "tags.json").write_text(json.dumps(tags))
     print("RESULT::" + json.dumps(out))
     """
 )
 
 
 @pytest.fixture(scope="module")
-def against_reference():
+def reference_dir(tmp_path_factory):
+    """Where the reference subprocess leaves its initial weights, batches
+    and configurations for the 2 x 2 tp ranks."""
+    return tmp_path_factory.mktemp("reference")
+
+
+@pytest.fixture(scope="module")
+def against_reference(reference_dir):
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu"}
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True, text=True, env=env, timeout=600,
-                          cwd=REPO)
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT, str(reference_dir)], capture_output=True, text=True,
+                          env=env, timeout=600, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT::")][0]
     return json.loads(line[len("RESULT::"):])
+
+
+@pytest.fixture(scope="module")
+def tp_against_reference(against_reference, reference_dir):
+    """The same runs as the port's one-rank step, on data x model = 2 x 2
+    (4 gloo ranks, tests/torch_tp_ranks.py), from the reference's weights
+    and batches: {tag: losses}."""
+    res = torch_tp_ranks.spawn("reference", 4, 2, reference_dir)
+    for r in res[1:]:
+        for tag in res[0].files:
+            assert np.array_equal(r[tag], res[0][tag]), tag
+    return {tag: res[0][tag] for tag in res[0].files}
+
+
+@pytest.mark.parametrize("tag", ["honest", "lad", "mean_attacked", "lad_gather"])
+def test_tp_losses_match_reference_trainer(against_reference, tp_against_reference, tag):
+    """The port's step at data x model = 2 x 2 against the reference
+    ``Trainer`` on its (4, 2) mesh (model = 2 there too)."""
+    ref, port = np.asarray(against_reference[tag]["reference"]), tp_against_reference[tag]
+    assert ref.shape == port.shape == (5,)
+    rel = np.abs(port - ref) / np.abs(ref)
+    assert rel.max() <= LOSS_RTOL, (tag, ref.tolist(), port.tolist(), rel.tolist())
+
+
+def test_tp_com_lad_trains(tp_against_reference):
+    h = tp_against_reference["com_lad"]
+    assert h[-1] < h[0] - 0.2, h
 
 
 @pytest.mark.parametrize("tag", ["honest", "lad", "mean_attacked", "lad_gather"])
@@ -180,10 +227,12 @@ def test_sharded_server_is_bitwise_gather(group_run, pair):
 
 def test_sharded_dim_and_mesh():
     """The sharded server cuts a leaf's fsdp dim where it divides by the
-    ranks; ``make_host_mesh`` holds N over one rank without a group, and
-    refuses the model axis (A.9c) and an N that does not split."""
+    ranks, the dim ``logical_to_mesh`` places on the data axis;
+    ``make_host_mesh`` holds N over one rank without a group, and refuses
+    an N that does not split and a model axis with no ranks for it."""
     from repro_torch.core.protomath import sharded_dim
     from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train
 
     assert sharded_dim(("fsdp", "tp"), (8, 3), 4) == 0
     assert sharded_dim(("tp", "fsdp"), (8, 6), 4) is None
@@ -195,9 +244,11 @@ def test_sharded_dim_and_mesh():
     from repro_torch.core import scenarios
 
     params, specs = models.init(torch.Generator().manual_seed(0), scenarios.lm_arch())
-    dims = models.module.logical_to_mesh(specs, m, params)
-    assert dims["embed"]["table"] == 1 and dims["ln_f"] is None
-    assert dims["periods"]["blk0"]["mlp"]["w_down"] == 2  # ("stack", "tp", "fsdp")
-    for call in (lambda: tmesh.make_host_mesh(4, 2), tmesh.make_production_mesh):
-        with pytest.raises(ValueError, match="A.9c"):
+    dims = train.param_pspecs(specs, tmesh.abstract_mesh(4), params)
+    assert dims["embed"]["table"] == ("model", "data") and dims["ln_f"] == (None,)  # a 1-rank axis divides
+    assert dims["periods"]["blk0"]["mlp"]["w_down"] == (None, "model", "data")  # ("stack", "tp", "fsdp")
+    w_down = params["periods"]["blk0"]["mlp"]["w_down"]
+    assert sharded_dim(("tp", "fsdp"), w_down.shape[1:], 4) == 1  # the per-period leaf's "data" dim
+    for call in (lambda: tmesh.make_host_mesh(4, 2), lambda: tmesh.make_host_mesh(0)):
+        with pytest.raises(ValueError, match="split"):
             call()

@@ -419,8 +419,9 @@ def test_serve_traffic_greedy_is_decode_step_argmax():
 
 
 def test_serve_refuses_what_waits():
-    """Graph mode needs a card; the mesh specs wait for the model axis
-    (A.9c); a decoder refuses a step past its output's columns."""
+    """Graph mode needs a card; serving over a mesh of more than one rank
+    waits for A.9d (its placements exist: tests/test_torch_mesh.py); a
+    decoder refuses a step past its output's columns."""
     _, tarch, _, _, tparams = carried("transformer")
     logits, state = models.prefill(tparams, None, tarch, torch.zeros((1, 4), dtype=torch.int32), capacity=6)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -432,9 +433,11 @@ def test_serve_refuses_what_waits():
     with pytest.raises(ValueError, match="CUDA"):
         serve.serve_traffic(tarch, tparams, None, torch.zeros((1, 4), dtype=torch.int32), mode="graph",
                             device="cpu")
-    for fn, args in ((serve.decode_state_pspecs, (None, None)), (serve.serve_input_specs, (tarch, None, None))):
-        with pytest.raises(ValueError, match="A.9c"):
-            fn(*args)
+    from repro_torch.launch.mesh import abstract_mesh
+
+    with pytest.raises(ValueError, match="A.9d"):
+        serve.serve_traffic(tarch, tparams, None, torch.zeros((1, 4), dtype=torch.int32), mode="loop", device="cpu",
+                            mesh=abstract_mesh(2, 2))
 
 
 # ------------------------------------------------------------- checkpoints

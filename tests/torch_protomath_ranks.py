@@ -6,7 +6,8 @@ CPU: the helper that tests/test_torch_protomath_step.py starts once a rank.
 Every rank joins the group through a file under ``OUT_DIR`` (no port),
 runs each of ``CONFIGS`` for ``STEPS`` steps of ``lm_arch()`` (and of
 ``zoo_arch("jamba")``) at N=4 from the same seeded weights and batches,
-and writes its losses and final flat parameters to
+each rank storing its cut of them, and writes its losses and final flat
+parameters (gathered) to
 ``OUT_DIR/rank{RANK}.npz``. The models are small because a collective on
 a busy CPU waits until every rank is scheduled: the run's time follows its
 count of collectives, one to three an exchange. ``run_configs(mesh)`` is the same run on any
@@ -51,13 +52,14 @@ def run_configs(mesh) -> dict[str, tuple[list[float], np.ndarray]]:
         tcfg = TrainConfig(arch=arch.name, **{**_BASE, **kw})
         params, specs = models.init(torch.Generator().manual_seed(0), arch)
         step, opt = train.build_train_step(arch, tcfg, specs, mesh=mesh, device="cpu")
+        params = train.shard_tree(params, step.placements, mesh)  # this rank's cut
         state, losses = opt.init(params), []
         for i in range(STEPS):
             b = lm_batch_for_devices(torch.Generator().manual_seed(100 + i), arch.vocab, n_subsets=N, per_subset=2,
                                      seq_len=16, sigma_h=0.5)
             params, state, loss, _ = step(params, state, {k: v.reshape(-1, 16) for k, v in b.items()}, i)
             losses.append(float(loss))
-        out[name] = (losses, flatten_pytree(params)[0].numpy())
+        out[name] = (losses, flatten_pytree(train.gather_tree(params, step.placements, mesh))[0].numpy())
     return out
 
 
