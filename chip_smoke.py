@@ -140,7 +140,17 @@ and prints one JSON line per phase:
                  rank's param and moment bytes against the whole, peak
                  memory, card ms a step, exchanges and kernel launches, the
                  first loss against this process's model-1 step, one
-                 exchange of a tp slice against the plain versions;
+                 exchange of a tp slice against the plain versions; (c)
+                 every family the model axis cuts (``lm_arch()`` with its
+                 one kv head whole, ``zoo_arch``'s moe, jamba, rwkv, cross
+                 and audio, and ``attn_tp="head_dim"``) in fp32, N=4, 3
+                 steps of CWTM under ALIE under both servers: losses
+                 within 2e-6 of this process's model-1 run, ``sharded``
+                 bit for bit ``gather``, the ranks equal; (d)
+                 granite-moe-3b-a800m at its published widths cut to 2
+                 layers in bf16 (``protomath_wide``'s settings), N=8, its
+                 40 experts 20 a rank: as (b), and one exchange of an
+                 expert slice (``w_gate``'s) against the plain versions;
   serve          the serving path (prefill, cached decode, ``serve_traffic``)
                  at the zoo's scale in fp32, for the seven ``ZOO_FAMILIES``
                  and a whisper arch whose first block is cross-attention:
@@ -2022,14 +2032,95 @@ def protomath_wide_phase(T, mesh_lib, protomath, models, pytree, ops, archs, syn
 TP_WORLD, TP_MODEL = 4, 2  # data 2 x model 2 on the one card
 TP_N = 4  # (a)'s logical devices: 2 blocks a data rank
 TP_STEPS = 3
-TP_TIMEOUT_S = 300.0  # one rank, start-up included
+TP_TIMEOUT_S = 300.0  # the four ranks, start-up included
 TP_WIDE_LOSS_RTOL = 1e-3  # (b)'s first loss, bf16, against the one-process step: set in PERF.md before the first run
+
+
+TP_FAMILY_SETUP = "cwtm-alie"  # (c)'s setup of PROTOMATH_SETUPS, under both servers
+TP_MOE = ("granite-moe-3b-a800m", {"n_layers": 2}, 352_461_312)  # (d): cut to 2 layers as zoo_wide cuts it
 
 
 def tp_arch(scenarios):
     """``lm_arch()`` with 4 heads over 2 kv heads: every weight but the
     norms cut over 2 model ranks."""
     return scenarios.lm_arch().scaled(n_heads=4, n_kv_heads=2)
+
+
+def tp_families(scenarios) -> dict:
+    """(c)'s archs: every family the model axis cuts, at ``zoo_arch``
+    widths in fp32."""
+    out = {"lm": scenarios.lm_arch()}
+    out.update({fam: scenarios.zoo_arch(fam) for fam in ("moe", "jamba", "rwkv", "cross", "audio")})
+    out["head_dim"] = scenarios.lm_arch().scaled(attn_tp="head_dim")
+    return out
+
+
+def tp_family_batches(synthetic, arch) -> list[dict]:
+    """(c)'s batches: 1 row of 16 tokens a block, a seeded ``frontend``
+    where the family takes one."""
+    batches = train_batches(synthetic, arch, TP_N, 1, TP_STEPS)
+    return with_frontend(arch, batches, seed=7) if arch.encoder is not None else batches
+
+
+def tp_wide_rank(T, protomath, models, pytree, synthetic, wide, wmesh, counted, rank: int) -> dict:
+    """One rank's wide run over data 2 x model 2 (``protomath_wide``'s
+    settings, N=8): its stored bytes, an untimed first step, then
+    ``TP_STEPS`` timed steps (card and wall ms), peak memory and the
+    exchanges a step."""
+    from repro_torch.models.module import tree_bytes
+
+    tcfg = tp_wide_tcfg(T, wide)
+    whole0, wspecs = models.init(torch.Generator().manual_seed(0), wide)
+    step, opt = T.build_train_step(wide, tcfg, wspecs, mesh=wmesh, device="cuda")
+    params = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(whole0, step.placements, wmesh))
+    whole_bytes = tree_bytes(whole0)
+    n_params = sum(a.numel() for a in pytree.leaves(whole0))
+    del whole0
+    state = opt.init(params)
+    moments = tree_bytes(state.mu) + tree_bytes(state.nu)
+    line = {"param_bytes": tree_bytes(params), "param_bytes_whole": whole_bytes, "moment_bytes": moments,
+            "moment_bytes_whole": 2 * n_params * 2, "n_local": wmesh.local_devices}
+    batches = train_batches(synthetic, wide, WIDE_N, 2, 1 + TP_STEPS)
+    params, state, loss, _ = counted(lambda: step(params, state, batches[0], 0))  # the first step, untimed
+    line["first_loss"] = float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    protomath.reset_exchange_counts()
+    rows, losses = [], []
+    for i, b in enumerate(batches[1:], start=1):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev[0].record()
+        params, state, loss, _ = counted(lambda: step(params, state, b, i))
+        ev[1].record()
+        ev[1].synchronize()
+        rows.append({"card_ms": ev[0].elapsed_time(ev[1]), "wall_ms": (time.perf_counter() - t0) * 1e3})
+        losses.append(float(loss))
+    check(all(map(math.isfinite, losses)), f"protomath_tp rank {rank} {wide.name}: a loss is not finite")
+    ex = protomath.exchange_counts()
+    line.update(steps=rows, loss=losses, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                exchanges_a_step={k: v // TP_STEPS for k, v in ex.items()})
+    del params, state
+    torch.cuda.empty_cache()
+    return line
+
+
+def tp_exchange_vs_plain(T, protomath, tcfg, wmesh, shape, w_spec, cut, rank: int) -> float:
+    """One exchange of this rank's ``(n_local, *shape)`` tp slice through
+    the kernels against the same exchange on the CPU (the plain versions):
+    the largest error as a share of the allowance; fails past it."""
+    protocol = T.make_protocol(tcfg, wmesh)
+    gen = torch.Generator(device="cuda").manual_seed(13 + rank)
+    block = torch.randn((wmesh.local_devices,) + shape, generator=gen, device="cuda") * 1e-3
+
+    def combine(x):
+        return protomath.robust_combine(protocol, x, w_spec, seed=5, group=wmesh.group,
+                                        model_group=wmesh.model_group, cut=cut)
+
+    got, want = combine(block).cpu(), combine(block.cpu())
+    atol = ATOL * float(want.abs().max())
+    check(torch.allclose(got, want, rtol=RTOL, atol=atol),
+          f"protomath_tp rank {rank}: an exchange of a {shape} tp slice disagrees with its plain version")
+    return float(((got - want).abs() / (atol + RTOL * want.abs())).max())
 
 
 def tp_wide_tcfg(T, arch):
@@ -2043,8 +2134,8 @@ def tp_rank(out: Path, rank: int) -> int:
     """One rank of ``protomath_tp_phase``: a fresh interpreter on the card,
     joined to the others over a ``gloo`` group (NCCL refuses two ranks on
     one card) through a file under ``out``. Writes ``rank{rank}.json``
-    (its line) and ``rank{rank}.npz`` ((a)'s losses and gathered
-    parameters)."""
+    (its line) and ``rank{rank}.npz`` ((a)'s and (c)'s losses and
+    gathered parameters)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import models, pytree
     from repro_torch.configs import archs
@@ -2054,7 +2145,6 @@ def tp_rank(out: Path, rank: int) -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train as T
-    from repro_torch.models.module import tree_bytes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2074,6 +2164,12 @@ def tp_rank(out: Path, rank: int) -> int:
                 path_launches[k] += v - before[k]
             return result
 
+        started = time.perf_counter()
+
+        def part_done(part: str) -> None:  # each part's seconds, in the line and on stderr as it goes
+            line[f"{part}_s"] = time.perf_counter() - started - sum(v for k, v in line.items() if k.endswith("_s"))
+            print(f"protomath_tp rank {rank}: ({part}) done, {line[f'{part}_s']:.1f} s", file=sys.stderr, flush=True)
+
         # (a) fp32 parity at lm_arch() with cut heads
         arch = tp_arch(scenarios)
         params0, specs = models.init(torch.Generator().manual_seed(0), arch)
@@ -2088,54 +2184,46 @@ def tp_rank(out: Path, rank: int) -> int:
                 arrays[f"{name}/{server}/loss"] = losses.cpu().numpy()
                 arrays[f"{name}/{server}/params"] = flatten_pytree(pytree.map_tree(lambda a: a.cpu(), whole))[0].numpy()
 
+        part_done("a")
+
         # (b) smollm-360m at its published widths, depth and dtype
         wide = archs.ARCHS["smollm-360m"]
         wmesh = dataclasses.replace(mesh, data=WIDE_N)
-        tcfg = tp_wide_tcfg(T, wide)
-        whole0, wspecs = models.init(torch.Generator().manual_seed(0), wide)
-        step, opt = T.build_train_step(wide, tcfg, wspecs, mesh=wmesh, device="cuda")
-        params = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(whole0, step.placements, wmesh))
-        whole_bytes = tree_bytes(whole0)
-        del whole0
-        state = opt.init(params)
-        moments = tree_bytes(state.mu) + tree_bytes(state.nu)
-        line["b"] = {"param_bytes": tree_bytes(params), "param_bytes_whole": whole_bytes, "moment_bytes": moments,
-                     "moment_bytes_whole": 2 * WIDE_Q * 2, "n_local": wmesh.local_devices}
-        batches = train_batches(synthetic, wide, WIDE_N, 2, 1 + TP_STEPS)
-        params, state, loss, _ = counted(lambda: step(params, state, batches[0], 0))  # the first step, untimed
-        line["b"]["first_loss"] = float(loss)
-        torch.cuda.reset_peak_memory_stats()
-        protomath.reset_exchange_counts()
-        rows, losses = [], []
-        for i, b in enumerate(batches[1:], start=1):
-            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            ev[0].record()
-            params, state, loss, _ = counted(lambda: step(params, state, b, i))
-            ev[1].record()
-            ev[1].synchronize()
-            rows.append({"card_ms": ev[0].elapsed_time(ev[1]), "wall_ms": (time.perf_counter() - t0) * 1e3})
-            losses.append(float(loss))
-        check(all(map(math.isfinite, losses)), f"protomath_tp rank {rank}: a loss is not finite")
-        ex = protomath.exchange_counts()
-        line["b"].update(steps=rows, loss=losses, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                         exchanges_a_step={k: v // TP_STEPS for k, v in ex.items()})
-        del params, state
-
+        line["b"] = tp_wide_rank(T, protomath, models, pytree, synthetic, wide, wmesh, counted, rank)
         # one exchange of a tp slice (w_gate's: (960, 2560 / 2)) through the kernels against the plain versions
-        protocol = T.make_protocol(tcfg, wmesh)
-        gen = torch.Generator(device="cuda").manual_seed(13 + rank)
-        block = torch.randn((wmesh.local_devices, 960, 2560 // TP_MODEL), generator=gen, device="cuda") * 1e-3
+        line["b"]["exchange_vs_plain_share"] = tp_exchange_vs_plain(
+            T, protomath, tp_wide_tcfg(T, wide), wmesh, (960, 2560 // TP_MODEL), ("fsdp", "tp"), (None, "model"),
+            rank)
 
-        def combine(x):
-            return protomath.robust_combine(protocol, x, ("fsdp", "tp"), seed=5, group=wmesh.group,
-                                            model_group=wmesh.model_group, cut=(None, "model"))
+        part_done("b")
 
-        got, want = combine(block).cpu(), combine(block.cpu())
-        atol = ATOL * float(want.abs().max())
-        check(torch.allclose(got, want, rtol=RTOL, atol=atol),
-              f"protomath_tp rank {rank}: an exchange on a tp slice disagrees with its plain version")
-        line["b"]["exchange_vs_plain_share"] = float(((got - want).abs() / (atol + RTOL * want.abs())).max())
+        # (c) every family the model axis cuts, fp32 parity against the one-process run
+        for fam, farch in tp_families(scenarios).items():
+            fparams0, fspecs = models.init(torch.Generator().manual_seed(0), farch)
+            fbatches = tp_family_batches(synthetic, farch)
+            for server in ("sharded", "gather"):
+                step, opt = T.build_train_step(farch, protomath_tcfg(T, farch, server=server,
+                                                                      **PROTOMATH_SETUPS[TP_FAMILY_SETUP]),
+                                               fspecs, mesh=mesh, device="cuda")
+                p = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(fparams0, step.placements, mesh))
+                params, _, losses = counted(lambda: drive(step, p, opt.init(p), fbatches))
+                whole = T.gather_tree(params, step.placements, mesh)
+                arrays[f"c/{fam}/{server}/loss"] = losses.cpu().numpy()
+                arrays[f"c/{fam}/{server}/params"] = flatten_pytree(pytree.map_tree(lambda a: a.cpu(),
+                                                                                    whole))[0].numpy()
+
+        part_done("c")
+
+        # (d) granite-moe-3b-a800m at its published widths, 2 layers, bf16: experts cut over the model ranks
+        moe_name, cut, _ = TP_MOE
+        moe_arch = archs.ARCHS[moe_name].scaled(**cut)
+        line["d"] = tp_wide_rank(T, protomath, models, pytree, synthetic, moe_arch, wmesh, counted, rank)
+        e, dm, ff = moe_arch.moe.n_experts, moe_arch.d_model, moe_arch.moe.d_ff_expert
+        # one exchange of an expert slice (w_gate's: this rank's 20 of 40 experts) against the plain versions
+        line["d"]["exchange_vs_plain_share"] = tp_exchange_vs_plain(
+            T, protomath, tp_wide_tcfg(T, moe_arch), wmesh, (e // TP_MODEL, dm, ff), ("tp", "fsdp", None),
+            ("model", "data", None), rank)
+        part_done("d")
         line["launches"] = path_launches
         np.savez(out / f"rank{rank}.npz", **arrays)
         (out / f"rank{rank}.json").write_text(json.dumps(line))
@@ -2161,7 +2249,14 @@ def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs,
           rank's param and moment bytes against the whole, peak GB, card
           ms a step, exchanges and kernel launches; the first step's loss
           within ``TP_WIDE_LOSS_RTOL`` of this process's model-1 step; one
-          exchange of a tp slice against the plain versions.
+          exchange of a tp slice against the plain versions;
+      (c) every family of ``tp_families`` in fp32, N=4, 3 steps of
+          ``TP_FAMILY_SETUP`` under both servers: losses within
+          ``TRAIN_RTOL`` of the same steps in this process at model 1,
+          ``sharded`` bit for bit ``gather``, the ranks equal;
+      (d) ``TP_MOE`` (granite-moe-3b-a800m, 2 layers, bf16) as (b), its
+          exchange of an expert slice (``w_gate``'s) against the plain
+          versions.
 
     Every kernel of ``PROTOMATH_KERNELS`` must launch on some rank."""
     out = {"phase": "protomath_tp", "ranks": TP_WORLD, "data": TP_WORLD // TP_MODEL, "model": TP_MODEL,
@@ -2175,15 +2270,23 @@ def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs,
         step, opt = T.build_train_step(arch, protomath_tcfg(T, arch, **kw), specs, mesh=one_mesh, device="cuda")
         p = pytree.map_tree(lambda a: a.to("cuda"), params0)
         one[name] = drive(step, p, opt.init(p), batches)[2].cpu().numpy()
-    wide = archs.ARCHS["smollm-360m"]
-    whole0, wspecs = models.init(torch.Generator().manual_seed(0), wide)
-    step, opt = T.build_train_step(wide, tp_wide_tcfg(T, wide), wspecs, mesh=dataclasses.replace(one_mesh,
-                                                                                                   data=WIDE_N),
-                                   device="cuda")
-    p = pytree.map_tree(lambda a: a.to("cuda"), whole0)
-    one_first = float(step(p, opt.init(p), train_batches(synthetic, wide, WIDE_N, 2, 1)[0], 0)[2])
-    del whole0, p
-    torch.cuda.empty_cache()
+    families = tp_families(scenarios)
+    for fam, farch in families.items():
+        fparams0, fspecs = models.init(torch.Generator().manual_seed(0), farch)
+        step, opt = T.build_train_step(farch, protomath_tcfg(T, farch, **PROTOMATH_SETUPS[TP_FAMILY_SETUP]), fspecs,
+                                       mesh=one_mesh, device="cuda")
+        p = pytree.map_tree(lambda a: a.to("cuda"), fparams0)
+        one[f"c/{fam}"] = drive(step, p, opt.init(p), tp_family_batches(synthetic, farch))[2].cpu().numpy()
+    moe_name, cut, moe_params = TP_MOE
+    first = {}
+    for key, wide in (("b", archs.ARCHS["smollm-360m"]), ("d", archs.ARCHS[moe_name].scaled(**cut))):
+        whole0, wspecs = models.init(torch.Generator().manual_seed(0), wide)
+        step, opt = T.build_train_step(wide, tp_wide_tcfg(T, wide), wspecs,
+                                       mesh=dataclasses.replace(one_mesh, data=WIDE_N), device="cuda")
+        p = pytree.map_tree(lambda a: a.to("cuda"), whole0)
+        first[key] = float(step(p, opt.init(p), train_batches(synthetic, wide, WIDE_N, 2, 1)[0], 0)[2])
+        del whole0, p, step, opt
+        torch.cuda.empty_cache()
 
     work = tmp / "protomath_tp"
     if work.exists():
@@ -2196,8 +2299,15 @@ def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs,
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(work), str(r)], env=env,
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(TP_WORLD)]
+    errs = []
     try:
-        errs = [p.communicate(timeout=TP_TIMEOUT_S)[1] for p in procs]
+        for p in procs:
+            errs.append(p.communicate(timeout=max(1.0, started + TP_TIMEOUT_S - time.perf_counter()))[1])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        tails = [p.communicate()[1][-600:] for p in procs[len(errs):]]
+        check(False, f"protomath_tp: ranks {len(errs)} to {TP_WORLD - 1} passed {TP_TIMEOUT_S} s: {tails}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2222,12 +2332,32 @@ def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs,
         check(rel <= TRAIN_RTOL, f"protomath_tp (a) {name}: losses {rel:.3g} from the one-process run")
         out["a"][name] = {"loss": loss.tolist(), "one_process_loss": one[name].tolist(), "max_rel_loss": rel,
                           "sharded_bitwise_gather": True, "ranks_equal": True}
-    rel = max(abs(ln["b"]["first_loss"] - one_first) / abs(one_first) for ln in lines)
-    check(rel <= TP_WIDE_LOSS_RTOL, f"protomath_tp (b): first loss {rel:.3g} from the one-process step")
-    out["b"] = {"arch": wide.name, "params": WIDE_Q, "n_devices": WIDE_N, "one_process_first_loss": one_first,
-                "first_loss_max_rel": rel, "tolerance": TP_WIDE_LOSS_RTOL,
-                "ranks": [{"rank": ln["rank"], "data_rank": ln["data_rank"], "model_rank": ln["model_rank"], **ln["b"],
-                           "launches": {k: v for k, v in ln["launches"].items() if v}} for ln in lines]}
+    out["c"] = {}
+    for fam in families:
+        for key in arrays[0].files:
+            if key.startswith(f"c/{fam}/"):
+                check(all(np.array_equal(a[key], arrays[0][key]) for a in arrays[1:]),
+                      f"protomath_tp (c) {key}: the ranks disagree")
+        for what in ("loss", "params"):
+            check(np.array_equal(arrays[0][f"c/{fam}/sharded/{what}"], arrays[0][f"c/{fam}/gather/{what}"]),
+                  f"protomath_tp (c) {fam}: the sharded server's {what} differ from the gather server's")
+        loss, want = arrays[0][f"c/{fam}/sharded/loss"], one[f"c/{fam}"]
+        rel = float((np.abs(loss - want) / np.abs(want)).max())
+        check(rel <= TRAIN_RTOL, f"protomath_tp (c) {fam}: losses {rel:.3g} from the one-process run")
+        out["c"][fam] = {"arch": families[fam].name, "setup": TP_FAMILY_SETUP, "loss": loss.tolist(),
+                         "one_process_loss": want.tolist(), "max_rel_loss": rel, "sharded_bitwise_gather": True,
+                         "ranks_equal": True}
+    for key, name, n_params in (("b", "smollm-360m", WIDE_Q), ("d", f"{moe_name} ({cut})", moe_params)):
+        rel = max(abs(ln[key]["first_loss"] - first[key]) / abs(first[key]) for ln in lines)
+        check(rel <= TP_WIDE_LOSS_RTOL, f"protomath_tp ({key}): first loss {rel:.3g} from the one-process step")
+        for ln in lines:
+            check(ln[key]["moment_bytes_whole"] == 2 * n_params * 2, f"protomath_tp ({key}): {n_params} parameters")
+        out[key] = {"arch": name, "params": n_params, "n_devices": WIDE_N, "one_process_first_loss": first[key],
+                    "first_loss_max_rel": rel, "tolerance": TP_WIDE_LOSS_RTOL,
+                    "ranks": [{"rank": ln["rank"], "data_rank": ln["data_rank"], "model_rank": ln["model_rank"],
+                               **ln[key]} for ln in lines]}
+    out["rank_launches"] = [{k: v for k, v in ln["launches"].items() if v} for ln in lines]
+    out["rank_part_s"] = [{k: ln[k] for k in ("a_s", "b_s", "c_s", "d_s")} for ln in lines]
     launches = {k: sum(ln["launches"][k] for ln in lines) for k in lines[0]["launches"]}
     for kernel in PROTOMATH_KERNELS:
         check(launches[kernel] > 0, f"protomath_tp: kernel {kernel} was not launched on any rank")

@@ -63,6 +63,22 @@ slice carries the bits ``model_size = 1`` gives its coordinates. The
 ``-nnm`` Gram and squared norms of a slice are summed over the model group
 after the data cut's sum. Partial sums travel in fp32.
 
+The other families' cuts: a model-cut dim that is in the input and the
+output of a product (MoE's experts, ``necd,edf->necf``) is expert
+parallelism, on an input already cut (``model_split``), with no
+collective of its own; ``pmm(parts=)`` computes with this
+rank's slice of each part of a leaf's cut dim (Mamba's x and z halves of
+``in_proj``, stored cut contiguously), its cotangent moved back to the
+stored cut before the exchange. ``pscale``, ``pbias`` and ``block_tap``
+exchange a model-cut leaf (a row of one, ``index``; a transform of one,
+``block_tap``'s ``fn``) on its cut, and cut a whole leaf to an input cut
+over the model ranks, joining its blocked cotangent whole before the
+exchange (RWKV's ``w0``, ``ln_scale``). ``model_split``, ``model_join``,
+``model_grad_sum`` and ``model_logits_sum`` move activations between the
+model ranks for the layers (MoE's dispatch and outputs, RWKV's
+receptance, RoPE on a cut ``head_dim``, the whole k and v that q heads
+cut alone read, Mamba's B and C, the logits of a cut ``head_dim``).
+
 Each exchanged call site draws from generators seeded by ``(seed, site,
 row, stream)``, ``seed`` the round's (``protocol_context``) and ``site``
 the call's order in one forward; a loop over periods, encoder layers or
@@ -90,7 +106,8 @@ from repro_torch.numerics import stable_mean0
 
 __all__ = ["BlockedProtocol", "protocol_context", "current_protocol", "shared_sites", "fold_seed", "sharded_dim",
            "robust_combine", "exchange_counts", "reset_exchange_counts", "lookup", "pmm", "plookup", "pscale",
-           "pbias", "block_tap", "vocab_logsumexp"]
+           "pbias", "block_tap", "vocab_logsumexp", "tp_dim_of", "model_split", "model_join", "model_grad_sum",
+           "model_logits_sum"]
 
 DATA_AXES_1POD: tuple[str, ...] = ("data",)
 _COMPRESS, _NOISE = 0, 1  # draw streams of a site's rows
@@ -488,28 +505,59 @@ def _compute_view(w: torch.Tensor, cut: tuple | None, site: _Site) -> torch.Tens
 
 def _tp_kind(spec: str, cut: tuple | None) -> str | None:
     """``"column"`` when the weight's model-cut dim appears in the output,
-    ``"row"`` when it is contracted, ``None`` when the weight is not cut
-    over the model ranks."""
+    ``"row"`` when it is contracted, ``"expert"`` when the input and the
+    output both carry it (MoE's experts), ``None`` when the weight is not
+    cut over the model ranks."""
     dim = _dim_of(cut, "model")
     if dim is None:
         return None
     lhs, rhs, out = _parse(spec)
     letter = rhs[dim]
-    if letter in out and letter not in lhs:
-        return "column"
-    if letter in lhs and letter not in out:
+    if letter in out:
+        return "expert" if letter in lhs else "column"
+    if letter in lhs:
         return "row"
-    raise ValueError(f"{spec}: a model-cut dim shared by the input and the output (expert parallelism) waits for "
-                     "ROADMAP A.9d")
+    raise ValueError(f"{spec}: the model-cut dim {letter!r} of the weight is summed away")
+
+
+def _gather_dim(t: torch.Tensor, dim: int, site: _Site) -> torch.Tensor:
+    """The model ranks' parts of ``t`` joined along ``dim``, in rank order."""
+    return _all_gather(t.movedim(dim, 0), site.model_group, site.model_world).movedim(0, dim).contiguous()
+
+
+def _parts_view(w: torch.Tensor, dim: int, parts: int, site: _Site) -> torch.Tensor:
+    """A leaf whose ``dim`` holds ``parts`` equal parts (Mamba's x and z
+    halves of ``in_proj``), stored cut contiguously over the model ranks ->
+    this rank's slice of every part, joined in part order."""
+    whole = _gather_dim(w, dim, site)
+    size = whole.shape[dim] // parts
+    if size % site.model_world:
+        raise ValueError(f"parts of {size} do not split over {site.model_world} model ranks")
+    cut = size // site.model_world
+    return torch.cat([whole.narrow(dim, j * size + site.model_rank * cut, cut) for j in range(parts)], dim)
+
+
+def _parts_stored(t: torch.Tensor, dim: int, parts: int, site: _Site) -> torch.Tensor:
+    """``_parts_view``'s inverse for a cotangent: every rank's slices of the
+    parts -> this rank's contiguous stored cut."""
+    m = site.model_world
+    g = _gather_dim(t, dim, site).movedim(dim, 0)  # (m * parts * cut, ...): rank-major, then part
+    cut = g.shape[0] // (m * parts)
+    whole = g.reshape((m, parts, cut) + tuple(g.shape[1:])).transpose(0, 1).reshape(g.shape)
+    return _take(whole, 0, m, site.model_rank).movedim(0, dim).contiguous()
 
 
 class _PMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, spec, w_spec, pre_blocked, site, cut):
+    def forward(ctx, x, w, spec, w_spec, pre_blocked, site, cut, parts):
         view = _compute_view(w, cut, site)
         kind = _tp_kind(spec, cut)
+        tp_dim = _dim_of(cut, "model")
+        if parts > 1 and tp_dim is not None:
+            view = _parts_view(view, tp_dim, parts, site)
         ctx.save_for_backward(x, view)
         ctx.spec, ctx.w_spec, ctx.pre_blocked, ctx.site, ctx.cut, ctx.kind = spec, w_spec, pre_blocked, site, cut, kind
+        ctx.parts = parts
         out = _product(spec, x, view, pre_blocked)
         return _model_sum(out, site) if kind == "row" else out
 
@@ -527,25 +575,34 @@ class _PMM(torch.autograd.Function):
         else:
             n = ctx.site.n_local
             dw_n = torch.einsum(f"n{lhs},n{out}->n{rhs}", _block(x, n), _block(ct, n))
+        tp_dim = _dim_of(ctx.cut, "model")
+        if ctx.parts > 1 and tp_dim is not None:
+            dw_n = _parts_stored(dw_n, 1 + tp_dim, ctx.parts, ctx.site)
         dw = _combine(ctx.site, dw_n, ctx.w_spec, ctx.cut).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def pmm(spec: str, x: torch.Tensor, w: torch.Tensor, w_spec: tuple | None = None,
-        pre_blocked: bool = False) -> torch.Tensor:
+        pre_blocked: bool = False, parts: int = 1) -> torch.Tensor:
     """Protocol-aware ``einsum(spec, x, w)``, ``w`` the parameter (its
     stored cut under a context that cuts it).
 
     ``w_spec``, the parameter's logical axes, locates the ``fsdp`` dim the
     sharded server cuts (``None``: the leaf takes the gather server).
     ``pre_blocked``: the operands already carry the device axis ``n`` as
-    their leading index (MoE's experts)."""
+    their leading index (MoE's experts). ``parts``: the weight's model-cut
+    dim holds that many equal parts (Mamba's ``in_proj``, x then z), and
+    each rank computes with its slice of every part, not its contiguous
+    stored cut; the cotangent goes back to the stored cut before the
+    exchange. Where the model-cut dim is in the input and the output
+    (``"expert"``), the input is this rank's cut of it (``model_split``)
+    and nothing is exchanged between the model ranks."""
     ctx = current_protocol()
     if ctx is None:
         return _product(spec, x, w, pre_blocked)
     if pre_blocked and not spec.startswith("n"):
         raise ValueError(f"pre_blocked pmm needs an explicit n axis: {spec}")
-    return _PMM.apply(x, w, spec, w_spec, pre_blocked, _take_site(), ctx.cut_of(w))
+    return _PMM.apply(x, w, spec, w_spec, pre_blocked, _take_site(), ctx.cut_of(w), parts)
 
 
 class _FromData(torch.autograd.Function):
@@ -592,7 +649,7 @@ def _check_vocab_cut(cut: tuple | None) -> bool:
     """Whether a table is cut over the model ranks (on its rows)."""
     dim = _dim_of(cut, "model")
     if dim not in (None, 0):
-        raise ValueError(f"a table cut over the model ranks on dim {dim}, not its rows, waits for ROADMAP A.9d")
+        raise ValueError(f"a table cut over the model ranks on dim {dim}: a lookup takes a cut of its rows only")
     return dim == 0
 
 
@@ -664,11 +721,30 @@ def vocab_logsumexp(logits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return _VocabLSE.apply(logits, _site_of(ctx, 0))
 
 
+def _affine_cut(ctx: _Context, x: torch.Tensor, w: torch.Tensor, index: int | None):
+    """(the operand, its cut, the dims of a whole leaf to cut) of an affine
+    op on ``w`` (row ``index`` of it where given): a model-cut leaf keeps
+    its cut (a row, the row's), and a leaf that is whole where ``x`` holds
+    this rank's cut of a dim is cut there (RWKV's ``w0`` and ``ln_scale``)."""
+    cut = ctx.cut_of(w)
+    if index is not None:
+        w, cut = w[index], (None if cut is None else cut[1:] or None)
+    local = ()
+    if ctx.model_world > 1 and _dim_of(cut, "model") is None:
+        local = tuple(d for d in range(w.ndim) if w.shape[d] != x.shape[x.ndim - w.ndim + d]
+                      and w.shape[d] == ctx.model_world * x.shape[x.ndim - w.ndim + d])
+        if len(local) > 1:
+            raise ValueError(f"a whole {tuple(w.shape)} leaf on an input cut on more than one dim")
+    return w, cut, local
+
+
 class _PAffine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, mode, site):
+    def forward(ctx, x, w, mode, site, cut, local):
+        for d in local:  # this rank's cut of a whole leaf
+            w = _take(w, d, site.model_world, site.model_rank)
         ctx.save_for_backward(x, w)
-        ctx.mode, ctx.site = mode, site
+        ctx.mode, ctx.site, ctx.cut, ctx.local = mode, site, cut, local
         return x * w if mode == "mul" else x + w
 
     @staticmethod
@@ -679,42 +755,154 @@ class _PAffine(torch.autograd.Function):
         cb = _block(ct * x if mul else ct, ctx.site.n_local)  # (n, B/n, ..., *w's broadcast dims)
         dw_n = torch.sum(cb.to(torch.float32), dim=tuple(range(1, cb.ndim - w.ndim))) if cb.ndim - w.ndim > 1 \
             else cb.to(torch.float32)
-        return dx, _combine(ctx.site, dw_n, None).to(w.dtype), None, None
+        for d in ctx.local:  # the whole leaf's blocked cotangent, on every model rank
+            dw_n = _gather_dim(dw_n, 1 + d, ctx.site)
+        return dx, _combine(ctx.site, dw_n, None, ctx.cut).to(w.dtype), None, None, None, None
 
 
-def pscale(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Protocol-aware ``x * w``, ``w`` broadcast over trailing dims."""
-    if current_protocol() is None:
-        return x * w
-    return _PAffine.apply(x, w, "mul", _take_site())
+def _affine(x: torch.Tensor, w: torch.Tensor, mode: str, index: int | None) -> torch.Tensor:
+    ctx = current_protocol()
+    if ctx is None:
+        w = w if index is None else w[index]
+        return x * w if mode == "mul" else x + w
+    w, cut, local = _affine_cut(ctx, x, w, index)
+    return _PAffine.apply(x, w, mode, _take_site(), cut, local)
 
 
-def pbias(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Protocol-aware ``x + w``, ``w`` broadcast over trailing dims."""
-    if current_protocol() is None:
-        return x + w
-    return _PAffine.apply(x, w, "add", _take_site())
+def pscale(x: torch.Tensor, w: torch.Tensor, index: int | None = None) -> torch.Tensor:
+    """Protocol-aware ``x * w`` (``x * w[index]``), ``w`` a parameter
+    broadcast over trailing dims; under a context, a model-cut ``w`` keeps
+    its cut in the exchange, and a whole ``w`` on an ``x`` cut over the
+    model ranks is cut to match, its cotangent joined whole before it."""
+    return _affine(x, w, "mul", index)
+
+
+def pbias(x: torch.Tensor, w: torch.Tensor, index: int | None = None) -> torch.Tensor:
+    """Protocol-aware ``x + w`` (``x + w[index]``), as ``pscale``."""
+    return _affine(x, w, "add", index)
 
 
 class _BlockTap(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, site):
-        ctx.site = site
+    def forward(ctx, w, site, cut):
+        ctx.site, ctx.cut = site, cut
         return w.unsqueeze(0).expand((site.n_local,) + tuple(w.shape)).clone()
 
     @staticmethod
     def backward(ctx, ct):
         # ct: (n, *w), each block's cotangent accumulated over its uses (a sequence loop)
-        return _combine(ctx.site, ct, None).to(ct.dtype), None
+        return _combine(ctx.site, ct, None, ctx.cut).to(ct.dtype), None, None
 
 
-def block_tap(w: torch.Tensor) -> tuple[torch.Tensor, int]:
+def block_tap(w: torch.Tensor, fn=None) -> tuple[torch.Tensor, int]:
     """A (small) parameter broadcast to one copy a local device block,
     ``(n, *w.shape)``, whose cotangent is aggregated once: for a parameter
     used inside a token loop (Mamba's A), where ``pscale`` would exchange a
-    token. Returns ``(w_b, n)``; with no active protocol ``(w[None], 1)``."""
+    token. ``fn``: an elementwise transform of the leaf whose result is
+    tapped (and exchanged), cut as the leaf is. Returns ``(w_b, n)``; with
+    no active protocol ``(fn(w)[None], 1)``."""
     ctx = current_protocol()
+    tapped = w if fn is None else fn(w)
     if ctx is None:
-        return w[None], 1
+        return tapped[None], 1
     site = _take_site()
-    return _BlockTap.apply(w, site), site.n_local
+    return _BlockTap.apply(tapped, site, ctx.cut_of(w)), site.n_local
+
+
+# --- the model ranks' activations ----------------------------------------------
+
+
+def tp_dim_of(w: torch.Tensor) -> int | None:
+    """The dim of the stored leaf ``w`` cut over the model ranks under the
+    active context, or ``None`` (no context, or ``w`` whole there)."""
+    ctx = current_protocol()
+    return None if ctx is None else _dim_of(ctx.cut_of(w), "model")
+
+
+def _model_site() -> _Site | None:
+    ctx = current_protocol()
+    return None if ctx is None or ctx.model_world == 1 else _site_of(ctx, 0)
+
+
+class _Split(torch.autograd.Function):
+    """Forward, this rank's part of a replicated tensor along ``dim``;
+    backward, the ranks' parts of the cotangent gathered whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, site):
+        ctx.dim, ctx.site = dim, site
+        return _take(x, dim, site.model_world, site.model_rank).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.site), None, None
+
+
+class _Join(torch.autograd.Function):
+    """Forward, the ranks' parts gathered whole along ``dim``; backward,
+    this rank's part of the cotangent: the same on every rank where what
+    follows is replicated, or (``partial``) this rank's share of it, summed
+    over the ranks first."""
+
+    @staticmethod
+    def forward(ctx, x, dim, site, partial):
+        ctx.dim, ctx.site, ctx.partial = dim, site, partial
+        return _gather_dim(x, dim, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = _model_sum(g, ctx.site)
+        return _take(g, ctx.dim, ctx.site.model_world, ctx.site.model_rank).contiguous(), None, None, None
+
+
+class _GradSum(torch.autograd.Function):
+    """Forward, the identity; backward, the cotangent summed over the model
+    ranks (``sum_forward``: the forward too)."""
+
+    @staticmethod
+    def forward(ctx, x, site, sum_forward):
+        ctx.site = site
+        return _model_sum(x, site) if sum_forward else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum(g, ctx.site), None, None
+
+
+def model_split(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's part of the replicated ``x`` along ``dim`` (MoE's
+    dispatch buffer cut to the rank's experts); ``x`` with no model ranks."""
+    site = _model_site()
+    return x if site is None else _Split.apply(x, dim, site)
+
+
+def model_join(x: torch.Tensor, dim: int, partial: bool = False) -> torch.Tensor:
+    """The model ranks' parts of ``x`` joined whole along ``dim``: MoE's
+    expert outputs, RWKV's channel-mix receptance. ``partial``: what follows
+    gives each rank only its share of the cotangent (RoPE on a cut
+    ``head_dim``), so the backward sums it over the ranks first."""
+    site = _model_site()
+    return x if site is None else _Join.apply(x, dim, site, partial)
+
+
+def model_grad_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its cotangent summed over the model ranks: a replicated
+    tensor that each rank reads only part of (the whole k and v under a cut
+    of the q heads alone, Mamba's B and C under a cut ``d_inner``)."""
+    site = _model_site()
+    return x if site is None else _GradSum.apply(x, site, False)
+
+
+def model_logits_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (fp32 partial sums, the logits of a cut ``head_dim``) summed
+    over the model ranks, its cotangent too."""
+    site = _model_site()
+    return x if site is None else _GradSum.apply(x, site, True)
+
+
+def model_sum_fn():
+    """A function summing an fp32 tensor over the model ranks (no autograd:
+    the chunked attention's hand-written passes), or ``None``."""
+    site = _model_site()
+    return None if site is None else (lambda t: _model_sum(t, site))

@@ -24,10 +24,15 @@ and counts, for one rank:
     all-reduces of the activations (row-parallel outputs, column-parallel
     input gradients, the vocabulary-parallel lookups and log-sum-exp), the
     lookups' gradient all-reduces over the data ranks, and each exchange's
-    ``all_to_all`` (sharded server) or ``all_gather`` (gather server). Only
-    the ``dense`` family runs tensor-parallel in the port: the other
-    families' records hold ``collectives: null`` and the reason (ROADMAP
-    A.9d), as do the serving shapes (serving over a mesh of many ranks);
+    ``all_to_all`` (sharded server) or ``all_gather`` (gather server); and
+    the other families' model-rank collectives: the MoE's expert outputs and
+    dispatch gradients gathered, the k and v gradients summed where the q
+    heads alone are cut, Mamba's ``in_proj`` halves gathered and B's and
+    C's gradients summed, RWKV's channel-mix receptance and whole-leaf
+    gradients gathered, and under ``attn_tp="head_dim"`` the logits'
+    partial sums (``tp_logits_all_reduce``) and RoPE's gathered
+    ``head_dim``. The serving shapes hold ``collectives: null`` and the
+    reason (serving over a mesh of many ranks, ROADMAP A.9e);
   * ``roofline.derive_terms`` at the peaks of the ``NVIDIA H100 80GB
     HBM3``: the analytic 6ND (2ND served) FLOPs a rank, the bytes a rank
     reads and writes at least (its weights' compute views once forward and
@@ -51,19 +56,18 @@ from typing import Any
 from repro_torch import pytree
 from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, ShapeConfig, TrainConfig
-from repro_torch.core.protomath import _tp_kind
+from repro_torch.core.protomath import _dim_of, _tp_kind
 from repro_torch.launch import roofline, serve, train
 from repro_torch.launch.mesh import Mesh, make_production_mesh, n_data_devices
+from repro_torch.models.attention import PLAIN_THRESHOLD
 from repro_torch.models.module import _axis_size
+from repro_torch.models.moe import expert_capacity
 from repro_torch.models.transformer import CE_CHUNK
 
 __all__ = ["skip_reason", "run_case", "main"]
 
 DEVICE = roofline.H100
 OUT_DIR = "experiments/dryrun_torch"
-# the dense family's weights and the einsum each takes part in
-_DENSE_SPECS = {"wq": "bsd,dhk->bshk", "wk": "bsd,dhk->bshk", "wv": "bsd,dhk->bshk", "wo": "bshk,hkd->bsd",
-                "w_gate": "bsd,df->bsf", "w_up": "bsd,df->bsf", "w_down": "bsf,fd->bsd"}
 
 
 def skip_reason(cfg: ArchConfig, shape: ShapeConfig) -> str | None:
@@ -117,43 +121,108 @@ def _ring(parts: int) -> tuple[float, float]:
     return (parts - 1) / parts, 2 * (parts - 1) / parts
 
 
+def _product_spec(name: str, shape: tuple) -> str | None:
+    """The einsum a per-layer weight of ``shape`` takes part in, ``None``
+    for the tables (counted apart) and the leaves of the affine ops."""
+    if len(shape) == 3:
+        return {"wq": "bsd,dhk->bshk", "wk": "bsd,dhk->bshk", "wv": "bsd,dhk->bshk", "wo": "bshk,hkd->bsd",
+                "w_gate": "necd,edf->necf", "w_up": "necd,edf->necf", "w_down": "necf,efd->necd"}.get(name)
+    if len(shape) == 2 and name not in ("table", "lm_head", "mu", "a_log", "conv_w"):
+        return "bsx,xy->bsy"
+    return None
+
+
 def _train_wire(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh, tcfg: TrainConfig, leaves) -> dict[str, float]:
-    """Wire bytes a rank of the protomath step (dense family) sends a step,
-    by collective kind (the module docstring)."""
+    """Wire bytes a rank of the protomath step sends a step, by collective
+    kind (the module docstring)."""
     n, data = n_data_devices(mesh), mesh.world
     m, n_local = max(1, tcfg.microbatches), n // mesh.world
     d = 1 if tcfg.protocol == "none" else tcfg.d
-    tokens = shape.global_batch // n * d * shape.seq_len * n_local  # a rank's tokens a step
+    rows = shape.global_batch // n * d * n_local  # a rank's sequences a step
+    tokens = rows * shape.seq_len  # a rank's tokens a step
+    enc_tokens = rows * cfg.encoder.n_frontend_tokens if cfg.encoder is not None else 0
     chunks = shape.seq_len // min(CE_CHUNK, shape.seq_len)  # the loss's chunks, a head product and lookup each
     act = tokens * cfg.d_model * 4  # the step's fp32 (tokens, d_model) activations
     gather_share, reduce_share = _ring(data)
-    model_reduce = _ring(mesh.model)[1]
-    out = dict.fromkeys(("fsdp_all_gather", "tp_all_reduce", "lookup_all_reduce", "exchange_all_to_all",
-                         "exchange_all_gather"), 0.0)
+    model_gather, model_reduce = _ring(mesh.model)
+    out = dict.fromkeys(("fsdp_all_gather", "tp_all_reduce", "tp_all_gather", "tp_logits_all_reduce",
+                         "lookup_all_reduce", "exchange_all_to_all", "exchange_all_gather"), 0.0)
+    cuts = {}
     for path, t, pl in leaves:
-        name, stacked = path.split("/")[-1], path.startswith("periods/")
-        cut = tuple(None if e is None or _axis_size(mesh, e) == 1 else ("model" if e == "model" else "data")
-                    for e in (pl[1:] if stacked else pl))
+        stacked = path.startswith(("periods/", "encoder/"))
+        cuts[path] = tuple(None if e is None or _axis_size(mesh, e) == 1 else ("model" if e == "model" else "data")
+                           for e in (pl[1:] if stacked else pl))
+    for path, t, pl in leaves:
+        name, stacked = path.split("/")[-1], path.startswith(("periods/", "encoder/"))
+        cut = cuts[path]
+        per_layer = tuple(t.shape[1:]) if stacked else tuple(t.shape)
         view = t.numel() // _parts(mesh, pl, "model") // (t.shape[0] if stacked else 1)  # a use's compute view
         head = path == "lm_head" or (name == "table" and cfg.tie_embeddings)
-        products = t.shape[0] if stacked else (chunks if head else 1 if path == "ln_f" else 0)  # exchanged uses
+        if stacked:
+            products = t.shape[0]  # exchanged uses: one a layer
+        else:
+            products = chunks if head else (0 if name == "table" else 1)
         lookups = (1 if name == "table" else 0) + (chunks if head else 0)  # the embedding's and the labels' rows
         if "data" in cut:
             out["fsdp_all_gather"] += m * (products + lookups) * gather_share * view * t.element_size()
         if data > 1:
             out["lookup_all_reduce"] += m * lookups * reduce_share * view * t.element_size()
-            rows = m * products * n_local * view * 4
+            exchanged = m * products * n_local * view * 4
             if tcfg.server == "sharded" and "data" in cut:
-                out["exchange_all_to_all"] += gather_share * rows
+                out["exchange_all_to_all"] += gather_share * exchanged
             else:
-                out["exchange_all_gather"] += (data - 1) * rows
-        if "model" in cut:
-            if name in ("table", "lm_head"):  # vocabulary-parallel: the embedding's rows; the labels' rows,
-                # the head's dx and the log-sum-exp's max and sum
-                rows = (act if name == "table" else 0) + (2 * act + 2 * 4 * tokens if head else 0)
-                out["tp_all_reduce"] += model_reduce * rows
-            elif _tp_kind(_DENSE_SPECS[name], cut) is not None:  # a row-parallel output or column-parallel dx
-                out["tp_all_reduce"] += model_reduce * act * products
+                out["exchange_all_gather"] += (data - 1) * exchanged
+        if mesh.model == 1:
+            continue
+        block = cfg.period[int(path.split("/")[1][3:])] if path.startswith("periods/") else None
+        mixer = "attn_nope" if path.startswith("encoder/") else (block.mixer if block else None)
+        tok = enc_tokens if path.startswith("encoder/") or (mixer == "cross" and name in ("wk", "wv")) else tokens
+        layers = t.shape[0] if stacked else 1
+        if "model" in cut and name in ("table", "lm_head"):  # vocabulary-parallel: the embedding's rows; the
+            # labels' rows, the head's dx and the log-sum-exp's max and sum
+            rows_ = (act if name == "table" else 0) + (2 * act + 2 * 4 * tokens if head else 0)
+            out["tp_all_reduce"] += model_reduce * rows_
+            continue
+        spec = _product_spec(name, per_layer)
+        kind = None if spec is None else _tp_kind(spec, cut)
+        if kind in ("column", "row"):  # a row-parallel output or a column-parallel dx, fp32 a token
+            lhs, rhs, out_ix = spec.replace("->", ",").split(",")
+            letters = lhs if kind == "column" else out_ix
+            elems = math.prod(per_layer[i] for i, c in enumerate(rhs) if c in letters)
+            out["tp_all_reduce"] += model_reduce * tok * elems * 4 * layers
+        elif kind == "expert" and name == "w_gate":  # the experts' outputs joined, the dispatch's dx gathered
+            e, dm = per_layer[0], per_layer[1]
+            t_block = shape.global_batch // n * d // m * shape.seq_len
+            cap = expert_capacity(t_block, e, cfg.moe.top_k)
+            out["tp_all_gather"] += 2 * model_gather * m * n_local * e * cap * dm * 4 * layers
+        if name in ("wq", "wk") and len(per_layer) == 3:
+            heads, hd = per_layer[1], per_layer[2]
+            q_cut = cuts[path[: -len(name)] + "wq"]
+            if name == "wk" and _dim_of(q_cut, "model") == 1 and "model" not in cut:  # the q heads alone cut:
+                out["tp_all_reduce"] += 2 * model_reduce * tok * heads * hd * 4 * layers  # k's and v's dx summed
+            if _dim_of(cut, "model") == 2:  # head_dim cut
+                if mixer == "attn" and cfg.rope_theta is not None:  # RoPE on the gathered head_dim
+                    out["tp_all_gather"] += model_gather * tok * heads * hd * 4 * layers
+                    out["tp_all_reduce"] += model_reduce * tok * heads * hd * 4 * layers
+                if name == "wq":  # the logits' partial sums: forward, and the backward's recomputed ones and
+                    # dout . v (twice each past the plain threshold, with dout . out), else the logits' dx
+                    sk = cfg.encoder.n_frontend_tokens if mixer == "cross" else shape.seq_len
+                    sq = cfg.encoder.n_frontend_tokens if path.startswith("encoder/") else shape.seq_len
+                    sk = sq if path.startswith("encoder/") else sk
+                    times = 5 if max(sq, sk) > PLAIN_THRESHOLD else 2
+                    logits = rows * heads * sq * sk * 4
+                    out["tp_logits_all_reduce"] += model_reduce * layers * (times * logits
+                                                                            + (rows * heads * sq * 4 if times == 5
+                                                                               else 0))
+        if name == "x_proj" and "model" in cut:  # B's and C's cotangents summed over the model ranks
+            out["tp_all_reduce"] += model_reduce * tok * 2 * cfg.mamba.d_state * 4 * layers
+        if name == "in_proj" and "model" in cut:  # the x and z halves' slices: the view and dw gathered
+            whole = view * mesh.model
+            out["tp_all_gather"] += model_gather * m * layers * whole * (t.element_size() + n_local * 4)
+        if path.endswith("mlp/wr") and "model" in cut:  # RWKV's channel-mix receptance joined whole
+            out["tp_all_gather"] += model_gather * tok * cfg.d_model * 4 * layers
+        if name in ("w0", "ln_scale") and "model" in cuts[path[: -len(name)] + "wr"]:  # whole leaves on cut
+            out["tp_all_gather"] += model_gather * m * layers * n_local * cfg.d_model * 4  # columns: dw joined
     return out
 
 
@@ -192,10 +261,7 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig, out
                    batch_pspec=list(train.batch_pspec(mesh)),
                    opt_state_placement="mu, nu mirror the params; step replicated")
         nbytes = 2 * m * views + 2 * (params_b + moments_b)
-        if cfg.family == "dense":
-            collectives = _train_wire(cfg, shape, mesh, tcfg, leaves)
-        else:
-            why = f"tensor parallelism of the {cfg.family!r} family waits for ROADMAP A.9d"
+        collectives = _train_wire(cfg, shape, mesh, tcfg, leaves)
     else:
         ins = serve.serve_input_specs(cfg, shape, mesh)
         rec["batch_pspec"] = list(serve.batch_dim_pspec(shape.global_batch, mesh))
@@ -206,7 +272,7 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig, out
                           for (_, t), (_, pl) in zip(pytree.paths(state.value), _flat(state.placement)))
             rec["decode_state_bytes_per_rank"] = state_b
         nbytes = views + state_b
-        why = "serving over a mesh of many ranks waits for ROADMAP A.9d"
+        why = "serving over a mesh of many ranks waits for ROADMAP A.9e"
     wire = {"total_wire_bytes": sum(collectives.values()) if collectives else 0.0}
     terms = roofline.derive_terms({"flops": mf / mesh.size, "bytes accessed": nbytes}, wire, model_flops_total=mf,
                                   chips=mesh.size, device=DEVICE)

@@ -47,7 +47,7 @@ def roofline_table(recs: dict, archs: list[str], mesh: str) -> str:
                 lines.append(f"| {arch} | {shape} | {r['status']} |{blank}")
             else:
                 ro = r["roofline"]
-                wire = ("n/a (A.9d)" if r["collectives"] is None
+                wire = ("n/a (A.9e)" if r["collectives"] is None
                         else f"{r['collectives']['total_wire_bytes'] / 1e9:.2f}")
                 sizes = " | ".join(_gib(r, k) for k in ("params_bytes_per_rank", "moments_bytes_per_rank",
                                                         "decode_state_bytes_per_rank", "exchange_transient_bytes"))

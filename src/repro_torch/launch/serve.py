@@ -29,7 +29,7 @@ from divisibility:
     instead (the reference's flash-decode cut).
 
 The dry run reads them. Serving over a mesh of more than one rank waits for
-ROADMAP A.9d.
+ROADMAP A.9e.
 """
 from __future__ import annotations
 
@@ -265,10 +265,10 @@ def serve_traffic(cfg: ArchConfig, params, specs, tokens: torch.Tensor, *, front
     and the final decode ``state``. On a card the seconds are the card's (CUDA
     events) with the host's beside them; on the CPU both are the host's
     (``clock`` says which). ``mesh``: the reference's; one of one rank
-    serves here, one of more ranks waits for ROADMAP A.9d."""
+    serves here, one of more ranks waits for ROADMAP A.9e."""
     if mesh is not None and mesh.size > 1:
         raise ValueError(f"serving over a mesh of {mesh.size} ranks (the decode state placed by "
-                         "decode_state_pspecs, its flash-decode cut of the cache) waits for ROADMAP A.9d")
+                         "decode_state_pspecs, its flash-decode cut of the cache) waits for ROADMAP A.9e")
     dev = resolve_device(device)
     _check_mode(mode, dev)
     params = pytree.map_tree(lambda a: a.to(dev), params)

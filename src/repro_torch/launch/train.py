@@ -19,8 +19,11 @@ over the microbatches and divided by their count, the optimizer steps at
 the ``linear_warmup_cosine`` learning rate on the cuts, and the loss and
 metrics are averaged over the ranks. No ``(N, P)`` stack exists: the
 largest buffer is one parameter's ``(N/W, *w/model)`` block. Tensor
-parallelism (model > 1) takes the ``dense`` family; the other families,
-and ``attn_tp="head_dim"``, wait for ROADMAP A.9d. Loop mode only;
+parallelism (model > 1) takes every family: heads (or, under
+``attn_tp="head_dim"``, ``head_dim``) cut, the q heads alone where the kv
+heads do not split, MoE's experts, Mamba's ``d_inner``, RWKV's heads, the
+cross-attention and the whisper encoder (``models``' modules say how each
+runs on its cut). Loop mode only;
 ``tcfg.remat`` changes no value (nothing is recomputed, so no draw moves).
 
 ``"engine"`` (``build_engine_step``): the transformer's gradients go
@@ -555,9 +558,6 @@ def build_protomath_step(cfg: ArchConfig, tcfg: TrainConfig, specs: Any = None, 
                          "step is spread by its mesh")
     if mesh.abstract:
         raise ValueError("the mesh has no ranks (make_production_mesh, abstract_mesh): it places, it does not step")
-    if mesh.model > 1 and (cfg.family != "dense" or cfg.attn_tp != "heads"):
-        raise ValueError(f"model={mesh.model}: tensor parallelism of the {cfg.family!r} family with "
-                         f"attn_tp={cfg.attn_tp!r} waits for ROADMAP A.9d (the dense family, heads on tp, runs)")
     dev = resolve_device(device)
     protocol = make_protocol(tcfg, mesh)
     n, world, rank, n_local = protocol.n_devices, mesh.world, mesh.rank, mesh.local_devices

@@ -14,6 +14,13 @@ projections go through ``core.protomath.pmm`` (the LAD exchange under a
 protocol context), the decode step's stay plain, as in the reference. Sliding
 windows are masks over a full sequence and a ring buffer in decode, whose
 cache holds ``capacity`` slots.
+
+Over the model ranks (a protocol context that cuts the weights) a rank
+runs its heads; where the kv heads do not split, its q heads alone, which
+read their kv heads out of the whole k and v; or, under
+``attn_tp="head_dim"``, its cut of every head's ``head_dim``, the logits'
+partial sums summed over the ranks in fp32 before the mask and the
+softmax (in the chunked path's forward and backward too).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import protomath
 from repro_torch.core.protomath import pmm
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.module import dense_param, split_tree
@@ -59,10 +67,16 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int | No
     return torch.where(ok, 0.0, NEG_INF)
 
 
-def _plain_attention(q, k, v, qpos, kpos, causal: bool, window: int | None) -> torch.Tensor:
-    """q: (B,Sq,Hkv,G,D); k,v: (B,Sk,Hkv,D) -> (B,Sq,Hkv,G,D)."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q, k).to(torch.float32) * scale
+def _plain_attention(q, k, v, qpos, kpos, causal: bool, window: int | None, head_dim: int | None = None,
+                     logits_sum=None) -> torch.Tensor:
+    """q: (B,Sq,Hkv,G,D); k,v: (B,Sk,Hkv,D) -> (B,Sq,Hkv,G,D). ``head_dim``:
+    the whole model's, where D is a cut of it, whose partial logits
+    ``logits_sum`` sums over the model ranks."""
+    scale = (head_dim or q.shape[-1]) ** -0.5
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q, k).to(torch.float32)
+    if logits_sum is not None:
+        logits = logits_sum(logits)
+    logits = logits * scale
     logits = logits + _mask(qpos, kpos, causal, window)[:, None, None]
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
@@ -73,7 +87,14 @@ def _chunk_q(x: torch.Tensor, nq: int, q_chunk: int) -> torch.Tensor:
     return x.reshape((x.shape[0], nq, q_chunk) + x.shape[2:]).transpose(0, 1)
 
 
-def _flash_forward_pass(qs, qps, ks, vs, kps, causal: bool, window: int | None, scale: float):
+def _logits(qb, kb, scale: float, reduce):
+    """A chunk's fp32 logits, the partial sums of a cut ``head_dim`` summed
+    by ``reduce`` over the model ranks first."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).to(torch.float32)
+    return (logits if reduce is None else reduce(logits)) * scale
+
+
+def _flash_forward_pass(qs, qps, ks, vs, kps, causal: bool, window: int | None, scale: float, reduce=None):
     """Returns (out (nq, B, qc, Hkv, G, D), lse (nq, B, Hkv, G, qc)).
 
     Every (query chunk, key chunk) pair is computed, masked ones too, as
@@ -89,8 +110,7 @@ def _flash_forward_pass(qs, qps, ks, vs, kps, causal: bool, window: int | None, 
         acc = qb.new_zeros((b, hkv, g, q_chunk, d), dtype=torch.float32)
         for j in range(ks.shape[0]):
             kb, vb, kp = ks[j], vs[j], kps[j]
-            logits = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).to(torch.float32) * scale
-            logits = logits + _mask(qp, kp, causal, window)[:, None, None]
+            logits = _logits(qb, kb, scale, reduce) + _mask(qp, kp, causal, window)[:, None, None]
             m_new = torch.maximum(m, torch.amax(logits, dim=-1))
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -110,32 +130,35 @@ def _chunks(sq: int, sk: int, q_chunk: int, kv_chunk: int) -> tuple[int, int, in
     return q_chunk, kv_chunk, sq // q_chunk, sk // kv_chunk
 
 
-def _flash_fwd_res(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk):
+def _flash_fwd_res(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk, head_dim=None, reduce=None):
     """(out (B, Sq, Hkv, G, D), lse (nq, B, Hkv, G, qc))."""
     b, sq, hkv, g, d = q.shape
     q_chunk, kv_chunk, nq, nk = _chunks(sq, k.shape[1], q_chunk, kv_chunk)
     outs, lse = _flash_forward_pass(_chunk_q(q, nq, q_chunk), _chunk_q(qpos, nq, q_chunk), _chunk_q(k, nk, kv_chunk),
-                                    _chunk_q(v, nk, kv_chunk), _chunk_q(kpos, nk, kv_chunk), causal, window, d**-0.5)
+                                    _chunk_q(v, nk, kv_chunk), _chunk_q(kpos, nk, kv_chunk), causal, window,
+                                    (head_dim or d)**-0.5, reduce)
     return outs.transpose(0, 1).reshape(b, sq, hkv, g, d), lse
 
 
-def _flash_bwd(causal, window, q_chunk, kv_chunk, res, dout):
+def _flash_bwd(causal, window, q_chunk, kv_chunk, head_dim, reduce, res, dout):
     """The reference's hand-written VJP, in two passes that recompute each
     chunk's probabilities from ``lse``: ``dq`` over the query chunks (each
     an inner loop over the key chunks), then ``dk``/``dv`` over the key
-    chunks (each an inner loop over the query chunks)."""
+    chunks (each an inner loop over the query chunks). Under a cut
+    ``head_dim`` every sum over it (the logits, ``dout · v`` and ``dout ·
+    out``) is a partial sum, and ``reduce`` sums it over the model ranks."""
     q, k, v, qpos, kpos, out, lse = res
     b, sq, hkv, g, d = q.shape
     sk = k.shape[1]
     q_chunk, kv_chunk, nq, nk = _chunks(sq, sk, q_chunk, kv_chunk)
-    scale = d**-0.5
-    delta = torch.sum(dout.to(torch.float32) * out.to(torch.float32), dim=-1)  # (B, Sq, Hkv, G)
+    scale = (head_dim or d)**-0.5
+    summed = (lambda t: t) if reduce is None else reduce
+    delta = summed(torch.sum(dout.to(torch.float32) * out.to(torch.float32), dim=-1))  # (B, Sq, Hkv, G)
     qs, qps, dos, deltas = (_chunk_q(t, nq, q_chunk) for t in (q, qpos, dout, delta))
     ks, vs, kps = (_chunk_q(t, nk, kv_chunk) for t in (k, v, kpos))
 
     def probs(qb, qp, kb, kp, lse_b):
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).to(torch.float32) * scale
-        logits = logits + _mask(qp, kp, causal, window)[:, None, None]
+        logits = _logits(qb, kb, scale, reduce) + _mask(qp, kp, causal, window)[:, None, None]
         return torch.exp(logits - lse_b[..., None])  # (B, Hkv, G, qc, kc)
 
     do_ts = [dos[i].permute(0, 2, 3, 1, 4).to(torch.float32) for i in range(nq)]  # (B, Hkv, G, qc, D)
@@ -147,7 +170,7 @@ def _flash_bwd(causal, window, q_chunk, kv_chunk, res, dout):
         dq_acc = torch.zeros(qb.shape, dtype=torch.float32, device=qb.device)
         for j in range(nk):
             p = probs(qb, qps[i], ks[j], kps[j], lse[i])
-            dp = torch.einsum("bhgqd,bkhd->bhgqk", do_ts[i], vs[j].to(torch.float32))
+            dp = summed(torch.einsum("bhgqd,bkhd->bhgqk", do_ts[i], vs[j].to(torch.float32)))
             ds = p * (dp - dls[i])
             dq_acc = dq_acc + scale * torch.einsum("bhgqk,bkhd->bqhgd", ds.to(qb.dtype), ks[j]).to(torch.float32)
         dqs.append(dq_acc.to(qb.dtype))
@@ -161,7 +184,7 @@ def _flash_bwd(causal, window, q_chunk, kv_chunk, res, dout):
         for i in range(nq):
             p = probs(qs[i], qps[i], kb, kps[j], lse[i])
             dv_acc = dv_acc + torch.einsum("bhgqk,bhgqd->bkhd", p, do_ts[i])
-            dp = torch.einsum("bhgqd,bkhd->bhgqk", do_ts[i], vb.to(torch.float32))
+            dp = summed(torch.einsum("bhgqd,bkhd->bhgqk", do_ts[i], vb.to(torch.float32)))
             ds = p * (dp - dls[i])
             dk_acc = dk_acc + scale * torch.einsum("bhgqk,bqhgd->bkhd", ds, qs[i].to(torch.float32))
         dks.append(dk_acc.to(kb.dtype))
@@ -182,29 +205,55 @@ class _FlashAttention(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk):
-        return _flash_fwd_res(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk)
+    def forward(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk, head_dim, reduce):
+        return _flash_fwd_res(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk, head_dim, reduce)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk = inputs
+        q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk, head_dim, reduce = inputs
         out, lse = output
         ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
-        ctx.static = (causal, window, q_chunk, kv_chunk)
+        ctx.static = (causal, window, q_chunk, kv_chunk, head_dim, reduce)
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         dq, dk, dv = _flash_bwd(*ctx.static, ctx.saved_tensors, dout)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def _flash_attention(q, k, v, qpos, kpos, causal: bool, window: int | None, q_chunk: int = Q_CHUNK,
-                     kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+                     kv_chunk: int = KV_CHUNK, head_dim: int | None = None, reduce=None) -> torch.Tensor:
     """Online-softmax attention chunked over q and kv: q (B,Sq,Hkv,G,D),
     k, v (B,Sk,Hkv,D), each length a multiple of its chunk (or shorter
-    than it) -> (B,Sq,Hkv,G,D)."""
-    return _FlashAttention.apply(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk)[0]
+    than it) -> (B,Sq,Hkv,G,D). ``head_dim`` and ``reduce``: a cut
+    ``head_dim``'s whole size and the sum of its partial sums over the
+    model ranks (``_flash_bwd``)."""
+    return _FlashAttention.apply(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk, head_dim, reduce)[0]
+
+
+def _kv_heads_of(k: torch.Tensor, v: torch.Tensor, heads: int, n_heads: int, n_kv_heads: int):
+    """(k, v, group) for this rank's ``heads`` of the ``n_heads`` q heads,
+    the model ranks cutting the q heads alone (``n_kv_heads`` does not
+    split over them): the kv heads its q heads read, out of the whole k
+    and v, whose cotangents are then summed over the model ranks (each
+    rank's covers its q heads only)."""
+    rank = protomath.current_protocol().model_rank
+    g, first = n_heads // n_kv_heads, rank * heads
+    if heads % g and g % heads:
+        raise ValueError(f"{heads} q heads a rank straddle the kv heads' groups of {g}")
+    count = max(heads // g, 1)
+    k, v = (protomath.model_grad_sum(t).narrow(2, first // g, count) for t in (k, v))
+    return k, v, heads // count
+
+
+def _rope_cut(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """RoPE on this rank's cut of ``head_dim``: it pairs the first half with
+    the second, which a cut puts on other ranks, so it runs on the gathered
+    ``head_dim`` and this rank's cut is taken back."""
+    whole = apply_rope(protomath.model_join(x, -1, partial=True), positions, theta)
+    rank = protomath.current_protocol().model_rank
+    return whole.narrow(-1, rank * x.shape[-1], x.shape[-1])
 
 
 def multihead_attention(
@@ -223,24 +272,36 @@ def multihead_attention(
     """Self- or cross-attention over a full sequence.
 
     Returns (output (B,S,Dm), k, v). Under a protocol context that cuts
-    the heads over the model ranks, ``q``, ``k`` and ``v`` hold this rank's
-    heads, and its q heads group onto its kv heads as the whole model's do."""
+    the weights over the model ranks, ``q``, ``k`` and ``v`` hold this
+    rank's cut: its heads (its q heads group onto its kv heads as the whole
+    model's do, or, where the kv heads are whole, onto the ones they read),
+    or its cut of ``head_dim`` (``attn_tp="head_dim"``: the logits' partial
+    sums are summed over the model ranks in fp32 before the mask and the
+    softmax, and RoPE runs on the gathered ``head_dim``)."""
     q = pmm("bsd,dhk->bshk", x, params["wq"], w_spec=("fsdp", "tp", None))
     kv_src = x if kv_override is None else kv_override
     k = pmm("bsd,dhk->bshk", kv_src, params["wk"], w_spec=("fsdp", "tp", None))
     v = pmm("bsd,dhk->bshk", kv_src, params["wv"], w_spec=("fsdp", "tp", None))
     kpos = positions if kv_positions is None else kv_positions
+    dim_cut = protomath.tp_dim_of(params["wq"]) == 2  # attn_tp="head_dim" over the model ranks
+    head_dim = logits_sum = None
+    if dim_cut:
+        head_dim = q.shape[-1] * protomath.current_protocol().model_world
+        logits_sum = protomath.model_sum_fn()
     if rope_theta is not None:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, kpos, rope_theta)
+        rope = _rope_cut if dim_cut else apply_rope
+        q = rope(q, positions, rope_theta)
+        k = rope(k, kpos, rope_theta)
     b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
     heads, kv_heads = q.shape[2], k.shape[2]  # this rank's, where the heads are cut over the model ranks
-    if heads * n_kv_heads != kv_heads * n_heads:
-        raise ValueError(f"{heads} of {n_heads} q heads against {kv_heads} of {n_kv_heads} kv heads: a cut of "
-                         "the q heads alone waits for ROADMAP A.9d")
-    qg = q.reshape(b, sq, kv_heads, heads // kv_heads, q.shape[-1])
+    if heads * n_kv_heads == kv_heads * n_heads:
+        group = heads // kv_heads
+    else:  # the q heads cut, the kv heads whole
+        k, v, group = _kv_heads_of(k, v, heads, n_heads, n_kv_heads)
+    qg = q.reshape(b, sq, heads // group, group, q.shape[-1])
     if max(sq, sk) <= PLAIN_THRESHOLD:
-        out = _plain_attention(qg, k, v, positions, kpos, causal, window)
+        out = _plain_attention(qg, k, v, positions, kpos, causal, window, head_dim,
+                               protomath.model_logits_sum if dim_cut else None)
     else:
         # lengths padded up to the chunks: padded keys carry kpos = -1
         # (always masked), padded query rows are sliced off
@@ -248,7 +309,7 @@ def multihead_attention(
         pad = torch.nn.functional.pad
         out = _flash_attention(pad(qg, (0, 0, 0, 0, 0, 0, 0, pq)), pad(k, (0, 0, 0, 0, 0, pk)),
                                pad(v, (0, 0, 0, 0, 0, pk)), pad(positions, (0, pq)), pad(kpos, (0, pk), value=-1),
-                               causal, window)[:, :sq]
+                               causal, window, head_dim=head_dim, reduce=logits_sum)[:, :sq]
     out = out.reshape(b, sq, heads, q.shape[-1])
     return pmm("bshk,hkd->bsd", out, params["wo"], w_spec=("tp", None, "fsdp")), k, v
 

@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.protomath import block_tap, pbias, pmm, pscale
+from repro_torch.core.protomath import block_tap, model_grad_sum, pbias, pmm, pscale, tp_dim_of
 from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
 
 __all__ = ["mamba_init", "mamba", "MambaState", "init_mamba_state", "mamba_decode"]
@@ -69,7 +69,7 @@ def _causal_depthwise_conv(xz: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
     pad = torch.nn.functional.pad(xz, (0, 0, k - 1, 0))
     out = torch.zeros_like(xz)
     for i in range(k):
-        out = out + pscale(pad[:, i:i + s, :], w[i])
+        out = out + pscale(pad[:, i:i + s, :], w, index=i)
     return pbias(out, b)
 
 
@@ -85,6 +85,8 @@ def _selection(params, x_in: torch.Tensor, d_state: int):
     dt_rank = params["dt_proj"].shape[0]
     proj = pmm("...i,ir->...r", x_in, params["x_proj"], w_spec=("tp", None))
     dt_raw, b_sel, c_sel = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
+    if tp_dim_of(params["x_proj"]) is not None:  # the scan sums B's and C's cotangents over this rank's channels
+        b_sel, c_sel = model_grad_sum(b_sel), model_grad_sum(c_sel)
     dt = pmm("...r,ri->...i", dt_raw, params["dt_proj"], w_spec=(None, "tp")).to(torch.float32)
     dt = softplus(pbias(dt, params["dt_bias"]))
     return dt, b_sel.to(torch.float32), c_sel.to(torch.float32)
@@ -94,13 +96,13 @@ def mamba(params, x: torch.Tensor, d_state: int, return_state: bool = False):
     """Full-sequence selective scan. x: (B, S, D) -> (B, S, D), and with
     ``return_state`` the ``MambaState`` after the last token as well."""
     b, s, _ = x.shape
-    xz = pmm("bsd,di->bsi", x, params["in_proj"], w_spec=("fsdp", "tp"))
+    xz = pmm("bsd,di->bsi", x, params["in_proj"], w_spec=("fsdp", "tp"), parts=2)
     x_raw, z = torch.chunk(xz, 2, dim=-1)
     x_in = _causal_depthwise_conv(x_raw, params["conv_w"], params["conv_b"])
     x_in = torch.nn.functional.silu(x_in.to(torch.float32)).to(x.dtype)
 
     dt, b_sel, c_sel = _selection(params, x_in, d_state)
-    a_b, nb = block_tap(-torch.exp(params["a_log"]))  # (nb, di, ds): one A a device block
+    a_b, nb = block_tap(params["a_log"], lambda a: -torch.exp(a))  # (nb, di, ds): one A a device block
     if b % nb != 0:
         raise ValueError(f"batch {b} does not split into {nb} device blocks")
     dtx = dt * x_in.to(torch.float32)  # (B, S, di)

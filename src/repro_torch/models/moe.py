@@ -23,12 +23,20 @@ D)`` slots, an expert's capacity counted from the block's ``t = (B/N) S``
 tokens, and the router and expert products go through ``protomath.pmm``
 with the device axis as their leading index (``pre_blocked``), so each
 block's expert-weight cotangent stays its own for the exchange.
+
+Where the protocol context cuts the experts over the model ranks (expert
+parallelism), routing, top-k and capacity stay replicated: every model
+rank sees the same ``x``, so the ranks pick alike. Each rank runs its own
+experts' slots of the replicated dispatch buffer through gate, up and down
+(``protomath.model_split``: its dx gathered back in the backward), and the
+experts' outputs are gathered whole over the model ranks in one collective
+(``protomath.model_join``) before the combine back into tokens.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.protomath import current_protocol, pmm
+from repro_torch.core.protomath import current_protocol, model_join, model_split, pmm, tp_dim_of
 from repro_torch.models.module import dense_param, split_tree
 
 __all__ = ["moe_init", "expert_capacity", "moe"]
@@ -109,10 +117,15 @@ def moe(params, x: torch.Tensor, *, top_k: int, aux_coef: float = 0.01, capacity
     weights_ec = torch.sum(slot * combine.transpose(1, 2)[:, :, None, :], dim=-1)  # combine at token_idx, exactly
 
     x_ec = torch.einsum("nect,ntd->necd", slot.to(x.dtype), xb)  # dispatch
+    experts_cut = tp_dim_of(params["w_gate"]) == 0
+    if experts_cut:  # this model rank's experts
+        x_ec = model_split(x_ec, 1)
     gate = pmm("necd,edf->necf", x_ec, params["w_gate"], w_spec=("tp", "fsdp", None), pre_blocked=True)
     up = pmm("necd,edf->necf", x_ec, params["w_up"], w_spec=("tp", "fsdp", None), pre_blocked=True)
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype) * up
     y_ec = pmm("necf,efd->necd", act, params["w_down"], w_spec=("tp", None, "fsdp"), pre_blocked=True)
+    if experts_cut:  # every expert's outputs, on every model rank
+        y_ec = model_join(y_ec, 1)
 
     contrib = (y_ec * weights_ec[..., None].to(y_ec.dtype)).to(torch.float32)
     y = torch.einsum("nect,necd->ntd", slot, contrib)  # combine

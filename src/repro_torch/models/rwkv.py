@@ -21,6 +21,15 @@ carried WKV matrix, so a decode step is the same functions on one token;
 Every parameter goes through ``core.protomath`` at the reference's call
 sites; the u-bonus readout is outside the recurrence, so ``bonus_u`` is
 exchanged once, not a token.
+
+Under a protocol context that cuts the heads over the model ranks (the
+d_model columns of ``wr``, ``wk``, ``wv``, ``wg`` and ``w_lora_b``), each
+rank runs its heads: the WKV state, ``bonus_u`` and the per-head group
+norm are local, the whole ``w0`` and ``ln_scale`` are cut to its columns
+(``pscale``/``pbias``; their cotangents joined whole before the exchange)
+and ``wo`` is row-parallel. In the channel mix ``wr``'s output is cut and
+``wv``'s row-parallel output whole: the receptance is gathered whole over
+the model ranks (``protomath.model_join``) before the product.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.protomath import pbias, pmm, pscale
+from repro_torch.core.protomath import model_join, pbias, pmm, pscale, tp_dim_of
 from repro_torch.models.module import dense_param, scale_param, split_tree, zeros_param
 
 __all__ = ["rwkv_time_mix_init", "rwkv_channel_mix_init", "rwkv_time_mix", "rwkv_channel_mix", "RWKVState",
@@ -102,8 +111,11 @@ def _projections(params, x: torch.Tensor, x_shift: torch.Tensor, head_dim: int):
     g = pmm("bsd,de->bse", _mix(x, x_shift, mu[3]), params["wg"], w_spec=("fsdp", "tp"))
     lora_h = torch.tanh(pmm("bsd,dr->bsr", _mix(x, x_shift, mu[4]), params["w_lora_a"], w_spec=("fsdp", None)))
     lora = pmm("bsr,re->bse", lora_h, params["w_lora_b"], w_spec=(None, "tp")).to(torch.float32)
-    w = torch.exp(-torch.exp(pbias(lora, params["w0"])))  # (B, S, D) in (0, 1)
-    b, s, d = x.shape
+    w = torch.exp(-torch.exp(pbias(lora, params["w0"])))  # (B, S, D) in (0, 1), this rank's columns where cut
+    b, s, d = r.shape  # d: this rank's columns
+
+    if d % head_dim:
+        raise ValueError(f"{d} columns a rank do not hold whole heads of {head_dim}")
 
     def heads(t):
         return t.reshape(b, s, d // head_dim, head_dim)
@@ -127,11 +139,11 @@ def rwkv_time_mix(params, x: torch.Tensor, head_dim: int, state: RWKVState | Non
     """RWKV-6 time mix. x: (B, S, D) -> (B, S, D), from zeros or from
     ``state``'s ``x_prev`` and ``wkv``; with ``return_state``, ``(out, the
     final WKV state, x[:, -1])``."""
-    b, s, d = x.shape
+    b, s, _ = x.shape
     r, k, v, g, w = _projections(params, x, _token_shift(x, None if state is None else state.x_prev), head_dim)
     s_u = torch.sum(pscale((r * k).to(torch.float32), params["bonus_u"]), dim=-1)  # (B, S, H)
     rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
-    wkv = x.new_zeros((b, d // head_dim, head_dim, head_dim), dtype=torch.float32) if state is None else state.wkv
+    wkv = x.new_zeros((b, r.shape[2], head_dim, head_dim), dtype=torch.float32) if state is None else state.wkv
     ys = []
     for t in range(s):
         y = torch.einsum("bhi,bhij->bhj", rf[:, t], wkv) + s_u[:, t, :, None] * vf[:, t]
@@ -153,5 +165,7 @@ def rwkv_channel_mix(params, x: torch.Tensor, state_prev: torch.Tensor | None = 
     k = torch.square(torch.relu(k.to(torch.float32))).to(x.dtype)
     r_in = pmm("bsd,de->bse", _mix(x, x_shift, mu[1]), params["wr"], w_spec=("fsdp", "tp"))
     r = torch.sigmoid(r_in.to(torch.float32)).to(x.dtype)
+    if tp_dim_of(params["wr"]) == 1:  # wr's columns cut over the model ranks
+        r = model_join(r, -1)
     out = r * pmm("bsf,fd->bsd", k, params["wv"], w_spec=("tp", "fsdp"))
     return (out, x[:, -1, :]) if return_state else out

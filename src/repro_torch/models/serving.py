@@ -171,7 +171,7 @@ def decode_step(params, specs, cfg: ArchConfig, token: torch.Tensor, state: dict
     family's sinusoidal embedding. The caches' K/V are written in place
     (the module docstring): the returned state holds ``state``'s cache
     buffers, and ``state`` is not to be used again."""
-    del specs  # one rank's step: the placements of a sharded one are launch.serve's (ROADMAP A.9d)
+    del specs  # one rank's step: the placements of a sharded one are launch.serve's (ROADMAP A.9e)
     pos = state["pos"]
     table = params["embed"]["table"]
     x = torch.nn.functional.embedding(token, table)  # (B, 1, D), the reference's jnp.take

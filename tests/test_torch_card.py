@@ -38,6 +38,11 @@ comes back; ``timing.block_time``'s CUDA events agree with a synchronised
 host clock within a factor 2; every kernel's per-lane loop of launches
 (the crossover table's ``"loop"``) equals its batched launch bit for bit at
 1, 3 and 8 lanes; and a captured round's launch list is the CPU's.
+
+The model axis: the expert-parallel ``pmm`` and the MoE, Mamba and RWKV
+layers on 2 model ranks on the card (tests/torch_tp_ranks.py, two
+processes over ``gloo``) agree with the whole ops on the CPU (rtol 1e-5,
+atol 1e-6 of the largest value).
 """
 from __future__ import annotations
 
@@ -942,3 +947,35 @@ def test_captured_launch_list_is_the_cpus(card):
     assert card_list == cpu_list
     bound = roofline.analyze_launches(card_list, "cuda")
     assert bound["launches"] == sum(len(v) for v in card_list.values()) and bound["predicted_s"] > 0
+
+
+# ------------------------------------------------------- the model axis's ops
+
+
+@pytest.fixture(scope="module")
+def tp_ops_on_card(tmp_path_factory):
+    """``torch_tp_ranks.run_tp_ops`` on 2 model ranks on the card (two
+    processes over ``gloo``'s CUDA path), and the whole ops on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch_tp_ranks
+
+    ranks = torch_tp_ranks.spawn("ops-cuda", 2, 2, tmp_path_factory.mktemp("tp_ops_cuda"))
+    return ranks, torch_tp_ranks.run_tp_ops(torch_tp_ranks.op_protocol(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["expert", "expert_cut_input", "moe", "mamba", "rwkv_time", "rwkv_channel"])
+def test_tp_ops_on_card_match_the_whole_op_on_cpu(tp_ops_on_card, name):
+    """The expert-parallel ``pmm`` and the MoE, Mamba and RWKV layers on 2
+    model ranks on the card, forward and backward (each output and
+    cotangent joined whole over the ranks, the two ranks' joins equal),
+    against the whole op on the CPU: rtol 1e-5, atol 1e-6 of the largest
+    value."""
+    ranks, whole = tp_ops_on_card
+    keys = [k for k in whole if k.split("/")[0] == name]
+    assert keys
+    for key in keys:
+        got, want = torch.from_numpy(ranks[0][key]), torch.from_numpy(whole[key])
+        assert torch.equal(got, torch.from_numpy(ranks[1][key])), key
+        assert torch.allclose(got, want, rtol=RTOL, atol=ATOL * float(want.abs().max())), key

@@ -15,7 +15,15 @@ across ranks of a ``gloo`` group, on the CPU.
     The same runs on data x model = 2 x 2 (4 ``gloo`` ranks,
     tests/torch_tp_ranks.py, from the initial weights, batches and
     configurations the reference subprocess leaves behind) are held to the
-    same reference losses: relative 2e-6, Com-LAD "trains".
+    same reference losses: relative 2e-6, Com-LAD "trains". So is every
+    family the model axis cuts (``torch_tp_ranks.FAMILIES``: ``lm_arch()``
+    with its one kv head whole, ``zoo_arch``'s moe, jamba, rwkv, cross and
+    audio, and ``attn_tp="head_dim"``): the reference ``Trainer`` on the
+    same (4, 2) mesh, 3 steps of the honest run and of LAD (CWTM under
+    sign-flip), from its own initial weights and batches (with a seeded
+    ``frontend`` for cross and audio), in three more subprocesses started
+    beside the first (each family's compilation takes most of its time);
+    the port's 2 x 2 runs ride on the same spawn of the 4 ranks.
 (b) The port's step on 2 and 4 ``gloo`` ranks (tests/torch_protomath_ranks.py:
     ``lm_arch()`` and ``zoo_arch("jamba")``, one process a rank, joined
     through a file under the test's temporary directory) against the same
@@ -119,21 +127,89 @@ _SCRIPT = textwrap.dedent(
 )
 
 
+_FAMILY_SCRIPT = textwrap.dedent(
+    """
+    import os
+    os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
+    import json, sys
+    from pathlib import Path
+    import jax, numpy as np
+    from jax.sharding import AxisType
+    from repro import models
+    from repro.configs.base import TrainConfig
+    from repro.core.scenarios import lm_arch, zoo_arch
+    from repro.data.synthetic import lm_batch_for_devices
+    from repro.launch.train import Trainer
+
+    mesh = jax.make_mesh((4, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2, devices=jax.devices())
+    shared, families, tags = Path(sys.argv[1]), sys.argv[2].split(","), json.loads(sys.argv[3])
+    out = {}
+    for fam in families:
+        cfg = {"lm": lm_arch(), "head_dim": lm_arch().scaled(attn_tp="head_dim")}.get(fam) or zoo_arch(fam)
+        params0, _ = jax.device_get(models.init(jax.random.PRNGKey(0), cfg))
+        rng, batches = np.random.default_rng(3), []
+        for i in range(3):
+            b = lm_batch_for_devices(jax.random.fold_in(jax.random.PRNGKey(0), i), cfg.vocab, n_subsets=4,
+                                     per_subset=2, seq_len=16, sigma_h=0.5)
+            b = {k: np.asarray(v).reshape(-1, v.shape[-1]) for k, v in b.items()}
+            if cfg.encoder is not None:
+                enc = cfg.encoder
+                b["frontend"] = rng.standard_normal((8, enc.n_frontend_tokens, enc.d_frontend)).astype(np.float32)
+            batches.append(b)
+        tmp = shared / f"family_{fam}.{os.getpid()}.npz"  # two processes may write it: the same bits, renamed
+        np.savez(tmp, **{"param/" + "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(leaf)
+                         for path, leaf in jax.tree_util.tree_flatten_with_path(params0)[0]},
+                 **{f"batch{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+        os.replace(tmp, shared / f"family_{fam}.npz")
+        for tag, kw in tags.items():
+            tr = Trainer(cfg=cfg, tcfg=TrainConfig(arch=cfg.name, **kw), mesh=mesh)
+            out[f"{fam}/{tag}"] = [l for _, l in tr.run(iter(batches), log_every=1)]
+    print("RESULT::" + json.dumps(out))
+    """
+)
+# the families' reference runs, four subprocesses of about the same length: (families, tags)
+FAMILY_GROUPS = ((("jamba",), ("honest",)), (("jamba",), ("lad",)), (("rwkv", "cross", "audio"), None),
+                 (("lm", "moe", "head_dim"), None))
+
+
 @pytest.fixture(scope="module")
 def reference_dir(tmp_path_factory):
-    """Where the reference subprocess leaves its initial weights, batches
+    """Where the reference subprocesses leave their initial weights, batches
     and configurations for the 2 x 2 tp ranks."""
     return tmp_path_factory.mktemp("reference")
 
 
 @pytest.fixture(scope="module")
-def against_reference(reference_dir):
+def reference_runs(reference_dir):
+    """The reference's runs: ``_SCRIPT``'s, and the families' (one
+    ``_FAMILY_SCRIPT`` a group of ``FAMILY_GROUPS``, ``None`` its every
+    tag), all started at once:
+    (the first's result, {family/tag: losses})."""
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu"}
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT, str(reference_dir)], capture_output=True, text=True,
-                          env=env, timeout=600, cwd=REPO)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT::")][0]
-    return json.loads(line[len("RESULT::"):])
+    tags = torch_tp_ranks.FAMILY_TAGS
+    cmds = [[sys.executable, "-c", _SCRIPT, str(reference_dir)]]
+    cmds += [[sys.executable, "-c", _FAMILY_SCRIPT, str(reference_dir), ",".join(families),
+              json.dumps({t: tags[t] for t in (group_tags or tags)})] for families, group_tags in FAMILY_GROUPS]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+             for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, stderr[-4000:]
+        line = [ln for ln in stdout.splitlines() if ln.startswith("RESULT::")][0]
+        results.append(json.loads(line[len("RESULT::"):]))
+    return results[0], {k: v for r in results[1:] for k, v in r.items()}
+
+
+@pytest.fixture(scope="module")
+def against_reference(reference_runs):
+    return reference_runs[0]
 
 
 @pytest.fixture(scope="module")
@@ -146,6 +222,18 @@ def tp_against_reference(against_reference, reference_dir):
         for tag in res[0].files:
             assert np.array_equal(r[tag], res[0][tag]), tag
     return {tag: res[0][tag] for tag in res[0].files}
+
+
+@pytest.mark.parametrize("tag", list(torch_tp_ranks.FAMILY_TAGS))
+@pytest.mark.parametrize("family", list(torch_tp_ranks.FAMILIES()))
+def test_tp_families_match_reference_trainer(reference_runs, tp_against_reference, family, tag):
+    """Every family at data x model = 2 x 2 against the reference
+    ``Trainer`` on its (4, 2) mesh, from the reference's initial weights and
+    batches."""
+    ref, port = np.asarray(reference_runs[1][f"{family}/{tag}"]), tp_against_reference[f"{family}/{tag}"]
+    assert ref.shape == port.shape == (3,)
+    rel = np.abs(port - ref) / np.abs(ref)
+    assert rel.max() <= LOSS_RTOL, (family, tag, ref.tolist(), port.tolist(), rel.tolist())
 
 
 @pytest.mark.parametrize("tag", ["honest", "lad", "mean_attacked", "lad_gather"])

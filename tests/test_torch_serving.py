@@ -435,7 +435,7 @@ def test_serve_refuses_what_waits():
                             device="cpu")
     from repro_torch.launch.mesh import abstract_mesh
 
-    with pytest.raises(ValueError, match="A.9d"):
+    with pytest.raises(ValueError, match="A.9e"):
         serve.serve_traffic(tarch, tparams, None, torch.zeros((1, 4), dtype=torch.int32), mode="loop", device="cpu",
                             mesh=abstract_mesh(2, 2))
 

@@ -12,12 +12,16 @@ MODEL`` data ranks of ``MODEL`` model ranks each. It writes its results to
   * ``ops`` (data 1 x model 2): ``pmm`` column-parallel and row-parallel
     and the vocabulary-parallel ``plookup`` (plain and robust), forward
     and backward on ``op_inputs()``, each rank's output, input cotangent
-    and weight cotangent (its cut); and one exchange a compressor of
-    ``EXCHANGES`` on this rank's tp slice of ``exchange_inputs()``;
+    and weight cotangent (its cut); one exchange a compressor of
+    ``EXCHANGES`` on this rank's tp slice of each of ``SLICES``; and each
+    case of ``run_tp_ops``, its outputs joined whole over the model ranks;
+  * ``ops-cuda`` (data 1 x model 2, on the card): ``run_tp_ops`` alone;
   * ``step``: each of ``CONFIGS`` for ``STEPS`` steps of ``ARCH()`` at
     N=4 from the same seeded weights and batches: its losses, the
     gathered parameters (flat), and the bytes this rank stores (params
     and moments);
+  * ``families``: each of ``FAMILY_CONFIGS`` on each arch of ``FAMILIES``
+    (every family at model > 1), as ``step`` does;
   * ``layout``: ``make_host_mesh``'s rank layout and groups on 4 ranks,
     for (data 2 x model 2), (pod 2 x data 1 x model 2) and (pod 2 x data 2
     x model 1);
@@ -62,6 +66,30 @@ EXCHANGES = {  # compressor and attack of an exchange on a tp slice, CWTM over N
 }
 
 
+# the key-free runs of every family against the reference Trainer (tests/test_torch_protomath_step.py)
+FAMILY_TAGS = {
+    "honest": dict(protocol="none", optimizer="adamw", lr=1e-3, steps=3, seed=0),
+    "lad": dict(protocol="lad", d=2, aggregator="cwtm", trim_frac=0.25, n_byz=1, attack="sign_flip",
+                optimizer="adamw", lr=1e-3, steps=3, seed=0),
+}
+FAMILY_CONFIGS = {name: CONFIGS[name] for name in ("nnm-sign_flip-sharded", "nnm-sign_flip-gather",
+                                                   "quant-gaussian-sharded", "quant-gaussian-gather",
+                                                   "cwtm-alie-sharded-sgd")}
+
+
+def FAMILIES() -> dict:
+    """Every family the model axis cuts: ``lm_arch()`` (its q heads cut, its
+    one kv head whole), ``zoo_arch``'s moe, jamba (Mamba, MoE and
+    attention), rwkv, cross and audio (the whisper encoder), and
+    ``lm_arch()`` with ``attn_tp="head_dim"``."""
+    from repro_torch.core import scenarios
+
+    out = {"lm": scenarios.lm_arch()}
+    out.update({fam: scenarios.zoo_arch(fam) for fam in ("moe", "jamba", "rwkv", "cross", "audio")})
+    out["head_dim"] = scenarios.lm_arch().scaled(attn_tp="head_dim")
+    return out
+
+
 def ARCH():
     """``lm_arch()`` with 4 heads over 2 kv heads: heads that split over 2
     model ranks."""
@@ -85,6 +113,20 @@ def op_inputs() -> dict[str, np.ndarray]:
 def exchange_inputs() -> np.ndarray:
     """An (N, 8, 6) blocked cotangent, cut over 2 model ranks on dim 1."""
     return np.random.default_rng(8).standard_normal((N, 8, 6)).astype(np.float32)
+
+
+# the tp slices of the exchange: (blocked cotangent shape, the leaf's logical axes, its model-cut dim)
+SLICES = {
+    "column": ((N, 8, 6), ("tp", "fsdp"), 0),
+    "expert": ((N, 4, 6, 5), ("tp", "fsdp", None), 0),  # MoE's w_gate: experts cut
+    "d_inner": ((N, 8), None, 0),  # Mamba's conv_b, dt_bias, d_skip: a vector cut
+    "heads": ((N, 4, 3), None, 0),  # RWKV's bonus_u: heads cut
+}
+
+
+def slice_inputs(name: str) -> np.ndarray:
+    shape = SLICES[name][0]
+    return np.random.default_rng(8 + len(shape)).standard_normal(shape).astype(np.float32)
 
 
 def exchange_protocol(name: str):
@@ -156,33 +198,161 @@ def _ops(mesh) -> dict[str, np.ndarray]:
     for robust in (False, True):
         res = run_ops(op_protocol(mesh.model), mesh.model_group, r, cut_of, robust)
         out.update({f"{'robust' if robust else 'plain'}/{k}": v for k, v in res.items()})
-    block = _half(exchange_inputs(), 1, r)
-    for name in EXCHANGES:
-        agg = protomath.robust_combine(exchange_protocol(name), torch.tensor(block), ("tp", "fsdp"), seed=9,
-                                       model_group=mesh.model_group, cut=("model", None))
-        out[f"exchange/{name}"] = agg.numpy()
+    for kind, (shape, w_spec, dim) in SLICES.items():
+        block = torch.tensor(_half(exchange_inputs() if kind == "column" else slice_inputs(kind), 1 + dim, r))
+        cut = tuple("model" if i == dim else None for i in range(len(shape) - 1))
+        for name in EXCHANGES:
+            agg = protomath.robust_combine(exchange_protocol(name), block, w_spec, seed=9,
+                                           model_group=mesh.model_group, cut=cut)
+            out[f"exchange/{name}" if kind == "column" else f"exchange/{kind}/{name}"] = agg.numpy()
+    out.update({f"tp/{k}": v for k, v in run_tp_ops(op_protocol(mesh.model), mesh).items()})
+    return out
+
+
+CHUNKED_S = 2100  # above attention's PLAIN_THRESHOLD: the chunked online softmax
+TP_OPS = ("expert", "expert_cut_input", "scale_vector", "bias_row", "tap_derived", "whole_bias_on_cut",
+          "whole_scale_on_cut", "attn_q_heads", "attn_head_dim", "attn_head_dim_chunked", "moe", "mamba",
+          "rwkv_time", "rwkv_channel")  # run_tp_ops' cases
+
+
+def run_tp_ops(p, mesh=None, device: str = "cpu") -> dict[str, np.ndarray]:
+    """The ops of the model axis's other families, forward and backward
+    under ``p`` at N=4 blocks, on ``mesh``'s model ranks (``None``: the
+    whole op in one process), every output and cotangent joined whole over
+    the model ranks: the expert-parallel ``pmm`` (on a whole input cut by
+    ``model_split``, and on a cut one), the cut-aware ``pscale``/``pbias``/``block_tap`` (a cut vector, a
+    row of a cut leaf, a tensor derived from a cut leaf), a whole leaf on a
+    cut input, attention with the q heads alone cut, attention with
+    ``head_dim`` cut and RoPE (plain, and chunked at ``CHUNKED_S``
+    tokens), and the MoE, Mamba and RWKV layers."""
+    from repro_torch.core import protomath
+    from repro_torch.launch import train
+    from repro_torch.models import attention, mamba, moe, rwkv
+    from repro_torch.models.module import split_tree
+
+    group, r, m = (None, 0, 1) if mesh is None else (mesh.model_group, mesh.model_rank, mesh.model)
+    rng = np.random.default_rng(11)
+    out = {}
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def part(a, dim):
+        return a if m == 1 or dim is None else np.take(a, range(r * (a.shape[dim] // m),
+                                                                (r + 1) * (a.shape[dim] // m)), axis=dim)
+
+    def join(t, dim):
+        t = t.detach()
+        if m > 1 and dim is not None:
+            t = protomath._all_gather(t.movedim(dim, 0).contiguous(), group, m).movedim(0, dim)
+        return t.cpu().numpy()
+
+    def op(name, call, inputs, ct, out_dim):
+        """``inputs``: (array, its model-cut dim or None, whether it is a leaf)."""
+        ts = [torch.tensor(part(a, d), device=device, requires_grad=True) for a, d, _ in inputs]
+        cuts = {id(t): tuple("model" if i == d else None for i in range(a.ndim))
+                for t, (a, d, leaf) in zip(ts, inputs) if leaf and d is not None and m > 1}
+        with protomath.protocol_context(p, 3, model_group=group, cuts=cuts):
+            y = call(*ts)
+            grads = torch.autograd.grad(y, ts, torch.tensor(part(ct, out_dim), device=device))
+        out[f"{name}/out"] = join(y, out_dim)
+        out.update({f"{name}/d{i}": join(g, d) for i, ((_, d, _), g) in enumerate(zip(inputs, grads))})
+
+    def expert(x, w):
+        return protomath.pmm("necd,edf->necf", x, w, w_spec=("tp", "fsdp", None), pre_blocked=True)
+
+    # a replicated input cut to this rank's experts first (MoE's dispatch), and one already cut
+    op("expert", lambda x, w: expert(protomath.model_split(x, 1), w),
+       [(f(N, 4, 3, 6), None, False), (f(4, 6, 5), 0, True)], f(N, 4, 3, 5), 1)
+    op("expert_cut_input", expert, [(f(N, 4, 3, 6), 1, False), (f(4, 6, 5), 0, True)], f(N, 4, 3, 5), 1)
+    op("scale_vector", protomath.pscale, [(f(N, 3, 8), 2, False), (f(8), 0, True)], f(N, 3, 8), 2)
+    op("bias_row", lambda x, w: protomath.pbias(x, w, index=1), [(f(N, 3, 8), 2, False), (f(3, 8), 1, True)],
+       f(N, 3, 8), 2)
+    op("tap_derived", lambda w: protomath.block_tap(w, lambda a: -torch.exp(a))[0], [(f(8, 2) * 0.5, 0, True)],
+       f(N, 8, 2), 1)
+    op("whole_bias_on_cut", protomath.pbias, [(f(N, 3, 8), 2, False), (f(8), None, True)], f(N, 3, 8), 2)
+    op("whole_scale_on_cut", protomath.pscale, [(f(N, 3, 8), 2, False), (f(8), None, True)], f(N, 3, 8), 2)
+
+    def layer(name, pairs, call, x, ct):
+        """A layer's forward and backward from its (params, specs) on this
+        rank's cut of the whole params (placed as the step places them)."""
+        params, specs = split_tree(pairs)
+        params = {k: torch.tensor(v.numpy()) for k, v in params.items()}
+        cuts = {}
+        if m > 1:
+            placements = train.param_pspecs(specs, mesh, params)
+            params = train.shard_tree(params, placements, mesh)
+        params = {k: v.to(device).requires_grad_() for k, v in params.items()}
+        if m > 1:
+            cuts = train._cuts(params, placements, mesh, {})
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        with protomath.protocol_context(p, 3, model_group=group, cuts=cuts):
+            y = call(params, xt)
+            grads = torch.autograd.grad(y, [xt, *params.values()], torch.tensor(ct, device=device))
+        dparams = dict(zip(params, grads[1:]))
+        if m > 1:
+            dparams = train.gather_tree(dparams, placements, mesh)
+        out[f"{name}/out"], out[f"{name}/dx"] = join(y, None), join(grads[0], None)
+        out.update({f"{name}/d_{k}": join(g, None) for k, g in dparams.items()})
+
+    def randomized(pairs, names):  # zero-initialised vectors drawn, so their cotangents are not trivial
+        return {k: ((torch.tensor(f(*v[0].shape)) * 0.3, v[1]) if k in names else v) for k, v in pairs.items()}
+
+    def init(fn, *args):
+        params, specs = fn(torch.Generator().manual_seed(5), *args)
+        return {k: (params[k], specs[k]) for k in params}
+
+    d_model, s = 32, 8
+
+    def attend(params, x, **kw):
+        pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+        return attention.multihead_attention(params, x, pos, n_heads=2, n_kv_heads=1, rope_theta=10000.0, **kw)[0]
+
+    layer("attn_q_heads", init(attention.attention_init, d_model, 2, 1, 16, torch.float32), attend,
+          f(N, s, d_model), f(N, s, d_model))
+    hd = init(attention.attention_init, d_model, 2, 1, 16, torch.float32, "head_dim")
+    layer("attn_head_dim", hd, attend, f(N, s, d_model), f(N, s, d_model))
+    layer("attn_head_dim_chunked", hd, attend, f(N, CHUNKED_S, d_model), f(N, CHUNKED_S, d_model))
+    layer("moe", init(moe.moe_init, d_model, 16, 4, torch.float32),
+          lambda prm, x: moe.moe(prm, x, top_k=2)[0], f(N, s, d_model), f(N, s, d_model))
+    layer("mamba", randomized(init(mamba.mamba_init, d_model, 4, 4, 2, torch.float32), ("conv_b", "dt_bias")),
+          lambda prm, x: mamba.mamba(prm, x, 4), f(N, s, d_model), f(N, s, d_model))
+    layer("rwkv_time", randomized(init(rwkv.rwkv_time_mix_init, d_model, 16, 8, torch.float32), ("w0", "bonus_u")),
+          lambda prm, x: rwkv.rwkv_time_mix(prm, x, 16), f(N, s, d_model), f(N, s, d_model))
+    layer("rwkv_channel", init(rwkv.rwkv_channel_mix_init, d_model, 64, torch.float32), rwkv.rwkv_channel_mix,
+          f(N, s, d_model), f(N, s, d_model))
     return out
 
 
 def batches(arch, steps: int) -> list[dict]:
+    """``steps`` batches of 2 rows a device block, 16 tokens, and for the
+    vlm and audio families a seeded ``frontend``."""
     from repro_torch.data.synthetic import lm_batch_for_devices
 
-    return [{k: v.reshape(-1, 16) for k, v in lm_batch_for_devices(
-        torch.Generator().manual_seed(100 + i), arch.vocab, n_subsets=N, per_subset=2, seq_len=16,
-        sigma_h=0.5).items()} for i in range(steps)]
+    out = []
+    for i in range(steps):
+        gen = torch.Generator().manual_seed(100 + i)
+        b = {k: v.reshape(-1, 16) for k, v in lm_batch_for_devices(gen, arch.vocab, n_subsets=N, per_subset=2,
+                                                                   seq_len=16, sigma_h=0.5).items()}
+        if arch.encoder is not None:
+            enc = arch.encoder
+            b["frontend"] = torch.randn((N * 2, enc.n_frontend_tokens, enc.d_frontend), generator=gen)
+        out.append(b)
+    return out
 
 
-def run_configs(mesh) -> dict[str, dict]:
-    """{config: {losses, params (flat, gathered), stored bytes}} on ``mesh``."""
+def run_configs(mesh, arch=None, configs=None) -> dict[str, dict]:
+    """{config: {losses, params (flat, gathered), stored bytes}} on ``mesh``
+    (``ARCH()`` and ``CONFIGS`` unless given)."""
     from repro_torch import models
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.coding import flatten_pytree
     from repro_torch.launch import train
     from repro_torch.models.module import tree_bytes
 
-    arch = ARCH()
+    arch = arch or ARCH()
     out = {}
-    for name, kw in CONFIGS.items():
+    for name, kw in (configs or CONFIGS).items():
         tcfg = TrainConfig(arch=arch.name, **{**_BASE, **kw})
         whole, specs = models.init(torch.Generator().manual_seed(0), arch)
         step, opt = train.build_train_step(arch, tcfg, specs, mesh=mesh, device="cpu")
@@ -211,7 +381,8 @@ def _tree(flat: dict[str, np.ndarray]) -> dict:
 
 def run_reference_inputs(mesh, out_dir: Path) -> dict[str, np.ndarray]:
     """Each tag of ``tags.json``: the port's losses from the reference's
-    initial weights and batches."""
+    initial weights and batches; and each ``family/tag`` of the
+    ``family_{family}.npz`` files there under ``FAMILY_TAGS``."""
     import dataclasses
 
     from repro_torch import convert
@@ -236,6 +407,24 @@ def run_reference_inputs(mesh, out_dir: Path) -> dict[str, np.ndarray]:
             params, state, loss, _ = step(params, state, b, i)
             losses.append(float(loss))
         out[tag] = np.asarray(losses)
+    for fam, arch in FAMILIES().items():
+        path = out_dir / f"family_{fam}.npz"
+        if not path.exists():
+            continue
+        inputs = np.load(path)
+        params0 = _tree({k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")})
+        steps = sorted({int(k.split("/")[0][len("batch"):]) for k in inputs.files if k.startswith("batch")})
+        batch_list = [{k.split("/")[1]: torch.from_numpy(inputs[k]) for k in inputs.files
+                       if k.startswith(f"batch{i}/")} for i in steps]
+        for tag, kw in FAMILY_TAGS.items():
+            step, opt = train.build_train_step(arch, TrainConfig(arch=arch.name, **kw), None, mesh=mesh,
+                                               device="cpu")
+            params = convert.lm_params_from_numpy(params0, placements=step.placements, mesh=mesh)
+            state, losses = opt.init(params), []
+            for i, b in enumerate(batch_list):
+                params, state, loss, _ = step(params, state, b, i)
+                losses.append(float(loss))
+            out[f"{fam}/{tag}"] = np.asarray(losses)
     return out
 
 
@@ -292,8 +481,13 @@ def main(mode: str, out_dir: str, rank: int, world: int, model: int) -> None:
             res = _layout()
         elif mode == "ops":
             res = _ops(mesh)
+        elif mode == "ops-cuda":
+            res = run_tp_ops(op_protocol(mesh.model), mesh, device="cuda")
         elif mode == "step":
             res = {f"{k}/{f}": v for k, d in run_configs(mesh).items() for f, v in d.items()}
+        elif mode == "families":
+            res = {f"{fam}/{k}/{f}": v for fam, arch in FAMILIES().items()
+                   for k, d in run_configs(mesh, arch, FAMILY_CONFIGS).items() for f, v in d.items()}
         elif mode == "reference":
             res = run_reference_inputs(mesh, out)
         else:
