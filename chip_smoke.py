@@ -2130,6 +2130,258 @@ def tp_wide_tcfg(T, arch):
                          trim_frac=0.25, n_byz=2, attack="alie")
 
 
+TP_SERVE_STEPS = {"decode_32k": 4, "long_500k": 8}  # timed fed steps, after an untimed first one
+TP_PREFILL = (4, 1024, 8)  # (e)'s prefill: batch and prompt cut from prefill_32k's 32 x 32,768; tokens decoded
+TP_SERVE_CACHE_BYTES = 10_737_418_240  # a rank's cut of decode_32k's 42,949,672,960 cache bytes over 2 x 2
+TP_SERVE_CONFORMANCE = 5e-2  # tests/test_torch_serving.py's CONFORMANCE: rtol and atol against one process
+
+
+def tp_serve_inputs(arch, key: str, b: int, t: int):
+    """(e)'s tokens (b, t) int32 (and a frontend where the family takes
+    one), from a seed of its own, on the CPU: the same on every rank and in
+    the one-process check."""
+    return serve_inputs(arch, 17 + len(key), b, t)
+
+
+def tp_serve_rank(models, pytree, archs, base, serve, protomath, T, mesh, work: Path, rank: int) -> dict:
+    """Part (e) on one rank of the 2 x 2 mesh: sharded serving through the
+    user's entry points (``serve.serve_traffic(mesh=)``, and
+    ``build_decode_fn``/``build_prefill_fn`` on a ``serving_shard``), each
+    rank holding its ``param_pspecs`` cut of the weights (the data cut
+    gathered once) and its ``decode_state_pspecs`` cut of the state:
+
+      * smollm-360m ``decode_32k`` (batch 128, 8,192 slots) and
+        ``long_500k`` (batch 1, 524,288 filled) on a state born cut and
+        filled by ``refill``'s keyed rule: ``TP_SERVE_STEPS`` timed steps
+        after an untimed one, teacher-forced with seeded tokens;
+      * ``TP_PREFILL``: a 1,024-token prompt at batch 4 through
+        ``serve_traffic(mesh=)`` (8 tokens), and its prefill's logits;
+      * whisper-small whole: ``serve_wide`` (e)'s traffic through
+        ``serve_traffic(mesh=)``, and its prefill's logits.
+
+    Writes each step's logits (this rank's rows and vocabulary slice) and
+    greedy tokens to ``serve_rank{rank}.npz``; returns card ms a step, the
+    state's bytes against its placement, peak GB and collectives a step."""
+    from repro_torch.models import serving
+    from repro_torch.models.module import tree_bytes
+
+    arrays, line = {}, {}
+
+    def placed_bytes(shard) -> int:
+        return sum(t.numel() // math.prod(shard.along(e)[0] for e in pl) * t.element_size()
+                   for (_, t), pl in zip(pytree.paths(shard.state_shapes), state_placements(shard.state)))
+
+    def cache_bytes(state) -> int:
+        return sum(getattr(c, f).numel() * getattr(c, f).element_size() for n, c in state.items() if n != "pos"
+                   for f in ("k", "v"))
+
+    arch = archs.ARCHS["smollm-360m"]
+    whole0, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(whole0, T.param_pspecs(specs, mesh, whole0), mesh))
+    del whole0
+    local = serve.serving_params(params, specs, arch, mesh)  # the data cut gathered once
+    line["smollm_param_bytes"], line["smollm_serving_param_bytes"] = tree_bytes(params), tree_bytes(local)
+    for key, steps in TP_SERVE_STEPS.items():
+        shape = base.INPUT_SHAPES[key]
+        b, filled = shape.global_batch, shape.seq_len
+        shard = serve.serving_shard(arch, b, filled, mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = serve.init_state_cut(arch, b, filled, mesh, device="cuda")
+        refill(state, filled, 11, shard)
+        fed = tp_serve_inputs(arch, key, b, steps + 1)[0].cuda()
+        n = b // mesh.world if shard.batch_cut else b
+        rows = slice(mesh.rank * n, (mesh.rank + 1) * n) if shard.batch_cut else slice(None)
+        decode = serve.build_decode_fn(arch, specs, shard)
+        ms = []
+        for t in range(steps + 1):
+            if t == 0:
+                protomath.reset_collective_counts()
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            logits, state = decode(local, fed[rows, t:t + 1], state)
+            tok = serving.greedy_token(logits, arch, shard)
+            ev[1].record()
+            ev[1].synchronize()
+            if t == 0:
+                coll = protomath.collective_counts()
+            else:
+                ms.append(ev[0].elapsed_time(ev[1]))
+            arrays[f"{key}/logits{t}"] = logits.float().cpu().numpy()
+            arrays[f"{key}/tokens{t}"] = tok.cpu().numpy()
+        check(int(state["pos"]) == filled + steps + 1, f"protomath_tp (e) {key}: pos did not advance")
+        line[key] = {"batch": b, "filled": filled, "rows": n, "card_ms": ms, "peak_gb":
+                     torch.cuda.max_memory_allocated() / 1e9, "cache_bytes": cache_bytes(state),
+                     "state_bytes": sum(v.numel() * v.element_size() for _, v in pytree.paths(state)),
+                     "state_bytes_placed": placed_bytes(shard), "collectives_a_step": coll,
+                     "slots_a_rank": state["blk0"].k.shape[2], "cut": state_cut_line(shard)}
+        del state, logits
+    del local
+
+    def traffic(key, arch_, params_, specs_, tokens, frontend, new):
+        b, s = tokens.shape
+        shard = serve.serving_shard(arch_, b, s, mesh, capacity=s + new)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        protomath.reset_collective_counts()
+        res = serve.serve_traffic(arch_, params_, specs_, tokens, frontend=frontend, new_tokens=new, mode="loop",
+                                  device="cuda", mesh=mesh)
+        coll = protomath.collective_counts()
+        n = b // mesh.world if shard.batch_cut else b
+        rows = slice(mesh.rank * n, (mesh.rank + 1) * n) if shard.batch_cut else slice(None)
+        logits, _ = serve.build_prefill_fn(arch_, specs_, capacity=s + new, shard=shard)(
+            serve.serving_params(params_, specs_, arch_, mesh), tokens[rows].cuda(),
+            None if frontend is None else frontend[rows].cuda())
+        arrays[f"{key}/prefill_logits"] = logits.float().cpu().numpy()
+        arrays[f"{key}/prefill_token"] = serving.greedy_token(logits, arch_, shard).cpu().numpy()  # its rows'
+        arrays[f"{key}/tokens"] = res["tokens"].cpu().numpy()
+        line[key] = {"batch": b, "prompt": s, "decoded": new, "rows": n, "prefill_ms": res["prefill_s"] * 1e3,
+                     "decode_ms_per_token": res["decode_s"] * 1e3 / new, "peak_gb": torch.cuda.max_memory_allocated()
+                     / 1e9, "state_bytes": sum(v.numel() * v.element_size() for _, v in pytree.paths(res["state"])),
+                     "state_bytes_placed": placed_bytes(shard),
+                     "collectives_serve_traffic": coll, "cut": state_cut_line(shard)}
+
+    b, s, new = TP_PREFILL
+    tokens = tp_serve_inputs(arch, "prefill", b, s)[0]
+    traffic("prefill_1024", arch, params, specs, tokens, None, new)
+    del params
+    arch = archs.ARCHS["whisper-small"]
+    whole0, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), T.shard_tree(whole0, T.param_pspecs(specs, mesh, whole0), mesh))
+    del whole0
+    tokens, frontend = serve_inputs(arch, 6, WHISPER_BATCH, WHISPER_PROMPT)
+    traffic("whisper_small", arch, params, specs, tokens, frontend, WHISPER_DECODE)
+    del params
+    torch.cuda.empty_cache()
+    np.savez(work / f"serve_rank{rank}.npz", **arrays)
+    return line
+
+
+def state_placements(tree) -> list[tuple]:
+    """The placement tuples of a ``decode_state_pspecs`` tree, in
+    ``pytree.paths``' order of the state."""
+    out = []
+    for name in sorted(tree):
+        if name == "pos":
+            out.append(tree[name])
+        else:
+            out.extend(getattr(tree[name], f.name) for f in dataclasses.fields(tree[name]))
+    return out
+
+
+def state_cut_line(shard) -> dict:
+    """Each cache field's placement of a serving shard's first block."""
+    blk = shard.state["blk0"]
+    return {f.name: list(getattr(blk, f.name)) for f in dataclasses.fields(blk)}
+
+
+def tp_serve_check(models, pytree, archs, base, serve, work: Path, lines: list[dict]) -> dict:
+    """Part (e) against one process on the card, after the ranks exited
+    (never the whole 42.95 GB state and the four cuts at once): every
+    step's logits, joined over the ranks (rows over data, vocabulary over
+    model), within ``TP_SERVE_CONFORMANCE`` (rtol and atol 5e-2) of the
+    one-process step on the same inputs; each rank's greedy tokens equal to
+    the one-process argmax wherever its top-two margin exceeds 5e-2, or
+    twice the row's largest measured logit difference where the ranks'
+    logits are recorded (``serve_traffic``'s tokens teacher-forced with the
+    ranks' own, the prefill's token first); each rank's ``decode_32k`` cache
+    ``TP_SERVE_CACHE_BYTES`` and every state its placement's bytes."""
+    ranks = [dict(np.load(work / f"serve_rank{r}.npz")) for r in range(TP_WORLD)]
+    bound = TP_SERVE_CONFORMANCE
+    out = {"conformance": bound}
+
+    def joined(key: str, want: torch.Tensor) -> torch.Tensor:
+        """The whole (B, V) of the ranks' cuts (rank = 2 * data rank + model
+        rank): the vocabulary over the model ranks, the rows over the data
+        ranks, where each is cut."""
+        parts = [torch.from_numpy(r[key]) for r in ranks]
+        cut = parts[0].shape[-1] < want.shape[-1]
+        rows = [torch.cat(parts[2 * d:2 * d + 2], -1) if cut else parts[2 * d] for d in range(2)]
+        return torch.cat(rows, 0) if rows[0].shape[0] < want.shape[0] else rows[0]
+
+    def margins_hold(want: torch.Tensor, tok: torch.Tensor, got: torch.Tensor | None = None) -> tuple[int, int]:
+        """(rows whose top-two margin exceeds the bound, or twice the row's
+        largest difference from the ranks' logits ``got`` where given (then
+        no order of the sums can move the argmax), and of them those whose
+        token is not the one-process argmax)."""
+        want = want.float().cpu()
+        top = torch.topk(want, 2, dim=-1).values
+        gap = torch.full_like(top[:, 0], bound) if got is None else torch.minimum(
+            torch.full_like(top[:, 0], bound), 2 * (got - want).abs().amax(dim=-1))
+        clear = (top[:, 0] - top[:, 1]) > gap
+        return int(clear.sum()), int((clear & (torch.argmax(want, dim=-1).to(torch.int32) != tok)).sum())
+
+    for ln in lines:
+        for key in ("decode_32k", "long_500k", "prefill_1024", "whisper_small"):
+            e = ln["e"][key]
+            check(e["state_bytes"] == e["state_bytes_placed"],
+                  f"protomath_tp (e) {key} rank {ln['rank']}: {e['state_bytes']} state bytes, placed "
+                  f"{e['state_bytes_placed']}")
+        check(ln["e"]["decode_32k"]["cache_bytes"] == TP_SERVE_CACHE_BYTES,
+              f"protomath_tp (e) decode_32k rank {ln['rank']}: {ln['e']['decode_32k']['cache_bytes']} cache bytes")
+    arch = archs.ARCHS["smollm-360m"]
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    decode = serve.build_decode_fn(arch, specs)
+    for key, steps in TP_SERVE_STEPS.items():
+        shape = base.INPUT_SHAPES[key]
+        b, filled = shape.global_batch, shape.seq_len
+        state = models.init_decode_state(arch, b, filled, device="cuda")
+        refill(state, filled, 11)
+        fed = tp_serve_inputs(arch, key, b, steps + 1)[0].cuda()
+        shares, clear, wrong = [], 0, 0
+        for t in range(steps + 1):
+            want, state = decode(params, fed[:, t:t + 1], state)
+            got = joined(f"{key}/logits{t}", want)
+            shares.append(bound_share(got, want.cpu(), bound, bound))
+            tok = torch.cat([torch.from_numpy(ranks[2 * d][f"{key}/tokens{t}"]) for d in range(2)])[:b, 0]
+            c, w = margins_hold(want, tok, got)
+            clear, wrong = clear + c, wrong + w
+        check(max(shares) <= 1.0, f"protomath_tp (e) {key}: logits {max(shares):.3g} of the bound from one process")
+        check(wrong == 0, f"protomath_tp (e) {key}: {wrong} of {clear} clear tokens differ from one process")
+        out[key] = {"allowance_share": shares, "clear_tokens": clear, "tokens_differing": wrong}
+        del state
+        torch.cuda.empty_cache()
+    for key, arch_ in (("prefill_1024", arch), ("whisper_small", archs.ARCHS["whisper-small"])):
+        if key == "whisper_small":
+            del params
+            params, specs = models.init(torch.Generator().manual_seed(0), arch_)
+            params = pytree.map_tree(lambda a: a.to("cuda"), params)
+            tokens, frontend = serve_inputs(arch_, 6, WHISPER_BATCH, WHISPER_PROMPT)
+            frontend = frontend.cuda()
+        else:
+            b, s, _ = TP_PREFILL
+            tokens, frontend = tp_serve_inputs(arch_, "prefill", b, s)[0], None
+        got = ranks[0][f"{key}/tokens"]
+        check(all(np.array_equal(r[f"{key}/tokens"], got) for r in ranks), f"protomath_tp (e) {key}: ranks differ")
+        got = torch.from_numpy(got)
+        s, new = tokens.shape[1], got.shape[1]
+        want, state = models.prefill(params, specs, arch_, tokens.cuda(), frontend=frontend, capacity=s + new)
+        got_logits = joined(f"{key}/prefill_logits", want)
+        shares = [bound_share(got_logits, want.cpu(), bound, bound)]
+        # teacher-forced with the ranks' tokens: the prefill's, then each step's (serve_traffic's columns)
+        fed = torch.cat([torch.from_numpy(ranks[2 * d][f"{key}/prefill_token"]) for d in range(2)])[:tokens.shape[0]]
+        clear, wrong = margins_hold(want, fed[:, 0], got_logits)
+        for t in range(new):
+            want, state = models.decode_step(params, specs, arch_, fed.cuda(), state)
+            c, w = margins_hold(want, got[:, t])
+            clear, wrong = clear + c, wrong + w
+            fed = got[:, t:t + 1]
+        check(shares[0] <= 1.0, f"protomath_tp (e) {key}: prefill logits {shares[0]:.3g} of the bound")
+        check(wrong == 0, f"protomath_tp (e) {key}: {wrong} of {clear} clear tokens differ from one process")
+        out[key] = {"prefill_allowance_share": shares[0], "clear_tokens": clear, "tokens_differing": wrong}
+        if key == "prefill_1024":  # both cuts of the published shape
+            shape = base.INPUT_SHAPES["prefill_32k"]
+            out[key]["cut_from"] = {"shape": shape.name, "batch": [shape.global_batch, tokens.shape[0]],
+                                    "seq_len": [shape.seq_len, s]}
+        del state
+    del params
+    torch.cuda.empty_cache()
+    out["ranks"] = [{"rank": ln["rank"], "data_rank": ln["data_rank"], "model_rank": ln["model_rank"], **ln["e"]}
+                    for ln in lines]
+    return out
+
+
 def tp_rank(out: Path, rank: int) -> int:
     """One rank of ``protomath_tp_phase``: a fresh interpreter on the card,
     joined to the others over a ``gloo`` group (NCCL refuses two ranks on
@@ -2143,7 +2395,9 @@ def tp_rank(out: Path, rank: int) -> int:
     from repro_torch.core.coding import flatten_pytree
     from repro_torch.data import synthetic
     from repro_torch.kernels import ops
+    from repro_torch.configs import base
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
     from repro_torch.launch import train as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2224,6 +2478,10 @@ def tp_rank(out: Path, rank: int) -> int:
             T, protomath, tp_wide_tcfg(T, moe_arch), wmesh, (e // TP_MODEL, dm, ff), ("tp", "fsdp", None),
             ("model", "data", None), rank)
         part_done("d")
+
+        # (e) sharded serving: smollm-360m at decode_32k, long_500k and a cut prefill_32k; whisper-small whole
+        line["e"] = tp_serve_rank(models, pytree, archs, base, serve, protomath, T, mesh, out, rank)
+        part_done("e")
         line["launches"] = path_launches
         np.savez(out / f"rank{rank}.npz", **arrays)
         (out / f"rank{rank}.json").write_text(json.dumps(line))
@@ -2232,7 +2490,7 @@ def tp_rank(out: Path, rank: int) -> int:
     return 0
 
 
-def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs, tmp: Path) -> dict:
+def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs, base, serve, tmp: Path) -> dict:
     """The ``"protomath"`` step over data 2 x model 2: four fresh
     interpreters on the one card (``tp_rank``; never a fork of this
     process, which holds the card), one ``gloo`` group, each with its
@@ -2256,7 +2514,15 @@ def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs,
           ``sharded`` bit for bit ``gather``, the ranks equal;
       (d) ``TP_MOE`` (granite-moe-3b-a800m, 2 layers, bf16) as (b), its
           exchange of an expert slice (``w_gate``'s) against the plain
-          versions.
+          versions;
+      (e) sharded serving (``tp_serve_rank``): smollm-360m at its
+          published widths in bf16 at ``decode_32k`` (each rank
+          ``TP_SERVE_CACHE_BYTES`` of cache: the batch over data, the slots
+          over model, the flash-decode cut), ``long_500k`` (the slots over
+          data), a 1,024-token prompt at batch 4 (``prefill_32k`` cut in
+          sequence and batch) and whisper-small whole (its heads and the
+          cross cache's cut over model), held after the ranks exit against
+          this process on the card (``tp_serve_check``).
 
     Every kernel of ``PROTOMATH_KERNELS`` must launch on some rank."""
     out = {"phase": "protomath_tp", "ranks": TP_WORLD, "data": TP_WORLD // TP_MODEL, "model": TP_MODEL,
@@ -2356,8 +2622,11 @@ def protomath_tp_phase(T, mesh_lib, models, pytree, synthetic, scenarios, archs,
                     "first_loss_max_rel": rel, "tolerance": TP_WIDE_LOSS_RTOL,
                     "ranks": [{"rank": ln["rank"], "data_rank": ln["data_rank"], "model_rank": ln["model_rank"],
                                **ln[key]} for ln in lines]}
+    start = time.perf_counter()
+    out["e"] = tp_serve_check(models, pytree, archs, base, serve, work, lines)
+    out["e"]["check_s"] = time.perf_counter() - start
     out["rank_launches"] = [{k: v for k, v in ln["launches"].items() if v} for ln in lines]
-    out["rank_part_s"] = [{k: ln[k] for k in ("a_s", "b_s", "c_s", "d_s")} for ln in lines]
+    out["rank_part_s"] = [{k: ln[k] for k in ("a_s", "b_s", "c_s", "d_s", "e_s")} for ln in lines]
     launches = {k: sum(ln["launches"][k] for ln in lines) for k in lines[0]["launches"]}
     for kernel in PROTOMATH_KERNELS:
         check(launches[kernel] > 0, f"protomath_tp: kernel {kernel} was not launched on any rank")
@@ -2772,15 +3041,29 @@ CONFORMANCE_S0, CONFORMANCE_DECODE = 4100, 8
 WHISPER_PROMPT, WHISPER_DECODE, WHISPER_BATCH = 16, 16, 4
 
 
-def refill(state: dict, filled: int, seed: int) -> None:
+def refill(state: dict, filled: int, seed: int, cut=None) -> None:
     """The caches' K/V drawn anew from ``seed`` (standard normal), every
-    ``length`` and ``pos`` set to ``filled``: the same state on every call."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, c in state.items():
-        if name != "pos":
-            c.k.normal_(generator=gen)
-            c.v.normal_(generator=gen)
-            c.length.fill_(filled)
+    ``length`` and ``pos`` set to ``filled``: the same state on every call.
+    Each (block, period, field, batch row) is drawn whole from its own
+    generator, seeded by those indices, so a rank of a serving mesh fills
+    its cut (``cut``: the ``serving.Shard`` whose ``state_shapes`` and
+    placements it holds) with the values the whole state holds there."""
+    from repro_torch.core.protomath import fold_seed
+
+    gen = torch.Generator(device="cuda")
+    for i, name in enumerate(sorted(k for k in state if k != "pos")):
+        c = state[name]
+        for j, f in enumerate(("k", "v")):
+            t = getattr(c, f)  # (P, B, C, H, D), this rank's cut of it
+            whole = tuple(getattr((cut.state_shapes if cut else state)[name], f).shape)
+            place = getattr(cut.state[name], f) if cut else (None,) * t.ndim
+            first = [cut.along(e)[1] * t.shape[d] if cut else 0 for d, e in enumerate(place)]
+            for p in range(t.shape[0]):
+                for r in range(t.shape[1]):
+                    gen.manual_seed(fold_seed(seed, i, p, j, first[1] + r))
+                    row = torch.randn(whole[2:], generator=gen, device="cuda", dtype=t.dtype)
+                    t[p, r].copy_(row[first[2]:first[2] + t.shape[2], first[3]:first[3] + t.shape[3]])
+        c.length.fill_(filled)
     state["pos"].fill_(filled)
 
 
@@ -3501,7 +3784,7 @@ def main() -> int:
         torch.distributed.destroy_process_group()
     # the step over data 2 x model 2: four processes of their own, each counting its own launches
     run_phases([("protomath_tp", lambda: protomath_tp_phase(train, mesh_lib, models, pytree, synthetic, scenarios,
-                                                            archs, tmp))])
+                                                            archs, base, serve, tmp))])
     tp = lines["protomath_tp"]["protomath_tp_launches"]
     # the path's launches are the steps' own windows: not the exchanges held
     # against their plain versions, nor the exchange timed alone

@@ -87,6 +87,15 @@ scans trace their body once. The reference folds a process-global trace
 counter into its keys instead (ROADMAP C.9), so its draws cannot be
 replayed: the gaussian attack and the compressors are held to it
 statistically. With no active context every helper is the plain op.
+
+Serving carries no exchange: ``model_context`` activates the model axis
+alone, forward only (under ``torch.no_grad()``), with no
+``BlockedProtocol``. Its leaves hold no ``data`` cut (a serving rank
+gathers that cut once, ``launch.serve``): ``pmm`` is column-, row- or
+expert-parallel, ``plookup`` vocabulary-parallel, ``block_tap`` one copy,
+the MoE routes the whole batch as one block (``data_join`` over the data
+ranks where the batch is cut), and ``model_split``/``model_join``/
+``model_grad_sum`` move the activations as in training.
 """
 from __future__ import annotations
 
@@ -104,10 +113,11 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import sqdist_from_gram
 from repro_torch.numerics import stable_mean0
 
-__all__ = ["BlockedProtocol", "protocol_context", "current_protocol", "shared_sites", "fold_seed", "sharded_dim",
-           "robust_combine", "exchange_counts", "reset_exchange_counts", "lookup", "pmm", "plookup", "pscale",
-           "pbias", "block_tap", "vocab_logsumexp", "tp_dim_of", "model_split", "model_join", "model_grad_sum",
-           "model_logits_sum"]
+__all__ = ["BlockedProtocol", "protocol_context", "model_context", "current_protocol", "shared_sites", "fold_seed",
+           "sharded_dim", "robust_combine", "exchange_counts", "reset_exchange_counts", "lookup", "pmm", "plookup",
+           "pscale", "pbias", "block_tap", "vocab_logsumexp", "tp_dim_of", "model_split", "model_join",
+           "model_grad_sum", "model_logits_sum", "data_join", "data_part", "count_collective", "collective_counts",
+           "reset_collective_counts"]
 
 DATA_AXES_1POD: tuple[str, ...] = ("data",)
 _COMPRESS, _NOISE = 0, 1  # draw streams of a site's rows
@@ -144,7 +154,7 @@ class BlockedProtocol:
 
 @dataclasses.dataclass
 class _Context:
-    p: BlockedProtocol
+    p: BlockedProtocol | None  # None: a forward-only model context (serving), no exchange
     seed: int
     group: Any  # a torch.distributed process group, or None: one rank, no collectives
     world: int
@@ -154,6 +164,7 @@ class _Context:
     model_rank: int = 0
     cuts: dict = dataclasses.field(default_factory=dict)  # id(stored leaf) -> its cut
     site: int = 0
+    batch_cut: bool = False  # the activations' batch is cut over the data group (serving)
 
     def cut_of(self, w: torch.Tensor) -> tuple | None:
         return self.cuts.get(id(w))
@@ -183,6 +194,29 @@ def protocol_context(p: BlockedProtocol, seed: int, group: Any = None, *, model_
     if model_world != p.model_size:
         raise ValueError(f"model_size={p.model_size}, but the model group holds {model_world} ranks")
     _ACTIVE.append(_Context(p, int(seed), group, world, rank, model_group, model_world, model_rank, dict(cuts or {})))
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+@contextmanager
+def model_context(model_group: Any = None, cuts: dict | None = None, *, group: Any = None, batch_cut: bool = False):
+    """The model axis with no exchange, for a forward under
+    ``torch.no_grad()`` (serving): every protomath op inside computes on
+    the stored cuts ``cuts`` (``{id(leaf): cut}``, ``"model"`` or ``None`` a
+    dim; no ``data`` cut) over ``model_group``. ``group``: the data ranks;
+    ``batch_cut``: the activations hold this data rank's rows of the batch
+    (``data_join`` gathers them). Raises where gradients are enabled: the
+    ops' backward would exchange under a protocol this context lacks."""
+    if torch.is_grad_enabled():
+        raise RuntimeError("model_context is forward only: enter it under torch.no_grad()")
+    if any("data" in cut for cut in (cuts or {}).values()):
+        raise ValueError("a model context holds no data cut: gather it first")
+    world, rank = _world_rank(group)
+    model_world, model_rank = _world_rank(model_group)
+    _ACTIVE.append(_Context(None, 0, group, world, rank, model_group, model_world, model_rank, dict(cuts or {}),
+                            batch_cut=batch_cut and world > 1))
     try:
         yield
     finally:
@@ -397,6 +431,27 @@ def reset_exchange_counts() -> None:
         _EXCHANGES[name] = 0
 
 
+# the model axis's and the serving path's collectives in this process, by "{axis}_{op}" (axis "model" or
+# "data"): calls and the bytes this rank puts in (each call's tensor, in the dtype it travels in)
+_COLLECTIVES: dict[str, list[int]] = {}
+
+
+def count_collective(axis: str, op: str, t: torch.Tensor) -> None:
+    entry = _COLLECTIVES.setdefault(f"{axis}_{op}", [0, 0])
+    entry[0] += 1
+    entry[1] += t.numel() * t.element_size()
+
+
+def collective_counts() -> dict[str, dict[str, int]]:
+    """A copy of the collective counts: ``{"model_all_reduce": {"calls",
+    "bytes"}, ...}``, the bytes this rank put in."""
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in sorted(_COLLECTIVES.items())}
+
+
+def reset_collective_counts() -> None:
+    _COLLECTIVES.clear()
+
+
 def _dim_of(cut: tuple | None, axis: str) -> int | None:
     return None if cut is None or axis not in cut else cut.index(axis)
 
@@ -489,6 +544,7 @@ def _product(spec: str, x: torch.Tensor, w: torch.Tensor, pre_blocked: bool) -> 
 def _model_sum(t: torch.Tensor, site: _Site) -> torch.Tensor:
     """``t`` summed over the model group, in fp32, cast back."""
     total = t.to(torch.float32, copy=True)
+    count_collective("model", "all_reduce", total)
     dist.all_reduce(total, group=site.model_group)
     return total.to(t.dtype)
 
@@ -522,6 +578,7 @@ def _tp_kind(spec: str, cut: tuple | None) -> str | None:
 
 def _gather_dim(t: torch.Tensor, dim: int, site: _Site) -> torch.Tensor:
     """The model ranks' parts of ``t`` joined along ``dim``, in rank order."""
+    count_collective("model", "all_gather", t)
     return _all_gather(t.movedim(dim, 0), site.model_group, site.model_world).movedim(0, dim).contiguous()
 
 
@@ -685,7 +742,7 @@ def plookup(table: torch.Tensor, ids: torch.Tensor, w_spec: tuple | None = None)
     if ctx is None:
         return lookup(table, ids)
     cut = ctx.cut_of(table)
-    if ctx.p.embedding_robust:
+    if ctx.p is not None and ctx.p.embedding_robust:
         return _PLookup.apply(table, ids, w_spec, _take_site(), cut)
     site = _site_of(ctx, 0)
     view = table if ctx.group is None else _FromData.apply(table, cut, site)
@@ -803,7 +860,7 @@ def block_tap(w: torch.Tensor, fn=None) -> tuple[torch.Tensor, int]:
     no active protocol ``(fn(w)[None], 1)``."""
     ctx = current_protocol()
     tapped = w if fn is None else fn(w)
-    if ctx is None:
+    if ctx is None or ctx.p is None:  # no exchange: one copy
         return tapped[None], 1
     site = _take_site()
     return _BlockTap.apply(tapped, site, ctx.cut_of(w)), site.n_local
@@ -899,6 +956,25 @@ def model_logits_sum(x: torch.Tensor) -> torch.Tensor:
     over the model ranks, its cotangent too."""
     site = _model_site()
     return x if site is None else _GradSum.apply(x, site, True)
+
+
+def data_join(x: torch.Tensor) -> torch.Tensor:
+    """Under a model context whose batch is cut over the data ranks, the
+    data ranks' rows of ``x`` (its leading dim) gathered whole, in rank
+    order; else ``x`` (forward only: the MoE routes the whole batch)."""
+    ctx = current_protocol()
+    if ctx is None or not ctx.batch_cut:
+        return x
+    count_collective("data", "all_gather", x)
+    return _all_gather(x, ctx.group, ctx.world)
+
+
+def data_part(x: torch.Tensor) -> torch.Tensor:
+    """``data_join``'s inverse: this data rank's rows of a whole ``x``."""
+    ctx = current_protocol()
+    if ctx is None or not ctx.batch_cut:
+        return x
+    return _take(x, 0, ctx.world, ctx.rank)
 
 
 def model_sum_fn():

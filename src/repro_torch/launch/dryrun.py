@@ -31,8 +31,18 @@ and counts, for one rank:
     C's gradients summed, RWKV's channel-mix receptance and whole-leaf
     gradients gathered, and under ``attn_tp="head_dim"`` the logits'
     partial sums (``tp_logits_all_reduce``) and RoPE's gathered
-    ``head_dim``. The serving shapes hold ``collectives: null`` and the
-    reason (serving over a mesh of many ranks, ROADMAP A.9e);
+    ``head_dim``. A serving shape's (``serve_collectives``) are those of one
+    decode step and its greedy token, or of one prefill and its greedy
+    token, as a serving rank issues them (the data cut of the weights
+    gathered once before, ``weights_gather_once``): the vocabulary-parallel
+    lookup, the row-parallel outputs, the flash-decode cut's max, sum and
+    product over the ranks holding a cache's slots, the q heads gathered
+    where those are the model ranks, MoE's batch gathered over the data
+    ranks and its experts' outputs over the model ranks, Mamba's
+    ``in_proj`` halves, RWKV's token shifts and receptance, and the greedy
+    token's (max, index) pairs; with their calls and the bytes a rank puts
+    in (``calls_by_kind``, ``payload_bytes_by_kind``, as
+    ``protomath.collective_counts`` counts them on the ranks);
   * ``roofline.derive_terms`` at the peaks of the ``NVIDIA H100 80GB
     HBM3``: the analytic 6ND (2ND served) FLOPs a rank, the bytes a rank
     reads and writes at least (its weights' compute views once forward and
@@ -53,18 +63,21 @@ import math
 import os
 from typing import Any
 
+import torch
+
 from repro_torch import pytree
 from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, ShapeConfig, TrainConfig
 from repro_torch.core.protomath import _dim_of, _tp_kind
 from repro_torch.launch import roofline, serve, train
 from repro_torch.launch.mesh import Mesh, make_production_mesh, n_data_devices
-from repro_torch.models.attention import PLAIN_THRESHOLD
-from repro_torch.models.module import _axis_size
+from repro_torch.models import serving
+from repro_torch.models.attention import KV_CHUNK, PLAIN_THRESHOLD, Q_CHUNK
+from repro_torch.models.module import _axis_size, logical_to_mesh
 from repro_torch.models.moe import expert_capacity
 from repro_torch.models.transformer import CE_CHUNK
 
-__all__ = ["skip_reason", "run_case", "main"]
+__all__ = ["skip_reason", "serve_collectives", "serve_weights_gather", "run_case", "main"]
 
 DEVICE = roofline.H100
 OUT_DIR = "experiments/dryrun_torch"
@@ -226,6 +239,170 @@ def _train_wire(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh, tcfg: TrainConf
     return out
 
 
+def _serve_counter():
+    """A tally ``{kind: [calls, bytes]}`` and the function that adds one
+    collective of ``numel`` elements of ``itemsize`` bytes to it."""
+    tally: dict[str, list[int]] = {}
+
+    def add(axis: str, op: str, numel: int, itemsize: int) -> None:
+        entry = tally.setdefault(f"{axis}_{op}", [0, 0])
+        entry[0] += 1
+        entry[1] += int(numel) * itemsize
+
+    return tally, add
+
+
+def serve_collectives(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh) -> dict[str, dict[str, int]]:
+    """The collectives a serving rank issues for ``shape`` on ``mesh``, by
+    ``"{axis}_{op}"`` (``protomath.collective_counts``' kinds): calls and
+    the bytes the rank puts in. A decode shape counts one ``decode_step``
+    against the state ``serve_input_specs`` places, and its greedy token; a
+    prefill shape one ``prefill`` and its greedy token. They follow
+    ``models.serving``'s code on the placements ``serving.SERVE_RULES``
+    gives (the data cut gathered once, apart: ``serve_weights_gather``)."""
+    from repro_torch.models.serving import SERVE_RULES
+
+    m, isz = mesh.model, torch.empty((), dtype=cfg.dtype).element_size()
+    shapes, specs = _shapes_and_specs_of(cfg)
+    pl = logical_to_mesh(specs, mesh, rules=SERVE_RULES, shapes=shapes)
+    b = shape.global_batch
+    batch_cut = serve.batch_dim_pspec(b, mesh)[0] is not None and mesh.world > 1
+    bl = b // mesh.world if batch_cut else b
+    decode = shape.kind == "decode"
+    s = 1 if decode else shape.seq_len
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    tally, add = _serve_counter()
+    state_pl = None
+    if decode:
+        state = serving.init_decode_state(cfg, b, shape.seq_len, device="meta")
+        state_pl = serve.decode_state_pspecs(state, mesh)
+    if pl["embed"]["table"][0] == "model":  # the vocabulary-parallel lookup
+        add("model", "all_reduce", bl * s * d, 4)
+
+    def attention(mix: dict, tokens: int, kv_tokens: int, mixer: str, cache_pl: tuple | None, encoder: bool):
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        q_cut, dim_cut = mix["wq"][1] == "model", mix["wq"][2] == "model"
+        cross = mixer == "cross"
+        if decode and not encoder:
+            hq = h // m if q_cut else h
+            if dim_cut:
+                add("model", "all_gather", bl * h * hd // m, isz)
+                if not cross:
+                    add("model", "all_gather", bl * hkv * hd // m, isz)
+                    add("model", "all_gather", bl * hkv * hd // m, isz)
+            split = dim_cut and cache_pl[3] == "model"
+            hq = h // m if split else hq
+            seq = cache_pl[2]
+            if seq == "model" and hq < h:  # every q head reads this rank's slots
+                add("model", "all_gather", bl * hq * hd, isz)
+                hq = h
+            if seq is not None:
+                axis = "model" if seq == "model" else "data"
+                add(axis, "all_reduce", bl * hq, 4)
+                add(axis, "all_reduce", bl * hq, 4)
+                add(axis, "all_reduce", bl * hq * hd, 4)
+            if split:
+                add("model", "all_gather", bl * hq * hd, isz)
+        elif dim_cut:  # a full sequence on a cut head_dim: RoPE's gathers, the logits' partial sums
+            if mixer == "attn" and cfg.rope_theta is not None:
+                add("model", "all_gather", bl * tokens * h * hd // m, isz)
+                add("model", "all_gather", bl * kv_tokens * hkv * hd // m, isz)
+            if max(tokens, kv_tokens) <= PLAIN_THRESHOLD:
+                add("model", "all_reduce", bl * h * tokens * kv_tokens, 4)
+            else:
+                qc, kc = min(Q_CHUNK, tokens), min(KV_CHUNK, kv_tokens)
+                nq, nk = -(-tokens // qc), -(-kv_tokens // kc)
+                for _ in range(nq * nk):
+                    add("model", "all_reduce", bl * h * qc * kc, 4)
+            if not encoder:  # the cache's whole head_dim
+                add("model", "all_gather", bl * kv_tokens * hkv * hd // m, isz)
+                add("model", "all_gather", bl * kv_tokens * hkv * hd // m, isz)
+        if "model" in mix["wo"][:2]:  # row-parallel wo
+            add("model", "all_reduce", bl * tokens * d, 4)
+
+    def mlp(kind: str, blk: dict, tokens: int, x_prev_cut: bool):
+        if kind == "dense" and blk["w_down"][0] == "model":
+            add("model", "all_reduce", bl * tokens * d, 4)
+        elif kind == "moe":
+            if batch_cut:
+                add("data", "all_gather", bl * tokens * d, isz)
+            if blk["w_gate"][0] == "model":
+                e = cfg.moe.n_experts
+                cap = expert_capacity(b * tokens, e, cfg.moe.top_k)
+                add("model", "all_gather", e // m * cap * d, isz)
+        elif kind == "rwkv_ffn":
+            if decode and x_prev_cut:
+                add("model", "all_gather", bl * d // m, isz)
+            if blk["wv"][0] == "model":
+                add("model", "all_reduce", bl * tokens * d, 4)
+            if blk["wr"][1] == "model":
+                add("model", "all_gather", bl * tokens * d // m, isz)
+
+    if cfg.family == "audio" and cfg.encoder.n_encoder_layers > 0 and not decode:
+        f = cfg.encoder.n_frontend_tokens
+        enc = {k: v[1:] for k, v in _flat_leaves(pl["encoder"]).items()}
+        for _ in range(cfg.encoder.n_encoder_layers):
+            attention(_sub(enc, "mixer"), f, f, "attn_nope", None, True)
+            mlp("dense", _sub(enc, "mlp"), f, False)
+    for i, spec in enumerate(cfg.period):
+        blk = {k: v[1:] for k, v in _flat_leaves(pl["periods"][f"blk{i}"]).items()}
+        mix = _sub(blk, "mixer")
+        cache = None if state_pl is None else state_pl[f"blk{i}"]
+        for _ in range(cfg.n_periods):
+            if spec.mixer in ("attn", "attn_nope", "cross"):
+                kv = cfg.encoder.n_frontend_tokens if spec.mixer == "cross" else s
+                attention(mix, s, kv, spec.mixer, None if cache is None else cache.k, False)
+            elif spec.mixer == "mamba":
+                if mix["in_proj"][1] == "model":  # the x and z halves' slices: the weight gathered
+                    add("model", "all_gather", d * 2 * cfg.mamba.expand * d // m, isz)
+                if mix["x_proj"][0] == "model":
+                    add("model", "all_reduce", bl * s * (max(1, d // 16) + 2 * cfg.mamba.d_state), 4)
+                if mix["out_proj"][0] == "model":
+                    add("model", "all_reduce", bl * s * d, 4)
+            elif spec.mixer == "rwkv":
+                if decode and cache.x_prev[2] == "model":
+                    add("model", "all_gather", bl * d // m, isz)
+                if mix["wo"][0] == "model":
+                    add("model", "all_reduce", bl * s * d, 4)
+            if spec.mlp != "none":
+                mlp(spec.mlp, _sub(blk, "mlp"), s, cache is not None and spec.mlp == "rwkv_ffn"
+                    and cache.ffn_x_prev[2] == "model")
+    head = pl["embed"]["table"] if cfg.tie_embeddings else pl["lm_head"]
+    if head[0] == "model":  # the greedy token across the vocabulary's cuts
+        add("model", "all_gather", bl * 2, 8)
+    return {k: {"calls": c, "bytes": n} for k, (c, n) in sorted(tally.items())}
+
+
+def serve_weights_gather(cfg: ArchConfig, mesh: Mesh) -> dict[str, int]:
+    """The one all-gather a leaf over the data ranks with which a serving
+    rank turns its stored cut (``train.param_pspecs``) into its model cut
+    (``serve.serving_params``), once when serving starts: calls, the bytes
+    it puts in, and the wire bytes (ring)."""
+    shapes, specs = _shapes_and_specs_of(cfg)
+    leaves = _placed(shapes, train.param_pspecs(specs, mesh, shapes))
+    cut = [(t, p) for _, t, p in leaves if _parts(mesh, p, "data") > 1]
+    payload = sum(t.numel() // _parts(mesh, p) * t.element_size() for t, p in cut)
+    return {"calls": len(cut), "bytes": payload, "wire_bytes": (mesh.world - 1) * payload}
+
+
+def _shapes_and_specs_of(cfg: ArchConfig):
+    return _shapes_and_specs(cfg.name) if ARCHS.get(cfg.name) == cfg else roofline.param_shapes_and_specs(cfg)
+
+
+def _flat_leaves(tree: dict, prefix: str = "") -> dict[str, tuple]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _sub(flat: dict[str, tuple], key: str) -> dict[str, tuple]:
+    return {k[len(key) + 1:]: v for k, v in flat.items() if k.startswith(key + "/")}
+
+
 def run_case(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig, out_dir: str | None = OUT_DIR) -> dict:
     """One (arch, shape, mesh) record; written under ``out_dir`` unless it is ``None``."""
     cfg0, shape = ARCHS[arch], INPUT_SHAPES[shape_name]
@@ -250,7 +427,7 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig, out
     mf = roofline.model_flops(cfg, shape, n_active=n_act, d_redundancy=d_red)
     m = max(1, tcfg.microbatches)
     views = sum(t.numel() // _parts(mesh, pl, "model") * t.element_size() for _, t, pl in leaves)
-    collectives, why = None, None
+    extra = {}
     if shape.kind == "train":
         moment = 2 if tcfg.momentum_dtype == "bfloat16" else 4
         moments_b = 2 * _cut_bytes(leaves, mesh, moment)  # AdamW's mu and nu mirror the params
@@ -272,15 +449,23 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig, out
                           for (_, t), (_, pl) in zip(pytree.paths(state.value), _flat(state.placement)))
             rec["decode_state_bytes_per_rank"] = state_b
         nbytes = views + state_b
-        why = "serving over a mesh of many ranks waits for ROADMAP A.9e"
-    wire = {"total_wire_bytes": sum(collectives.values()) if collectives else 0.0}
+        served = serve_collectives(cfg, shape, mesh)
+        ranks = {"model": mesh.model, "data": mesh.world}
+        collectives = {kind: (ranks[kind.split("_")[0]] - 1) * v["bytes"] if kind.endswith("all_gather")
+                       else _ring(ranks[kind.split("_")[0]])[1] * v["bytes"] for kind, v in served.items()}
+        extra = {"calls_by_kind": {k: v["calls"] for k, v in served.items()},
+                 "payload_bytes_by_kind": {k: v["bytes"] for k, v in served.items()},
+                 "weights_gather_once": {**serve_weights_gather(cfg0, mesh),
+                                         "choice": "the data (fsdp) cut all-gathered once when serving starts, "
+                                                   "the model cut kept (not a gather a product)"},
+                 "per": "one decode step and its greedy token" if shape.kind == "decode"
+                 else "one prefill and its greedy token"}
+    wire = {"total_wire_bytes": sum(collectives.values())}
     terms = roofline.derive_terms({"flops": mf / mesh.size, "bytes accessed": nbytes}, wire, model_flops_total=mf,
                                   chips=mesh.size, device=DEVICE)
-    rec.update(collectives=None if collectives is None else {"bytes_by_kind": collectives, **wire},
+    rec.update(collectives={"bytes_by_kind": collectives, **wire, **extra},
                roofline=terms.as_dict(), model_flops_total=mf, bytes_accessed_per_rank=nbytes,
                note="bounds at the H100's published peaks, not measured times")
-    if why:
-        rec["collectives_reason"] = why
     return _save(out_dir, rec)
 
 

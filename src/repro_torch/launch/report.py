@@ -4,7 +4,8 @@ one a mesh.
     PYTHONPATH=src python -m repro_torch.launch.report [--dir experiments/dryrun_torch]
 
 Every time in them is a bound at the published peaks of the device the
-records name, not a measurement.
+records name, not a measurement. A serving row's collectives are those of
+one decode step or one prefill, each with its greedy token.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import os
 SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 MESH_TITLES = {"pod1": "single pod, 256 ranks", "pod2": "2 pods, 512 ranks"}
 _COLUMNS = ("arch", "shape", "status", "params GiB/rank", "moments GiB/rank", "state GiB/rank", "exchange GiB",
-            "wire GB/rank", "compute s", "memory s", "collective s", "dominant")
+            "wire GB/rank", "collectives a step", "compute s", "memory s", "collective s", "dominant")
 
 
 def load(dir_: str, mesh: str) -> dict[tuple[str, str], dict]:
@@ -47,8 +48,10 @@ def roofline_table(recs: dict, archs: list[str], mesh: str) -> str:
                 lines.append(f"| {arch} | {shape} | {r['status']} |{blank}")
             else:
                 ro = r["roofline"]
-                wire = ("n/a (A.9e)" if r["collectives"] is None
-                        else f"{r['collectives']['total_wire_bytes'] / 1e9:.2f}")
+                coll = r["collectives"]
+                wire = f"{coll['total_wire_bytes'] / 1e9:.2f}"
+                calls = coll.get("calls_by_kind")  # a serving step's (the train step's are not counted by call)
+                wire += f" | {sum(calls.values())}" if calls is not None else " |"
                 sizes = " | ".join(_gib(r, k) for k in ("params_bytes_per_rank", "moments_bytes_per_rank",
                                                         "decode_state_bytes_per_rank", "exchange_transient_bytes"))
                 lines.append(f"| {arch} | {shape} | ok | {sizes} | {wire} | {ro['compute_s']:.2e} "

@@ -11,7 +11,7 @@ chunks of ``KV_CHUNK``, so no ``(B, H, S, S)`` logits tensor is ever held;
 its backward is written by hand (a ``torch.autograd.Function``) and
 recomputes each chunk's probabilities from the saved log-sum-exp. The
 projections go through ``core.protomath.pmm`` (the LAD exchange under a
-protocol context), the decode step's stay plain, as in the reference. Sliding
+protocol context, the model axis alone under a serving one). Sliding
 windows are masks over a full sequence and a ring buffer in decode, whose
 cache holds ``capacity`` slots.
 
@@ -21,12 +21,22 @@ read their kv heads out of the whole k and v; or, under
 ``attn_tp="head_dim"``, its cut of every head's ``head_dim``, the logits'
 partial sums summed over the ranks in fp32 before the mask and the
 softmax (in the chunked path's forward and backward too).
+
+On a serving rank (``protomath.model_context``) a decode step's cache may
+be cut on its slots (``SeqCut``: over ``model`` where the kv heads do not
+split, over the data ranks at batch 1): the flash-decode cut. Each rank
+takes the logits of its slots; the max and the sum of ``exp`` are
+all-reduced in fp32, the probabilities normalised locally and cast to the
+activations' dtype, and their product with this rank's V all-reduced in
+fp32 (the last all-reduce's dtype), then cast to the activations' dtype.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import protomath
 from repro_torch.core.protomath import pmm
@@ -34,7 +44,7 @@ from repro_torch.models.layers import apply_rope
 from repro_torch.models.module import dense_param, split_tree
 
 __all__ = ["PLAIN_THRESHOLD", "Q_CHUNK", "KV_CHUNK", "NEG_INF", "attention_init", "multihead_attention", "KVCache",
-           "init_cache", "decode_attention"]
+           "init_cache", "SeqCut", "decode_attention"]
 
 PLAIN_THRESHOLD = 2048
 Q_CHUNK = 512
@@ -294,21 +304,22 @@ def multihead_attention(
         k = rope(k, kpos, rope_theta)
     b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
     heads, kv_heads = q.shape[2], k.shape[2]  # this rank's, where the heads are cut over the model ranks
+    k_read, v_read = k, v
     if heads * n_kv_heads == kv_heads * n_heads:
         group = heads // kv_heads
-    else:  # the q heads cut, the kv heads whole
-        k, v, group = _kv_heads_of(k, v, heads, n_heads, n_kv_heads)
+    else:  # the q heads cut, the kv heads whole: the ones they read (k and v are returned whole, for a cache)
+        k_read, v_read, group = _kv_heads_of(k, v, heads, n_heads, n_kv_heads)
     qg = q.reshape(b, sq, heads // group, group, q.shape[-1])
     if max(sq, sk) <= PLAIN_THRESHOLD:
-        out = _plain_attention(qg, k, v, positions, kpos, causal, window, head_dim,
+        out = _plain_attention(qg, k_read, v_read, positions, kpos, causal, window, head_dim,
                                protomath.model_logits_sum if dim_cut else None)
     else:
         # lengths padded up to the chunks: padded keys carry kpos = -1
         # (always masked), padded query rows are sliced off
         pq, pk = (-sq) % min(Q_CHUNK, sq), (-sk) % min(KV_CHUNK, sk)
         pad = torch.nn.functional.pad
-        out = _flash_attention(pad(qg, (0, 0, 0, 0, 0, 0, 0, pq)), pad(k, (0, 0, 0, 0, 0, pk)),
-                               pad(v, (0, 0, 0, 0, 0, pk)), pad(positions, (0, pq)), pad(kpos, (0, pk), value=-1),
+        out = _flash_attention(pad(qg, (0, 0, 0, 0, 0, 0, 0, pq)), pad(k_read, (0, 0, 0, 0, 0, pk)),
+                               pad(v_read, (0, 0, 0, 0, 0, pk)), pad(positions, (0, pq)), pad(kpos, (0, pk), value=-1),
                                causal, window, head_dim=head_dim, reduce=logits_sum)[:, :sq]
     out = out.reshape(b, sq, heads, q.shape[-1])
     return pmm("bshk,hkd->bsd", out, params["wo"], w_spec=("tp", None, "fsdp")), k, v
@@ -336,8 +347,49 @@ def init_cache(batch: int, capacity: int, n_kv_heads: int, head_dim: int, dtype:
                    length=torch.zeros((), dtype=torch.int32, device=device))
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqCut:
+    """A cache whose slots are cut over the ``parts`` ranks of ``group``
+    (the flash-decode cut), this rank holding the ``index``-th contiguous
+    range of them; ``model``: the group is the model ranks, so every q
+    head must read this rank's slots."""
+
+    group: Any
+    parts: int
+    index: int
+    model: bool
+
+
+def _ring_write(buf: torch.Tensor, new: torch.Tensor, local: torch.Tensor) -> None:
+    """``new`` (B, 1, H, D) into slot ``local`` (a 0-d device int) of this
+    rank's (B, C_l, H, D) range of the ring, in place, where the slot lies
+    in it: a read, a select and a write at a clamped device index, so no
+    rank reads the slot back to the host."""
+    cap_l = buf.shape[1]
+    idx = torch.clamp(local, 0, cap_l - 1).reshape(1).long()
+    hit = (local >= 0) & (local < cap_l)
+    buf.index_copy_(1, idx, torch.where(hit, new.to(buf.dtype), buf.index_select(1, idx)))
+
+
+def _seq_reduce(t: torch.Tensor, seq: SeqCut, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over the ranks of ``seq.group`` in fp32 (a copy), cast
+    back."""
+    total = t.to(torch.float32, copy=True)
+    protomath.count_collective("model" if seq.model else "data", "all_reduce", total)
+    dist.all_reduce(total, op=op, group=seq.group)
+    return total.to(t.dtype)
+
+
+def _model_part(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's part of a whole ``t`` along ``dim``."""
+    ctx = protomath.current_protocol()
+    size = t.shape[dim] // ctx.model_world
+    return t.narrow(dim, ctx.model_rank * size, size)
+
+
 def decode_attention(params, x: torch.Tensor, cache: KVCache, *, n_heads: int, n_kv_heads: int,
-                     rope_theta: float | None, window: int | None = None, cross: bool = False):
+                     rope_theta: float | None, window: int | None = None, cross: bool = False,
+                     seq: SeqCut | None = None):
     """One-token attention against a cache. x: (B, 1, Dm) -> (output (B, 1,
     Dm), the cache after this token).
 
@@ -349,36 +401,92 @@ def decode_attention(params, x: torch.Tensor, cache: KVCache, *, n_heads: int, n
     callee's in the reference's functional ``dynamic_update_slice``: the
     ``cache`` passed in is not kept. Each slot's absolute position is the
     largest ``p <= length`` with ``p % capacity == slot``; slots never
-    written come out negative and are masked, as is what lies outside
+    written come out negative and are masked, as is what lie outside
     ``window``. Cross-attention reads its fixed encoder K/V and writes
-    nothing."""
+    nothing.
+
+    On a serving rank (``protomath.model_context``) the projections go
+    through ``pmm``: heads cut over the model ranks make q, k and v
+    column-parallel and ``wo`` row-parallel; q heads cut over kv heads
+    that are whole read the kv heads they group onto; a cut ``head_dim``
+    is joined whole (the cache holds whole heads). ``seq`` is the
+    flash-decode cut of the cache's slots: the ring of ``parts * C_l``
+    slots is written at global slot ``length % capacity`` only by the rank
+    whose range holds it, each slot's position from its global index, and
+    the softmax is the reference's arithmetic under GSPMD: the max and the
+    sum of ``exp`` all-reduced over ``seq.group``, the probabilities
+    normalised locally and cast to ``x.dtype``, their product with this
+    rank's V all-reduced in fp32 and cast back to ``x.dtype``. A cut over
+    the model ranks reads every q head (gathered, then this rank's taken
+    back for ``wo``)."""
     b = x.shape[0]
-    g = n_heads // n_kv_heads
     pos = cache.length
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q = pmm("bsd,dhk->bshk", x, params["wq"], w_spec=("fsdp", "tp", None))
+    dim_cut = protomath.tp_dim_of(params["wq"]) == 2  # attn_tp="head_dim": the whole head_dim, RoPE's pairs too
+    if dim_cut:
+        q = protomath.model_join(q, -1)
     if rope_theta is not None:
         q = apply_rope(q, pos.expand(b, 1), rope_theta)
+    heads_split = dim_cut and cache.k.shape[2] < n_kv_heads  # the cache's kv heads cut: this rank's q heads
+    if heads_split:
+        q = _model_part(q, 2)
+    heads = q.shape[2]  # this rank's, where the heads are cut over the model ranks
+    joined = seq is not None and seq.model and heads < n_heads
+    if joined:
+        q = protomath.model_join(q, 2)
+    cap_l = cache.capacity
+    parts, index = (1, 0) if seq is None else (seq.parts, seq.index)
     if cross:
         new_cache, valid = cache, None
     else:
-        k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-        v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+        k_new = pmm("bsd,dhk->bshk", x, params["wk"], w_spec=("fsdp", "tp", None))
+        v_new = pmm("bsd,dhk->bshk", x, params["wv"], w_spec=("fsdp", "tp", None))
+        if dim_cut:
+            k_new, v_new = protomath.model_join(k_new, -1), protomath.model_join(v_new, -1)
         if rope_theta is not None:
             k_new = apply_rope(k_new, pos.expand(b, 1), rope_theta)
-        cap = cache.capacity
-        slot = torch.remainder(pos, cap).reshape(1).long()
-        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
-        kpos = pos - torch.remainder(pos - torch.arange(cap, dtype=torch.int32, device=x.device), cap)
+        if k_new.shape[2] > cache.k.shape[2]:  # a cut head_dim joined, the cache's kv heads cut: this rank's
+            k_new, v_new = _model_part(k_new, 2), _model_part(v_new, 2)
+        cap, first = cap_l * parts, index * cap_l
+        slot = torch.remainder(pos, cap)
+        if parts == 1:
+            cache.k.index_copy_(1, slot.reshape(1).long(), k_new.to(cache.k.dtype))
+            cache.v.index_copy_(1, slot.reshape(1).long(), v_new.to(cache.v.dtype))
+        else:
+            _ring_write(cache.k, k_new, slot - first)
+            _ring_write(cache.v, v_new, slot - first)
+        kpos = pos - torch.remainder(pos - (first + torch.arange(cap_l, dtype=torch.int32, device=x.device)), cap)
         valid = kpos >= 0
         if window is not None:
             valid = valid & ((pos - kpos) < window)
         new_cache = KVCache(k=cache.k, v=cache.v, length=pos + 1)
+    k_all, v_all = cache.k, cache.v
+    hq, hkv = q.shape[2], k_all.shape[2]
+    if hq * n_kv_heads != hkv * n_heads:  # this rank's q heads, the kv heads whole: the ones they read
+        g = n_heads // n_kv_heads
+        count = max(hq // g, 1)
+        first_kv = protomath.current_protocol().model_rank * hq // g
+        k_all, v_all, hkv = k_all.narrow(2, first_kv, count), v_all.narrow(2, first_kv, count), count
     scale = q.shape[-1] ** -0.5
-    qg = q.reshape(b, 1, n_kv_heads, g, q.shape[-1])
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache.k).to(torch.float32) * scale
+    qg = q.reshape(b, 1, hkv, hq // hkv, q.shape[-1])
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_all).to(torch.float32) * scale
     if valid is not None:
         logits = torch.where(valid, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache.v).reshape(b, 1, n_heads, q.shape[-1])
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
+    if seq is None:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_all)
+    else:
+        m = _seq_reduce(torch.amax(logits, dim=-1, keepdim=True), seq, dist.ReduceOp.MAX)
+        e = torch.exp(logits - m)
+        probs = (e / _seq_reduce(torch.sum(e, dim=-1, keepdim=True), seq)).to(x.dtype)
+        out = _seq_reduce(torch.einsum("bhgqk,bkhd->bqhgd", probs, v_all), seq)
+    out = out.reshape(b, 1, hq, q.shape[-1])
+    rank = 0 if protomath.current_protocol() is None else protomath.current_protocol().model_rank
+    if joined:  # this rank's heads, for the row-parallel wo
+        out = out.narrow(2, rank * heads, heads)
+    if heads_split:  # every head, for wo's cut of head_dim
+        out = protomath.model_join(out, 2)
+    if dim_cut:  # this rank's cut of head_dim, for wo
+        cut = params["wo"].shape[1]
+        out = out.narrow(-1, rank * cut, cut)
+    return pmm("bshk,hkd->bsd", out, params["wo"], w_spec=("tp", None, "fsdp")), new_cache

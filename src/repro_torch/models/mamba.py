@@ -126,8 +126,12 @@ def mamba(params, x: torch.Tensor, d_state: int, return_state: bool = False):
 
 
 def mamba_decode(params, x: torch.Tensor, state: MambaState, d_state: int):
-    """One token. x: (B, 1, D) -> (y (B, 1, D), the new ``MambaState``)."""
-    xz = torch.einsum("bsd,di->bsi", x, params["in_proj"])
+    """One token. x: (B, 1, D) -> (y (B, 1, D), the new ``MambaState``).
+    On a serving rank whose ``d_inner`` is cut over the model ranks
+    (``protomath.model_context``), the state holds its cut: ``in_proj``
+    is ``pmm(parts=2)`` (its slice of the x and z halves), ``x_proj`` and
+    ``out_proj`` row-parallel, the conv and the recurrence local."""
+    xz = pmm("bsd,di->bsi", x, params["in_proj"], w_spec=("fsdp", "tp"), parts=2)
     x_in, z = torch.chunk(xz, 2, dim=-1)  # (B, 1, di)
     window = torch.cat([state.conv, x_in], dim=1)  # (B, d_conv, di)
     conv_out = torch.einsum("bki,ki->bi", window, params["conv_w"]) + params["conv_b"]
@@ -138,6 +142,5 @@ def mamba_decode(params, x: torch.Tensor, state: MambaState, d_state: int):
     h = decay * state.h + (dt * x_t.to(torch.float32))[..., None] * b_sel[:, None, :]
     y = torch.einsum("bis,bs->bi", h, c_sel) + params["d_skip"][None] * x_t.to(torch.float32)
     y = y.to(x.dtype) * torch.nn.functional.silu(z[:, 0].to(torch.float32)).to(x.dtype)
-    out = torch.einsum("bi,id->bd", y, params["out_proj"])[:, None, :]
+    out = pmm("bi,id->bd", y, params["out_proj"], w_spec=("tp", "fsdp"))[:, None, :]
     return out, MambaState(conv=window[:, 1:], h=h)
-

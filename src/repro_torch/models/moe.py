@@ -31,12 +31,17 @@ experts' slots of the replicated dispatch buffer through gate, up and down
 (``protomath.model_split``: its dx gathered back in the backward), and the
 experts' outputs are gathered whole over the model ranks in one collective
 (``protomath.model_join``) before the combine back into tokens.
+
+Serving (``protomath.model_context``) routes as one block, as the
+reference's decode does; where the data ranks cut the batch, their rows
+are gathered whole first (``protomath.data_join``) and each keeps its own
+rows of the output, so capacity counts every token of the batch.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.protomath import current_protocol, model_join, model_split, pmm, tp_dim_of
+from repro_torch.core.protomath import current_protocol, data_join, data_part, model_join, model_split, pmm, tp_dim_of
 from repro_torch.models.module import dense_param, split_tree
 
 __all__ = ["moe_init", "expert_capacity", "moe"]
@@ -100,11 +105,12 @@ def _route(params, xb: torch.Tensor, top_k: int, capacity_factor: float):
 
 def _n_blocks() -> int:
     ctx = current_protocol()
-    return 1 if ctx is None else ctx.p.n_devices // ctx.world
+    return 1 if ctx is None or ctx.p is None else ctx.p.n_devices // ctx.world
 
 
 def moe(params, x: torch.Tensor, *, top_k: int, aux_coef: float = 0.01, capacity_factor: float = 1.25):
     """x: (B, S, D) -> (out (B, S, D), aux loss (fp32 scalar))."""
+    x = data_join(x)  # serving over data ranks that cut the batch: the whole batch routes as one block
     b, s, d = x.shape
     n_experts = params["router"].shape[1]
     nb = _n_blocks()
@@ -134,4 +140,4 @@ def moe(params, x: torch.Tensor, *, top_k: int, aux_coef: float = 0.01, capacity
     token_frac = torch.mean(torch.sum(chosen, dim=2), dim=1)  # (n, E)
     prob_frac = torch.mean(probs, dim=1)  # (n, E)
     aux = aux_coef * n_experts * torch.mean(torch.sum(token_frac * prob_frac, dim=-1))
-    return y.to(x.dtype).reshape(b, s, d), aux
+    return data_part(y.to(x.dtype).reshape(b, s, d)), aux

@@ -161,6 +161,6 @@ def test_production_mesh_places_but_refuses_a_step():
         with pytest.raises(ValueError, match="no ranks"):
             train.build_train_step(scenarios.lm_arch(), TrainConfig(), None, mesh=mesh, device="cpu")
     arch = scenarios.lm_arch()
-    with pytest.raises(ValueError, match="A.9e"):
+    with pytest.raises(ValueError, match="no ranks"):
         serve.serve_traffic(arch, None, None, torch.zeros((1, 4), dtype=torch.int32), device="cpu",
                             mesh=mesh_lib.make_production_mesh())

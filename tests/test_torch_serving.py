@@ -419,9 +419,9 @@ def test_serve_traffic_greedy_is_decode_step_argmax():
 
 
 def test_serve_refuses_what_waits():
-    """Graph mode needs a card; serving over a mesh of more than one rank
-    waits for A.9d (its placements exist: tests/test_torch_mesh.py); a
-    decoder refuses a step past its output's columns."""
+    """Graph mode needs a card; over a mesh of more than one rank it waits
+    for A.14 (sharded serving runs in loop mode: tests/test_torch_serve_tp.py);
+    a decoder refuses a step past its output's columns."""
     _, tarch, _, _, tparams = carried("transformer")
     logits, state = models.prefill(tparams, None, tarch, torch.zeros((1, 4), dtype=torch.int32), capacity=6)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -435,9 +435,10 @@ def test_serve_refuses_what_waits():
                             device="cpu")
     from repro_torch.launch.mesh import abstract_mesh
 
-    with pytest.raises(ValueError, match="A.9e"):
-        serve.serve_traffic(tarch, tparams, None, torch.zeros((1, 4), dtype=torch.int32), mode="loop", device="cpu",
-                            mesh=abstract_mesh(2, 2))
+    ranked = dataclasses.replace(abstract_mesh(2, 2), abstract=False)  # the check precedes any collective
+    with pytest.raises(ValueError, match="A.14"):
+        serve.serve_traffic(tarch, tparams, None, torch.zeros((2, 4), dtype=torch.int32), mode="graph", device="cpu",
+                            mesh=ranked)
 
 
 # ------------------------------------------------------------- checkpoints

@@ -32,7 +32,8 @@ world at a time).
     cuts the reference's partition specs imply (on a jax ``AbstractMesh``);
     every family's train step with its collectives (the MoE's expert
     gathers and the logits' all-reduce of ``attn_tp="head_dim"`` among
-    them), the serving shapes without, naming ROADMAP A.9e.
+    them), and every serving shape's (a decode step or a prefill and its
+    greedy token, by kind, with the weights' one-time gather).
 (e) The other families' ops on 2 model ranks against the whole op in one
     process (``torch_tp_ranks.run_tp_ops``), forward and backward, rtol
     1e-5 and atol 1e-6 of the largest value, every output and cotangent
@@ -403,9 +404,13 @@ def test_dryrun_and_report_over_every_case(tmp_path, mesh_name):
         assert r["params_bytes_per_rank"] == _ref_param_cut_bytes(r["arch"], mesh_name == "pod2"), r["arch"]
         assert r["device"] == "NVIDIA H100 80GB HBM3" and r["ranks"] == (512 if mesh_name == "pod2" else 256)
         train_shape = r["shape"] == "train_4k"
-        assert (r["collectives"] is not None) == train_shape, (r["arch"], r["shape"])
-        if r["collectives"] is None:
-            assert "A.9e" in r["collectives_reason"]
+        assert r["collectives"] is not None and "collectives_reason" not in r, (r["arch"], r["shape"])
+        if not train_shape:  # a serving rank's step: by kind, calls and bytes put in, and the weights' one gather
+            c = r["collectives"]
+            assert set(c["bytes_by_kind"]) == set(c["calls_by_kind"]) == set(c["payload_bytes_by_kind"])
+            assert c["total_wire_bytes"] == pytest.approx(sum(c["bytes_by_kind"].values()))
+            assert c["weights_gather_once"]["calls"] > 0 and c["weights_gather_once"]["wire_bytes"] > 0
+            assert sum(c["calls_by_kind"].values()) > 0, (r["arch"], r["shape"])
         else:
             kinds = r["collectives"]["bytes_by_kind"]
             assert kinds["exchange_all_to_all"] > 0 and kinds["fsdp_all_gather"] > 0, r["arch"]
