@@ -2,13 +2,17 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --main-shape   # device, ptxas, main_shape, the kernels' timings and checks only
 
 Builds the CUDA kernels of the protocol round from ``src/repro_torch/csrc``
 and prints one JSON line per phase:
 
   device         the card, its power limit and the kernel build time;
   ptxas          registers and spills of every Gram and CWTM kernel entry,
-                 as ``nvcc -Xptxas -v`` reported them when they were built;
+                 as ``nvcc -Xptxas -v`` reported them when they were built
+                 (CWTM: ``cwtm_reg_kernel<N>`` for N <= 12,
+                 ``cwtm_net_kernel<P>`` for P = 16 to 128 slots,
+                 ``cwtm_wide_kernel`` past 128);
   trajectory     the paper's Section-VII trainer on the card (N=100,
                  dim=100, 200 rounds) for every Fig. 4 row (DRACO-d41 at
                  N=82), every Fig. 6 row, and Com-CWTM, Com-LAD-CWTM and
@@ -39,6 +43,18 @@ and prints one JSON line per phase:
                  bucket its lanes, draw groups, captured launches and
                  replay ms a round, per call its ms, peak memory and, for
                  the sweeps, lanes x rounds a second;
+  main_shape     the trajectory kernels (encode at d=10, ALIE and
+                 sign-flip, CWTM with and without NNM's mix at trim 10 and
+                 k = 80, the Gram, QSGD at quant:4's levels) at N=100,
+                 Q=100 and 1 and 1000 lanes, the L2 flushed before each
+                 timed launch: CUDA-event ms, the plain version's, a
+                 library call's where one computes the function,
+                 ``launch_work``'s bound and what bounds it, CWTM beside
+                 ``torch.sort`` over the same stack; each kernel's
+                 launches in the ``section7`` phase's replays, and the
+                 replay ms a round of ``section7_grid()`` (its rows alone
+                 summed, and the grid's 5 buckets) and of
+                 ``synthetic_sweep(1000)`` at N=100;
   tuner          ``max_lanes_per_device="auto"`` (``launch.tuner``, its
                  store a fresh file under ``build/chip_smoke``): (a)
                  ``synthetic_sweep(1000)`` at N=100, dim=100, 200 rounds in
@@ -206,7 +222,11 @@ and prints one JSON line per phase:
                  plain version's, a PyTorch library call's where one
                  computes the same function, and the least time the card
                  could take; ``median`` through the CWTM kernel bitwise
-                 against the plain version at N = 8, 41 and 100; plus its
+                 against the plain version at N = 8, 41 and 100; CWTM
+                 bitwise at N = 13 to 256 on 3 lanes (``CWTM_N``), and on a
+                 stack with NaN, +-inf and +-0 in its Byzantine rows at
+                 N = 8 and 100 (NaN at the same places, NaN sorted last);
+                 each kernel's ``main_shape`` rows; plus its
                  launches during the phases above, which must all be above
                  0 (``lm_launches``: those of the eight LM phases, counted
                  from 0 before them, where the encode, attack and CWTM
@@ -266,6 +286,13 @@ WIDE_N = 8
 PLAIN_Q = 1 << 26  # the plain versions are timed on this many coordinates
 CHECK_SHAPES = ((100, 100), (100, (1 << 20) + 37), (8, 1 << 20))  # (N, Q)
 MEDIAN_N = (8, 41, 100)  # the wide round's N, DRACO-d41's groups, the trainer's N
+# CWTM's N around each padded size of its sorting network (16 to 256 slots), held at 3 lanes of Q = 4097
+CWTM_N = (13, 41, 64, 65, 100, 128, 129, 256)
+MAIN_N, MAIN_Q = 100, 100  # Section VII's N and Q = dim
+MAIN_LANES = (1, 1000)  # one trajectory; synthetic_sweep(1000)'s lanes
+MAIN_D, MAIN_TRIM, MAIN_BYZ = 10, 10, 20  # LAD-d10's subsets a device, CWTM's int(0.1 N), NNM's b = N // 5
+MAIN_ITERS = 20
+L2_FLUSH_BYTES = 1 << 28  # written between timed launches: more than the card's 50 MB of L2
 RTOL, ATOL = 1e-5, 1e-6  # kernel against plain, as tests/test_torch_kernels.py
 TRAJECTORY_RTOL = 2e-6  # card against CPU over 200 rounds, as tests/test_torch_engine.py
 STEPS = 200
@@ -303,7 +330,7 @@ def ptxas_entries(log: str) -> list[dict]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce)_kernel)(?:ILi(\d+)E)?", mangled)
+            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide)_kernel)(?:ILi(\d+)E)?", mangled)
             name = mangled if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             entries.append({"entry": name})
         elif entries and "spill stores" in line:
@@ -377,7 +404,60 @@ def kernel_errors(ops, ref, quantize, agg) -> dict[str, float]:
         x = torch.randn((n, (1 << 16) + 37), generator=gen, device="cuda")
         hold_pairs(err, [("cwtm", agg.coordinate_median(x), ref.cwtm_ref(x, (n - 1) // 2), 0.0)],
                    f"median N={n}")
+    for n in CWTM_N:
+        x = torch.randn((3, n, 4097), generator=gen, device="cuda") * 3.0
+        table = random_table(gen, 3, n, n - n // 5)
+        pairs = []
+        for trim in sorted({0, n // 10, (n - 1) // 2}):
+            pairs += [("cwtm", ops.cwtm(x, trim), ref.cwtm_ref(x, trim), 0.0),
+                      ("cwtm", ops.cwtm(x, trim, table), ref.cwtm_ref(ref.nnm_mix_ref(x, table), trim), 0.0)]
+        hold_pairs(err, pairs, f"CWTM N={n} at 3 lanes")
+    for n in (8, MAIN_N):  # NaN, +-inf and +-0 in the Byzantine rows: NaN sorts last, as torch.sort puts it
+        x = special_stack(gen, n, MAIN_Q)
+        table = random_table(gen, 1, n, 2)[0]  # two rows a mix: most mixed values stay finite
+        for trim in sorted({1, max(1, n // 10)}):
+            for nb in (None, table):
+                got = ops.cwtm(x, trim, nb)
+                want = ref.cwtm_ref(x if nb is None else ref.nnm_mix_ref(x, nb), trim)
+                torch.cuda.synchronize()
+                check(same_with_nan(got, want),
+                      f"cwtm disagrees with its plain version on the NaN/inf/0 stack at N={n} trim={trim}"
+                      f"{'' if nb is None else ' with the mix'}")
+                nan = torch.isnan(want)
+                check(nb is not None or trim != 1 or (bool(nan[0]) and not bool(nan[1])),
+                      f"the NaN/inf/0 stack at N={n}: column 0 must come out NaN, column 1 not")
+                err["cwtm"] = max(err["cwtm"], float((got[~nan] - want[~nan]).abs().max()))
     return err
+
+
+def random_table(gen, lanes: int, n: int, k: int) -> torch.Tensor:
+    """(lanes, n, k) int32 neighbour tables: k distinct ids of [0, n) a row, ascending."""
+    pick = torch.rand((lanes, n, n), generator=gen, device="cuda").argsort(dim=-1)[..., :k]
+    return pick.sort(dim=-1).values.to(torch.int32).contiguous()
+
+
+def special_stack(gen, n: int, q: int) -> torch.Tensor:
+    """An (n, q) normal stack whose first max(2, n // 5) rows (the Byzantine
+    ones) carry NaN, NaN with its sign bit set, +inf, -inf, +0 or -0 in a
+    quarter of their entries; column 0 is NaN in all of them (a NaN
+    outlasts a trim of 1), column 1 a negative NaN in its first row alone
+    (a trim of 1 drops it: every NaN sorts last)."""
+    x = torch.randn((n, q), generator=gen, device="cuda")
+    byz = max(2, n // 5)
+    nan = math.copysign(math.nan, -1.0)
+    specials = torch.tensor([math.nan, nan, math.inf, -math.inf, 0.0, -0.0], device="cuda")
+    pick = torch.randint(0, 24, (byz, q), generator=gen, device="cuda")
+    x[:byz] = torch.where(pick < 6, specials[pick.clamp(max=5)], x[:byz])
+    x[:byz, :2] = torch.randn((byz, 2), generator=gen, device="cuda")
+    x[:byz, 0] = math.nan
+    x[0, :2] = nan
+    return x
+
+
+def same_with_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN at the same places, every other value equal (+0 equals -0)."""
+    nan = torch.isnan(want)
+    return got.shape == want.shape and torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
 
 
 def hold_pairs(err: dict[str, float], pairs, where: str) -> None:
@@ -540,6 +620,118 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     hold("coded_combine", ops.coded_combine(stack, cw)[:, q - PLAIN_Q:],
          ref.coded_combine_ref(stack[:, :, q - PLAIN_Q:].contiguous(), cw))
     return out
+
+
+def flushed_ms(fn, flush: torch.Tensor, iters: int = MAIN_ITERS) -> float:
+    """Median CUDA-event time of one call of ``fn`` after one warm-up call,
+    the L2 flushed (``flush`` written) before each; the card is kept busy
+    while the host enqueues the call, so the events time the card alone."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)  # about half a millisecond: more than a wrapper call takes to enqueue
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str, dict]:
+    """The trajectory kernels at the main path's shapes: N=100, Q=100, at 1
+    and 1000 lanes (a trajectory; ``synthetic_sweep(1000)``), the L2
+    flushed before every timed launch (``flushed_ms``). Per kernel and lane
+    count its ms, the plain version's, a library call's where one computes
+    the same function, and ``launch_work``'s bound and what bounds it; for
+    CWTM, with and without NNM's mix (b = N // 5: k = 80 neighbours, trim
+    10), and ``torch.sort`` over the same stack, which computes only the
+    sort: a yardstick, not ``library_ms``."""
+    n, q, d, trim = MAIN_N, MAIN_Q, MAIN_D, MAIN_TRIM
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    out = {name: {} for name in TRAJECTORY_KERNELS}
+
+    def row(name, lanes, kernel, plain, library, work, **extra):
+        nbytes, nops = work
+        bound_bytes, bound_ops = nbytes / hbm * 1e3, nops / fp32 * 1e3
+        out[name][f"L{lanes}"] = {
+            "ms": flushed_ms(kernel, flush), "plain_ms": flushed_ms(plain, flush),
+            "library_ms": None if library is None else flushed_ms(library, flush),
+            "bound_ms": max(bound_bytes, bound_ops), "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bytes": nbytes, "operations": nops, **extra}
+
+    for lanes in MAIN_LANES:
+        x = torch.randn((lanes, n, q), generator=gen, device="cuda")
+        rows = torch.arange(n, device="cuda")
+        subsets = ((rows[:, None] + torch.arange(d, device="cuda")) % n).expand(lanes, n, d).contiguous()
+        w = torch.full((d,), 1.0 / d, device="cuda")
+        mix = torch.zeros((n, n), device="cuda").index_put_(
+            (rows[:, None].expand(n, d), subsets[0]), w.expand(n, d), accumulate=True).expand(lanes, n, n).contiguous()
+        row("gather_combine", lanes, lambda: ops.gather_combine(x, subsets, w),
+            lambda: ref.gather_combine_ref(x, subsets, w), lambda: torch.bmm(mix, x),
+            ops.launch_work("gather_combine", lanes, n, q, d=d))
+        mask = (rows < MAIN_BYZ).float().expand(lanes, n).contiguous()
+        row("attack", lanes, lambda: ops.attack(x, mask, "alie", 1.5), lambda: ref.attack_ref(x, mask, "alie", 1.5),
+            None, ops.launch_work("attack", lanes, n, q),
+            sign_flip_ms=flushed_ms(lambda: ops.attack(x, mask, "sign_flip", -2.0), flush))
+        table = agg.nnm_neighbours(ops.pairwise_sqdist(x), MAIN_BYZ)
+        k = table.shape[-1]
+        row("cwtm", lanes, lambda: ops.cwtm(x, trim), lambda: ref.cwtm_ref(x, trim), None,
+            ops.launch_work("cwtm", lanes, n, q, trim=trim),
+            sort_ms=flushed_ms(lambda: torch.sort(x, dim=-2), flush))
+        mixed = {"trim": trim, "neighbours_k": k}
+        row("cwtm", f"{lanes}_mix", lambda: ops.cwtm(x, trim, table),
+            lambda: ref.cwtm_ref(ref.nnm_mix_ref(x, table), trim), None,
+            ops.launch_work("cwtm", lanes, n, q, trim=trim, k=k), **mixed)
+        row("gram", lanes, lambda: ops.gram(x), lambda: ref.gram_ref(x), lambda: torch.bmm(x, x.transpose(1, 2)),
+            ops.launch_work("gram", lanes, n, q))
+        g, u = x.reshape(lanes * n, q), torch.rand((lanes * n, q), generator=gen, device="cuda")
+        row("quantize", lanes, lambda: ops.stochastic_quantize(g, u, QUANT_LEVELS, QUANT_CHUNK),
+            lambda: quantize.plain(g, u, QUANT_LEVELS, min(QUANT_CHUNK, q)), None,
+            ops.launch_work("quantize", lanes * n, 1, q), levels=QUANT_LEVELS, chunk=min(QUANT_CHUNK, q))
+        del x, subsets, mix, mask, table, g, u
+    del flush
+    return out
+
+
+def section7_launches(section7_line: dict) -> dict[str, int]:
+    """Each kernel's launches over the ``section7`` phase's replays: the
+    captured round's launches times the rounds, summed over the 15 rows."""
+    out = {name: 0 for name in TRAJECTORY_KERNELS}
+    for captured in section7_line["captured_launches_per_round"].values():
+        for name in out:
+            out[name] += captured.get(name, 0) * section7_line["rounds"]
+    return out
+
+
+def grid_replays(S) -> dict[str, float]:
+    """Replay ms a round of ``section7_grid()`` (5 buckets) and of
+    ``synthetic_sweep(1000)`` at N=100, dim=100, each through ``run_grid``
+    in graph mode for 200 rounds, summed over the buckets: the grid phase's
+    ``section7`` and ``sweep1000_n100`` calls, without their bitwise checks."""
+    out = {}
+    for name, rows, dim in (("section7", S.section7_grid(), 100),
+                            ("sweep1000_n100", S.synthetic_sweep(1000, n_devices=100, n_byz=20), 100)):
+        res = S.run_grid(rows, STEPS, seed=0, dim=dim, device="cuda", mode="graph")
+        buckets = {id(res[r.name].grid): res[r.name].grid for r in rows}.values()
+        out[name] = sum(b.replay_ms() for b in buckets) / STEPS
+    return out
+
+
+def main_shape_line(timings: dict, section7_line: dict, grid_replay_ms: dict[str, float]) -> dict:
+    """The ``main_shape`` line: the timings, each kernel's launches in the
+    ``section7`` phase's replays, and the replay ms a round of
+    ``section7_grid()`` (its 15 rows alone, summed; and as 5 grid buckets)
+    and of ``synthetic_sweep(1000)`` at N=100."""
+    launches = section7_launches(section7_line)
+    return {"phase": "main_shape", "n": MAIN_N, "q": MAIN_Q, "lanes": list(MAIN_LANES), "l2_flushed": True,
+            "kernels": {name: {"section7_replayed_launches": launches[name], **t} for name, t in timings.items()},
+            "section7_rows_replay_ms_per_round_sum": sum(section7_line["replay_ms_per_round"].values()),
+            "grid_replay_ms_per_round": grid_replay_ms}
 
 
 # ---------------------------------------------------------------- trajectory
@@ -3681,7 +3873,12 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
     return out
 
 
-def main() -> int:
+def main(main_shape_only: bool = False) -> int:
+    """Every phase; with ``main_shape_only`` (``--main-shape``) only the
+    build, the ``ptxas`` line, the ``main_shape`` block with the
+    ``section7`` phase and the grid replays it reads, the kernels at the
+    wide shape (``kernel_timings``), and then the kernels against their
+    plain versions (``kernel_errors``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -3712,10 +3909,20 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "peak_hbm_bytes_per_s": hbm, "peak_fp32_flops": fp32})
     emit({"phase": "ptxas", **{name: ptxas_entries(_build.ptxas_log(name)) for name in ("gram", "cwtm")}})
+    if main_shape_only:
+        main_shape = main_shape_timings(ops, ref, quantize, aggregators, hbm, fp32)
+        line, _ = section7_phase(scenarios, {name: 0 for name in ops.KERNELS})
+        emit(line)
+        emit(main_shape_line(main_shape, line, grid_replays(scenarios)))
+        emit({"phase": "kernel_timings", **kernel_timings(ops, ref, quantize, aggregators, hbm, fp32)})
+        emit({"phase": "kernel_errors", "max_abs_err": kernel_errors(ops, ref, quantize, aggregators)})
+        print(smi, flush=True)
+        return 0
 
     ops.reset_launch_counts()
     errors = kernel_errors(ops, ref, quantize, aggregators)
     timings = kernel_timings(ops, ref, quantize, aggregators, hbm, fp32)
+    main_shape = main_shape_timings(ops, ref, quantize, aggregators, hbm, fp32)
     checked = ops.launch_counts()
     torch.cuda.empty_cache()
 
@@ -3723,10 +3930,14 @@ def main() -> int:
     replayed = {name: 0 for name in ops.KERNELS}  # launches of graph replays, which no counter sees
     line, trajectory = trajectory_phase(scenarios, byzantine, ops, linear_regression_problem)
     emit(line)
-    line, section7 = section7_phase(scenarios, replayed)
-    emit(line)
+    section7_line, section7 = section7_phase(scenarios, replayed)
+    emit(section7_line)
     emit(graph_phase(scenarios, replayed))
-    emit(grid_phase(scenarios, trajectory, section7, replayed))
+    grid = grid_phase(scenarios, trajectory, section7, replayed)
+    emit(grid)
+    emit(main_shape_line(main_shape, section7_line, {
+        name: sum(b["replay_ms_per_round"] for b in grid["calls"][name]["buckets"])
+        for name in ("section7", "sweep1000_n100")}))
     emit(tuner_phase(scenarios, engine, tuner, roofline, archs, ops, ROOT / "build" / "chip_smoke", replayed))
     emit(participation_phase(scenarios))
     linear = ops.launch_counts()
@@ -3827,7 +4038,8 @@ def main() -> int:
          "protomath_tp_launches": tp[name],
          "fleet_launches": fl[name],
          "graph_replay_launches": replayed[name],
-         "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name]}
+         "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name],
+         "main_shape": main_shape.get(name)}
         for name in TPU_KERNELS
     ]})
     print(smi, flush=True)
@@ -3838,4 +4050,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:  # one rank of the protomath_tp phase
         sys.exit(tp_rank(Path(sys.argv[2]), int(sys.argv[3])))
-    sys.exit(main())
+    sys.exit(main(main_shape_only=sys.argv[1:] == ["--main-shape"]))

@@ -11,16 +11,21 @@
 // folded in here, the mixed (L, N, Q) stack is never written nor read back.
 //
 // Bound on Hopper: bytes (one read of the stack, one write of the (L, Q)
-// result) as long as N is small; the sort's N^2 / 2 compare-exchanges per
-// coordinate run from shared memory and are the limit at N near 100.
+// result) at small N; the sort's compare-exchanges, integer min and max at
+// half the fp32 rate, at N near 100; the mix's N k adds when it is on.
+//
+// Order: values sort as jnp.sort and kernels/ref.py sort them, every NaN
+// last, whatever its sign. Each float becomes an ordered signed 32-bit key
+// (its bits, the lower 31 flipped if it is negative: a map that is its own
+// inverse; every NaN one key, 0x7FFFFFFE, above +inf's), and the network
+// orders keys with integer min and max, so a NaN is neither lost nor
+// doubled. -0 sorts before +0, which compare equal and sum alike.
 //
 // Arithmetic, term for term that of the plain versions (kernels/ref.py):
 //   mix   y_n = (sum over the ids j of row n of the table, in table order,
 //         which is ascending, of x_j) * (1 / k), the sum started from -0.0
 //         (the identity of IEEE addition, so it equals the sum started from
 //         the first term);
-//   sort  the same branch-free odd-even transposition network as the TPU
-//         kernel;
 //   mean  the kept rows [trim, N - trim) as the fixed binary tree of
 //         numerics.tree_sum (zero-padded to a power of two), times
 //         1 / (N - 2 trim).
@@ -32,25 +37,40 @@
 //     consecutive columns and loads one float4 per row; the block turns the
 //     lane's table into one N-bit mask per row in shared memory first, so
 //     the mix is N predicated adds per mixed value, with register indices
-//     fixed at compile time. The sort and the kept-row tree are unrolled
-//     for each N and each trim.
-//   * any N up to 256 (the trainer's N = 100): one thread per column, its
-//     values staged in dynamic shared memory laid out [n][thread] so that
-//     neighbouring threads hit neighbouring banks; the mixed values take a
-//     second [n][thread] region. At N = 100 the mixed launch needs 102.4 KB,
-//     above the 48 KB default, so the launch raises the kernel's dynamic
-//     shared memory limit first.
+//     fixed at compile time. An odd-even transposition network over the
+//     keys and the kept-row tree are unrolled for each N and each trim.
+//   * 13 <= N <= 128 (Section VII's N = 100, DRACO-d41's groups): one
+//     thread a column, its N keys in registers, padded to P = 16, 32, 64 or
+//     128 slots with a key above NaN's; Batcher's odd-even merge network on
+//     P slots (1,471 compare-exchanges at P = 128, kernels/cwtm.py::network
+//     lists them) unrolled at compile time; the kept slots shifted to the
+//     front by trim's bits (log2(P) - 1 fixed shifts, each taken or not) and
+//     summed as the tree whose levels are taken while they fit the kept
+//     count. Columns run over lanes x Q as one range, so a lane of Q = 100
+//     leaves no block idle. With the mix, the N originals are staged in
+//     dynamic shared memory laid out [n][thread] (neighbouring threads on
+//     neighbouring banks) and each mixed value is built into its register,
+//     four rows at a time.
+//   * 129 <= N <= 256: the same compare-exchanges on 256 slots, level by
+//     level in loops, with the keys in shared memory, [slot][thread], 64
+//     threads a block.
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;       // shared-memory path
 constexpr int kRegThreads = 256;    // register path
 constexpr int kCols = 4;            // columns a register-path thread owns
 constexpr int kRegMaxN = 12;
-constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
+constexpr int kNetThreads = 128;    // register network
+constexpr int kMixRows = 4;         // mixed values a network thread builds at once
+constexpr int kWideP = 256;         // shared-memory network: slots
+constexpr int kWideThreads = 64;
+constexpr int32_t kNanKey = 0x7FFFFFFE;  // every NaN: above +inf's 0x7F800000, itself a NaN's bits
+constexpr int32_t kPadKey = 0x7FFFFFFF;  // a padding slot: above every value
+constexpr int kNaNBits = 0x7fc00000;  // what a lane with a bad table comes out as
 
 __host__ __device__ constexpr int pow2_ceil(int v) {
   int p = 1;
@@ -58,16 +78,30 @@ __host__ __device__ constexpr int pow2_ceil(int v) {
   return p;
 }
 
-// The fixed tree over the kept rows [T, N - T) of each column, times inv_k.
+// The lower 31 bits flipped where the sign bit is set.
+__device__ __forceinline__ int32_t flip(int32_t b) { return b ^ ((b >> 31) & 0x7FFFFFFF); }
+
+__device__ __forceinline__ int32_t float_key(float f) { return isnan(f) ? kNanKey : flip(__float_as_int(f)); }
+
+__device__ __forceinline__ float key_float(int32_t k) { return __int_as_float(flip(k)); }
+
+__device__ __forceinline__ void order_keys(int32_t& a, int32_t& b) {
+  const int32_t lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+// The fixed tree over the kept rows [T, N - T) of each column of sorted
+// keys, times inv_k.
 template <int N, int T>
-__device__ __forceinline__ void kept_tree(const float (&v)[N][kCols], float inv_k, float (&r)[kCols]) {
+__device__ __forceinline__ void kept_tree(const int32_t (&v)[N][kCols], float inv_k, float (&r)[kCols]) {
   constexpr int kValid = N - 2 * T;
   constexpr int kLen = pow2_ceil(kValid);
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     float t[kLen];
 #pragma unroll
-    for (int i = 0; i < kLen; ++i) t[i] = i < kValid ? v[i < kValid ? T + i : 0][c] : 0.f;
+    for (int i = 0; i < kLen; ++i) t[i] = i < kValid ? key_float(v[i < kValid ? T + i : 0][c]) : 0.f;
 #pragma unroll
     for (int h = kLen / 2; h >= 1; h /= 2) {
 #pragma unroll
@@ -78,7 +112,7 @@ __device__ __forceinline__ void kept_tree(const float (&v)[N][kCols], float inv_
 }
 
 template <int N, int T = 0>
-__device__ __forceinline__ void trimmed_mean(const float (&v)[N][kCols], int trim, float inv_k,
+__device__ __forceinline__ void trimmed_mean(const int32_t (&v)[N][kCols], int trim, float inv_k,
                                              float (&r)[kCols]) {
   if constexpr (2 * T < N) {
     if (trim == T) {
@@ -163,25 +197,26 @@ cwtm_reg_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int
     }
   }
 
+  int32_t v[N][kCols];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) v[i][c] = float_key(x[i][c]);
+  }
 #pragma unroll
   for (int phase = 0; phase < N; ++phase) {
 #pragma unroll
     for (int i = phase & 1; i + 1 < N; i += 2) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float a = x[i][c];
-        const float b = x[i + 1][c];
-        x[i][c] = fminf(a, b);
-        x[i + 1][c] = fmaxf(a, b);
-      }
+      for (int c = 0; c < kCols; ++c) order_keys(v[i][c], v[i + 1][c]);
     }
   }
 
   float r[kCols];
-  trimmed_mean<N>(x, trim, inv_k, r);
+  trimmed_mean<N>(v, trim, inv_k, r);
   if (bad) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) r[c] = __int_as_float(0x7fc00000);
+    for (int c = 0; c < kCols; ++c) r[c] = __int_as_float(kNaNBits);
   }
   float* o = out + lane * q + c0;
   if (full) {
@@ -194,55 +229,213 @@ cwtm_reg_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int
   }
 }
 
-__global__ void cwtm_smem_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int k,
-                                 float inv_mix, float* __restrict__ out, int n, int64_t q, int trim,
-                                 float inv_k) {
-  extern __shared__ float col_vals[];  // [n][kThreads], then the mixed [n][kThreads]
-  const int t = threadIdx.x;
-  const int64_t lane = blockIdx.y;
-  const int* nb = nbr == nullptr ? nullptr : nbr + lane * n * k;
-  const bool bad = nb != nullptr && read_table(nb, n, k, nullptr);
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + t;
-  if (col >= q) return;  // every thread owns its own column: no block barrier below
-  const float* m = msgs + lane * static_cast<int64_t>(n) * q + col;
-  float* v = col_vals + t;  // v[i * kThreads] is row i of this column
-  for (int i = 0; i < n; ++i) v[i * kThreads] = m[static_cast<int64_t>(i) * q];
+// The lanes a block of `threads` columns from column `first` touches, of
+// `total` = lanes x q columns.
+__device__ __forceinline__ int lanes_touched(int64_t first, int threads, int64_t total, int64_t q) {
+  const int64_t last = (first + threads < total ? first + threads : total) - 1;
+  return static_cast<int>(last / q - first / q) + 1;
+}
 
-  if (nb != nullptr) {
-    float* y = v + n * kThreads;
-    for (int r = 0; r < n; ++r) {
-      float acc = -0.f;
-      if (!bad) {
-        for (int j = 0; j < k; ++j) acc = __fadd_rn(acc, v[nb[r * k + j] * kThreads]);
+// Sets bad[l] to 1, else 0, for each lane lane_lo + l (l < span) whose
+// (n, k) table has an id out of range or out of order. Every thread of the
+// block must call it.
+__device__ void check_tables(const int* __restrict__ nbr, int n, int k, int64_t lane_lo, int span,
+                             int* __restrict__ bad) {
+  for (int l = threadIdx.x; l < span; l += blockDim.x) bad[l] = 0;
+  __syncthreads();
+  const int per = n * k;
+  const int* nb = nbr + lane_lo * per;
+  for (int e = threadIdx.x; e < span * per; e += blockDim.x) {
+    const int id = nb[e];
+    if (id < 0 || id >= n || (e % k != 0 && id <= nb[e - 1])) bad[e / per] = 1;
+  }
+  __syncthreads();
+}
+
+// Batcher's odd-even merge of the slots Lo, Lo + R, Lo + 2R, ... up to Hi
+// (inclusive): the two interleaved halves merged, then neighbours ordered.
+template <int Lo, int Hi, int R, int P>
+__device__ __forceinline__ void odd_even_merge(int32_t (&v)[P]) {
+  constexpr int kStep = 2 * R;
+  if constexpr (kStep < Hi - Lo) {
+    odd_even_merge<Lo, Hi, kStep>(v);
+    odd_even_merge<Lo + R, Hi, kStep>(v);
+#pragma unroll
+    for (int i = Lo + R; i < Hi - R; i += kStep) order_keys(v[i], v[i + R]);
+  } else {
+    order_keys(v[Lo], v[Lo + R]);
+  }
+}
+
+// Batcher's odd-even merge sort of the slots [Lo, Hi], expanded at compile
+// time so that every register index is fixed (loops over shifted induction
+// variables are left rolled, and the array then lives in local memory);
+// kernels/cwtm.py::network lists its compare-exchanges in this order.
+template <int Lo, int Hi, int P>
+__device__ __forceinline__ void odd_even_merge_sort(int32_t (&v)[P]) {
+  if constexpr (Hi - Lo >= 1) {
+    constexpr int kMid = Lo + (Hi - Lo) / 2;
+    odd_even_merge_sort<Lo, kMid>(v);
+    odd_even_merge_sort<kMid + 1, Hi>(v);
+    odd_even_merge<Lo, Hi, 1>(v);
+  }
+}
+
+// Slot i takes slot i + trim, one power of two of trim (S and up) at a time.
+template <int P, int S = 1>
+__device__ __forceinline__ void shift_down(int32_t (&v)[P], int trim) {
+  if constexpr (S < P / 2) {  // 2 trim < n <= P: trim < P / 2
+    if (trim & S) {
+#pragma unroll
+      for (int i = 0; i < P - S; ++i) v[i] = v[i + S];
+    }
+    shift_down<P, 2 * S>(v, trim);
+  }
+}
+
+// The levels of the fixed tree of half-width H and below that fit a tree
+// of len leaves (a power of two).
+template <int P, int H = P / 2>
+__device__ __forceinline__ void tree_levels(float (&t)[P], int len) {
+  if constexpr (H >= 1) {
+    if (H < len) {
+#pragma unroll
+      for (int i = 0; i < H; ++i) t[i] = __fadd_rn(t[i], t[i + H]);
+    }
+    tree_levels<P, H / 2>(t, len);
+  }
+}
+
+// The fixed tree over the kept slots [trim, n - trim), times inv_k.
+template <int P>
+__device__ __forceinline__ float kept_mean(int32_t (&v)[P], int n, int trim, float inv_k) {
+  shift_down<P>(v, trim);
+  const int valid = n - 2 * trim;
+  float t[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) t[i] = i < valid ? key_float(v[i]) : 0.f;
+  tree_levels<P>(t, pow2_ceil(valid));
+  return __fmul_rn(t[0], inv_k);
+}
+
+template <int P>
+__global__ void __launch_bounds__(kNetThreads)
+cwtm_net_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int k, float inv_mix,
+                float* __restrict__ out, int64_t total, int n, int64_t q, int trim, float inv_k) {
+  extern __shared__ float staged[];  // with the mix: the originals, [n][kNetThreads]
+  __shared__ int bad[kNetThreads];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kNetThreads;
+  const int64_t lane_lo = first / q;
+  const bool mixing = nbr != nullptr;
+  if (mixing) check_tables(nbr, n, k, lane_lo, lanes_touched(first, kNetThreads, total, q), bad);
+  const int64_t c = first + threadIdx.x;
+  if (c >= total) return;  // every thread owns its own column: no block barrier below
+  const int64_t lane = c / q;
+  const float* m = msgs + lane * n * q + (c - lane * q);
+
+  int32_t v[P];
+  bool lane_bad = false;
+  if (!mixing) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = i < n ? float_key(__ldg(m + i * q)) : kPadKey;
+  } else {
+    lane_bad = bad[lane - lane_lo] != 0;
+    float* x = staged + threadIdx.x;  // x[j * kNetThreads] is row j of this column
+    for (int j = 0; j < n; ++j) x[j * kNetThreads] = __ldg(m + j * q);
+    const int* nb = nbr + lane * n * k;
+#pragma unroll
+    for (int r0 = 0; r0 < P; r0 += kMixRows) {
+      float acc[kMixRows];
+#pragma unroll
+      for (int s = 0; s < kMixRows; ++s) acc[s] = -0.f;
+      if (r0 < n && !lane_bad) {
+        for (int j = 0; j < k; ++j) {
+#pragma unroll
+          for (int s = 0; s < kMixRows; ++s) {
+            if (r0 + s < n) acc[s] = __fadd_rn(acc[s], x[__ldg(nb + (r0 + s) * k + j) * kNetThreads]);
+          }
+        }
       }
-      y[r * kThreads] = __fmul_rn(acc, inv_mix);
-    }
-    v = y;
-  }
-
-  for (int phase = 0; phase < n; ++phase) {
-    for (int i = phase & 1; i + 1 < n; i += 2) {
-      const float a = v[i * kThreads];
-      const float b = v[(i + 1) * kThreads];
-      v[i * kThreads] = fminf(a, b);
-      v[(i + 1) * kThreads] = fmaxf(a, b);
+#pragma unroll
+      for (int s = 0; s < kMixRows; ++s) v[r0 + s] = r0 + s < n ? float_key(__fmul_rn(acc[s], inv_mix)) : kPadKey;
     }
   }
 
-  // fixed-tree sum of the kept rows, in place
-  float* kept = v + trim * kThreads;
+  odd_even_merge_sort<0, P - 1>(v);
+  const float r = kept_mean<P>(v, n, trim, inv_k);
+  out[c] = lane_bad ? __int_as_float(kNaNBits) : r;
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+cwtm_wide_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int k, float inv_mix,
+                 float* __restrict__ out, int64_t total, int n, int64_t q, int trim, float inv_k) {
+  // the keys, [kWideP][kWideThreads]; with the mix then the originals, [n][kWideThreads]
+  extern __shared__ int32_t keys[];
+  __shared__ int bad[kWideThreads];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kWideThreads;
+  const int64_t lane_lo = first / q;
+  const bool mixing = nbr != nullptr;
+  if (mixing) check_tables(nbr, n, k, lane_lo, lanes_touched(first, kWideThreads, total, q), bad);
+  const int64_t c = first + threadIdx.x;
+  if (c >= total) return;
+  const int64_t lane = c / q;
+  const float* m = msgs + lane * n * q + (c - lane * q);
+  int32_t* v = keys + threadIdx.x;  // v[s * kWideThreads] is slot s of this column
+
+  bool lane_bad = false;
+  if (!mixing) {
+    for (int i = 0; i < kWideP; ++i) v[i * kWideThreads] = i < n ? float_key(__ldg(m + i * q)) : kPadKey;
+  } else {
+    lane_bad = bad[lane - lane_lo] != 0;
+    float* x = reinterpret_cast<float*>(keys + kWideP * kWideThreads) + threadIdx.x;
+    for (int j = 0; j < n; ++j) x[j * kWideThreads] = __ldg(m + j * q);
+    const int* nb = nbr + lane * n * k;
+    for (int r = 0; r < kWideP; ++r) {
+      float acc = -0.f;
+      if (r < n && !lane_bad) {
+        for (int j = 0; j < k; ++j) acc = __fadd_rn(acc, x[__ldg(nb + r * k + j) * kWideThreads]);
+      }
+      v[r * kWideThreads] = r < n ? float_key(__fmul_rn(acc, inv_mix)) : kPadKey;
+    }
+  }
+
+  // odd_even_merge_sort's compare-exchanges level by level, as loops: unrolled, the 3,839 of them
+  // let the compiler hold loads across the network and spill
+#pragma unroll 1
+  for (int p = 1, lg = 1; p < kWideP; p <<= 1, ++lg) {  // 2p = 1 << lg
+#pragma unroll 1
+    for (int kk = p; kk >= 1; kk >>= 1) {
+#pragma unroll 1
+      for (int j = kk % p; j + kk < kWideP; j += 2 * kk) {
+#pragma unroll 1
+        for (int i = 0; i < kk && i + j + kk < kWideP; ++i) {
+          if (((i + j) >> lg) == ((i + j + kk) >> lg)) {
+            int32_t a = v[(i + j) * kWideThreads];
+            int32_t b = v[(i + j + kk) * kWideThreads];
+            order_keys(a, b);
+            v[(i + j) * kWideThreads] = a;
+            v[(i + j + kk) * kWideThreads] = b;
+          }
+        }
+      }
+    }
+  }
+
+  // the kept slots as floats at the front, in place (slot i is read before it is written), then the tree
+  float* f = reinterpret_cast<float*>(v);
   int valid = n - 2 * trim;
+  for (int i = 0; i < valid; ++i) f[i * kWideThreads] = key_float(v[(trim + i) * kWideThreads]);
   int len = pow2_ceil(valid);
   while (len > 1) {
     const int h = len >> 1;
     for (int i = 0; i < h; ++i) {
-      const float hi = (i + h < valid) ? kept[(i + h) * kThreads] : 0.f;
-      kept[i * kThreads] = __fadd_rn(kept[i * kThreads], hi);
+      const float hi = (i + h < valid) ? f[(i + h) * kWideThreads] : 0.f;
+      f[i * kWideThreads] = __fadd_rn(f[i * kWideThreads], hi);
     }
     valid = h;
     len = h;
   }
-  out[lane * q + col] = bad ? __int_as_float(0x7fc00000) : __fmul_rn(kept[0], inv_k);
+  out[c] = lane_bad ? __int_as_float(kNaNBits) : __fmul_rn(f[0], inv_k);
 }
 
 template <int N>
@@ -254,13 +447,40 @@ cudaError_t launch_reg(const float* msgs, const int* nbr, int k, float inv_mix, 
   return cudaGetLastError();
 }
 
+// Launches `kernel` over lanes x q columns, `threads` a block, with `smem`
+// bytes of dynamic shared memory (its limit raised past the 48 KB default).
+template <typename Kernel>
+cudaError_t launch_columns(Kernel kernel, int threads, size_t smem, const float* msgs, const int* nbr, int k,
+                           float inv_mix, float* out, int lanes, int n, int64_t q, int trim, float inv_k,
+                           cudaStream_t s) {
+  const int64_t total = static_cast<int64_t>(lanes) * q;
+  const int64_t blocks = (total + threads - 1) / threads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(msgs, nbr, k, inv_mix, out, total, n, q, trim,
+                                                               inv_k);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_net(const float* msgs, const int* nbr, int k, float inv_mix, float* out, int lanes, int n,
+                       int64_t q, int trim, float inv_k, cudaStream_t s) {
+  const size_t smem = nbr == nullptr ? 0 : static_cast<size_t>(n) * kNetThreads * sizeof(float);
+  return launch_columns(cwtm_net_kernel<P>, kNetThreads, smem, msgs, nbr, k, inv_mix, out, lanes, n, q, trim,
+                        inv_k, s);
+}
+
 }  // namespace
 
 // nbr: null (no mix) or the (lanes, n, k) int32 neighbour table, its rows
 // strictly ascending; inv_mix = 1 / k.
 extern "C" int repro_cwtm(const void* msgs, const void* nbr, int k, float inv_mix, void* out,
                           int lanes, int n, int64_t q, int trim, float inv_k, void* stream) {
-  if (lanes <= 0 || n <= 0 || q <= 0 || trim < 0 || 2 * trim >= n ||
+  if (lanes <= 0 || n <= 0 || n > kWideP || q <= 0 || trim < 0 || 2 * trim >= n ||
       (nbr != nullptr && (k <= 0 || k > n))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -268,9 +488,9 @@ extern "C" int repro_cwtm(const void* msgs, const void* nbr, int k, float inv_mi
   const float* x = static_cast<const float*>(msgs);
   const int* nb = static_cast<const int*>(nbr);
   float* o = static_cast<float*>(out);
-  const bool vec = q % kCols == 0 && reinterpret_cast<uintptr_t>(msgs) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (n <= kRegMaxN && n >= 2) {
+    const bool vec = q % kCols == 0 && reinterpret_cast<uintptr_t>(msgs) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
     cudaError_t err = cudaSuccess;
     switch (n) {
 #define REPRO_CWTM_REG(N) \
@@ -284,14 +504,19 @@ extern "C" int repro_cwtm(const void* msgs, const void* nbr, int k, float inv_mi
     }
     return static_cast<int>(err);
   }
-  const size_t smem = static_cast<size_t>(nb == nullptr ? 1 : 2) * n * kThreads * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cwtm_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
+  if (n <= 16) {
+    err = launch_net<16>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
+  } else if (n <= 32) {
+    err = launch_net<32>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
+  } else if (n <= 64) {
+    err = launch_net<64>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
+  } else if (n <= 128) {
+    err = launch_net<128>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
+  } else {
+    const size_t smem = static_cast<size_t>(kWideP + (nb == nullptr ? 0 : n)) * kWideThreads * sizeof(float);
+    err = launch_columns(cwtm_wide_kernel, kWideThreads, smem, x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k,
+                         s);
   }
-  const dim3 grid(static_cast<unsigned>((q + kThreads - 1) / kThreads), static_cast<unsigned>(lanes));
-  cwtm_smem_kernel<<<grid, kThreads, smem, s>>>(x, nb, k, inv_mix, o, n, q, trim, inv_k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -1,28 +1,58 @@
 """Coordinate-wise trimmed mean on the card, optionally after the NNM mix:
 ``csrc/cwtm.cu``.
 
-Replaces ``src/repro/kernels/cwtm.py::cwtm_pallas_lanes``. The kernel is
-bound by bytes at small N and by its in-shared-memory sort at N near 100;
-it sorts each coordinate's N values with the TPU kernel's odd-even
-transposition network and sums the kept ones as the same fixed tree as the
-plain version, so kernel and ``plain`` agree bitwise. Given a neighbour
-table it first mixes each coordinate's values as ``nnm_mix_ref`` does, in
-the same pass: the server of CWTM-NNM reads the stack once and writes (Q,)
-once, and the mixed stack is never stored.
+Replaces ``src/repro/kernels/cwtm.py::cwtm_pallas_lanes``. Each value
+becomes an ordered 32-bit key, so the kernel sorts as ``jnp.sort`` and
+``cwtm_ref`` do, every NaN last. Up to N = 12 a thread sorts 4 columns in
+registers with an odd-even transposition network; from 13 to 128 a thread
+holds one column's keys in registers and sorts them with Batcher's
+odd-even merge network on ``pow2_ceil(N)`` slots (``network``), and from
+129 to 256 the same network runs on 256 slots in shared memory. The kept values are summed as
+the same fixed tree as the plain version, so kernel and ``plain`` agree
+bitwise. Given a neighbour table it first mixes each coordinate's values as
+``nnm_mix_ref`` does, in the same pass: the server of CWTM-NNM reads the
+stack once and writes (Q,) once, and the mixed stack is never stored.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import cwtm_ref, nnm_mix_ref
 
-__all__ = ["launch", "plain", "MAX_N", "MAX_N_MIXED"]
+__all__ = ["launch", "plain", "network", "MAX_N"]
 
-# 128 threads x N x 4 bytes of shared memory per block: N = 256 takes 128 KB;
-# the mix doubles it, and a block has at most 227 KB
+# with or without the mix: the shared-memory network's 256 slots, 64 threads
+# x 256 keys x 4 bytes a block (64 KB), and with the mix 64 KB more for the
+# originals
 MAX_N = 256
-MAX_N_MIXED = 227
+
+
+@functools.cache
+def network(slots: int) -> tuple[tuple[int, int], ...]:
+    """The compare-exchanges of Batcher's odd-even merge sort on ``slots``
+    (a power of two), in the order ``csrc/cwtm.cu``'s
+    ``odd_even_merge_sort`` runs them: after pair (a, b), slot a holds the
+    smaller key. 1,471 pairs on 128 slots."""
+
+    def merge(lo: int, hi: int, r: int):
+        if 2 * r < hi - lo:
+            yield from merge(lo, hi, 2 * r)
+            yield from merge(lo + r, hi, 2 * r)
+            yield from ((i, i + r) for i in range(lo + r, hi - r, 2 * r))
+        else:
+            yield lo, lo + r
+
+    def sort(lo: int, hi: int):
+        if hi - lo >= 1:
+            mid = lo + (hi - lo) // 2
+            yield from sort(lo, mid)
+            yield from sort(mid + 1, hi)
+            yield from merge(lo, hi, 1)
+
+    return tuple(sort(0, slots - 1))
 
 
 def plain(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) -> torch.Tensor:

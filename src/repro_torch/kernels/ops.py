@@ -114,13 +114,19 @@ def launch_work(name: str, lanes: int, rows: int, q: int, *, d: int = 0, trim: i
     and each output written once (index tables and weights not counted),
     and per coordinate the operations of the kernel's arithmetic. ``d`` is
     the encode's subsets per device; ``trim`` and ``k`` (0: no NNM mix) the
-    CWTM's trim and neighbours. ``quantize`` takes ``rows=1`` a lane."""
+    CWTM's trim and neighbours. ``quantize`` takes ``rows=1`` a lane.
+
+    CWTM's sort counts a min and a max for each compare-exchange of
+    Batcher's odd-even merge sort on ``pow2_ceil(rows)`` slots
+    (``cwtm.network``): the fewest compare-exchanges of the networks the
+    kernel may run, so the bound is the same work whichever of them runs."""
     per_lane = {
         # read the stack, write the coded stack; a product and an add per subset
         "gather_combine": (2 * rows * q, 2 * d * rows * q),
         "attack": (2 * rows * q, 8 * rows * q),
         # the mix (k adds and a product per value), the sort network, the kept-row tree and its product
-        "cwtm": (rows * q + q, (rows * (k + 1) if k else 0) + rows * (rows // 2) * 2 + (rows - 2 * trim) + 1),
+        "cwtm": (rows * q + q, (rows * (k + 1) if k else 0) + 2 * len(_cwtm.network(1 << (rows - 1).bit_length()))
+                 + (rows - 2 * trim) + 1),
         "gram": (rows * q + rows * rows + rows, 2 * (rows * rows + rows) * q),
         # read g and u, write the result; abs, max, two divisions, two products, floor, subtract, compare, add
         "quantize": (3 * rows * q, 10 * rows * q),
@@ -271,9 +277,8 @@ def cwtm(msgs: torch.Tensor, trim: int, neighbours: torch.Tensor | None = None) 
             raise ValueError(f"cwtm: neighbours {tuple(neighbours.shape)} vs msgs {tuple(msgs.shape)}")
         nb = neighbours.to(torch.int32).reshape(flat.shape[:2] + (k,)).contiguous()
     on_card = _on_card("cwtm", flat, *(() if nb is None else (nb,)))
-    max_n = _cwtm.MAX_N if nb is None else _cwtm.MAX_N_MIXED
-    if on_card and n > max_n:
-        raise ValueError(f"cwtm kernel takes N <= {max_n}{'' if nb is None else ' with neighbours'}, got {n}")
+    if on_card and n > _cwtm.MAX_N:
+        raise ValueError(f"cwtm kernel takes N <= {_cwtm.MAX_N}, got {n}")
     slices = _slices("cwtm", flat.shape[0], _MAX_GRID_Y, rows=n, q=flat.shape[-1], trim=trim,
                      k=0 if nb is None else nb.shape[-1])
     if not on_card:

@@ -74,9 +74,15 @@ def attack_ref(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) 
 
 
 def cwtm_ref(msgs: torch.Tensor, trim: int) -> torch.Tensor:
-    """Coordinate-wise trimmed mean. msgs: (..., N, Q) -> (..., Q)."""
+    """Coordinate-wise trimmed mean. msgs: (..., N, Q) -> (..., Q).
+
+    Every NaN sorts last, as ``jnp.sort`` and the CUDA kernel put it: each
+    NaN is made positive first, since ``torch.sort`` on a CUDA device sorts
+    a NaN whose sign bit is set first on a long enough axis (at N=100; the
+    CPU's last).
+    """
     n = msgs.shape[-2]
-    kept = torch.sort(msgs, dim=-2).values[..., trim : n - trim, :]
+    kept = torch.sort(torch.where(torch.isnan(msgs), torch.nan, msgs), dim=-2).values[..., trim : n - trim, :]
     return tree_sum(kept, dim=-2) * (1.0 / kept.shape[-2])
 
 

@@ -14,6 +14,11 @@ atol scaled by the largest squared row norm). The Gram must still be
 symmetric bit for bit, carry the row norms on its diagonal, and give the
 same bits on every run and in every lane of a batch.
 
+CWTM is bitwise its plain version on both sides of every padded size of
+its sorting network (N = 13 to 256, with and without the mix, at 1 and 3
+lanes), and orders NaN, +-inf and +-0 as ``torch.sort`` does, NaN last
+(NaN at the same places, every other value equal).
+
 The median through the CWTM kernel and DRACO's decode, masked and unmasked,
 are held to the same computations on the CPU bit for bit (elementwise fp32
 arithmetic and sorts give the same bits on both devices). A trajectory in
@@ -50,6 +55,7 @@ import dataclasses
 import functools
 import gc
 import importlib.util
+import math
 import socket
 import threading
 import time
@@ -226,6 +232,58 @@ def test_median_via_the_cwtm_kernel_is_bitwise_the_plain_version(card, n):
     got = coordinate_median(msgs)
     assert tops.launch_counts()["cwtm"] == before + 1
     torch.testing.assert_close(got, tref.cwtm_ref(msgs, (n - 1) // 2), rtol=0, atol=0)
+
+
+def _random_tables(gen, lanes, n, k):
+    """(lanes, n, k) int32 tables of k distinct ascending ids of [0, n) a row."""
+    pick = torch.rand((lanes, n, n), generator=gen, device=gen.device).argsort(dim=-1)[..., :k]
+    return pick.sort(dim=-1).values.to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 100, 4097])
+@pytest.mark.parametrize("n", [13, 41, 64, 65, 100, 128, 129, 256])
+def test_cwtm_at_every_network_size_is_bitwise_the_plain_version(card, n, q):
+    """Both sides of each padded size of the sorting network (16 to 256
+    slots) and the shared-memory path past 128, at 1 and 3 lanes (columns
+    that cross a lane's end inside a block), trim 0, floor(0.1 N) and
+    (N - 1) // 2, with and without the mix."""
+    for lanes in (1, 3):
+        msgs = torch.randn((lanes, n, q), generator=card, device="cuda") * 3
+        table = _random_tables(card, lanes, n, n - n // 5)
+        for trim in sorted({0, n // 10, (n - 1) // 2}):
+            torch.testing.assert_close(tops.cwtm(msgs, trim), tref.cwtm_ref(msgs, trim), rtol=0, atol=0)
+            torch.testing.assert_close(tops.cwtm(msgs, trim, table), tcwtm.plain(msgs, trim, table),
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 100])
+def test_cwtm_sorts_nan_last_as_the_plain_version(card, n):
+    """NaN (either sign), +inf, -inf, +0 and -0 in the Byzantine rows: the
+    kernel orders them as ``torch.sort`` does (NaN last), so a NaN inside the trim is
+    dropped and one past it comes out NaN, with and without the mix. NaN at
+    the same places, every other value equal (+0 equals -0)."""
+    lanes, q, byz = 3, 1000, max(2, n // 5)
+    msgs = torch.randn((lanes, n, q), generator=card, device="cuda")
+    nan = math.copysign(math.nan, -1.0)  # a NaN with its sign bit set sorts last too
+    specials = torch.tensor([math.nan, nan, math.inf, -math.inf, 0.0, -0.0], device="cuda")
+    pick = torch.randint(0, 24, (lanes, byz, q), generator=card, device="cuda")  # a quarter of the entries
+    msgs[:, :byz] = torch.where(pick < 6, specials[pick.clamp(max=5)], msgs[:, :byz])
+    msgs[:, :byz, 0] = math.nan  # NaN in every Byzantine row: one outlasts a trim of 1
+    msgs[:, 0, 0] = nan
+    table = _random_tables(card, lanes, n, 2)  # two rows a mix: most mixed values stay finite
+    for trim in sorted({1, max(1, n // 10)}):
+        for nb in (None, table):
+            got = tops.cwtm(msgs, trim, nb)
+            want = tcwtm.plain(msgs, trim, nb)
+            on_cpu = tcwtm.plain(msgs.cpu(), trim, None if nb is None else nb.cpu())
+            assert torch.equal(torch.isnan(want).cpu(), torch.isnan(on_cpu))  # the plain version on both devices
+            nan = torch.isnan(want)
+            if trim == 1 and nb is None:  # two NaN in a column outlast a trim of 1
+                assert 0 < int(nan.sum()) < nan.numel()
+            assert torch.equal(torch.isnan(got), nan)
+            assert torch.equal(got[~nan], want[~nan])
 
 
 # (N, d, mask): DRACO-d41's two groups of 41, the grid's groups of 4, partial and empty groups
