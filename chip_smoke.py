@@ -3,15 +3,22 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --main-shape   # device, ptxas, main_shape, the kernels' timings and checks only
+    python3 chip_smoke.py --main-shape --parent DIR   # also time the encode and attack of DIR's sources
+
+With ``--parent DIR`` (DIR holding an earlier tree's ``gather_combine.cu``
+and ``attack.cu``, e.g. from ``git show <commit>:src/repro_torch/csrc/...``,
+each with the C entry it had then), those two sources are built as the port
+builds its own and timed beside the tree's kernels in ``main_shape`` and
+at the wide shape (``parent_ms``); without it ``parent_ms`` is null.
 
 Builds the CUDA kernels of the protocol round from ``src/repro_torch/csrc``
 and prints one JSON line per phase:
 
   device         the card, its power limit and the kernel build time;
-  ptxas          registers and spills of every Gram and CWTM kernel entry,
-                 as ``nvcc -Xptxas -v`` reported them when they were built
-                 (CWTM: ``cwtm_reg_kernel<N>`` for N <= 12,
-                 ``cwtm_net_kernel<P>`` for P = 16 to 128 slots,
+  ptxas          registers and spills of every Gram, CWTM, encode and
+                 attack kernel entry, as ``nvcc -Xptxas -v`` reported them
+                 when they were built (CWTM: ``cwtm_reg_kernel<N>`` for
+                 N <= 12, ``cwtm_net_kernel<P>`` for P = 16 to 128 slots,
                  ``cwtm_wide_kernel`` past 128);
   trajectory     the paper's Section-VII trainer on the card (N=100,
                  dim=100, 200 rounds) for every Fig. 4 row (DRACO-d41 at
@@ -45,9 +52,11 @@ and prints one JSON line per phase:
                  the sweeps, lanes x rounds a second;
   main_shape     the trajectory kernels (encode at d=10, ALIE and
                  sign-flip, CWTM with and without NNM's mix at trim 10 and
-                 k = 80, the Gram, QSGD at quant:4's levels) at N=100,
-                 Q=100 and 1 and 1000 lanes, the L2 flushed before each
-                 timed launch: CUDA-event ms, the plain version's, a
+                 k = 80, the Gram, QSGD at quant:4's levels) and the
+                 erasure decode's ``masked_combine`` at N=100, Q=100 and 1
+                 and 1000 lanes, the L2 flushed before each timed launch:
+                 CUDA-event ms (the encode's and the attack's beside the
+                 ``--parent`` tree's), the plain version's, a
                  library call's where one computes the function,
                  ``launch_work``'s bound and what bounds it, CWTM beside
                  ``torch.sort`` over the same stack; each kernel's
@@ -307,7 +316,8 @@ TPU_KERNELS = {
     "coded_combine": ("src/repro_torch/csrc/row_combine.cu", "src/repro/kernels/coded_combine.py:30"),
 }
 OFF_PATH = ("coded_combine",)  # no path of the reference runs it: checked in the kernels phase
-BITWISE = ("cwtm", "quantize", "masked_combine", "coded_combine")  # held to their plain versions bit for bit
+BITWISE = ("gather_combine", "attack", "cwtm", "quantize", "masked_combine",
+           "coded_combine")  # held to their plain versions bit for bit
 QUANT_LEVELS, QUANT_CHUNK = 4, 1024
 
 
@@ -330,7 +340,8 @@ def ptxas_entries(log: str) -> list[dict]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide)_kernel)(?:ILi(\d+)E)?", mangled)
+            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide)_kernel|gather_(?:tile|rows)_kernel|"
+                          r"stats_kernel|sign_flip_kernel)(?:ILi(\d+)E)?", mangled)
             name = mangled if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             entries.append({"entry": name})
         elif entries and "spill stores" in line:
@@ -472,7 +483,8 @@ def hold_pairs(err: dict[str, float], pairs, where: str) -> None:
         err[name] = max(err[name], float((got - want).abs().max()))
 
 
-def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str, dict]:
+def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
+                   parent: ParentKernels | None = None) -> dict[str, dict]:
     """Kernel, plain and library times at the wide shape (N=8, Q=WIDE_Q),
     the least time the card could take, and each kernel's agreement with its
     plain version at that shape.
@@ -485,7 +497,10 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     columns, and QSGD on a window that starts on a block boundary and ends
     in the rows' ragged last block. Raises past the tolerance of
     ``kernel_errors``. The bound is the bytes and operations of
-    ``ops.launch_work`` at the wide shape."""
+    ``ops.launch_work`` at the wide shape. With ``parent``, the encode's and
+    the attack's (ALIE, sign-flip) ``parent_ms`` are the parent tree's
+    kernels timed right after the tree's, and ``ms_after_parent`` the
+    tree's again after them."""
     n, q = WIDE_N, WIDE_Q
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((n, q), generator=gen, device="cuda")
@@ -530,6 +545,11 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
           ops.launch_work("gather_combine", 1, n, q, d=2))
     hold("gather_combine", ops.gather_combine(x, subsets, w)[:, q - PLAIN_Q:],
          ref.gather_combine_ref(tail, subsets, w))
+    if parent is not None:
+        old_out = torch.empty_like(x)
+        ids, wl = subsets[None].to(torch.int32), w[None].contiguous()
+        out["gather_combine"]["parent_ms"] = time_ms(lambda: parent.gather_combine(x[None], ids, wl, old_out[None]))
+        out["gather_combine"]["ms_after_parent"] = time_ms(lambda: ops.gather_combine(x, subsets, w))
 
     modes = (("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5))
     by_mode = {name: time_ms(lambda: ops.attack(x, mask, name, param)) for name, param in modes}
@@ -538,6 +558,14 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
           time_ms(lambda: ref.attack_ref(xp, mask, "alie", 1.5)),
           None, ops.launch_work("attack", 1, n, q))
     out["attack"]["ms_by_mode"] = by_mode
+    if parent is not None:
+        out["attack"]["parent_ms_by_mode"] = {
+            name: time_ms(lambda: parent.attack(x[None], mask[None], name, param, old_out[None]))
+            for name, param in modes[:2]}
+        out["attack"]["parent_ms"] = out["attack"]["parent_ms_by_mode"]["alie"]
+        out["attack"]["ms_after_parent_by_mode"] = {name: time_ms(lambda: ops.attack(x, mask, name, param))
+                                                    for name, param in modes[:2]}
+        del old_out
     for name, param in modes:
         hold("attack", ops.attack(x, mask, name, param)[:, q - PLAIN_Q:],
              ref.attack_ref(tail, mask, name, param))
@@ -622,6 +650,66 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str
     return out
 
 
+PARENT_GRID_Y = 65535  # the parent kernels' grids hold their lanes (and the encode's devices) on y
+
+
+class ParentKernels:
+    """An earlier tree's encode and attack (``--parent DIR``), built from
+    DIR's ``gather_combine.cu`` and ``attack.cu`` with the port's nvcc flags
+    and called through the C entries they had then, with the lane slices
+    its wrappers made: the encode ``65535 // N`` lanes a launch, the attack
+    65535. Timed beside the tree's kernels; used nowhere else."""
+
+    SIGNATURES = {"gather_combine": ("repro_gather_combine", ("p", "p", "p", "p", "i", "i", "i", "q", "p")),
+                  "attack": ("repro_attack", ("p", "p", "p", "i", "i", "q", "i", "f", "p"))}
+    MODES = {"sign_flip": 0, "alie": 1, "ipm": 2}
+
+    def __init__(self, src_dir: Path, build):
+        import ctypes
+
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64, "f": ctypes.c_float}
+        out_dir = ROOT / "build" / "chip_smoke" / "parent"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        build.build_all()  # the tree's own kernels first: the parent's nvcc runs beside nothing else
+        procs = {name: subprocess.Popen([build._nvcc(), *build._FLAGS, "-o", str(out_dir / f"lib{name}.so"),
+                                         str(Path(src_dir) / f"{name}.cu")],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for name in self.SIGNATURES}
+        self.fns, self.ptxas = {}, {}
+        for name, proc in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"the parent's {name}.cu did not build:\n{log}")
+            self.ptxas[name] = log
+            symbol, argtypes = self.SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), symbol)
+            fn.argtypes = [types[t] for t in argtypes]
+            fn.restype = ctypes.c_int
+            self.fns[name] = fn
+
+    def gather_combine(self, x: torch.Tensor, subsets: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
+        """x (L, N, Q), subsets (L, N, d) int32, w (L, d), out (L, N, Q)."""
+        lanes, n, q = x.shape
+        per = max(1, PARENT_GRID_Y // n)
+        stream = torch.cuda.current_stream().cuda_stream
+        for a in range(0, lanes, per):
+            b = min(lanes, a + per)
+            err = self.fns["gather_combine"](x[a:b].data_ptr(), subsets[a:b].data_ptr(), w[a:b].data_ptr(),
+                                             out[a:b].data_ptr(), b - a, n, subsets.shape[-1], q, stream)
+            check(err == 0, f"the parent's gather_combine failed: CUDA error {err}")
+        return out
+
+    def attack(self, x: torch.Tensor, mask: torch.Tensor, name: str, param: float, out: torch.Tensor):
+        """x (L, N, Q), mask (L, N), out (L, N, Q)."""
+        lanes, n, q = x.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        for a in range(0, lanes, PARENT_GRID_Y):
+            b = min(lanes, a + PARENT_GRID_Y)
+            err = self.fns["attack"](x[a:b].data_ptr(), mask[a:b].data_ptr(), out[a:b].data_ptr(), b - a, n, q,
+                                     self.MODES[name], float(param), stream)
+            check(err == 0, f"the parent's attack failed: CUDA error {err}")
+        return out
+
+
 def flushed_ms(fn, flush: torch.Tensor, iters: int = MAIN_ITERS) -> float:
     """Median CUDA-event time of one call of ``fn`` after one warm-up call,
     the L2 flushed (``flush`` written) before each; the card is kept busy
@@ -641,25 +729,39 @@ def flushed_ms(fn, flush: torch.Tensor, iters: int = MAIN_ITERS) -> float:
     return statistics.median(times)
 
 
-def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict[str, dict]:
-    """The trajectory kernels at the main path's shapes: N=100, Q=100, at 1
-    and 1000 lanes (a trajectory; ``synthetic_sweep(1000)``), the L2
-    flushed before every timed launch (``flushed_ms``). Per kernel and lane
-    count its ms, the plain version's, a library call's where one computes
-    the same function, and ``launch_work``'s bound and what bounds it; for
-    CWTM, with and without NNM's mix (b = N // 5: k = 80 neighbours, trim
-    10), and ``torch.sort`` over the same stack, which computes only the
-    sort: a yardstick, not ``library_ms``."""
+def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
+                       parent: ParentKernels | None = None) -> dict[str, dict]:
+    """The trajectory kernels and the erasure decode's ``masked_combine`` at
+    the main path's shapes: N=100, Q=100, at 1 and 1000 lanes (a
+    trajectory; ``synthetic_sweep(1000)``), the L2 flushed before every
+    timed launch (``flushed_ms``). Per kernel and lane count its ms, the
+    plain version's, a library call's where one computes the same function,
+    and ``launch_work``'s bound and what bounds it; the encode's and the
+    attack's beside the ``parent`` tree's kernels (``parent_ms``: timed
+    parent, kernel, kernel, parent; ``ms`` and ``parent_ms`` each the
+    smaller median of its two runs); for CWTM, with and without NNM's mix
+    (b = N // 5: k = 80 neighbours, trim 10), and ``torch.sort`` over the
+    same stack, which computes only the sort: a yardstick, not
+    ``library_ms``."""
     n, q, d, trim = MAIN_N, MAIN_Q, MAIN_D, MAIN_TRIM
     gen = torch.Generator(device="cuda").manual_seed(2)
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
-    out = {name: {} for name in TRAJECTORY_KERNELS}
+    out = {name: {} for name in MAIN_SHAPE_KERNELS}
 
-    def row(name, lanes, kernel, plain, library, work, **extra):
+    def paired(kernel, old):
+        """(ms, parent ms): parent, kernel, kernel, parent."""
+        if old is None:
+            return flushed_ms(kernel, flush), None
+        first = flushed_ms(old, flush)
+        ms = min(flushed_ms(kernel, flush), flushed_ms(kernel, flush))
+        return ms, min(first, flushed_ms(old, flush))
+
+    def row(name, lanes, kernel, plain, library, work, old=None, **extra):
         nbytes, nops = work
         bound_bytes, bound_ops = nbytes / hbm * 1e3, nops / fp32 * 1e3
+        ms, parent_ms = paired(kernel, old)
         out[name][f"L{lanes}"] = {
-            "ms": flushed_ms(kernel, flush), "plain_ms": flushed_ms(plain, flush),
+            "ms": ms, "parent_ms": parent_ms, "plain_ms": flushed_ms(plain, flush),
             "library_ms": None if library is None else flushed_ms(library, flush),
             "bound_ms": max(bound_bytes, bound_ops), "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "bytes": nbytes, "operations": nops, **extra}
@@ -671,13 +773,26 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict
         w = torch.full((d,), 1.0 / d, device="cuda")
         mix = torch.zeros((n, n), device="cuda").index_put_(
             (rows[:, None].expand(n, d), subsets[0]), w.expand(n, d), accumulate=True).expand(lanes, n, n).contiguous()
+        old_out = torch.empty_like(x)
+        # the parent as its wrapper ran it: the ids to int32 and the weights to (L, d) in the timed call
         row("gather_combine", lanes, lambda: ops.gather_combine(x, subsets, w),
             lambda: ref.gather_combine_ref(x, subsets, w), lambda: torch.bmm(mix, x),
-            ops.launch_work("gather_combine", lanes, n, q, d=d))
+            ops.launch_work("gather_combine", lanes, n, q, d=d),
+            old=None if parent is None else (lambda: parent.gather_combine(
+                x, subsets.to(torch.int32), w.expand(lanes, d).contiguous(), old_out)))
         mask = (rows < MAIN_BYZ).float().expand(lanes, n).contiguous()
+        flip_ms, flip_parent_ms = paired(
+            lambda: ops.attack(x, mask, "sign_flip", -2.0),
+            None if parent is None else (lambda: parent.attack(x, mask, "sign_flip", -2.0, old_out)))
         row("attack", lanes, lambda: ops.attack(x, mask, "alie", 1.5), lambda: ref.attack_ref(x, mask, "alie", 1.5),
             None, ops.launch_work("attack", lanes, n, q),
-            sign_flip_ms=flushed_ms(lambda: ops.attack(x, mask, "sign_flip", -2.0), flush))
+            old=None if parent is None else (lambda: parent.attack(x, mask, "alie", 1.5, old_out)),
+            sign_flip_ms=flip_ms, sign_flip_parent_ms=flip_parent_ms)
+        # the erasure decode's weights: a mask times a class selection, exact zeros on most rows
+        rw = ((torch.rand((lanes, n), generator=gen, device="cuda") < 0.5)
+              * torch.rand((lanes, n), generator=gen, device="cuda"))
+        row("masked_combine", lanes, lambda: ops.masked_combine(x, rw), lambda: ref.masked_combine_ref(x, rw),
+            lambda: torch.bmm(rw[:, None, :], x), ops.launch_work("masked_combine", lanes, n, q))
         table = agg.nnm_neighbours(ops.pairwise_sqdist(x), MAIN_BYZ)
         k = table.shape[-1]
         row("cwtm", lanes, lambda: ops.cwtm(x, trim), lambda: ref.cwtm_ref(x, trim), None,
@@ -693,7 +808,7 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict
         row("quantize", lanes, lambda: ops.stochastic_quantize(g, u, QUANT_LEVELS, QUANT_CHUNK),
             lambda: quantize.plain(g, u, QUANT_LEVELS, min(QUANT_CHUNK, q)), None,
             ops.launch_work("quantize", lanes * n, 1, q), levels=QUANT_LEVELS, chunk=min(QUANT_CHUNK, q))
-        del x, subsets, mix, mask, table, g, u
+        del x, subsets, mix, mask, table, g, u, old_out, rw
     del flush
     return out
 
@@ -701,7 +816,7 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float) -> dict
 def section7_launches(section7_line: dict) -> dict[str, int]:
     """Each kernel's launches over the ``section7`` phase's replays: the
     captured round's launches times the rounds, summed over the 15 rows."""
-    out = {name: 0 for name in TRAJECTORY_KERNELS}
+    out = {name: 0 for name in MAIN_SHAPE_KERNELS}
     for captured in section7_line["captured_launches_per_round"].values():
         for name in out:
             out[name] += captured.get(name, 0) * section7_line["rounds"]
@@ -738,6 +853,7 @@ def main_shape_line(timings: dict, section7_line: dict, grid_replay_ms: dict[str
 
 
 TRAJECTORY_KERNELS = ("gather_combine", "attack", "cwtm", "gram", "quantize")  # what the trainer rows reach
+MAIN_SHAPE_KERNELS = TRAJECTORY_KERNELS + ("masked_combine",)  # and the erasure decode's, timed in main_shape
 
 
 def trajectory_phase(S, byz, ops, gen_problem) -> tuple[dict, dict]:
@@ -3873,12 +3989,14 @@ def wide_round_phase(byz, attacks, compression, participation, agg, ops, numeric
     return out
 
 
-def main(main_shape_only: bool = False) -> int:
+def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
     """Every phase; with ``main_shape_only`` (``--main-shape``) only the
     build, the ``ptxas`` line, the ``main_shape`` block with the
     ``section7`` phase and the grid replays it reads, the kernels at the
     wide shape (``kernel_timings``), and then the kernels against their
-    plain versions (``kernel_errors``)."""
+    plain versions (``kernel_errors``). With ``parent_dir`` (``--parent
+    DIR``) the encode and the attack of DIR's sources are timed beside the
+    tree's (``ParentKernels``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -3908,21 +4026,27 @@ def main(main_shape_only: bool = False) -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "peak_hbm_bytes_per_s": hbm, "peak_fp32_flops": fp32})
-    emit({"phase": "ptxas", **{name: ptxas_entries(_build.ptxas_log(name)) for name in ("gram", "cwtm")}})
+    emit({"phase": "ptxas", **{name: ptxas_entries(_build.ptxas_log(name))
+                               for name in ("gram", "cwtm", "gather_combine", "attack")}})
+    parent = None
+    if parent_dir is not None:
+        parent = ParentKernels(parent_dir, _build)
+        emit({"phase": "ptxas_parent", "dir": str(parent_dir),
+              **{name: ptxas_entries(log) for name, log in parent.ptxas.items()}})
     if main_shape_only:
-        main_shape = main_shape_timings(ops, ref, quantize, aggregators, hbm, fp32)
+        main_shape = main_shape_timings(ops, ref, quantize, aggregators, hbm, fp32, parent)
         line, _ = section7_phase(scenarios, {name: 0 for name in ops.KERNELS})
         emit(line)
         emit(main_shape_line(main_shape, line, grid_replays(scenarios)))
-        emit({"phase": "kernel_timings", **kernel_timings(ops, ref, quantize, aggregators, hbm, fp32)})
+        emit({"phase": "kernel_timings", **kernel_timings(ops, ref, quantize, aggregators, hbm, fp32, parent)})
         emit({"phase": "kernel_errors", "max_abs_err": kernel_errors(ops, ref, quantize, aggregators)})
         print(smi, flush=True)
         return 0
 
     ops.reset_launch_counts()
     errors = kernel_errors(ops, ref, quantize, aggregators)
-    timings = kernel_timings(ops, ref, quantize, aggregators, hbm, fp32)
-    main_shape = main_shape_timings(ops, ref, quantize, aggregators, hbm, fp32)
+    timings = kernel_timings(ops, ref, quantize, aggregators, hbm, fp32, parent)
+    main_shape = main_shape_timings(ops, ref, quantize, aggregators, hbm, fp32, parent)
     checked = ops.launch_counts()
     torch.cuda.empty_cache()
 
@@ -4050,4 +4174,10 @@ def main(main_shape_only: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:  # one rank of the protomath_tp phase
         sys.exit(tp_rank(Path(sys.argv[2]), int(sys.argv[3])))
-    sys.exit(main(main_shape_only=sys.argv[1:] == ["--main-shape"]))
+    args = sys.argv[1:]
+    parent_arg = None
+    if args[-2:-1] == ["--parent"]:
+        parent_arg, args = Path(args[-1]).resolve(), args[:-2]
+    if args not in ([], ["--main-shape"]):
+        sys.exit(f"usage: {sys.argv[0]} [--main-shape] [--parent DIR]")
+    sys.exit(main(main_shape_only=args == ["--main-shape"], parent_dir=parent_arg))

@@ -37,7 +37,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.coded_combine import MAX_ROWS
 from repro_torch.kernels.ref import nnm_mix_ref
-from repro_torch.numerics import tree_sum, tree_sum_
+from repro_torch.numerics import nan_last, tree_sum, tree_sum_
 
 Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
@@ -80,10 +80,10 @@ def coordinate_median(msgs: torch.Tensor) -> torch.Tensor:
 
 
 def _vector_median(v: torch.Tensor) -> torch.Tensor:
-    """Median along the last axis of (..., N): sort, then the mean of the
-    middle pair."""
+    """Median along the last axis of (..., N): sort (every NaN last), then
+    the mean of the middle pair."""
     n = v.shape[-1]
-    srt = torch.sort(v, dim=-1).values
+    srt = torch.sort(nan_last(v), dim=-1).values
     return (srt[..., (n - 1) // 2] + srt[..., n // 2]) * 0.5
 
 
@@ -111,8 +111,8 @@ def geometric_median(msgs: torch.Tensor, iters: int = 8, eps: float = 1e-8) -> t
 
 def _smallest(values: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the ``k`` smallest entries along the last axis, ties to the
-    lower index."""
-    return torch.sort(values, dim=-1, stable=True).indices[..., :k]
+    lower index, every NaN last."""
+    return torch.sort(nan_last(values), dim=-1, stable=True).indices[..., :k]
 
 
 def _rows(msgs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -143,7 +143,7 @@ def krum_scores(msgs: torch.Tensor, n_byz: int) -> torch.Tensor:
     k = max(n - n_byz - 2, 1)
     d2 = kernel_ops.pairwise_sqdist(msgs)
     d2 = torch.where(torch.eye(n, dtype=torch.bool, device=d2.device), torch.inf, d2)
-    return _sum_last(torch.sort(d2, dim=-1).values[..., :k])
+    return _sum_last(torch.sort(nan_last(d2), dim=-1).values[..., :k])
 
 
 def krum(msgs: torch.Tensor, n_byz: int | None = None) -> torch.Tensor:

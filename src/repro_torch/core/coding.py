@@ -19,7 +19,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.core.aggregators import coordinate_median
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.numerics import stable_mean0, tree_sum
+from repro_torch.numerics import nan_last, stable_mean0, tree_sum
 
 __all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode", "flatten_pytree",
            "unflatten_pytree", "tree_spec"]
@@ -87,7 +87,7 @@ def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | N
 
     With ``mask`` (``(..., N)`` 0/1, 1 = the device reported) a group's median
     runs over its reporting members: erased rows are pushed to ``+inf``,
-    sorted last, and the median is the mean of the positions ``(k - 1) // 2``
+    sorted last (before every NaN, as ``jnp.sort`` puts them), and the median is the mean of the positions ``(k - 1) // 2``
     and ``k // 2`` of the ``k`` reporting values. A full group takes the
     kernel's median, a group with no reporting member is left out (with a
     select: its median is ``inf``), and the decode is the mean over the
@@ -115,7 +115,7 @@ def draco_decode(messages: torch.Tensor, group_size: int, mask: torch.Tensor | N
         return legacy
     gmask = mask.to(torch.float32).reshape(lead + (n_groups, group_size))
     k = tree_sum(gmask, dim=-1)  # reporting members per group
-    ordered = torch.sort(torch.where(gmask[..., None] > 0.0, grouped, torch.inf), dim=-2).values
+    ordered = torch.sort(torch.where(gmask[..., None] > 0.0, nan_last(grouped), torch.inf), dim=-2).values
     ki = torch.clamp_min(k.to(torch.int64), 1)[..., None, None].expand(lead + (n_groups, 1, q))
     lo = torch.gather(ordered, -2, (ki - 1) // 2)
     hi = torch.gather(ordered, -2, ki // 2)

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch/`` at the repository root; the libraries load through
 ``ctypes``. All sources compile in parallel on first use, one ``nvcc``
-each. A library's file name carries the hash of its source and the flags,
-so a changed source builds again and an unchanged one is loaded as it is.
+each. A library's file name carries the hash of its source, of the shared
+headers (``csrc/*.cuh``) and of the flags, so a changed source or header
+builds again and an unchanged one is loaded as it is.
 What ``ptxas -v`` said of each (registers, spills) is kept beside it.
 
 Nothing here runs at import: importing the package needs no ``nvcc`` and no
@@ -36,8 +37,8 @@ _F = ctypes.c_float
 
 # source name -> (C entry point, argtypes); every entry returns cudaGetLastError()
 _SIGNATURES = {
-    "gather_combine": ("repro_gather_combine", (_P, _P, _P, _P, _I, _I, _I, _I64, _P)),
-    "attack": ("repro_attack", (_P, _P, _P, _I, _I, _I64, _I, _F, _P)),
+    "gather_combine": ("repro_gather_combine", (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _P)),
+    "attack": ("repro_attack", (_P, _P, _P, _I, _I, _I64, _I, _F, _I, _P)),
     "cwtm": ("repro_cwtm", (_P, _P, _I, _F, _P, _I, _I, _I64, _I, _F, _P)),
     "gram": ("repro_gram", (_P, _P, _P, _P, _I, _I, _I64, _I64, _I, _I, _P)),
     "quantize": ("repro_quantize", (_P, _P, _P, _I, _I64, _I64, _I, _P)),
@@ -57,7 +58,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -3,9 +3,11 @@
   * ``csrc/gather_combine.cu``, the eq.-(5) encode: replaces
     ``src/repro/kernels/coded_combine.py::gather_combine_pallas_lanes``.
     Bound by bytes (one read of the (L, N, Q) gradient stack, one write of
-    the coded stack); one thread per (lane, device, coordinate) sums the d
-    gathered rows in a fixed order without FMA contraction, which is the
-    plain version's arithmetic (see the source's note).
+    the coded stack). A block stages a lane's (N, C) column tile in shared
+    memory once (``gather_tile`` picks C) and sums each output's d gathered
+    rows from there in a fixed order without FMA contraction, which is the
+    plain version's arithmetic (see the source's note); where not even a
+    32-column tile fits, the large-N path gathers from device memory.
   * ``csrc/row_combine.cu``, ``out[l, q] = sum_r w[l, r] x[l, r, q]``:
     replaces both ``masked_combine_pallas_lanes`` (the erasure decode's
     surviving-class sum, R = N) and ``coded_combine_pallas_lanes`` (R = d).
@@ -19,14 +21,21 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiles
 from repro_torch.kernels.ref import coded_combine_ref as coded_plain
 from repro_torch.kernels.ref import gather_combine_ref as gather_plain
 from repro_torch.kernels.ref import masked_combine_ref as masked_plain
 
-__all__ = ["gather_launch", "gather_plain", "rows_launch", "masked_plain", "coded_plain", "MAX_ROWS"]
+__all__ = ["gather_launch", "gather_tile", "gather_plain", "rows_launch", "masked_plain", "coded_plain", "MAX_ROWS"]
 
 MAX_ROWS = 256  # row_combine stages the R products of 128 columns in shared memory
+
+
+def gather_tile(lanes: int, n: int, q: int, d: int) -> int:
+    """The encode kernel's tile width C (``tiles.tile_width``): a block holds
+    the (N, C) tile, the lane's (N, d) ids and the d weights in shared
+    memory. 0 (the large-N path) where a 32-column tile does not fit."""
+    return tiles.tile_width(lanes, q, 4 * n, 4 * (n * d + d), least=tiles.FILL_COLUMNS)
 
 
 def gather_launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Tensor,
@@ -39,7 +48,7 @@ def gather_launch(grads: torch.Tensor, subsets: torch.Tensor, weights: torch.Ten
     out = torch.empty_like(grads) if out is None else out
     err = _build.library("gather_combine")(
         grads.data_ptr(), subsets.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        lanes, n, d, q, torch.cuda.current_stream(grads.device).cuda_stream,
+        lanes, n, d, q, gather_tile(lanes, n, q, d), torch.cuda.current_stream(grads.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"gather_combine kernel launch failed: CUDA error {err}")

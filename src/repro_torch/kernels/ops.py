@@ -9,10 +9,11 @@ lanes into one axis, and then:
 
 The kernels take fp32, contiguous tensors; anything else raises. The CUDA
 kernels mask their ragged Q edge themselves, so nothing is padded here.
-A kernel's grid spans its folded lanes (``gather_combine``: lanes x N rows)
-in one dimension of at most 65535 blocks, so a wrapper launches a larger
-fold in consecutive slices of lanes; lanes are independent, so the bits do
-not change, and each launch counts.
+A kernel's grid spans its folded lanes in one dimension of at most 65535
+blocks, so a wrapper launches a larger fold in consecutive slices of lanes;
+lanes are independent, so the bits do not change, and each launch counts.
+The encode's grid is flat (lanes x column tiles): one launch covers any
+lane count.
 
 Inside a ``crossover(dispatch)`` block, a crossover table the caller passes
 in (``functools.partial(tuner.lane_dispatch, store=store)`` over a store
@@ -228,9 +229,7 @@ def gather_combine(
     w = weights.to(torch.float32).expand(lead + weights.shape[-1:]).reshape(
         flat.shape[:1] + weights.shape[-1:]).contiguous()
     on_card = _on_card("gather_combine", flat, s, w)
-    if on_card and n > _MAX_GRID_Y:
-        raise ValueError(f"gather_combine: N = {n} > {_MAX_GRID_Y}")
-    slices = _slices("gather_combine", flat.shape[0], max(1, _MAX_GRID_Y // n), rows=n, q=flat.shape[-1],
+    slices = _slices("gather_combine", flat.shape[0], max(1, flat.shape[0]), rows=n, q=flat.shape[-1],
                      d=s.shape[-1])
     if not on_card:
         if s.numel() and (int(s.min()) < 0 or int(s.max()) >= n):
@@ -251,6 +250,8 @@ def attack(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) -> t
     flat, _ = _lanes(msgs, 2)
     flat_mask = mask.to(torch.float32).reshape(flat.shape[:2]).contiguous()
     on_card = _on_card("attack", flat, flat_mask)
+    if on_card and name != "sign_flip" and not _attacks.attack_tile(1, flat.shape[1], flat.shape[-1]):
+        raise ValueError(f"attack kernel: N = {flat.shape[1]} leaves no column tile in shared memory")
     slices = _slices("attack", flat.shape[0], _MAX_GRID_Y, rows=flat.shape[1], q=flat.shape[-1])
     if not on_card:
         return _attacks.plain(flat, flat_mask, name, param).reshape(msgs.shape)

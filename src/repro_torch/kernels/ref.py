@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.numerics import tree_sum
+from repro_torch.numerics import nan_last, tree_sum
 
 __all__ = [
     "gather_combine_ref",
@@ -76,13 +76,12 @@ def attack_ref(msgs: torch.Tensor, mask: torch.Tensor, name: str, param: float) 
 def cwtm_ref(msgs: torch.Tensor, trim: int) -> torch.Tensor:
     """Coordinate-wise trimmed mean. msgs: (..., N, Q) -> (..., Q).
 
-    Every NaN sorts last, as ``jnp.sort`` and the CUDA kernel put it: each
-    NaN is made positive first, since ``torch.sort`` on a CUDA device sorts
-    a NaN whose sign bit is set first on a long enough axis (at N=100; the
-    CPU's last).
+    Every NaN sorts last, as ``jnp.sort`` and the CUDA kernel put it
+    (``nan_last``: on a CUDA device ``torch.sort`` sorts a NaN whose sign
+    bit is set first at N=100; the CPU's last).
     """
     n = msgs.shape[-2]
-    kept = torch.sort(torch.where(torch.isnan(msgs), torch.nan, msgs), dim=-2).values[..., trim : n - trim, :]
+    kept = torch.sort(nan_last(msgs), dim=-2).values[..., trim : n - trim, :]
     return tree_sum(kept, dim=-2) * (1.0 / kept.shape[-2])
 
 

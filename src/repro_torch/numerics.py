@@ -6,13 +6,14 @@ adds give the same bits whatever leading axes a tensor carries, so a lane
 of a batched call equals the single call bitwise, and the order matches the
 JAX reference's ``numerics.tree_sum`` term for term. ``tree_sum_`` is the
 same tree computed in place in a temporary the caller owns, for stacks too
-large to copy.
+large to copy. ``nan_last`` makes every NaN positive, so that a sort puts it
+last on either device.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["tree_sum", "tree_sum_", "stable_norm", "stable_mean0", "stable_masked_mean0"]
+__all__ = ["tree_sum", "tree_sum_", "nan_last", "stable_norm", "stable_mean0", "stable_masked_mean0"]
 
 
 def _pad_pow2(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -52,6 +53,14 @@ def tree_sum_(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
             v.narrow(dim, n - h, 2 * h - n).add_(0.0)
         n = h
     return v.narrow(dim, 0, 1).squeeze(dim).clone()
+
+
+def nan_last(v: torch.Tensor) -> torch.Tensor:
+    """``v`` with every NaN replaced by a positive NaN, for a sort that must
+    put every NaN last, as ``jnp.sort`` and ``torch.sort`` on the CPU do:
+    on a CUDA device ``torch.sort`` puts a NaN whose sign bit is set first
+    on a long enough axis (ROADMAP C.14)."""
+    return torch.where(torch.isnan(v), torch.nan, v)
 
 
 def stable_norm(v: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,17 @@ the card (which has no JAX, so this file imports none, and
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_card.py
 
-Tolerance: gather_combine, cwtm (with and without the NNM mix), quantize
-and the two row combines run the plain version's arithmetic term for term,
-so they must agree bitwise; the attack's honest statistics and the Gram sum
-in another order than the plain versions (rtol 1e-5, atol 1e-6, the Gram's
-atol scaled by the largest squared row norm). The Gram must still be
+Tolerance: gather_combine, the attack, cwtm (with and without the NNM
+mix), quantize and the two row combines run the plain version's arithmetic
+term for term, in its order, so they must agree bitwise; the Gram sums in
+another order than the plain version (rtol 1e-5, atol 1e-6 scaled by the
+largest squared row norm). The encode and the three attacks are held bit
+for bit at N=100, Q=100 (1 and 1,000 lanes), at N=8 and Q = 2^20 + 37, at
+N=3, at a Q that is not 16-byte aligned and at N=2,048 (the encode's large-N
+path), the attack also on a -0.0 in an honest row, all-honest and
+all-Byzantine masks and NaN rows, and a lane-batched launch equals its
+single-lane launches. Every sort that can meet a Byzantine value puts a NaN
+whose sign bit is set last, as the CPU does (ROADMAP C.14). The Gram must still be
 symmetric bit for bit, carry the row norms on its diagonal, and give the
 same bits on every run and in every lane of a batch.
 
@@ -26,7 +32,8 @@ graph mode (one captured round replayed) equals loop mode bit for bit, for
 the rows that ``chip_smoke.py``'s ``graph`` phase runs. A grid of small
 buckets in graph mode equals the loop-mode grid and each lane's standalone
 graph run bit for bit, and the kernels launch folded lane counts above the
-grid's 65535 blocks in slices, equal to their plain versions. The
+grid's 65535 blocks in slices (the encode's flat grid in one launch),
+equal to their plain versions. The
 protomath exchange through the kernels agrees with the plain versions
 (rtol 1e-5, atol 1e-6 of its largest value), and the protomath step's
 losses on the card with the CPU's within relative 2e-6. The engine step
@@ -99,7 +106,7 @@ def test_kernels_match_plain_on_card(card, n, q):
                                tref.gather_combine_ref(msgs, subsets, w), rtol=0, atol=0)
     for name, param in (("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5)):
         torch.testing.assert_close(tops.attack(msgs, mask, name, param),
-                                   tref.attack_ref(msgs, mask, name, param), rtol=RTOL, atol=ATOL)
+                                   tref.attack_ref(msgs, mask, name, param), rtol=0, atol=0)
     trim = (n - 1) // 4
     torch.testing.assert_close(tops.cwtm(msgs, trim), tref.cwtm_ref(msgs, trim), rtol=0, atol=0)
     gram, sq = tops.gram(msgs)
@@ -154,6 +161,136 @@ def test_gather_combine_marks_out_of_range_rows_with_nan(card):
     out = tops.gather_combine(msgs, subsets, w)
     assert bool(torch.isnan(out[2:]).all())
     torch.testing.assert_close(out[:2], tref.gather_combine_ref(msgs, subsets[:2], w), rtol=0, atol=0)
+
+
+# (lanes, N, Q): the main path's N=100, Q=100 at 1 and 1,000 lanes, the wide
+# round's N=8 at a ragged Q, N=3, a Q that is not 16-byte aligned, and N=2,048
+# (the encode's large-N path)
+TILE_CARD = [(1, 100, 100), (1000, 100, 100), (1, 8, (1 << 20) + 37), (1, 3, 64), (1, 100, 101), (1, 2048, 64)]
+ATTACKS = (("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5))
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN at the same places, every other value the same bits (-0.0 is not
+    +0.0)."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,q", TILE_CARD, ids=[f"L{c[0]}-N{c[1]}-Q{c[2]}" for c in TILE_CARD])
+def test_encode_and_attacks_are_bitwise_the_plain_versions(card, lanes, n, q):
+    """The encode and the three attacks bit for bit against their plain
+    versions, the encode in one launch; at 1,000 lanes, lanes of the
+    batched launch against single-lane launches."""
+    d = min(n, 10)
+    msgs = torch.randn((lanes, n, q), generator=card, device="cuda") * 3
+    subsets = torch.randint(0, n, (lanes, n, d), generator=card, device="cuda", dtype=torch.int32)
+    w = torch.rand((lanes, d), generator=card, device="cuda")
+    mask = (torch.rand((lanes, n), generator=card, device="cuda") < 0.2).float()
+    before = tops.launch_counts()["gather_combine"]
+    enc = tops.gather_combine(msgs, subsets, w)
+    assert tops.launch_counts()["gather_combine"] - before == 1
+    assert _same_bits(enc, tref.gather_combine_ref(msgs, subsets, w))
+    got = {name: tops.attack(msgs, mask, name, param) for name, param in ATTACKS}
+    for name, param in ATTACKS:
+        assert _same_bits(got[name], tref.attack_ref(msgs, mask, name, param)), name
+    for i in sorted({0, lanes // 2, lanes - 1}) if lanes > 1 else ():
+        assert _same_bits(enc[i], tops.gather_combine(msgs[i], subsets[i], w[i]))
+        for name, param in ATTACKS:
+            assert _same_bits(got[name][i], tops.attack(msgs[i], mask[i], name, param)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["negative_zero", "all_honest", "all_byzantine", "nan_rows"])
+def test_attack_edge_cases_are_bitwise_the_plain_version(card, case):
+    """A column of -0.0 (the tree's padding adds make its honest sum +0.0),
+    no Byzantine row, no honest row (the count clamped to 1), and NaN in an
+    honest and in a Byzantine row: the three attacks bit for bit, at N=100,
+    Q=100 and 3 lanes."""
+    lanes, n, q = 3, 100, 100
+    msgs = torch.randn((lanes, n, q), generator=card, device="cuda")
+    mask = (torch.arange(n, device="cuda") < 20).float().expand(lanes, n).contiguous()
+    if case == "negative_zero":
+        msgs[:, :, :7] = -0.0
+        msgs[:, 50, 7:20] = -0.0
+    elif case == "all_honest":
+        mask = torch.zeros_like(mask)
+    elif case == "all_byzantine":
+        mask = torch.ones_like(mask)
+    else:
+        msgs[0, 40, 3] = math.nan  # an honest row
+        msgs[1, 2, 9] = math.nan  # a Byzantine row: its term NaN * 0 is NaN too
+    for name, param in ATTACKS:
+        got, want = tops.attack(msgs, mask, name, param), tref.attack_ref(msgs, mask, name, param)
+        assert _same_bits(got, want), name
+        if case == "all_honest":
+            assert torch.equal(got, msgs)
+
+
+def _sign_bit_nan(x: torch.Tensor, *where) -> torch.Tensor:
+    """x with a NaN whose sign bit is set at ``where``."""
+    x = x.clone()
+    x[where] = math.nan
+    bits = x.view(torch.int32)
+    bits[where] = bits[where] | -0x80000000
+    assert bool(torch.signbit(x[where]).all())
+    return x
+
+
+C14_SITES = ["draco_d41_masked", "vector_median", "smallest", "mcc", "tgn", "multi_krum", "nnm_table",
+             "krum_scores", "top_k"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", C14_SITES)
+def test_sorts_put_a_sign_bit_nan_last_as_on_the_cpu(card, site):
+    """ROADMAP C.14: a NaN whose sign bit is set, in a Byzantine row (or,
+    for the selections, in the raw values they sort), gives the same result
+    on the card as on the CPU at N=100 (DRACO-d41 at N=82): bit for bit, NaN
+    at the same places; where the card's Gram kernel makes the distances,
+    within its tolerance."""
+    from repro_torch.core import aggregators as tagg
+    from repro_torch.core import compression as tcomp
+
+    n, q, b = 100, 64, 20
+    x = _sign_bit_nan(torch.randn((n, q), generator=card, device="cuda"), 3, 5)
+    if site == "draco_d41_masked":
+        x = _sign_bit_nan(torch.randn((82, q), generator=card, device="cuda"), 2, 5)
+        mask = torch.ones(82, device="cuda")
+        mask[7] = 0.0
+        x = torch.where(mask[:, None] > 0, x, 0.0)
+        got, want = draco_decode(x, 41, mask=mask), draco_decode(x.cpu(), 41, mask=mask.cpu())
+    elif site == "vector_median":
+        v = _sign_bit_nan(torch.randn((3, n), generator=card, device="cuda"), slice(None), 7)
+        got, want = tagg._vector_median(v), tagg._vector_median(v.cpu())
+    elif site == "smallest":
+        v = _sign_bit_nan(torch.randn((3, n), generator=card, device="cuda"), slice(None), 7)
+        got, want = tagg._smallest(v, n - b), tagg._smallest(v.cpu(), n - b)
+        assert not bool((got == 7).any())
+    elif site in ("mcc", "tgn"):
+        rule = tagg.make_aggregator(site, n_byz=b)
+        got, want = rule(x), rule(x.cpu())
+    elif site == "multi_krum":
+        got, want = tagg.multi_krum(x, b), tagg.multi_krum(x.cpu(), b)
+        torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL, equal_nan=True)
+        return
+    elif site == "nnm_table":  # the distances with sign-bit NaN in the NaN row's row and column
+        d2 = tops.pairwise_sqdist(torch.randn((n, q), generator=card, device="cuda"))
+        d2 = _sign_bit_nan(_sign_bit_nan(d2, 3, slice(None)), slice(None), 3)
+        got, want = nnm_neighbours(d2, b), nnm_neighbours(d2.cpu(), b)
+        assert not bool((torch.cat([got[:3], got[4:]]) == 3).any())
+    elif site == "krum_scores":
+        got, want = tagg.krum_scores(x, b), tagg.krum_scores(x.cpu(), b)
+        assert torch.equal(torch.isnan(got).cpu(), torch.isnan(want)) and bool(torch.isnan(want[3]))
+        nan = torch.isnan(want)
+        torch.testing.assert_close(got.cpu()[~nan], want[~nan], rtol=RTOL, atol=ATOL)
+        return
+    else:
+        assert not bool(torch.signbit(x.abs()).any())  # abs clears the sign bit: top-k needs no repair
+        got, want = tcomp.top_k(x, 8), tcomp.top_k(x.cpu(), 8)
+    assert _same_bits(got.cpu(), want) if got.is_floating_point() else torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -373,8 +510,9 @@ def test_graph_grid_equals_loop_grid_and_standalone_graph_runs(card):
 @pytest.mark.parametrize("kernel", ["gather_combine", "attack", "cwtm", "cwtm_nnm"])
 def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
     """Folded lane counts above 65535 launch in slices of lanes: each slice
-    counts, and the result equals the plain version bit for bit (within
-    the attack's tolerance)."""
+    counts, and the result equals the plain version bit for bit. The
+    encode's grid is flat (lanes x column tiles): its 70,000 (lane, device)
+    rows take one launch."""
     if kernel == "gather_combine":
         lanes, n, q = 700, 100, 40  # 70,000 (lane, device) rows
     else:
@@ -389,7 +527,7 @@ def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
     elif kernel == "attack":
         mask = (torch.rand((lanes, n), generator=card, device="cuda") < 0.4).float()
         torch.testing.assert_close(tops.attack(msgs, mask, "alie", 1.5), tref.attack_ref(msgs, mask, "alie", 1.5),
-                                   rtol=RTOL, atol=ATOL)
+                                   rtol=0, atol=0)
     elif kernel == "cwtm":
         torch.testing.assert_close(tops.cwtm(msgs, 1), tref.cwtm_ref(msgs, 1), rtol=0, atol=0)
     else:
@@ -398,7 +536,7 @@ def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
         torch.testing.assert_close(tops.cwtm(msgs, 1, table), tcwtm.plain(msgs, 1, table), rtol=0, atol=0)
     after = tops.launch_counts()
     counter = "cwtm" if kernel == "cwtm_nnm" else kernel
-    assert after[counter] - before[counter] == 2
+    assert after[counter] - before[counter] == (1 if kernel == "gather_combine" else 2)
 
 
 # ------------------------------------------------------------------- the LM

@@ -314,3 +314,97 @@ def test_cwtm_nnm_batched_equals_single_bitwise():
 def test_cwtm_rejects_a_bad_neighbour_table(table):
     with pytest.raises(IndexError):
         tops.cwtm(torch.randn(3, 16), 0, torch.tensor(table, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------- tile plans
+
+# N from 1 to 4,096 (the large-N path of the encode from about N = 1,400 at
+# d = 10) and Q from 1 to 2^31 + 37 (smollm-360m's width, ragged Qs)
+PLAN_N = [1, 2, 3, 8, 13, 41, 100, 101, 128, 129, 1024, 1383, 1384, 2048, 4096]
+PLAN_Q = [1, 3, 31, 32, 33, 64, 100, 101, 1000, 4097, (1 << 20) + 37, 361_821_120, (1 << 31) + 37]
+PLAN_LANES = [1, 3, 131, 1000]
+
+
+def _gather_smem(n: int, d: int, cols: int) -> int:
+    """Shared bytes of an encode block (csrc/gather_combine.cu): the tile,
+    the ids and the weights."""
+    return 4 * (n * cols + n * d + d)
+
+
+def _attack_smem(n: int, cols: int) -> int:
+    """Shared bytes of an ALIE/IPM block (csrc/attack.cu): the tile, the
+    statistic, the weights and, above 16 rows, the tree's P / 2 levels of
+    cols + 1."""
+    half = 0 if n <= 16 else (1 << (n - 1).bit_length()) // 2
+    return 4 * (n * cols + cols + n + half * (cols + 1))
+
+
+@pytest.mark.parametrize("kernel", ["gather_combine", "attack"])
+@pytest.mark.parametrize("n", PLAN_N)
+def test_tile_plan_covers_every_column_once_and_fits(kernel, n):
+    """The tiles cover every column exactly once, fit in 227 KB, are whole
+    rows or 16-byte multiples, fill the 132 SMs where Q allows, and the
+    encode takes its large-N path exactly where a 32-column tile does not
+    fit (the attack: where one column does not)."""
+    from repro_torch.kernels import attacks as tattacks
+    from repro_torch.kernels import coded_combine as tcc
+    from repro_torch.kernels import tiles
+
+    d = min(n, 10)
+    if kernel == "gather_combine":
+        plan, smem, least = (lambda lanes, q: tcc.gather_tile(lanes, n, q, d)), (lambda c: _gather_smem(n, d, c)), 32
+    else:
+        plan, smem, least = (lambda lanes, q: tattacks.attack_tile(lanes, n, q)), (lambda c: _attack_smem(n, c)), 1
+    for q in PLAN_Q:
+        for lanes in PLAN_LANES:
+            cols = plan(lanes, q)
+            if cols == 0:
+                assert smem(least) > tiles.SMEM_MAX, (q, lanes)
+                continue
+            assert smem(least) <= tiles.SMEM_MAX and smem(cols) <= tiles.SMEM_MAX, (q, lanes, cols)
+            count = -(-q // cols)
+            assert (count - 1) * cols < q <= count * cols, (q, lanes, cols)
+            assert cols == q or cols % 4 == 0 or smem(4) > tiles.SMEM_MAX, (q, lanes, cols)
+            assert lanes * count >= tiles.SMS or cols <= tiles.FILL_COLUMNS or cols == q, (q, lanes, cols)
+            if lanes * n * q * 4 <= 80e9:  # a stack the card holds: its grid's x dimension takes the tiles
+                assert (lanes if kernel == "gather_combine" else 1) * count < 2**31, (q, lanes, cols)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 20, 100, 128, 129])
+def test_attack_tree_replayed_in_numpy_is_the_plain_version(n):
+    """csrc/attack.cu's tree (level 1: term i plus term i + P/2, or plus
+    +0.0 past N; then the upper half of each level onto its lower half; the
+    term itself at N = 1), replayed in float32 numpy, equals
+    ``numerics.tree_sum`` bit for bit, a -0.0 term and an all -0.0 column
+    included, and so does the ALIE vector it builds (its square root taken
+    by ``torch.sqrt`` on the CPU, as the plain version takes it there: it is
+    not always numpy's correctly rounded one)."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    x[:, 0] = -0.0
+    x[n // 2, 1] = -0.0
+    hw = (rng.random(n) < 0.7).astype(np.float32)
+
+    def tree(terms):
+        half = (1 << (n - 1).bit_length()) // 2
+        if half == 0:
+            return terms[0].copy()
+        acc = np.stack([terms[i] + (terms[i + half] if i + half < n else np.float32(0.0))
+                        for i in range(half)])
+        while half > 1:
+            half //= 2
+            acc = acc[:half] + acc[half:2 * half]
+        return acc[0]
+
+    count = tree(hw[:, None])[0]
+    h = np.float32(max(count, np.float32(1.0)))
+    mu = tree(x * hw[:, None]) / h
+    dev = x - mu
+    var = tree(dev * dev * hw[:, None]) / h
+    adv = mu - np.float32(1.5) * torch.sqrt(torch.from_numpy(var + np.float32(1e-12))).numpy()
+    mask = 1.0 - hw
+    want = tref.attack_ref(torch.from_numpy(x), torch.from_numpy(mask), "alie", 1.5)
+    got = np.where(mask[:, None] > 0, adv[None, :], x)
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
+    t = tree_sum(torch.from_numpy(x), dim=0).numpy()
+    assert np.array_equal(tree(x).view(np.int32), t.view(np.int32))
