@@ -3,23 +3,27 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --main-shape   # device, ptxas, main_shape, the kernels' timings and checks only
-    python3 chip_smoke.py --main-shape --parent DIR   # also time the encode and attack of DIR's sources
+    python3 chip_smoke.py --main-shape --parent DIR   # also time the kernels of DIR's sources
 
-With ``--parent DIR`` (DIR holding an earlier tree's ``gather_combine.cu``
-and ``attack.cu``, e.g. from ``git show <commit>:src/repro_torch/csrc/...``,
-each with the C entry it had then), those two sources are built as the port
-builds its own and timed beside the tree's kernels in ``main_shape`` and
-at the wide shape (``parent_ms``); without it ``parent_ms`` is null.
+With ``--parent DIR`` (DIR an earlier tree's ``src/repro_torch/csrc``, e.g.
+unpacked from ``git archive <commit>``, holding ``gather_combine.cu``,
+``attack.cu``, ``gram.cu``, ``row_combine.cu`` and ``tile.cuh`` with the C
+entries they had at commit b9f3609), those four sources are built as the
+port builds its own and timed beside the tree's kernels in ``main_shape``
+and at the wide shape (``parent_ms``); without it ``parent_ms`` is null.
 
 Builds the CUDA kernels of the protocol round from ``src/repro_torch/csrc``
 and prints one JSON line per phase:
 
   device         the card, its power limit and the kernel build time;
-  ptxas          registers and spills of every Gram, CWTM, encode and
-                 attack kernel entry, as ``nvcc -Xptxas -v`` reported them
-                 when they were built (CWTM: ``cwtm_reg_kernel<N>`` for
-                 N <= 12, ``cwtm_net_kernel<P>`` for P = 16 to 128 slots,
-                 ``cwtm_wide_kernel`` past 128);
+  ptxas          registers and spills of every Gram, CWTM, encode, attack
+                 and row-combine kernel entry, as ``nvcc -Xptxas -v``
+                 reported them when they were built (CWTM:
+                 ``cwtm_reg_kernel<N>`` for N <= 12, ``cwtm_net_kernel<P>``
+                 for P = 16 to 128 slots, ``cwtm_wide_kernel`` past 128;
+                 the Gram: ``gram_reg_kernel<N>`` up to N = 12,
+                 ``gram_tile_kernel<split>`` and ``gram_sum_kernel`` above;
+                 ``row_combine_kernel<rows a thread, columns a thread>``);
   trajectory     the paper's Section-VII trainer on the card (N=100,
                  dim=100, 200 rounds) for every Fig. 4 row (DRACO-d41 at
                  N=82), every Fig. 6 row, and Com-CWTM, Com-LAD-CWTM and
@@ -55,8 +59,9 @@ and prints one JSON line per phase:
                  k = 80, the Gram, QSGD at quant:4's levels) and the
                  erasure decode's ``masked_combine`` at N=100, Q=100 and 1
                  and 1000 lanes, the L2 flushed before each timed launch:
-                 CUDA-event ms (the encode's and the attack's beside the
-                 ``--parent`` tree's), the plain version's, a
+                 CUDA-event ms (the encode's, the attack's, the Gram's
+                 and ``masked_combine``'s beside the ``--parent`` tree's),
+                 the plain version's, a
                  library call's where one computes the function,
                  ``launch_work``'s bound and what bounds it, CWTM beside
                  ``torch.sort`` over the same stack; each kernel's
@@ -340,9 +345,11 @@ def ptxas_entries(log: str) -> list[dict]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide)_kernel|gather_(?:tile|rows)_kernel|"
-                          r"stats_kernel|sign_flip_kernel)(?:ILi(\d+)E)?", mangled)
-            name = mangled if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide|tile|sum)_kernel|gather_(?:tile|rows)_kernel|"
+                          r"stats_kernel|sign_flip_kernel|row_combine_kernel)(I(?:L[a-z]\d+E)+E)?", mangled)
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([a-z])(\d+)E", (m and m.group(2)) or "")]
+            name = mangled if m is None else m.group(1) + (f"<{', '.join(args)}>" if args else "")
             entries.append({"entry": name})
         elif entries and "spill stores" in line:
             nums = [int(t) for t in re.findall(r"(\d+) bytes", line)]
@@ -497,10 +504,11 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
     columns, and QSGD on a window that starts on a block boundary and ends
     in the rows' ragged last block. Raises past the tolerance of
     ``kernel_errors``. The bound is the bytes and operations of
-    ``ops.launch_work`` at the wide shape. With ``parent``, the encode's and
-    the attack's (ALIE, sign-flip) ``parent_ms`` are the parent tree's
-    kernels timed right after the tree's, and ``ms_after_parent`` the
-    tree's again after them."""
+    ``ops.launch_work`` at the wide shape. With ``parent``, the encode, the
+    attack (ALIE, sign-flip), the Gram and the two row combines are timed
+    again beside the parent tree's kernels, parent, kernel, kernel, parent:
+    ``parent_ms`` and ``ms_beside_parent`` (``_alie``, ``_sign_flip`` for
+    the attack)."""
     n, q = WIDE_N, WIDE_Q
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((n, q), generator=gen, device="cuda")
@@ -527,6 +535,14 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
             "max_abs_err_wide": 0.0,
         }
 
+    def beside(name, kernel, old, key=""):
+        """The tree's kernel and the parent's timed parent, kernel, kernel,
+        parent: ``parent_ms`` and ``ms_beside_parent`` each the smaller of
+        its two medians."""
+        first = time_ms(old)
+        out[name]["ms_beside_parent" + key] = min(time_ms(kernel), time_ms(kernel))
+        out[name]["parent_ms" + key] = min(first, time_ms(old))
+
     def hold(name, got, want, atol=ATOL):
         torch.cuda.synchronize()
         where = f"N={n} Q={q}"
@@ -548,8 +564,8 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
     if parent is not None:
         old_out = torch.empty_like(x)
         ids, wl = subsets[None].to(torch.int32), w[None].contiguous()
-        out["gather_combine"]["parent_ms"] = time_ms(lambda: parent.gather_combine(x[None], ids, wl, old_out[None]))
-        out["gather_combine"]["ms_after_parent"] = time_ms(lambda: ops.gather_combine(x, subsets, w))
+        beside("gather_combine", lambda: ops.gather_combine(x, subsets, w),
+               lambda: parent.gather_combine(x[None], ids, wl, old_out[None]))
 
     modes = (("sign_flip", -2.0), ("alie", 1.5), ("ipm", 0.5))
     by_mode = {name: time_ms(lambda: ops.attack(x, mask, name, param)) for name, param in modes}
@@ -559,12 +575,10 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
           None, ops.launch_work("attack", 1, n, q))
     out["attack"]["ms_by_mode"] = by_mode
     if parent is not None:
-        out["attack"]["parent_ms_by_mode"] = {
-            name: time_ms(lambda: parent.attack(x[None], mask[None], name, param, old_out[None]))
-            for name, param in modes[:2]}
-        out["attack"]["parent_ms"] = out["attack"]["parent_ms_by_mode"]["alie"]
-        out["attack"]["ms_after_parent_by_mode"] = {name: time_ms(lambda: ops.attack(x, mask, name, param))
-                                                    for name, param in modes[:2]}
+        for name, param in modes[:2]:
+            beside("attack", lambda: ops.attack(x, mask, name, param),
+                   lambda: parent.attack(x[None], mask[None], name, param, old_out[None]), "_" + name)
+        out["attack"]["parent_ms"] = out["attack"]["parent_ms_alie"]
         del old_out
     for name, param in modes:
         hold("attack", ops.attack(x, mask, name, param)[:, q - PLAIN_Q:],
@@ -597,6 +611,8 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
           time_ms(lambda: ref.gram_ref(xp)),
           time_ms(lambda: torch.mm(x, x.T)),
           ops.launch_work("gram", 1, n, q))
+    if parent is not None:
+        beside("gram", lambda: ops.gram(x), lambda: parent.gram(x[None]))
     gram, sq = ops.gram(x)
     want_gram, want_sq = torch.zeros_like(gram), torch.zeros_like(sq)
     for start in range(0, q, PLAIN_Q):
@@ -630,6 +646,11 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
           time_ms(lambda: ref.masked_combine_ref(xp, rw)),
           time_ms(lambda: torch.matmul(rw, x)),
           ops.launch_work("masked_combine", 1, n, q))
+    if parent is not None:
+        old_row = torch.empty((1, q), device="cuda")
+        beside("masked_combine", lambda: ops.masked_combine(x, rw),
+               lambda: parent.row_combine(x[None], rw[None], old_row))
+        del old_row
     hold("masked_combine", ops.masked_combine(x, rw)[q - PLAIN_Q:],
          ref.masked_combine_ref(x[:, q - PLAIN_Q:].contiguous(), rw))
 
@@ -645,23 +666,47 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
           time_ms(lambda: torch.matmul(cw[:, None, :], stack)),
           ops.launch_work("coded_combine", n, 2, q))
     out["coded_combine"]["shape"] = [n, 2, q]
+    if parent is not None:
+        old_rows = torch.empty((n, q), device="cuda")
+        beside("coded_combine", lambda: ops.coded_combine(stack, cw), lambda: parent.row_combine(stack, cw, old_rows))
+        del old_rows
     hold("coded_combine", ops.coded_combine(stack, cw)[:, q - PLAIN_Q:],
          ref.coded_combine_ref(stack[:, :, q - PLAIN_Q:].contiguous(), cw))
     return out
 
 
-PARENT_GRID_Y = 65535  # the parent kernels' grids hold their lanes (and the encode's devices) on y
+PARENT_GRID_Y = 65535  # the parent's Gram and row combine hold their lanes on the grid's y axis
+
+
+def parent_gram_tile(n: int) -> int:
+    """The parent's Gram tile: its register path's step up to N = 12, a
+    64-column shared-memory tile above."""
+    return 256 * 4 * (2 if n <= 8 else 1) if n <= 12 else 64
+
+
+def parent_gram_chunking(q: int, tile: int) -> tuple[int, int]:
+    """The parent's (chunk_len, chunks): at most 1056 chunks of whole tiles."""
+    tiles_ = -(-q // tile)
+    chunk_len = -(-tiles_ // min(tiles_, 1056)) * tile
+    return chunk_len, -(-q // chunk_len)
 
 
 class ParentKernels:
-    """An earlier tree's encode and attack (``--parent DIR``), built from
-    DIR's ``gather_combine.cu`` and ``attack.cu`` with the port's nvcc flags
-    and called through the C entries they had then, with the lane slices
-    its wrappers made: the encode ``65535 // N`` lanes a launch, the attack
-    65535. Timed beside the tree's kernels; used nowhere else."""
+    """An earlier tree's encode, attack, Gram and row combine (``--parent
+    DIR``, DIR holding its ``gather_combine.cu``, ``attack.cu``,
+    ``gram.cu``, ``row_combine.cu`` and ``tile.cuh``), built with the port's
+    nvcc flags and called through the C entries they had at commit
+    b9f3609, as its wrappers called them: the encode and the attack with
+    the tile widths of ``kernels/coded_combine.gather_tile`` and
+    ``kernels/attacks.attack_tile`` in one launch, the Gram with its
+    per-call ``partial`` scratch and ``chunking`` and the row combine,
+    65535 lanes a launch. Timed beside the tree's kernels; used nowhere
+    else."""
 
-    SIGNATURES = {"gather_combine": ("repro_gather_combine", ("p", "p", "p", "p", "i", "i", "i", "q", "p")),
-                  "attack": ("repro_attack", ("p", "p", "p", "i", "i", "q", "i", "f", "p"))}
+    SIGNATURES = {"gather_combine": ("repro_gather_combine", ("p", "p", "p", "p", "i", "i", "i", "q", "i", "p")),
+                  "attack": ("repro_attack", ("p", "p", "p", "i", "i", "q", "i", "f", "i", "p")),
+                  "gram": ("repro_gram", ("p", "p", "p", "p", "i", "i", "q", "q", "i", "i", "p")),
+                  "row_combine": ("repro_row_combine", ("p", "p", "p", "i", "i", "q", "p"))}
     MODES = {"sign_flip": 0, "alie": 1, "ipm": 2}
 
     def __init__(self, src_dir: Path, build):
@@ -688,25 +733,55 @@ class ParentKernels:
 
     def gather_combine(self, x: torch.Tensor, subsets: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
         """x (L, N, Q), subsets (L, N, d) int32, w (L, d), out (L, N, Q)."""
+        from repro_torch.kernels.coded_combine import gather_tile
+
         lanes, n, q = x.shape
-        per = max(1, PARENT_GRID_Y // n)
-        stream = torch.cuda.current_stream().cuda_stream
-        for a in range(0, lanes, per):
-            b = min(lanes, a + per)
-            err = self.fns["gather_combine"](x[a:b].data_ptr(), subsets[a:b].data_ptr(), w[a:b].data_ptr(),
-                                             out[a:b].data_ptr(), b - a, n, subsets.shape[-1], q, stream)
-            check(err == 0, f"the parent's gather_combine failed: CUDA error {err}")
+        d = subsets.shape[-1]
+        err = self.fns["gather_combine"](x.data_ptr(), subsets.data_ptr(), w.data_ptr(), out.data_ptr(), lanes, n,
+                                         d, q, gather_tile(lanes, n, q, d), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's gather_combine failed: CUDA error {err}")
         return out
 
     def attack(self, x: torch.Tensor, mask: torch.Tensor, name: str, param: float, out: torch.Tensor):
         """x (L, N, Q), mask (L, N), out (L, N, Q)."""
+        from repro_torch.kernels.attacks import attack_tile
+
         lanes, n, q = x.shape
+        cols = 0 if name == "sign_flip" else attack_tile(lanes, n, q)
+        err = self.fns["attack"](x.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes, n, q, self.MODES[name],
+                                 float(param), cols, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's attack failed: CUDA error {err}")
+        return out
+
+    def gram(self, x: torch.Tensor):
+        """x (L, N, Q) -> (gram (L, N, N), sq (L, N)), scratch and outputs
+        allocated in the call, as the parent's wrapper did."""
+        lanes, n, q = x.shape
+        tile = parent_gram_tile(n)
+        chunk_len, chunks = parent_gram_chunking(q, tile)
+        stream = torch.cuda.current_stream().cuda_stream
+        grams, sqs = [], []
+        for a in range(0, lanes, PARENT_GRID_Y):
+            b = min(lanes, a + PARENT_GRID_Y)
+            partial = torch.empty((b - a) * chunks * (n * (n + 1) // 2), device=x.device)
+            gram = torch.empty((b - a, n, n), device=x.device)
+            sq = torch.empty((b - a, n), device=x.device)
+            err = self.fns["gram"](x[a:b].data_ptr(), partial.data_ptr(), gram.data_ptr(), sq.data_ptr(), b - a, n,
+                                   q, chunk_len, chunks, tile, stream)
+            check(err == 0, f"the parent's gram failed: CUDA error {err}")
+            grams.append(gram)
+            sqs.append(sq)
+        return (grams[0], sqs[0]) if len(grams) == 1 else (torch.cat(grams), torch.cat(sqs))
+
+    def row_combine(self, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
+        """x (L, R, Q), w (L, R), out (L, Q)."""
+        lanes, r, q = x.shape
         stream = torch.cuda.current_stream().cuda_stream
         for a in range(0, lanes, PARENT_GRID_Y):
             b = min(lanes, a + PARENT_GRID_Y)
-            err = self.fns["attack"](x[a:b].data_ptr(), mask[a:b].data_ptr(), out[a:b].data_ptr(), b - a, n, q,
-                                     self.MODES[name], float(param), stream)
-            check(err == 0, f"the parent's attack failed: CUDA error {err}")
+            err = self.fns["row_combine"](x[a:b].data_ptr(), w[a:b].data_ptr(), out[a:b].data_ptr(), b - a, r, q,
+                                          stream)
+            check(err == 0, f"the parent's row_combine failed: CUDA error {err}")
         return out
 
 
@@ -736,8 +811,9 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
     trajectory; ``synthetic_sweep(1000)``), the L2 flushed before every
     timed launch (``flushed_ms``). Per kernel and lane count its ms, the
     plain version's, a library call's where one computes the same function,
-    and ``launch_work``'s bound and what bounds it; the encode's and the
-    attack's beside the ``parent`` tree's kernels (``parent_ms``: timed
+    and ``launch_work``'s bound and what bounds it; the encode's, the
+    attack's, the Gram's and ``masked_combine``'s beside the ``parent``
+    tree's kernels (``parent_ms``: timed
     parent, kernel, kernel, parent; ``ms`` and ``parent_ms`` each the
     smaller median of its two runs); for CWTM, with and without NNM's mix
     (b = N // 5: k = 80 neighbours, trim 10), and ``torch.sort`` over the
@@ -791,8 +867,10 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
         # the erasure decode's weights: a mask times a class selection, exact zeros on most rows
         rw = ((torch.rand((lanes, n), generator=gen, device="cuda") < 0.5)
               * torch.rand((lanes, n), generator=gen, device="cuda"))
+        old_row = torch.empty((lanes, q), device="cuda")
         row("masked_combine", lanes, lambda: ops.masked_combine(x, rw), lambda: ref.masked_combine_ref(x, rw),
-            lambda: torch.bmm(rw[:, None, :], x), ops.launch_work("masked_combine", lanes, n, q))
+            lambda: torch.bmm(rw[:, None, :], x), ops.launch_work("masked_combine", lanes, n, q),
+            old=None if parent is None else (lambda: parent.row_combine(x, rw, old_row)))
         table = agg.nnm_neighbours(ops.pairwise_sqdist(x), MAIN_BYZ)
         k = table.shape[-1]
         row("cwtm", lanes, lambda: ops.cwtm(x, trim), lambda: ref.cwtm_ref(x, trim), None,
@@ -803,12 +881,12 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
             lambda: ref.cwtm_ref(ref.nnm_mix_ref(x, table), trim), None,
             ops.launch_work("cwtm", lanes, n, q, trim=trim, k=k), **mixed)
         row("gram", lanes, lambda: ops.gram(x), lambda: ref.gram_ref(x), lambda: torch.bmm(x, x.transpose(1, 2)),
-            ops.launch_work("gram", lanes, n, q))
+            ops.launch_work("gram", lanes, n, q), old=None if parent is None else (lambda: parent.gram(x)))
         g, u = x.reshape(lanes * n, q), torch.rand((lanes * n, q), generator=gen, device="cuda")
         row("quantize", lanes, lambda: ops.stochastic_quantize(g, u, QUANT_LEVELS, QUANT_CHUNK),
             lambda: quantize.plain(g, u, QUANT_LEVELS, min(QUANT_CHUNK, q)), None,
             ops.launch_work("quantize", lanes * n, 1, q), levels=QUANT_LEVELS, chunk=min(QUANT_CHUNK, q))
-        del x, subsets, mix, mask, table, g, u, old_out, rw
+        del x, subsets, mix, mask, table, g, u, old_out, rw, old_row
     del flush
     return out
 
@@ -3995,8 +4073,8 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
     ``section7`` phase and the grid replays it reads, the kernels at the
     wide shape (``kernel_timings``), and then the kernels against their
     plain versions (``kernel_errors``). With ``parent_dir`` (``--parent
-    DIR``) the encode and the attack of DIR's sources are timed beside the
-    tree's (``ParentKernels``)."""
+    DIR``) the encode, the attack, the Gram and the row combine of DIR's
+    sources are timed beside the tree's (``ParentKernels``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -4027,7 +4105,7 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "peak_hbm_bytes_per_s": hbm, "peak_fp32_flops": fp32})
     emit({"phase": "ptxas", **{name: ptxas_entries(_build.ptxas_log(name))
-                               for name in ("gram", "cwtm", "gather_combine", "attack")}})
+                               for name in ("gram", "cwtm", "gather_combine", "attack", "row_combine")}})
     parent = None
     if parent_dir is not None:
         parent = ParentKernels(parent_dir, _build)

@@ -12,8 +12,8 @@ kernels mask their ragged Q edge themselves, so nothing is padded here.
 A kernel's grid spans its folded lanes in one dimension of at most 65535
 blocks, so a wrapper launches a larger fold in consecutive slices of lanes;
 lanes are independent, so the bits do not change, and each launch counts.
-The encode's grid is flat (lanes x column tiles): one launch covers any
-lane count.
+The grids of the encode (lanes x column tiles) and of the row combines
+(lanes x columns) are flat: one launch covers any lane count.
 
 Inside a ``crossover(dispatch)`` block, a crossover table the caller passes
 in (``functools.partial(tuner.lane_dispatch, store=store)`` over a store
@@ -128,7 +128,8 @@ def launch_work(name: str, lanes: int, rows: int, q: int, *, d: int = 0, trim: i
         # the mix (k adds and a product per value), the sort network, the kept-row tree and its product
         "cwtm": (rows * q + q, (rows * (k + 1) if k else 0) + 2 * len(_cwtm.network(1 << (rows - 1).bit_length()))
                  + (rows - 2 * trim) + 1),
-        "gram": (rows * q + rows * rows + rows, 2 * (rows * rows + rows) * q),
+        # read the stack, write the Gram and the norms; an FMA for each of the N (N + 1) / 2 pairs a column
+        "gram": (rows * q + rows * rows + rows, rows * (rows + 1) * q),
         # read g and u, write the result; abs, max, two divisions, two products, floor, subtract, compare, add
         "quantize": (3 * rows * q, 10 * rows * q),
         "masked_combine": (rows * q + q, 2 * rows * q),
@@ -330,7 +331,7 @@ def _row_combine(name: str, plain, x: torch.Tensor, weights: torch.Tensor) -> to
     on_card = _on_card(name, flat, w)
     if on_card and r > _coded_combine.MAX_ROWS:
         raise ValueError(f"{name} kernel takes at most {_coded_combine.MAX_ROWS} rows, got {r}")
-    slices = _slices(name, flat.shape[0], _MAX_GRID_Y, rows=r, q=flat.shape[-1])
+    slices = _slices(name, flat.shape[0], max(1, flat.shape[0]), rows=r, q=flat.shape[-1])
     if not on_card:
         return plain(flat, w).reshape(lead + x.shape[-1:])
     out = torch.empty((flat.shape[0], flat.shape[-1]), dtype=flat.dtype, device=flat.device)

@@ -18,7 +18,13 @@ all-Byzantine masks and NaN rows, and a lane-batched launch equals its
 single-lane launches. Every sort that can meet a Byzantine value puts a NaN
 whose sign bit is set last, as the CPU does (ROADMAP C.14). The Gram must still be
 symmetric bit for bit, carry the row norms on its diagonal, and give the
-same bits on every run and in every lane of a batch.
+same bits on every run and in every lane of a batch (N = 3 to 128, at the
+paper's N = Q = 100 at 1 and 1,000 lanes, on an unaligned view and with a
+NaN entry, whose row and column come out NaN), take one kernel launch where
+Q is one chunk, and give NNM the CPU's neighbour tables at N = Q = 100. The
+row combines are held bit for bit at R = 1 to 256 rows, Q = 1 to 4097,
+1 and 1,000 lanes, and at ``_sum_last``'s (1, 100, 100,000), -0.0 and
+0 * inf included.
 
 CWTM is bitwise its plain version on both sides of every padded size of
 its sorting network (N = 13 to 256, with and without the mix, at 1 and 3
@@ -343,22 +349,119 @@ def test_cwtm_marks_a_lane_with_a_bad_table_nan(card, n):
     torch.testing.assert_close(out[0], tcwtm.plain(msgs[:1], 1, table[:1])[0], rtol=0, atol=0)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+# (lanes, N, Q, case): the register path (N <= 12) and the tile path (13 to
+# 128) at the paper's N = Q = 100 at 1 and 1,000 lanes (a segment a thread,
+# and a thread every segment), one 32-column segment (Q = 1, 3), several
+# chunks (Q = 4097, 2^20), a view 4 bytes off 16-byte alignment (4-byte
+# copies) and a NaN entry (its row and column of the Gram NaN)
+GRAM_CARD = ([(3, 8, 1 << 22, ""), (3, 8, (1 << 20) + 37, ""), (3, 12, 10001, ""), (3, 3, 64, ""),
+              (3, 13, 3000, ""), (3, 100, 100, ""), (1, 100, 100, ""), (1000, 100, 100, "")]
+             + [(3, n, q, "") for n in (13, 64, 128) for q in (1, 3, 4097, 1 << 20)]
+             + [(3, 100, 100, "unaligned"), (3, 64, 4097, "unaligned"), (1, 100, 100, "nan"),
+                (1000, 100, 100, "nan"), (3, 64, 4097, "nan")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,q", [(8, 1 << 22), (8, (1 << 20) + 37), (12, 10001), (3, 64), (13, 3000), (100, 100)])
-def test_gram_on_card_is_close_symmetric_and_deterministic(card, n, q):
-    msgs = torch.randn((3, n, q), generator=card, device="cuda") * 3
+@pytest.mark.parametrize("lanes,n,q,case", GRAM_CARD, ids=[f"L{c[0]}-N{c[1]}-Q{c[2]}{'-' + c[3] if c[3] else ''}"
+                                                          for c in GRAM_CARD])
+def test_gram_on_card_is_close_symmetric_and_deterministic(card, lanes, n, q, case):
+    """Bit for bit the same on a second call and in each lane called
+    alone, symmetric with sq on the diagonal, and within ATOL times the
+    largest squared row norm of the plain version (NaN where it has NaN)."""
+    size = lanes * n * q
+    if case == "unaligned":
+        msgs = (torch.randn(size + 1, generator=card, device="cuda") * 3)[1:].view(lanes, n, q)
+        assert msgs.is_contiguous() and msgs.data_ptr() % 16 != 0
+    else:
+        msgs = torch.randn((lanes, n, q), generator=card, device="cuda") * 3
+    if case == "nan":
+        msgs[0, n // 3, q // 2] = math.nan
     gram, sq = tops.gram(msgs)
     again, sq_again = tops.gram(msgs)
-    assert torch.equal(gram, again) and torch.equal(sq, sq_again)
-    assert torch.equal(gram, gram.transpose(-1, -2))
-    assert torch.equal(torch.diagonal(gram, dim1=-2, dim2=-1), sq)
+    assert torch.equal(_bits(gram), _bits(again)) and torch.equal(_bits(sq), _bits(sq_again))
+    assert torch.equal(_bits(gram), _bits(gram.transpose(-1, -2)))
+    assert torch.equal(_bits(torch.diagonal(gram, dim1=-2, dim2=-1)), _bits(sq))
     want_gram, want_sq = tref.gram_ref(msgs)
-    scale = float(want_sq.max())
-    torch.testing.assert_close(gram, want_gram, rtol=RTOL, atol=ATOL * scale)
-    torch.testing.assert_close(sq, want_sq, rtol=RTOL, atol=ATOL * scale)
-    for i in range(3):
-        single, single_sq = tops.gram(msgs[i])
-        assert torch.equal(gram[i], single) and torch.equal(sq[i], single_sq)
+    scale = float(want_sq[~torch.isnan(want_sq)].max())
+    torch.testing.assert_close(gram, want_gram, rtol=RTOL, atol=ATOL * scale, equal_nan=True)
+    torch.testing.assert_close(sq, want_sq, rtol=RTOL, atol=ATOL * scale, equal_nan=True)
+    if case == "nan":
+        nan = torch.zeros((n, n), dtype=torch.bool, device="cuda")
+        nan[n // 3] = nan[:, n // 3] = True
+        assert torch.equal(torch.isnan(gram[0]), nan) and not bool(torch.isnan(gram[1:]).any())
+    for i in sorted({0, lanes // 2, lanes - 1}):
+        single, single_sq = tops.gram(msgs[i].contiguous() if case != "unaligned" else msgs[i])
+        assert torch.equal(_bits(gram[i]), _bits(single)) and torch.equal(_bits(sq[i]), _bits(single_sq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,q,kernels", [(1, 100, 1), (1000, 100, 1), (1, 256, 1), (3, 4097, 2)])
+def test_gram_is_one_launch_where_q_is_one_chunk(card, lanes, q, kernels):
+    """At N = 100 a Q of at most 256 columns takes one kernel (it writes the
+    Gram itself); past that the chunks' sums take a second."""
+    from torch.profiler import ProfilerActivity, profile
+
+    msgs = torch.randn((lanes, 100, q), generator=card, device="cuda")
+    tops.gram(msgs)  # the kernels built and loaded
+    torch.cuda.synchronize()
+    before = tops.launch_counts()["gram"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tops.gram(msgs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    assert tops.launch_counts()["gram"] == before + 1
+    assert len(names) == kernels and all("gram" in name for name in names), names
+
+
+@pytest.mark.cuda
+def test_nnm_table_on_card_equals_the_cpus(card):
+    """NNM's neighbour tables from the card's Gram equal the CPU's (the
+    plain version's tree) on the Fig. 4 rows' shape: N = 100, Q = 100,
+    b = 20 (k = 80 neighbours), 200 lanes."""
+    msgs = torch.randn((200, 100, 100), generator=card, device="cuda") * 3
+    table = nnm_neighbours(tops.pairwise_sqdist(msgs), 20)
+    want = nnm_neighbours(tops.pairwise_sqdist(msgs.cpu()), 20)
+    assert torch.equal(table.cpu(), want)
+
+
+ROW_COMBINE_R = [1, 2, 3, 8, 13, 100, 128, 129, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", ROW_COMBINE_R)
+def test_row_combines_are_bitwise_the_plain_versions(card, r):
+    """``masked_combine`` and ``coded_combine`` equal their plain versions
+    bit for bit at Q = 1, 100 and 4097, at 1 and 1,000 lanes, with a -0.0
+    entry, an all -0.0 column and a 0-weight row over an inf (0 * inf is
+    NaN in both); ``_sum_last``'s (1, 100, 100,000) at R = 100; one launch
+    a call."""
+    shapes = [(lanes, q) for lanes in (1, 1000) for q in (1, 100, 4097)]
+    if r == 100:
+        shapes.append((1, 100_000))
+    for lanes, q in shapes:
+        x = torch.randn((lanes, r, q), generator=card, device="cuda")
+        w = (torch.rand((lanes, r), generator=card, device="cuda") < 0.6) * torch.rand(
+            (lanes, r), generator=card, device="cuda")
+        x[:, :, 0] = -0.0
+        x[:, r // 2, min(1, q - 1)] = -0.0
+        w[:, 0] = 0.0
+        x[:, 0, q // 2] = math.inf
+        for name, op, plain in (("masked_combine", tops.masked_combine, tref.masked_combine_ref),
+                                ("coded_combine", tops.coded_combine, tref.coded_combine_ref)):
+            before = tops.launch_counts()[name]
+            got = op(x, w)
+            want = plain(x, w)
+            torch.cuda.synchronize()
+            assert tops.launch_counts()[name] == before + 1
+            nan = torch.isnan(want)
+            assert bool(nan[:, q // 2].all()), (name, lanes, q)
+            assert torch.equal(torch.isnan(got), nan) and torch.equal(_bits(got[~nan]), _bits(want[~nan])), \
+                (name, lanes, q)
 
 
 @pytest.mark.cuda
@@ -507,12 +610,12 @@ def test_graph_grid_equals_loop_grid_and_standalone_graph_runs(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["gather_combine", "attack", "cwtm", "cwtm_nnm"])
+@pytest.mark.parametrize("kernel", ["gather_combine", "attack", "cwtm", "cwtm_nnm", "masked_combine"])
 def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
     """Folded lane counts above 65535 launch in slices of lanes: each slice
     counts, and the result equals the plain version bit for bit. The
     encode's grid is flat (lanes x column tiles): its 70,000 (lane, device)
-    rows take one launch."""
+    rows take one launch; so is the row combine's (lanes x columns)."""
     if kernel == "gather_combine":
         lanes, n, q = 700, 100, 40  # 70,000 (lane, device) rows
     else:
@@ -530,13 +633,16 @@ def test_kernels_above_the_grid_limit_equal_plain(card, kernel):
                                    rtol=0, atol=0)
     elif kernel == "cwtm":
         torch.testing.assert_close(tops.cwtm(msgs, 1), tref.cwtm_ref(msgs, 1), rtol=0, atol=0)
+    elif kernel == "masked_combine":
+        w = torch.rand((lanes, n), generator=card, device="cuda")
+        torch.testing.assert_close(tops.masked_combine(msgs, w), tref.masked_combine_ref(msgs, w), rtol=0, atol=0)
     else:
         table = torch.tensor([[0, 1, 2], [1, 2, 3], [2, 3, 4], [0, 3, 4], [0, 1, 4]], dtype=torch.int32,
                              device="cuda").expand(lanes, n, 3).contiguous()
         torch.testing.assert_close(tops.cwtm(msgs, 1, table), tcwtm.plain(msgs, 1, table), rtol=0, atol=0)
     after = tops.launch_counts()
     counter = "cwtm" if kernel == "cwtm_nnm" else kernel
-    assert after[counter] - before[counter] == (1 if kernel == "gather_combine" else 2)
+    assert after[counter] - before[counter] == (1 if kernel in ("gather_combine", "masked_combine") else 2)
 
 
 # ------------------------------------------------------------------- the LM

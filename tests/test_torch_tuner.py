@@ -397,7 +397,8 @@ def test_launch_work_of_every_kernel(mem_store, case):
         "gather_combine": (2 * rows * q, 2 * 2 * rows * q), "attack": (2 * rows * q, 8 * rows * q),
         # a min and a max for each of the 19 compare-exchanges of Batcher's network on 8 slots
         "cwtm": (rows * q + q, (2 * 19 + rows - 4 + 1) * q),
-        "gram": (rows * q + rows * rows + rows, 2 * (rows * rows + rows) * q),
+        # an FMA for each of the N (N + 1) / 2 pairs that symmetry leaves, a column
+        "gram": (rows * q + rows * rows + rows, rows * (rows + 1) * q),
         "quantize": (3 * q, 10 * q), "masked_combine": (rows * q + q, 2 * rows * q),
         "coded_combine": (rows * q + q, 2 * rows * q)}[name]
     assert ops.launch_work(name, lanes, rows, q, **kw) == (4.0 * per[0] * lanes, float(per[1] * lanes))
