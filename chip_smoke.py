@@ -7,20 +7,24 @@
 
 With ``--parent DIR`` (DIR an earlier tree's ``src/repro_torch/csrc``, e.g.
 unpacked from ``git archive <commit>``, holding ``gather_combine.cu``,
-``attack.cu``, ``gram.cu``, ``row_combine.cu`` and ``tile.cuh`` with the C
-entries they had at commit b9f3609), those four sources are built as the
-port builds its own and timed beside the tree's kernels in ``main_shape``
-and at the wide shape (``parent_ms``); without it ``parent_ms`` is null.
+``attack.cu``, ``cwtm.cu``, ``gram.cu``, ``quantize.cu``,
+``row_combine.cu`` and ``tile.cuh`` with the C entries they had at commit
+c93a085), those six sources are built as the port builds its own and
+timed beside the tree's kernels in ``main_shape`` and at the wide shape
+(``parent_ms``); without it ``parent_ms`` is null.
 
 Builds the CUDA kernels of the protocol round from ``src/repro_torch/csrc``
 and prints one JSON line per phase:
 
   device         the card, its power limit and the kernel build time;
-  ptxas          registers and spills of every Gram, CWTM, encode, attack
-                 and row-combine kernel entry, as ``nvcc -Xptxas -v``
+  ptxas          registers and spills of every Gram, CWTM, encode, attack,
+                 row-combine and QSGD kernel entry, as ``nvcc -Xptxas -v``
                  reported them when they were built (CWTM:
                  ``cwtm_reg_kernel<N>`` for N <= 12, ``cwtm_net_kernel<P>``
-                 for P = 16 to 128 slots, ``cwtm_wide_kernel`` past 128;
+                 for P = 16 to 128 slots and ``cwtm_mix_net_kernel<P>``
+                 with a table, ``cwtm_wide_kernel`` past 128; QSGD:
+                 ``quantize_warp_kernel<16-byte loads a thread, vec>`` and
+                 ``quantize_block_kernel``;
                  the Gram: ``gram_reg_kernel<N>`` up to N = 12,
                  ``gram_tile_kernel<split>`` and ``gram_sum_kernel`` above;
                  ``row_combine_kernel<rows a thread, columns a thread>``);
@@ -48,7 +52,8 @@ and prints one JSON line per phase:
                  buckets), Fig. 4, Fig. 6 (``exact=False``), the quant:4
                  rows, ``participation_sweep()``, and
                  ``synthetic_sweep(1000)`` at N=16 (unchunked and in
-                 chunks of 64) and at N=100 (100,000 encode rows); every
+                 chunks of 64) and at N=100 (100,000 encode rows), and
+                 the latter under quant:4 (100,000 rows quantized); every
                  lane checked bit for bit against the standalone run of
                  its row (the earlier phases' runs where they ran it), per
                  bucket its lanes, draw groups, captured launches and
@@ -59,12 +64,15 @@ and prints one JSON line per phase:
                  k = 80, the Gram, QSGD at quant:4's levels) and the
                  erasure decode's ``masked_combine`` at N=100, Q=100 and 1
                  and 1000 lanes, the L2 flushed before each timed launch:
-                 CUDA-event ms (the encode's, the attack's, the Gram's
-                 and ``masked_combine``'s beside the ``--parent`` tree's),
+                 CUDA-event ms (each beside the ``--parent`` tree's),
                  the plain version's, a
                  library call's where one computes the function,
                  ``launch_work``'s bound and what bounds it, CWTM beside
-                 ``torch.sort`` over the same stack; each kernel's
+                 ``torch.sort`` over the same stack and CWTM-NNM beside
+                 ``torch.bmm`` of the neighbour matrix then CWTM, QSGD's
+                 launches a call and its layout; CWTM, CWTM-NNM and QSGD
+                 held bit for bit to their plain versions at both lane
+                 counts; each kernel's
                  launches in the ``section7`` phase's replays, and the
                  replay ms a round of ``section7_grid()`` (its rows alone
                  summed, and the grid's 5 buckets) and of
@@ -345,8 +353,9 @@ def ptxas_entries(log: str) -> list[dict]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide|tile|sum)_kernel|gather_(?:tile|rows)_kernel|"
-                          r"stats_kernel|sign_flip_kernel|row_combine_kernel)(I(?:L[a-z]\d+E)+E)?", mangled)
+            m = re.search(r"((?:gram|cwtm)_(?:reg|smem|reduce|net|wide|tile|sum|mix_net)_kernel|gather_(?:tile|rows)_kernel|"
+                          r"stats_kernel|sign_flip_kernel|row_combine_kernel|quantize_(?:warp|block)_kernel)"
+                          r"(I(?:L[a-z]\d+E)+E)?", mangled)
             args = [("true" if v == "1" else "false") if t == "b" else v
                     for t, v in re.findall(r"L([a-z])(\d+)E", (m and m.group(2)) or "")]
             name = mangled if m is None else m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -504,11 +513,10 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
     columns, and QSGD on a window that starts on a block boundary and ends
     in the rows' ragged last block. Raises past the tolerance of
     ``kernel_errors``. The bound is the bytes and operations of
-    ``ops.launch_work`` at the wide shape. With ``parent``, the encode, the
-    attack (ALIE, sign-flip), the Gram and the two row combines are timed
-    again beside the parent tree's kernels, parent, kernel, kernel, parent:
-    ``parent_ms`` and ``ms_beside_parent`` (``_alie``, ``_sign_flip`` for
-    the attack)."""
+    ``ops.launch_work`` at the wide shape. With ``parent``, every kernel is timed again beside the parent
+    tree's, parent, kernel, kernel, parent: ``parent_ms`` and
+    ``ms_beside_parent`` (``_alie``, ``_sign_flip`` for the attack,
+    ``_without_mix`` for CWTM without NNM's mix)."""
     n, q = WIDE_N, WIDE_Q
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((n, q), generator=gen, device="cuda")
@@ -601,6 +609,11 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
         "old_route_ms": time_ms(lambda: ops.cwtm(torch.matmul(old_mix, x), trim)),
         "old_route": "torch.matmul(mix, X) in fp32 (cuBLAS), then the CWTM kernel without the mix",
     })
+    if parent is not None:
+        old_cw, table1 = torch.empty((1, q), device="cuda"), table[None].to(torch.int32).contiguous()
+        beside("cwtm", lambda: ops.cwtm(x, trim, table), lambda: parent.cwtm(x[None], trim, table1, old_cw))
+        beside("cwtm", lambda: ops.cwtm(x, trim), lambda: parent.cwtm(x[None], trim, None, old_cw), "_without_mix")
+        del old_cw
     hold("cwtm", ops.cwtm(x, trim, table)[q - PLAIN_Q:], ref.cwtm_ref(ref.nnm_mix_ref(tail, table), trim))
     hold("cwtm", ops.cwtm(x, trim)[q - PLAIN_Q:], ref.cwtm_ref(tail, trim))
     del tail
@@ -633,6 +646,10 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
           time_ms(lambda: ops.stochastic_quantize(xp, up, lv, ch)),
           time_ms(lambda: quantize.plain(xp, up, lv, ch)),
           None, ops.launch_work("quantize", n, 1, q))
+    old_q = torch.empty_like(x)
+    if parent is not None:
+        beside("quantize", lambda: ops.stochastic_quantize(x, u, lv, ch), lambda: parent.quantize(x, u, lv, ch, old_q))
+    del old_q
     # a window from a block boundary to the end: it ends in the ragged last block
     start = ((q - PLAIN_Q) // ch) * ch
     hold("quantize", ops.stochastic_quantize(x, u, lv, ch)[:, start:],
@@ -675,38 +692,28 @@ def kernel_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
     return out
 
 
-PARENT_GRID_Y = 65535  # the parent's Gram and row combine hold their lanes on the grid's y axis
-
-
-def parent_gram_tile(n: int) -> int:
-    """The parent's Gram tile: its register path's step up to N = 12, a
-    64-column shared-memory tile above."""
-    return 256 * 4 * (2 if n <= 8 else 1) if n <= 12 else 64
-
-
-def parent_gram_chunking(q: int, tile: int) -> tuple[int, int]:
-    """The parent's (chunk_len, chunks): at most 1056 chunks of whole tiles."""
-    tiles_ = -(-q // tile)
-    chunk_len = -(-tiles_ // min(tiles_, 1056)) * tile
-    return chunk_len, -(-q // chunk_len)
+PARENT_GRID_Y = 65535  # the parent's CWTM and QSGD hold their lanes on the grid's y axis
 
 
 class ParentKernels:
-    """An earlier tree's encode, attack, Gram and row combine (``--parent
-    DIR``, DIR holding its ``gather_combine.cu``, ``attack.cu``,
-    ``gram.cu``, ``row_combine.cu`` and ``tile.cuh``), built with the port's
-    nvcc flags and called through the C entries they had at commit
-    b9f3609, as its wrappers called them: the encode and the attack with
+    """The parent tree's six kernel sources (``--parent DIR``, DIR holding
+    its ``gather_combine.cu``, ``attack.cu``, ``cwtm.cu``, ``gram.cu``,
+    ``quantize.cu``, ``row_combine.cu`` and ``tile.cuh``), built with the
+    port's nvcc flags and called through the C entries they had at commit
+    c93a085, as its wrappers called them: the encode and the attack with
     the tile widths of ``kernels/coded_combine.gather_tile`` and
-    ``kernels/attacks.attack_tile`` in one launch, the Gram with its
-    per-call ``partial`` scratch and ``chunking`` and the row combine,
+    ``kernels/attacks.attack_tile``, the Gram with ``gram_plan`` and the row
+    combine with ``row_plan`` (the plans of that commit, unchanged since),
+    each in one launch; CWTM (the NNM mix fused into its sort) and QSGD
     65535 lanes a launch. Timed beside the tree's kernels; used nowhere
     else."""
 
     SIGNATURES = {"gather_combine": ("repro_gather_combine", ("p", "p", "p", "p", "i", "i", "i", "q", "i", "p")),
                   "attack": ("repro_attack", ("p", "p", "p", "i", "i", "q", "i", "f", "i", "p")),
-                  "gram": ("repro_gram", ("p", "p", "p", "p", "i", "i", "q", "q", "i", "i", "p")),
-                  "row_combine": ("repro_row_combine", ("p", "p", "p", "i", "i", "q", "p"))}
+                  "cwtm": ("repro_cwtm", ("p", "p", "i", "f", "p", "i", "i", "q", "i", "f", "p")),
+                  "gram": ("repro_gram", ("p", "p", "p", "p", "i", "i", "q", "q", "i", "i", "i", "i", "i", "p")),
+                  "quantize": ("repro_quantize", ("p", "p", "p", "i", "q", "q", "i", "p")),
+                  "row_combine": ("repro_row_combine", ("p", "p", "p", "i", "i", "q", "i", "i", "p"))}
     MODES = {"sign_flip": 0, "alie": 1, "ipm": 2}
 
     def __init__(self, src_dir: Path, build):
@@ -731,15 +738,18 @@ class ParentKernels:
             fn.restype = ctypes.c_int
             self.fns[name] = fn
 
+    def _call(self, name: str, *args) -> None:
+        err = self.fns[name](*args, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's {name} failed: CUDA error {err}")
+
     def gather_combine(self, x: torch.Tensor, subsets: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
         """x (L, N, Q), subsets (L, N, d) int32, w (L, d), out (L, N, Q)."""
         from repro_torch.kernels.coded_combine import gather_tile
 
         lanes, n, q = x.shape
         d = subsets.shape[-1]
-        err = self.fns["gather_combine"](x.data_ptr(), subsets.data_ptr(), w.data_ptr(), out.data_ptr(), lanes, n,
-                                         d, q, gather_tile(lanes, n, q, d), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"the parent's gather_combine failed: CUDA error {err}")
+        self._call("gather_combine", x.data_ptr(), subsets.data_ptr(), w.data_ptr(), out.data_ptr(), lanes, n, d, q,
+                   gather_tile(lanes, n, q, d))
         return out
 
     def attack(self, x: torch.Tensor, mask: torch.Tensor, name: str, param: float, out: torch.Tensor):
@@ -748,40 +758,51 @@ class ParentKernels:
 
         lanes, n, q = x.shape
         cols = 0 if name == "sign_flip" else attack_tile(lanes, n, q)
-        err = self.fns["attack"](x.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes, n, q, self.MODES[name],
-                                 float(param), cols, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"the parent's attack failed: CUDA error {err}")
+        self._call("attack", x.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes, n, q, self.MODES[name],
+                   float(param), cols)
+        return out
+
+    def cwtm(self, x: torch.Tensor, trim: int, table: torch.Tensor | None, out: torch.Tensor):
+        """x (L, N, Q), table None or (L, N, k) int32, out (L, Q)."""
+        lanes, n, q = x.shape
+        k = 0 if table is None else table.shape[-1]
+        for a in range(0, lanes, PARENT_GRID_Y):
+            b = min(lanes, a + PARENT_GRID_Y)
+            self._call("cwtm", x[a:b].data_ptr(), None if table is None else table[a:b].data_ptr(), k,
+                       1.0 / k if k else 0.0, out[a:b].data_ptr(), b - a, n, q, trim, 1.0 / (n - 2 * trim))
         return out
 
     def gram(self, x: torch.Tensor):
         """x (L, N, Q) -> (gram (L, N, N), sq (L, N)), scratch and outputs
         allocated in the call, as the parent's wrapper did."""
+        from repro_torch.kernels.nnm_dist import REG_MAX_N, gram_plan
+
         lanes, n, q = x.shape
-        tile = parent_gram_tile(n)
-        chunk_len, chunks = parent_gram_chunking(q, tile)
-        stream = torch.cuda.current_stream().cuda_stream
-        grams, sqs = [], []
-        for a in range(0, lanes, PARENT_GRID_Y):
-            b = min(lanes, a + PARENT_GRID_Y)
-            partial = torch.empty((b - a) * chunks * (n * (n + 1) // 2), device=x.device)
-            gram = torch.empty((b - a, n, n), device=x.device)
-            sq = torch.empty((b - a, n), device=x.device)
-            err = self.fns["gram"](x[a:b].data_ptr(), partial.data_ptr(), gram.data_ptr(), sq.data_ptr(), b - a, n,
-                                   q, chunk_len, chunks, tile, stream)
-            check(err == 0, f"the parent's gram failed: CUDA error {err}")
-            grams.append(gram)
-            sqs.append(sq)
-        return (grams[0], sqs[0]) if len(grams) == 1 else (torch.cat(grams), torch.cat(sqs))
+        plan = gram_plan(lanes, n, q)
+        scratch = plan.chunks > 1 or n <= REG_MAX_N
+        partial = torch.empty(lanes * plan.chunks * (n * (n + 1) // 2) if scratch else 0, device=x.device)
+        gram = torch.empty((lanes, n, n), device=x.device)
+        sq = torch.empty((lanes, n), device=x.device)
+        self._call("gram", x.data_ptr(), partial.data_ptr(), gram.data_ptr(), sq.data_ptr(), lanes, n, q,
+                   plan.chunk_len, plan.chunks, plan.width, plan.stride, plan.pairs, plan.split)
+        return gram, sq
+
+    def quantize(self, g: torch.Tensor, u: torch.Tensor, levels: int, chunk: int, out: torch.Tensor):
+        """g, u, out (rows, Q); blocks of min(chunk, Q)."""
+        rows, q = g.shape
+        for a in range(0, rows, PARENT_GRID_Y):
+            b = min(rows, a + PARENT_GRID_Y)
+            self._call("quantize", g[a:b].data_ptr(), u[a:b].data_ptr(), out[a:b].data_ptr(), b - a, q,
+                       min(chunk, q), levels)
+        return out
 
     def row_combine(self, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
         """x (L, R, Q), w (L, R), out (L, Q)."""
+        from repro_torch.kernels.coded_combine import row_aligned, row_plan
+
         lanes, r, q = x.shape
-        stream = torch.cuda.current_stream().cuda_stream
-        for a in range(0, lanes, PARENT_GRID_Y):
-            b = min(lanes, a + PARENT_GRID_Y)
-            err = self.fns["row_combine"](x[a:b].data_ptr(), w[a:b].data_ptr(), out[a:b].data_ptr(), b - a, r, q,
-                                          stream)
-            check(err == 0, f"the parent's row_combine failed: CUDA error {err}")
+        groups, vec = row_plan(lanes, r, q, row_aligned(x, out))
+        self._call("row_combine", x.data_ptr(), w.data_ptr(), out.data_ptr(), lanes, r, q, groups, int(vec == 4))
         return out
 
 
@@ -811,14 +832,20 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
     trajectory; ``synthetic_sweep(1000)``), the L2 flushed before every
     timed launch (``flushed_ms``). Per kernel and lane count its ms, the
     plain version's, a library call's where one computes the same function,
-    and ``launch_work``'s bound and what bounds it; the encode's, the
-    attack's, the Gram's and ``masked_combine``'s beside the ``parent``
-    tree's kernels (``parent_ms``: timed
-    parent, kernel, kernel, parent; ``ms`` and ``parent_ms`` each the
-    smaller median of its two runs); for CWTM, with and without NNM's mix
-    (b = N // 5: k = 80 neighbours, trim 10), and ``torch.sort`` over the
-    same stack, which computes only the sort: a yardstick, not
-    ``library_ms``."""
+    and ``launch_work``'s bound and what bounds it; every kernel beside the
+    ``parent`` tree's (``parent_ms``: timed parent, kernel, kernel, parent;
+    ``ms`` and ``parent_ms`` each the smaller median of its two runs); for
+    CWTM, with and without NNM's mix (b = N // 5: k = 80 neighbours, trim
+    10), ``torch.sort`` over the same stack (the sort alone) and, for
+    CWTM-NNM, ``torch.bmm`` of the neighbour matrix then the CWTM kernel
+    (the mix alone as a product, not bit for bit): yardsticks, not
+    ``library_ms``; for QSGD its launches a call (1 at 100,000 rows) and
+    the layout ``quantize.quant_plan`` picks. CWTM (with and without the
+    mix) and QSGD are held bit for bit to their plain versions on the timed
+    inputs at every lane count: the plans, and so the kernels, differ
+    between 1 and 1,000 lanes."""
+    from repro_torch.kernels import cwtm
+
     n, q, d, trim = MAIN_N, MAIN_Q, MAIN_D, MAIN_TRIM
     gen = torch.Generator(device="cuda").manual_seed(2)
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
@@ -873,20 +900,42 @@ def main_shape_timings(ops, ref, quantize, agg, hbm: float, fp32: float,
             old=None if parent is None else (lambda: parent.row_combine(x, rw, old_row)))
         table = agg.nnm_neighbours(ops.pairwise_sqdist(x), MAIN_BYZ)
         k = table.shape[-1]
+        table32, old_cw = table.to(torch.int32).contiguous(), torch.empty((lanes, q), device="cuda")
         row("cwtm", lanes, lambda: ops.cwtm(x, trim), lambda: ref.cwtm_ref(x, trim), None,
             ops.launch_work("cwtm", lanes, n, q, trim=trim),
+            old=None if parent is None else (lambda: parent.cwtm(x, trim, None, old_cw)),
             sort_ms=flushed_ms(lambda: torch.sort(x, dim=-2), flush))
-        mixed = {"trim": trim, "neighbours_k": k}
+        # the yardstick: the mix as one batched product with the neighbour matrix (1/k at each of a row's
+        # neighbours) in fp32, then the CWTM kernel without the mix; not the function bit for bit
+        nbm = torch.zeros((lanes, n, n), device="cuda").scatter_(2, table.long(), 1.0 / k)
+        mixed = {"trim": trim, "neighbours_k": k, "mix_plan": list(cwtm.mix_plan(lanes, n, q, k)),
+                 "bmm_then_cwtm_ms": flushed_ms(lambda: ops.cwtm(torch.bmm(nbm, x), trim), flush)}
         row("cwtm", f"{lanes}_mix", lambda: ops.cwtm(x, trim, table),
             lambda: ref.cwtm_ref(ref.nnm_mix_ref(x, table), trim), None,
-            ops.launch_work("cwtm", lanes, n, q, trim=trim, k=k), **mixed)
+            ops.launch_work("cwtm", lanes, n, q, trim=trim, k=k),
+            old=None if parent is None else (lambda: parent.cwtm(x, trim, table32, old_cw)), **mixed)
+        for nb in (None, table):  # the timed calls' plans, bit for bit
+            check(torch.equal(ops.cwtm(x, trim, nb), ref.cwtm_ref(x if nb is None else ref.nnm_mix_ref(x, nb), trim)),
+                  f"CWTM{'' if nb is None else '-NNM'} at {lanes} lanes differs from its plain version")
         row("gram", lanes, lambda: ops.gram(x), lambda: ref.gram_ref(x), lambda: torch.bmm(x, x.transpose(1, 2)),
             ops.launch_work("gram", lanes, n, q), old=None if parent is None else (lambda: parent.gram(x)))
         g, u = x.reshape(lanes * n, q), torch.rand((lanes * n, q), generator=gen, device="cuda")
+        old_q = torch.empty_like(g)
+        before = ops.launch_counts()["quantize"]
+        ops.stochastic_quantize(g, u, QUANT_LEVELS, QUANT_CHUNK)
+        launches = ops.launch_counts()["quantize"] - before
+        check(launches == 1, f"QSGD over {lanes * n} rows took {launches} launches")
+        chunk = min(QUANT_CHUNK, q)
         row("quantize", lanes, lambda: ops.stochastic_quantize(g, u, QUANT_LEVELS, QUANT_CHUNK),
-            lambda: quantize.plain(g, u, QUANT_LEVELS, min(QUANT_CHUNK, q)), None,
-            ops.launch_work("quantize", lanes * n, 1, q), levels=QUANT_LEVELS, chunk=min(QUANT_CHUNK, q))
-        del x, subsets, mix, mask, table, g, u, old_out, rw, old_row
+            lambda: quantize.plain(g, u, QUANT_LEVELS, chunk), None,
+            ops.launch_work("quantize", lanes * n, 1, q),
+            old=None if parent is None else (lambda: parent.quantize(g, u, QUANT_LEVELS, QUANT_CHUNK, old_q)),
+            levels=QUANT_LEVELS, chunk=chunk, launches_a_call=launches,
+            layout="warp" if quantize.quant_plan(lanes * n, q, chunk) else "block")
+        check(torch.equal(ops.stochastic_quantize(g, u, QUANT_LEVELS, QUANT_CHUNK),
+                          quantize.plain(g, u, QUANT_LEVELS, chunk)),
+              f"QSGD over {lanes * n} rows differs from its plain version")
+        del x, subsets, mix, mask, table, table32, old_cw, nbm, g, u, old_q, old_out, rw, old_row
     del flush
     return out
 
@@ -1106,6 +1155,8 @@ def grid_phase(S, trajectory: dict, section7: dict, replayed: dict[str, int]) ->
         sides of the first chunk boundary and of the padded last chunk's;
       * ``synthetic_sweep(1000, n_devices=100, n_byz=20)`` at dim=100, the
         paper's width in 1000 lanes (100,000 folded encode rows), three
+        lanes held to standalone runs; the same sweep under ``quant:4``
+        (100,000 rows quantized in one launch, QSGD's warp layout), three
         lanes held to standalone runs.
 
     Adds every chunk's replayed launches to ``replayed``."""
@@ -1205,6 +1256,10 @@ def grid_phase(S, trajectory: dict, section7: dict, replayed: dict[str, int]) ->
     del whole, chunked
     rows = S.synthetic_sweep(1000, n_devices=100, n_byz=20)
     sweep("sweep1000_n100", rows, 100, {0, len(rows) // 2, len(rows) - 1})
+    rows = S.synthetic_sweep(1000, n_devices=100, n_byz=20, compressor="quant:4")
+    sweep("sweep1000_n100_quant4", rows, 100, {0, len(rows) // 2, len(rows) - 1})
+    check(out["calls"]["sweep1000_n100_quant4"]["buckets"][0]["captured_launches_per_round"].get("quantize") == 1,
+          "the quant:4 sweep's round did not quantize its 100,000 rows in one launch")
     out["bitwise"] = True
     return out
 
@@ -4073,8 +4128,8 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
     ``section7`` phase and the grid replays it reads, the kernels at the
     wide shape (``kernel_timings``), and then the kernels against their
     plain versions (``kernel_errors``). With ``parent_dir`` (``--parent
-    DIR``) the encode, the attack, the Gram and the row combine of DIR's
-    sources are timed beside the tree's (``ParentKernels``)."""
+    DIR``) the six kernel sources of DIR are timed beside the tree's
+    (``ParentKernels``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -4105,7 +4160,7 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "peak_hbm_bytes_per_s": hbm, "peak_fp32_flops": fp32})
     emit({"phase": "ptxas", **{name: ptxas_entries(_build.ptxas_log(name))
-                               for name in ("gram", "cwtm", "gather_combine", "attack", "row_combine")}})
+                               for name in ("gram", "cwtm", "gather_combine", "attack", "row_combine", "quantize")}})
     parent = None
     if parent_dir is not None:
         parent = ParentKernels(parent_dir, _build)

@@ -7,6 +7,12 @@ under test) and prints one JSON line, also written to ``--out``:
   * ``graph``: replay ms per round (``run_scenario(mode="graph")``, CUDA
     only) of the 15 ``section7_grid()`` rows and of the geomed, mcc, tgn,
     krum and multi_krum rows at N = 100, dim = 100, LAD d = 10;
+  * ``grid``: replay ms per round of each bucket of ``run_grid`` in graph
+    mode (CUDA only) over ``PAPER_FIG4`` (``exact=True``), ``PAPER_FIG6``
+    (``exact=False``) and three ``PAPER_FIG6`` rows under ``quant:4``
+    (``exact=False``), as ``chip_smoke.py``'s grid phase runs them, and
+    ``synthetic_sweep(1000)`` at N = 100 under ``quant:4`` (100,000 rows
+    quantized a round), keyed by the bucket's first row;
   * ``loop``: host ms per round of the ``PAPER_FIG4`` and ``PAPER_FIG6``
     rows and of the same five rule rows in ``mode="loop"``;
   * ``wide``: one warmed round each of geomed under gaussian noise and mcc
@@ -18,7 +24,9 @@ Run parent, change, change, parent in one session::
     python3 scripts/torch_server_times.py --src parent/src --label parent
     python3 scripts/torch_server_times.py --src src --label change
 
-``--device cpu`` (small ``--steps`` and ``--wide-q``) rehearses the script
+``--grid-only`` prints the ``grid`` buckets alone (parent against change
+for the NNM buckets, a minute a tree). ``--device cpu`` (small
+``--steps`` and ``--wide-q``) rehearses the script
 on the host clock and skips the graph rows. ``--profile ROW`` instead runs
 that ``PAPER_FIG4`` / ``PAPER_FIG6`` / rule row in loop mode under
 ``cProfile`` and prints where the host time goes.
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import dataclasses
 import json
 import pstats
 import subprocess
@@ -80,6 +89,7 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="a file to append the JSON line to")
     ap.add_argument("--profile", default=None, help="a row to profile on the host in loop mode")
+    ap.add_argument("--grid-only", action="store_true", help="only the grid buckets' replay ms")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -107,11 +117,29 @@ def main() -> int:
         pstats.Stats(prof, stream=sys.stdout).sort_stats("tottime").print_stats(30)
         return 0
 
-    if dev == "cuda":
+    if dev == "cuda" and not args.grid_only:
         out["graph_replay_ms_per_round"] = {}
         for scn in list(S.section7_grid()) + rule_rows(S):
             res = S.run_scenario(scn, args.steps, seed=0, device=dev, mode="graph")
             out["graph_replay_ms_per_round"][scn.name] = res.graph.replay_ms() / args.steps
+
+    if dev == "cuda":
+        out["grid_replay_ms_per_round"] = {}
+        quant = [dataclasses.replace(S.PAPER_FIG6[k], name=f"{k}/quant:4", compressor="quant:4")
+                 for k in ("Com-CWTM", "Com-LAD-CWTM", "Com-LAD-CWTM-NNM")]
+        sweep = S.synthetic_sweep(1000, n_devices=100, n_byz=20, compressor="quant:4")
+        for name, rows, exact in (("fig4", list(S.PAPER_FIG4.values()), True),
+                                  ("fig6", list(S.PAPER_FIG6.values()), False), ("quant4", quant, False),
+                                  ("sweep1000_quant4", sweep, True)):
+            res = S.run_grid(rows, args.steps, seed=0, device=dev, mode="graph", exact=exact)
+            buckets = {}
+            for row in rows:
+                buckets.setdefault(id(res[row.name].grid), (res[row.name].grid, row.name))
+            out["grid_replay_ms_per_round"][name] = {
+                first: {"lanes": stats.lanes, "replay_ms_per_round": stats.replay_ms() / args.steps}
+                for stats, first in buckets.values()}
+    if args.grid_only:
+        return emit(out, args.out)
 
     out["loop_ms_per_round"] = {}
     for scn in list(S.PAPER_FIG4.values()) + list(S.PAPER_FIG6.values()) + rule_rows(S):
@@ -144,11 +172,16 @@ def main() -> int:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else None}
         del g, want, rand
 
+    return emit(out, args.out)
+
+
+def emit(out: dict, path: str | None) -> int:
+    """Print ``out`` as one JSON line and append it to ``path`` when given."""
     line = json.dumps(out)
     print(line, flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        with open(args.out, "a") as f:
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "a") as f:
             f.write(line + "\n")
     return 0
 

@@ -47,17 +47,32 @@
 //     front by trim's bits (log2(P) - 1 fixed shifts, each taken or not) and
 //     summed as the tree whose levels are taken while they fit the kept
 //     count. Columns run over lanes x Q as one range, so a lane of Q = 100
-//     leaves no block idle. With the mix, the N originals are staged in
-//     dynamic shared memory laid out [n][thread] (neighbouring threads on
-//     neighbouring banks) and each mixed value is built into its register,
-//     four rows at a time.
+//     leaves no block idle.
+//     With the mix, cwtm_mix_net_kernel<P>: a block takes one lane and a
+//     tile of C columns (kernels/cwtm.py::mix_plan). It stages the lane's
+//     (N, C) originals in shared memory and turns the lane's table into
+//     N-bit row masks there (ids in ascending order are the set bits in
+//     ascending order, so no id is loaded a term); a thread's item is 4
+//     rows x 4 columns and, for each j, it loads x_j's 4 columns once (16
+//     bytes) and adds them into each of its rows whose mask holds j, a
+//     predicated add. The mixed (N, C) tile goes to shared memory (over the
+//     staged table, read by then); after one barrier a thread a column
+//     reads its N mixed keys and runs the network and the kept-row tree
+//     above. The rows of the mix are spread over the block's threads and
+//     the columns over blocks, so at 1 lane the lane's tiles run on as many
+//     SMs. scripts/torch_mix_plans.py times it against the split design (a
+//     mix kernel writing the mixed (L, N, Q) stack, then the sort-only
+//     kernel; scripts/cwtm_split_probe.cu).
 //   * 129 <= N <= 256: the same compare-exchanges on 256 slots, level by
 //     level in loops, with the keys in shared memory, [slot][thread], 64
-//     threads a block.
+//     threads a block; with the mix, its N originals staged in shared
+//     memory and k table ids loaded a mixed value.
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "tile.cuh"
 
 namespace {
 
@@ -65,7 +80,12 @@ constexpr int kRegThreads = 256;    // register path
 constexpr int kCols = 4;            // columns a register-path thread owns
 constexpr int kRegMaxN = 12;
 constexpr int kNetThreads = 128;    // register network
-constexpr int kMixRows = 4;         // mixed values a network thread builds at once
+constexpr int kNetMaxN = 128;
+constexpr int kMixRows = 4;         // mix kernel: rows a thread's item holds
+constexpr int kMixStep = 8;         // ids a step of the mix loop: staged rows are padded to a multiple
+constexpr int kMixWords = kNetMaxN / 32;  // mask words a row
+constexpr int kMixMaxCols = 128;
+constexpr int kMixMaxThreads = 256;  // a thread holds the network's registers too (191 at P = 128)
 constexpr int kWideP = 256;         // shared-memory network: slots
 constexpr int kWideThreads = 64;
 constexpr int32_t kNanKey = 0x7FFFFFFE;  // every NaN: above +inf's 0x7F800000, itself a NaN's bits
@@ -318,52 +338,151 @@ __device__ __forceinline__ float kept_mean(int32_t (&v)[P], int n, int trim, flo
   return __fmul_rn(t[0], inv_k);
 }
 
+// The barrier after the loads keeps all N of them in flight at once: left
+// free, the compiler sinks each load to its first compare-exchange, and the
+// network then waits on one load after another (twice the time at N = 100).
 template <int P>
 __global__ void __launch_bounds__(kNetThreads)
-cwtm_net_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int k, float inv_mix,
-                float* __restrict__ out, int64_t total, int n, int64_t q, int trim, float inv_k) {
-  extern __shared__ float staged[];  // with the mix: the originals, [n][kNetThreads]
-  __shared__ int bad[kNetThreads];
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kNetThreads;
-  const int64_t lane_lo = first / q;
-  const bool mixing = nbr != nullptr;
-  if (mixing) check_tables(nbr, n, k, lane_lo, lanes_touched(first, kNetThreads, total, q), bad);
-  const int64_t c = first + threadIdx.x;
-  if (c >= total) return;  // every thread owns its own column: no block barrier below
-  const int64_t lane = c / q;
-  const float* m = msgs + lane * n * q + (c - lane * q);
-
+cwtm_net_kernel(const float* __restrict__ msgs, float* __restrict__ out, int64_t total, int n, int64_t q,
+                int trim, float inv_k) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
+  const bool live = c < total;
+  const int64_t lane = live ? c / q : 0;
+  const float* m = msgs + lane * n * q + (live ? c - lane * q : 0);
   int32_t v[P];
-  bool lane_bad = false;
-  if (!mixing) {
 #pragma unroll
-    for (int i = 0; i < P; ++i) v[i] = i < n ? float_key(__ldg(m + i * q)) : kPadKey;
+  for (int i = 0; i < P; ++i) v[i] = live && i < n ? float_key(__ldg(m + i * q)) : kPadKey;
+  __syncthreads();
+  if (!live) return;
+  odd_even_merge_sort<0, P - 1>(v);
+  out[c] = kept_mean<P>(v, n, trim, inv_k);
+}
+
+// The NNM mix of the 13 <= N <= 128 path, in two steps a block calls in
+// turn (cwtm_mix_net_kernel; scripts/cwtm_split_probe.cu calls them too).
+// mix_stage stages columns [c0, c0 + width) of lane `lane`'s originals as
+// [row][cols / 4] float4s in `tile` (rows padded to a multiple of kMixStep;
+// a warp reads consecutive 16-byte words of one row), the lane's table in
+// `tab` (both by asynchronous copies), and the masks built from it as
+// [word][row] in `masks`. It returns, to every thread, whether an id is out
+// of range or order. Every thread of the block must call it.
+__device__ __forceinline__ int mix_stage(float4* tile, unsigned* masks, int* tab, const float* msgs,
+                                         const int* nbr, int k, int n, int64_t q, int64_t lane, int64_t c0,
+                                         int cols, int width, int rows, bool vec) {
+  // stage the originals and the table: asynchronous copies, all in flight together
+  repro_tile::stage_tile(reinterpret_cast<float*>(tile), cols, msgs + lane * n * q, n, q, c0, width, vec);
+  const int* nb = nbr + lane * n * k;
+  const int entries = n * k;
+  if ((entries & 3) == 0 && repro_tile::aligned16(nb)) {
+    for (int i = threadIdx.x; i < entries >> 2; i += blockDim.x) repro_tile::cp_async16(tab + 4 * i, nb + 4 * i);
   } else {
-    lane_bad = bad[lane - lane_lo] != 0;
-    float* x = staged + threadIdx.x;  // x[j * kNetThreads] is row j of this column
-    for (int j = 0; j < n; ++j) x[j * kNetThreads] = __ldg(m + j * q);
-    const int* nb = nbr + lane * n * k;
+    for (int i = threadIdx.x; i < entries; i += blockDim.x) repro_tile::cp_async4(tab + i, nb + i);
+  }
+  repro_tile::cp_async_wait_all();
+  __syncthreads();
+  // the table to masks, a warp a row: 32 ids at a time, each id's bit ORed
+  // into its word across the warp; each id is checked against the one
+  // before it in its row. Rows past n get empty masks.
+  const int me = threadIdx.x & 31;
+  int bad = 0;
+  for (int row = threadIdx.x >> 5; row < rows; row += blockDim.x >> 5) {
+    unsigned word[kMixWords] = {0u, 0u, 0u, 0u};
+    for (int e0 = 0; row < n && e0 < k; e0 += 32) {  // the same trips for the whole warp
+      const int e = e0 + me;
+      const int id = e < k ? tab[row * k + e] : -1;
+      const int prev = e < k && e > 0 ? tab[row * k + e - 1] : -1;
+      if (e < k && (id < 0 || id >= n || id <= prev)) bad = 1;
+      const unsigned bit = id >= 0 && id < n ? 1u << (id & 31) : 0u;
 #pragma unroll
-    for (int r0 = 0; r0 < P; r0 += kMixRows) {
-      float acc[kMixRows];
+      for (int w = 0; w < kMixWords; ++w) word[w] |= __reduce_or_sync(0xffffffffu, (id >> 5) == w ? bit : 0u);
+    }
+    if (me == 0) {
 #pragma unroll
-      for (int s = 0; s < kMixRows; ++s) acc[s] = -0.f;
-      if (r0 < n && !lane_bad) {
-        for (int j = 0; j < k; ++j) {
-#pragma unroll
-          for (int s = 0; s < kMixRows; ++s) {
-            if (r0 + s < n) acc[s] = __fadd_rn(acc[s], x[__ldg(nb + (r0 + s) * k + j) * kNetThreads]);
-          }
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kMixRows; ++s) v[r0 + s] = r0 + s < n ? float_key(__fmul_rn(acc[s], inv_mix)) : kPadKey;
+      for (int w = 0; w < kMixWords; ++w) masks[w * rows + row] = word[w];
     }
   }
+  return __syncthreads_or(bad);
+}
 
-  odd_even_merge_sort<0, P - 1>(v);
-  const float r = kept_mean<P>(v, n, trim, inv_k);
-  out[c] = lane_bad ? __int_as_float(kNaNBits) : r;
+// mix_items: a thread's item is rows r0..r0+3 of one 4-column group of the
+// staged tile; each mixed value is one chain of adds over the ascending ids
+// of its row, from -0.0, then times inv_mix (NaN for a bad table, so its
+// trimmed means come out NaN). Mixed row r goes to y + r * ystride, 16
+// bytes a group (y and ystride 16-byte aligned; a ragged tile's last group
+// writes past `width`, inside the row's stride).
+__device__ __forceinline__ void mix_items(const float4* tile, const unsigned* masks, int rows, int stride,
+                                          int n, int width, int bad, float inv_mix, float* y, int64_t ystride) {
+  const int groups = (width + 3) >> 2;
+  const int items = (n + kMixRows - 1) / kMixRows * groups;
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int r0 = item / groups * kMixRows, g = item % groups;
+    float4 acc[kMixRows];
+#pragma unroll
+    for (int s = 0; s < kMixRows; ++s) acc[s] = make_float4(-0.f, -0.f, -0.f, -0.f);
+    for (int w = 0; 32 * w < n; ++w) {
+      unsigned sel[kMixRows];
+#pragma unroll
+      for (int s = 0; s < kMixRows; ++s) sel[s] = masks[w * rows + r0 + s];
+      const float4* xw = tile + 32 * w * stride + g;
+      const int span = n - 32 * w < 32 ? n - 32 * w : 32;
+      for (int b0 = 0; b0 < span; b0 += kMixStep) {  // rows up to `rows` are staged: b0 + 7 reads no further
+#pragma unroll
+        for (int b = 0; b < kMixStep; ++b) {
+          const float4 x = xw[(b0 + b) * stride];
+#pragma unroll
+          for (int s = 0; s < kMixRows; ++s) {
+            if (sel[s] & (1u << b)) {
+              acc[s].x = __fadd_rn(acc[s].x, x.x);
+              acc[s].y = __fadd_rn(acc[s].y, x.y);
+              acc[s].z = __fadd_rn(acc[s].z, x.z);
+              acc[s].w = __fadd_rn(acc[s].w, x.w);
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kMixRows; ++s) sel[s] >>= kMixStep;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kMixRows; ++s) {
+      const int r = r0 + s;
+      if (r >= n) break;
+      const float4 v = bad ? make_float4(__int_as_float(kNaNBits), __int_as_float(kNaNBits),
+                                         __int_as_float(kNaNBits), __int_as_float(kNaNBits))
+                           : make_float4(__fmul_rn(acc[s].x, inv_mix), __fmul_rn(acc[s].y, inv_mix),
+                                         __fmul_rn(acc[s].z, inv_mix), __fmul_rn(acc[s].w, inv_mix));
+      *reinterpret_cast<float4*>(y + r * ystride + 4 * g) = v;
+    }
+  }
+}
+
+// Block b mixes lane b / tiles over its columns [c0, c0 + cols) into a
+// shared (n, cols) tile, then sorts each of them and writes its trimmed
+// mean. Shared memory: the staged originals, the masks, then the table,
+// which the mixed tile overwrites once the masks are built.
+template <int P>
+__global__ void __launch_bounds__(kMixMaxThreads)
+cwtm_mix_net_kernel(const float* __restrict__ msgs, const int* __restrict__ nbr, int k, float inv_mix,
+                    float* __restrict__ out, int n, int64_t q, int cols, int tiles, bool vec, int trim, float inv_k) {
+  extern __shared__ float4 tile[];
+  const int rows = (n + kMixStep - 1) / kMixStep * kMixStep;
+  const int stride = cols >> 2;  // float4s a staged row
+  unsigned* masks = reinterpret_cast<unsigned*>(tile + rows * stride);  // [kMixWords][rows]
+  int* tab = reinterpret_cast<int*>(masks + kMixWords * rows);  // the lane's (n, k) table
+  float* y = reinterpret_cast<float*>(tab);  // then the mixed tile, [n][cols]
+  const int64_t lane = blockIdx.x / tiles;
+  const int64_t c0 = (blockIdx.x - lane * tiles) * static_cast<int64_t>(cols);
+  const int width = static_cast<int>(q - c0 < cols ? q - c0 : cols);
+  const int bad = mix_stage(tile, masks, tab, msgs, nbr, k, n, q, lane, c0, cols, width, rows, vec);
+  mix_items(tile, masks, rows, stride, n, width, bad, inv_mix, y, cols);
+  __syncthreads();
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    int32_t v[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = i < n ? float_key(y[i * cols + c]) : kPadKey;
+    odd_even_merge_sort<0, P - 1>(v);
+    out[lane * q + c0 + c] = kept_mean<P>(v, n, trim, inv_k);
+  }
 }
 
 __global__ void __launch_bounds__(kWideThreads)
@@ -467,19 +586,44 @@ cudaError_t launch_columns(Kernel kernel, int threads, size_t smem, const float*
 }
 
 template <int P>
-cudaError_t launch_net(const float* msgs, const int* nbr, int k, float inv_mix, float* out, int lanes, int n,
-                       int64_t q, int trim, float inv_k, cudaStream_t s) {
-  const size_t smem = nbr == nullptr ? 0 : static_cast<size_t>(n) * kNetThreads * sizeof(float);
-  return launch_columns(cwtm_net_kernel<P>, kNetThreads, smem, msgs, nbr, k, inv_mix, out, lanes, n, q, trim,
-                        inv_k, s);
+cudaError_t launch_net(const float* msgs, float* out, int lanes, int n, int64_t q, int trim, float inv_k,
+                       cudaStream_t s) {
+  const int64_t total = static_cast<int64_t>(lanes) * q;
+  const int64_t blocks = (total + kNetThreads - 1) / kNetThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  cwtm_net_kernel<P><<<static_cast<unsigned>(blocks), kNetThreads, 0, s>>>(msgs, out, total, n, q, trim, inv_k);
+  return cudaGetLastError();
+}
+
+// The mix and the sort in one launch, `cols` columns and `threads` threads a block.
+template <int P>
+cudaError_t launch_mix_net(const float* msgs, const int* nbr, int k, float inv_mix, float* out, int lanes, int n,
+                           int64_t q, int trim, float inv_k, int cols, int threads, cudaStream_t s) {
+  const int64_t tiles = (q + cols - 1) / cols;
+  if (tiles > INT_MAX / lanes) return cudaErrorInvalidValue;
+  const int rows = (n + kMixStep - 1) / kMixStep * kMixStep;
+  const size_t table = static_cast<size_t>(n) * k, mixed = static_cast<size_t>(n) * cols;
+  const size_t smem = (static_cast<size_t>(rows) * (cols + kMixWords) + (table > mixed ? table : mixed)) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(cwtm_mix_net_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const bool vec = q % 4 == 0 && reinterpret_cast<uintptr_t>(msgs) % 16 == 0;
+  cwtm_mix_net_kernel<P><<<static_cast<unsigned>(lanes * tiles), threads, smem, s>>>(
+      msgs, nbr, k, inv_mix, out, n, q, cols, static_cast<int>(tiles), vec, trim, inv_k);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // nbr: null (no mix) or the (lanes, n, k) int32 neighbour table, its rows
-// strictly ascending; inv_mix = 1 / k.
+// strictly ascending; inv_mix = 1 / k. At 13 <= n <= 128 with a table,
+// `mix_cols` / `mix_threads` are the mix's plan (kernels/cwtm.py::mix_plan);
+// elsewhere they are not read.
 extern "C" int repro_cwtm(const void* msgs, const void* nbr, int k, float inv_mix, void* out,
-                          int lanes, int n, int64_t q, int trim, float inv_k, void* stream) {
+                          int lanes, int n, int64_t q, int trim, float inv_k, int mix_cols, int mix_threads,
+                          void* stream) {
   if (lanes <= 0 || n <= 0 || n > kWideP || q <= 0 || trim < 0 || 2 * trim >= n ||
       (nbr != nullptr && (k <= 0 || k > n))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -504,19 +648,28 @@ extern "C" int repro_cwtm(const void* msgs, const void* nbr, int k, float inv_mi
     }
     return static_cast<int>(err);
   }
-  cudaError_t err;
-  if (n <= 16) {
-    err = launch_net<16>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
-  } else if (n <= 32) {
-    err = launch_net<32>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
-  } else if (n <= 64) {
-    err = launch_net<64>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
-  } else if (n <= 128) {
-    err = launch_net<128>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s);
-  } else {
+  if (n > kNetMaxN) {
     const size_t smem = static_cast<size_t>(kWideP + (nb == nullptr ? 0 : n)) * kWideThreads * sizeof(float);
-    err = launch_columns(cwtm_wide_kernel, kWideThreads, smem, x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k,
-                         s);
+    return static_cast<int>(
+        launch_columns(cwtm_wide_kernel, kWideThreads, smem, x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, s));
   }
+  if (nb != nullptr && (mix_cols < 4 || mix_cols > kMixMaxCols || mix_cols % 4 != 0 || mix_threads < 32 ||
+                        mix_threads > kMixMaxThreads || mix_threads % 32 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+#define REPRO_CWTM_NET(P)                                                                                   \
+  err = nb == nullptr ? launch_net<P>(x, o, lanes, n, q, trim, inv_k, s)                                    \
+                      : launch_mix_net<P>(x, nb, k, inv_mix, o, lanes, n, q, trim, inv_k, mix_cols, mix_threads, s)
+  if (n <= 16) {
+    REPRO_CWTM_NET(16);
+  } else if (n <= 32) {
+    REPRO_CWTM_NET(32);
+  } else if (n <= 64) {
+    REPRO_CWTM_NET(64);
+  } else {
+    REPRO_CWTM_NET(128);
+  }
+#undef REPRO_CWTM_NET
   return static_cast<int>(err);
 }

@@ -39,9 +39,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gather_combine": ("repro_gather_combine", (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _P)),
     "attack": ("repro_attack", (_P, _P, _P, _I, _I, _I64, _I, _F, _I, _P)),
-    "cwtm": ("repro_cwtm", (_P, _P, _I, _F, _P, _I, _I, _I64, _I, _F, _P)),
+    "cwtm": ("repro_cwtm", (_P, _P, _I, _F, _P, _I, _I, _I64, _I, _F, _I, _I, _P)),
     "gram": ("repro_gram", (_P, _P, _P, _P, _I, _I, _I64, _I64, _I, _I, _I, _I, _I, _P)),
-    "quantize": ("repro_quantize", (_P, _P, _P, _I, _I64, _I64, _I, _P)),
+    "quantize": ("repro_quantize", (_P, _P, _P, _I64, _I64, _I64, _I, _I, _P)),
     "row_combine": ("repro_row_combine", (_P, _P, _P, _I, _I, _I64, _I, _I, _P)),
 }
 

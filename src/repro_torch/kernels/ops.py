@@ -12,8 +12,9 @@ kernels mask their ragged Q edge themselves, so nothing is padded here.
 A kernel's grid spans its folded lanes in one dimension of at most 65535
 blocks, so a wrapper launches a larger fold in consecutive slices of lanes;
 lanes are independent, so the bits do not change, and each launch counts.
-The grids of the encode (lanes x column tiles) and of the row combines
-(lanes x columns) are flat: one launch covers any lane count.
+The grids of the encode (lanes x column tiles), of the row combines
+(lanes x columns) and of QSGD (rows x quantization blocks) are flat: one
+launch covers any lane count.
 
 Inside a ``crossover(dispatch)`` block, a crossover table the caller passes
 in (``functools.partial(tuner.lane_dispatch, store=store)`` over a store
@@ -366,7 +367,7 @@ def stochastic_quantize(g: torch.Tensor, u: torch.Tensor, levels: int = 16, bloc
     gf, _ = _lanes(g, 1)
     uf, _ = _lanes(u, 1)
     on_card = _on_card("quantize", gf, uf)
-    slices = _slices("quantize", gf.shape[0], _MAX_GRID_Y, rows=1, q=gf.shape[-1])
+    slices = _slices("quantize", gf.shape[0], max(1, gf.shape[0]), rows=1, q=gf.shape[-1])
     if not on_card:
         return _quantize.plain(gf, uf, levels, qb).reshape(g.shape)
     return _lane_launch("quantize", lambda a, b, out: _quantize.launch(a, b, levels, qb, out=out),

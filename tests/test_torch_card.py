@@ -29,7 +29,15 @@ row combines are held bit for bit at R = 1 to 256 rows, Q = 1 to 4097,
 CWTM is bitwise its plain version on both sides of every padded size of
 its sorting network (N = 13 to 256, with and without the mix, at 1 and 3
 lanes), and orders NaN, +-inf and +-0 as ``torch.sort`` does, NaN last
-(NaN at the same places, every other value equal).
+(NaN at the same places, every other value equal). Its mix path (13 <= N
+<= 128: the mix kernel, then the sort) is bitwise at every padded size, k
+of 1, 80 and N, 1, 3 and 1,000 lanes, Q = 100 and a Q no column tile
+divides, each lane of a batch its single-lane launch, with NaN, +-inf and
++-0 in the Byzantine rows, and a table out of range or order makes its
+lane NaN alone. QSGD is bitwise at blocks of 96 (ragged), 100, 1,024 and
+4,096, a warp or a thread block a block, on 16-byte and 4-byte loads and
+unaligned rows, an all-zero block and a block holding a NaN coming out
+0; 100,000 rows are one launch.
 
 The median through the CWTM kernel and DRACO's decode, masked and unmasked,
 are held to the same computations on the CPU bit for bit (elementwise fp32
@@ -81,6 +89,7 @@ from repro_torch.core import scenarios as tscn
 from repro_torch.core.aggregators import coordinate_median, nnm_neighbours
 from repro_torch.core.coding import draco_decode
 from repro_torch.launch import fleet as tfleet
+from repro_torch.kernels import _build
 from repro_torch.kernels import cwtm as tcwtm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tquant
@@ -335,7 +344,7 @@ def test_cwtm_nnm_matches_plain_bitwise_on_card(card, lanes, n, q, n_byz):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("n", [8, 16, 100, 128])
 def test_cwtm_marks_a_lane_with_a_bad_table_nan(card, n):
     """On the card the table is not read back: a lane whose rows are not
     strictly ascending comes out NaN, the other lanes as the plain version."""
@@ -347,6 +356,110 @@ def test_cwtm_marks_a_lane_with_a_bad_table_nan(card, n):
     out = tops.cwtm(msgs, 1, table)
     assert bool(torch.isnan(out[1]).all())
     torch.testing.assert_close(out[0], tcwtm.plain(msgs[:1], 1, table[:1])[0], rtol=0, atol=0)
+
+
+# CWTM-NNM's mix path (13 <= N <= 128, csrc/cwtm.cu's mix-and-sort
+# kernel): every padded size of the network, k of 1, 80 and N
+MIX_CARD = [(n, k) for n in (13, 16, 33, 64, 100, 128) for k in sorted({1, 80, n}) if k <= n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", MIX_CARD, ids=[f"N{n}-k{k}" for n, k in MIX_CARD])
+def test_cwtm_nnm_mix_path_is_bitwise_the_plain_version(card, n, k):
+    """At 1, 3 and 1,000 lanes, Q = 100 (16-byte loads) and Q = 101 (a Q
+    that no column tile divides, 4-byte loads), trim floor(0.1 N): the
+    kernel equals ``cwtm.plain`` bit for bit, and each lane of the 3-lane
+    launch its single-lane launch."""
+    for lanes in (1, 3, 1000):
+        for q in (100, 101):
+            assert q % tcwtm.mix_plan(lanes, n, q).cols or q == 100
+            msgs = torch.randn((lanes, n, q), generator=card, device="cuda") * 3
+            table = _random_tables(card, lanes, n, k)
+            got = tops.cwtm(msgs, n // 10, table)
+            assert torch.equal(got, tcwtm.plain(msgs, n // 10, table)), (lanes, q)
+            if lanes == 3:
+                for i in range(lanes):
+                    assert torch.equal(got[i], tops.cwtm(msgs[i], n // 10, table[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 100, 128])
+def test_cwtm_nnm_mix_path_orders_specials_as_the_plain_version(card, n):
+    """NaN (either sign), +-inf and +-0 in the Byzantine rows through the
+    mix path at k = 2 and k = N // 2: NaN at the plain version's places,
+    every other value equal; a table with an id out of range or out of
+    order makes its lane NaN and leaves the others alone."""
+    lanes, q, byz = 3, 203, max(2, n // 5)
+    msgs = torch.randn((lanes, n, q), generator=card, device="cuda")
+    nan = math.copysign(math.nan, -1.0)
+    specials = torch.tensor([math.nan, nan, math.inf, -math.inf, 0.0, -0.0], device="cuda")
+    pick = torch.randint(0, 24, (lanes, byz, q), generator=card, device="cuda")
+    msgs[:, :byz] = torch.where(pick < 6, specials[pick.clamp(max=5)], msgs[:, :byz])
+    for k in (2, n // 2):
+        table = _random_tables(card, lanes, n, k)
+        got, want = tops.cwtm(msgs, 1, table), tcwtm.plain(msgs, 1, table)
+        nan_at = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan_at) and torch.equal(got[~nan_at], want[~nan_at])
+        for bad in ("range", "order"):
+            broken = table.clone()
+            if bad == "range":
+                broken[1, n - 1, -1] = n
+            else:
+                broken[1, 0, :2] = broken[1, 0, :2].flip(0)
+            out = tops.cwtm(msgs, 1, broken)
+            assert bool(torch.isnan(out[1]).all())
+            for i in (0, 2):
+                nan_i = torch.isnan(want[i])
+                assert torch.equal(torch.isnan(out[i]), nan_i) and torch.equal(out[i][~nan_i], want[i][~nan_i])
+
+
+def _quantize_layout(g: torch.Tensor, u: torch.Tensor, levels: int, chunk: int, warp: bool) -> torch.Tensor:
+    """QSGD through its C entry in the layout ``warp`` names, whatever
+    ``quant_plan`` would pick for the shape."""
+    out = torch.empty_like(g)
+    err = _build.library("quantize")(g.data_ptr(), u.data_ptr(), out.data_ptr(), g.shape[0], g.shape[1], chunk,
+                                     levels, int(warp), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [96, 100, 256, 512, 1024, 4096])
+def test_quantize_is_bitwise_the_plain_version_at_every_layout(card, chunk):
+    """Blocks of 96 (ragged at the row's end), 100, 256, 512, 1,024 and
+    4,096 coordinates, each through ``quant_plan``'s layout and, up to
+    ``WARP_MAX_CHUNK`` (512), through both (a warp a block, a thread block
+    a block): bit for bit the plain version with 16-byte loads (Q % 4 ==
+    0), 4-byte loads (an odd Q)
+    and on rows 4 bytes off 16-byte alignment; an all-zero block comes out
+    0 and a block holding a NaN 0, as the plain version's."""
+    for rows, q in ((5, 8192), (5, 8191), (3, 100)):
+        base = torch.randn((rows * q + 1,), generator=card, device="cuda") * 3
+        for g in (base[:-1].view(rows, q), base[1:].view(rows, q)):
+            u = torch.rand((rows, q), generator=card, device="cuda")
+            g[0, :min(chunk, q)] = 0.0
+            if rows > 1:
+                g[1, 3] = math.nan
+            got = tops.stochastic_quantize(g, u, 4, chunk)
+            want = tquant.plain(g, u, 4, min(chunk, q))
+            assert torch.equal(got, want), (rows, q, g.data_ptr() % 16)
+            for warp in (True, False) if min(chunk, q) <= tquant.WARP_MAX_CHUNK else (False,):
+                assert torch.equal(_quantize_layout(g, u, 4, min(chunk, q), warp), want), (rows, q, warp)
+            assert not bool(got[0, :min(chunk, q)].any())
+            if rows > 1:
+                assert not bool(got[1, :min(chunk, q)].any())
+
+
+@pytest.mark.cuda
+def test_quantize_launches_100000_rows_once(card):
+    """quant:4 at 1,000 lanes of N = 100 rows and Q = 100: one launch, bit
+    for bit the plain version."""
+    g = torch.randn((1000, 100, 100), generator=card, device="cuda")
+    u = torch.rand((1000, 100, 100), generator=card, device="cuda")
+    before = tops.launch_counts()["quantize"]
+    got = tops.stochastic_quantize(g, u, 4, 1024)
+    assert tops.launch_counts()["quantize"] == before + 1
+    assert torch.equal(got, tquant.plain(g.reshape(-1, 100), u.reshape(-1, 100), 4, 100).reshape(g.shape))
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
