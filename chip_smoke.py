@@ -129,6 +129,15 @@ and prints one JSON line per phase:
                  nothing; a checkpoint after step 2, loaded and resumed, bit
                  for bit the uninterrupted run; the card's losses against
                  the CPU's on the same records;
+  surface        the reference's public names (``docs/paper_map_torch.md``):
+                 the map's quickstart through ``repro_torch.core``'s
+                 exports; ``lad_round`` at Fig. 4's LAD-CWTM-NNM-d10 (N=100,
+                 Q=100), plain and under ``quant:4``, bit for bit
+                 ``protocol_round`` and within 2e-6 of the CPU; the named
+                 attacks bit for bit ``make_attack``'s maps and the plain
+                 attack; ``engine.clear_program_caches()`` after a warm
+                 graph-mode step, its dropped counts, one capture each
+                 after it and none on the next step;
   train_wide     the train step on smollm-360m at its published widths,
                  depth and dtype (bf16 weights, P = 361,821,120) with
                  ``TrainConfig``'s AdamW (bf16 moments), N=8, LAD d=2, CWTM
@@ -265,7 +274,10 @@ and prints one JSON line per phase:
                  phase's four ranks, their steps alone, where the attack,
                  CWTM, Gram and QSGD kernels must be above 0;
                  ``fleet_launches``: those of the ``fleet`` phase's card
-                 fleets, server and workers summed), and
+                 fleets, server and workers summed; ``surface_launches``:
+                 those of the ``surface`` phase's quickstart and
+                 ``lad_round`` calls, where the encode, attack, CWTM, Gram
+                 and QSGD kernels must be above 0), and
                  the launches that graph
                  replays ran on the card
                  beside them, which no counter sees (``coded_combine``, which
@@ -2165,6 +2177,117 @@ def train_phase(T, models, pytree, ops, byz, checkpoint, synthetic, arch, tmp: P
     out["card_vs_cpu"] = {"max_rel_loss": rel, "tolerance": TRAIN_RTOL, "params_max_abs_diff": worst,
                           "loss_card": card_loss.tolist()}
     T.engine_program_cache_clear()
+    return out
+
+
+SURFACE_ROW = "LAD-CWTM-NNM-d10"  # Fig. 4's row for lad_round, N=100, Q=100
+SURFACE_RTOL = 2e-6  # lad_round, card against CPU, relative to the aggregate's largest coordinate
+SURFACE_KERNELS = ("gather_combine", "attack", "cwtm", "gram", "quantize")  # what the two lad_rounds launch
+
+
+def surface_phase(S, byz, attacks, compression, engine, T, models, pytree, ref, ops, synthetic, smi: str) -> dict:
+    """The reference's public surface on the card (``docs/paper_map_torch.md``):
+
+      * the map's quickstart through the package exports (``from
+        repro_torch.core import ProtocolConfig, run_trajectory``): N=32, dim
+        16, 50 rounds, the loss must fall;
+      * ``lad_round`` at N=100, Q=100 under Fig. 4's LAD-CWTM-NNM-d10, and
+        the same row under ``quant:4``: bit for bit ``protocol_round`` on
+        the same records, and within relative ``SURFACE_RTOL`` of the same
+        round on the CPU. The quickstart and the card's ``lad_round`` calls
+        are the phase's launch window (``launches``), which must reach
+        ``SURFACE_KERNELS``;
+      * ``sign_flip``, ``alie`` and ``ipm`` bit for bit ``make_attack``'s
+        maps and their plain versions (``ref.attack_ref``), outside the
+        window;
+      * ``engine.clear_program_caches()`` after a warm graph-mode train step
+        at ``lm_arch()``: the dropped counts; a step built after the clear
+        captures once, its next step nothing."""
+    from repro_torch.core import ProtocolConfig, run_trajectory
+
+    out = {"phase": "surface", "nvidia_smi": smi}
+    ops.reset_launch_counts()
+    n, dim = 32, 16
+    z, y = synthetic.linear_regression_problem(torch.Generator(device="cuda").manual_seed(0), n=n, dim=dim,
+                                               sigma_h=0.3)
+    cfg = ProtocolConfig(n_devices=n, d=4, method="lad", aggregator="cwtm", trim_frac=0.2, n_byz=6,
+                         attack=attacks.AttackSpec("sign_flip", n_byz=6))
+    res = run_trajectory(cfg, torch.zeros(dim), lambda x: synthetic.linreg_subset_grads(z, y, x), steps=50,
+                         lr=1e-5, grad_scale=float(n), loss_fn=lambda xs: synthetic.linreg_loss(z, y, xs),
+                         randomness=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    loss = res.metrics["loss"].cpu()
+    check(bool(torch.isfinite(loss).all()) and float(loss[-1]) < float(loss[0]), "surface: the quickstart's loss")
+    out["quickstart"] = {"first_loss": float(loss[0]), "last_loss": float(loss[-1])}
+
+    q = 100
+    zc, yc = synthetic.linear_regression_problem(torch.Generator().manual_seed(3), n=100, dim=q, sigma_h=0.3)
+    x = torch.randn(q, generator=torch.Generator().manual_seed(4))
+    fig4 = S.PAPER_FIG4[SURFACE_ROW].protocol()
+    rounds = {}
+    for name, pcfg in ((SURFACE_ROW, fig4),
+                       (SURFACE_ROW + "/quant:4",
+                        dataclasses.replace(fig4, compression=compression.CompressionSpec.parse("quant:4")))):
+        rand = byz.sample_round_randomness(pcfg, q, torch.Generator().manual_seed(5))
+        side = {}
+        for dev in ("cuda", "cpu"):
+            zd, yd = zc.to(dev), yc.to(dev)
+            side[dev] = byz.lad_round(pcfg, x.to(dev), lambda p: synthetic.linreg_subset_grads(zd, yd, p),
+                                      rand.to(dev), device=dev)
+        rounds[name] = (pcfg, rand, side)
+    launches = ops.launch_counts()
+    out["launches"] = launches
+    for name in SURFACE_KERNELS:
+        check(launches[name] > 0, f"surface: lad_round launched no {name} kernel")
+    out["lad_round"] = {}
+    grads = synthetic.linreg_subset_grads(zc.cuda(), yc.cuda(), x.cuda())
+    for name, (pcfg, rand, side) in rounds.items():
+        card, cpu = side["cuda"], side["cpu"]
+        check(torch.equal(card, byz.protocol_round(pcfg, grads, rand.to("cuda"), device="cuda")),
+              f"surface: lad_round ({name}) differs from protocol_round")
+        rel = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+        check(bool(torch.isfinite(card).all()) and rel <= SURFACE_RTOL,
+              f"surface: lad_round ({name}) card against CPU rel {rel} > {SURFACE_RTOL}")
+        out["lad_round"][name] = {"n_devices": pcfg.n_devices, "d": pcfg.d, "q": q, "bitwise_protocol_round": True,
+                                  "card_vs_cpu_rel": rel, "tolerance": SURFACE_RTOL}
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    msgs = torch.randn((100, q), generator=gen, device="cuda")
+    mask = attacks.sample_byzantine_mask(100, 20, fixed=False, generator=gen, device="cuda")
+    out["attacks"] = {}
+    for name, param, value in (("sign_flip", "coeff", -2.0), ("alie", "z", 1.5), ("ipm", "eps", 0.5)):
+        got = getattr(attacks, name)(msgs, mask, None, value)
+        check(torch.equal(got, attacks.make_attack(attacks.AttackSpec(name, **{param: value}))(msgs, mask)),
+              f"surface: {name} differs from make_attack's map")
+        err = float((got - ref.attack_ref(msgs, mask, name, value)).abs().max())
+        check(err == 0.0, f"surface: {name} against its plain version: {err}")
+        out["attacks"][name] = {"bitwise_make_attack": True, "max_abs_err_vs_plain": err}
+
+    arch = S.lm_arch()
+    params, specs = models.init(torch.Generator().manual_seed(0), arch)
+    params = pytree.map_tree(lambda a: a.to("cuda"), params)
+    batch = train_batches(synthetic, arch, 10, 1, 1)[0]
+    tcfg = train_tcfg(T, arch, momentum_dtype="float32")
+    step, opt = T.build_train_step(arch, tcfg, specs, device="cuda", mode="graph")
+    state = opt.init(params)
+    step(params, state, batch, 0)
+    step(params, state, batch, 1)  # warm
+    dropped = engine.clear_program_caches()
+    check(dropped.get("train.engine_step", 0) >= 2, f"surface: the warm step's programs were not counted: {dropped}")
+    check(set(engine.program_cache_sizes().values()) == {0}, "surface: a cache kept entries after the clear")
+
+    def captures():
+        info = T.engine_program_cache_info()
+        return info["round"] + info["apply"]
+
+    before = captures()
+    step, _ = T.build_train_step(S.lm_arch(), tcfg, specs, device="cuda", mode="graph")
+    step(params, state, batch, 0)
+    once = captures() - before
+    step(params, state, batch, 1)
+    again = captures() - before - once
+    check(once == 2 and again == 0, f"surface: after the clear {once} captures, then {again}")
+    T.engine_program_cache_clear()
+    out["program_caches"] = {"dropped": dropped, "captures_after_clear": once, "captures_next_step": again}
     return out
 
 
@@ -4228,9 +4351,15 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
                 ("zoo", lambda: zoo_phase(scenarios, byzantine, models, pytree, replayed)),
                 ("zoo_wide", lambda: zoo_wide_phase(scenarios, byzantine, models, coding, pytree, archs)),
                 ("train", lambda: train_phase(train, models, pytree, ops, byzantine, checkpoint, synthetic,
-                                              scenarios.lm_arch(), tmp)),
-                ("train_wide", lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32))])
+                                              scenarios.lm_arch(), tmp))])
     lm = ops.launch_counts()
+    # the reference's public surface: its own window, read inside the phase
+    run_phases([("surface", lambda: surface_phase(scenarios, byzantine, attacks, compression, engine, train, models,
+                                                  pytree, ref, ops, synthetic, smi))])
+    surface = lines["surface"]["launches"]
+    ops.reset_launch_counts()
+    run_phases([("train_wide", lambda: train_wide_phase(train, models, pytree, archs, synthetic, hbm, fp32))])
+    lm = {name: lm[name] + n for name, n in ops.launch_counts().items()}
 
     # the protomath step, under a 1-rank NCCL group: its own counts, from 0
     ops.reset_launch_counts()
@@ -4280,7 +4409,7 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
           for name in ops.KERNELS}
 
     launches = {name: linear[name] + lm[name] + wide[name] + pm[name] + es[name] + tp[name] + fl[name]
-                for name in ops.KERNELS}
+                + surface[name] for name in ops.KERNELS}
     for name in TPU_KERNELS:
         if name in OFF_PATH:
             check(checked[name] > 0, f"kernel {name} was not launched in the kernels phase")
@@ -4293,7 +4422,7 @@ def main(main_shape_only: bool = False, parent_dir: Path | None = None) -> int:
          "replaces": TPU_KERNELS[name][1], "launches": launches[name], "on_path": name not in OFF_PATH,
          "lm_launches": lm[name], "protomath_launches": pm[name], "engine_shard_launches": es[name],
          "protomath_tp_launches": tp[name],
-         "fleet_launches": fl[name],
+         "fleet_launches": fl[name], "surface_launches": surface[name],
          "graph_replay_launches": replayed[name],
          "max_abs_err": max(errors[name], timings[name]["max_abs_err_wide"]), **timings[name],
          "main_shape": main_shape.get(name)}

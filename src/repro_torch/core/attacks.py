@@ -2,9 +2,11 @@
 transmitted (..., N, Q)``; leading axes are lanes.
 
 The paper's sign-flip (coefficient -2) and the ALIE and IPM collusion
-attacks run through the attack kernel (``kernels/ops.py::attack``) on a
-CUDA tensor and through its plain version on the CPU. ``none``, ``zero``,
-``label_shift`` and ``gaussian`` are plain tensor code. ``gaussian`` is the
+attacks (``sign_flip``, ``alie``, ``ipm``) run through the attack kernel
+(``kernels/ops.py::attack``) on a CUDA tensor and through its plain version
+on the CPU. ``none``, ``zero_attack``, ``label_shift_proxy`` and
+``gaussian`` are plain tensor code. Each named attack takes its scalar
+after ``noise``, as the reference's takes it after the mask. ``gaussian`` is the
 only attack that reads ``noise``: the round's ``(..., N, Q)`` standard normals
 (``RoundRandomness.attack_noise``), drawn outside the round.
 """
@@ -21,16 +23,39 @@ from repro_torch.kernels.attacks import KERNEL_ATTACK_PARAMS
 
 Attack = Callable[..., torch.Tensor]
 
-__all__ = ["Attack", "AttackSpec", "gaussian", "make_attack", "sample_byzantine_mask"]
+__all__ = ["Attack", "AttackSpec", "sign_flip", "gaussian", "zero_attack", "alie", "ipm", "label_shift_proxy",
+           "make_attack", "sample_byzantine_mask"]
 
 
-def _zero(msgs: torch.Tensor, mask: torch.Tensor, noise=None) -> torch.Tensor:
+def sign_flip(msgs: torch.Tensor, mask: torch.Tensor, noise=None, coeff: float = -2.0) -> torch.Tensor:
+    """Section VII's attack: Byzantine rows are the true ones times
+    ``coeff`` (-2). The attack kernel."""
+    return kernel_ops.attack(msgs, mask, "sign_flip", coeff)
+
+
+def zero_attack(msgs: torch.Tensor, mask: torch.Tensor, noise=None) -> torch.Tensor:
+    """Byzantine rows become zero."""
     return torch.where(mask[..., None] > 0, torch.zeros_like(msgs), msgs)
 
 
-def _label_shift(msgs: torch.Tensor, mask: torch.Tensor, noise=None) -> torch.Tensor:
-    """Gradient-space proxy for label flipping: negate."""
-    return torch.where(mask[..., None] > 0, -1.0 * msgs, msgs)
+def alie(msgs: torch.Tensor, mask: torch.Tensor, noise=None, z: float = 1.5) -> torch.Tensor:
+    """A-Little-Is-Enough: Byzantine rows send the honest mean minus ``z``
+    honest standard deviations, coordinate by coordinate. The attack kernel
+    (its sums in ``tree_sum``'s order)."""
+    return kernel_ops.attack(msgs, mask, "alie", z)
+
+
+def ipm(msgs: torch.Tensor, mask: torch.Tensor, noise=None, eps: float = 0.5) -> torch.Tensor:
+    """Inner-product manipulation: Byzantine rows send ``-eps`` times the
+    honest mean. The attack kernel."""
+    return kernel_ops.attack(msgs, mask, "ipm", eps)
+
+
+def label_shift_proxy(msgs: torch.Tensor, mask: torch.Tensor, noise=None, scale: float = 1.0) -> torch.Tensor:
+    """Gradient-space proxy for label flipping: Byzantine rows negated and
+    scaled by ``scale`` (a label-flipped cross-entropy gradient points
+    roughly opposite)."""
+    return torch.where(mask[..., None] > 0, -scale * msgs, msgs)
 
 
 def gaussian(msgs: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor | None = None,
@@ -59,21 +84,23 @@ class AttackSpec:
         return make_attack(self)
 
 
+# the named attacks of ``make_attack`` and the ``AttackSpec`` field that is
+# each one's scalar (``AttackSpec`` has no ``scale``: label_shift keeps 1.0)
+_NAMED = {"sign_flip": sign_flip, "alie": alie, "ipm": ipm, "gaussian": gaussian, "zero": zero_attack,
+          "label_shift": label_shift_proxy}
+_PARAMS = {**KERNEL_ATTACK_PARAMS, "gaussian": "std"}
+
+
 def make_attack(spec: AttackSpec) -> Attack:
-    """The corruption map of ``spec``."""
-    if spec.name in KERNEL_ATTACK_PARAMS:
-        name = spec.name
-        param = float(getattr(spec, KERNEL_ATTACK_PARAMS[name]))
-        return lambda msgs, mask, noise=None: kernel_ops.attack(msgs, mask, name, param)
+    """The corruption map ``(msgs, mask, noise=None) -> transmitted`` of
+    ``spec``: its named attack at the spec's scalar."""
     if spec.name == "none":
         return lambda msgs, mask, noise=None: msgs
-    if spec.name == "zero":
-        return _zero
-    if spec.name == "label_shift":
-        return _label_shift
-    if spec.name == "gaussian":
-        return partial(gaussian, std=float(spec.std))
-    raise KeyError(f"unknown attack {spec.name!r}")
+    if spec.name not in _NAMED:
+        raise KeyError(f"unknown attack {spec.name!r}")
+    param = _PARAMS.get(spec.name)
+    fn = _NAMED[spec.name]
+    return fn if param is None else partial(fn, **{param: float(getattr(spec, param))})
 
 
 def sample_byzantine_mask(

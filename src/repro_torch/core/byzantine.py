@@ -53,6 +53,8 @@ __all__ = [
     "make_attack_fn",
     "make_server_fn",
     "protocol_round",
+    "lad_round",
+    "coded_draco_decode",
 ]
 
 
@@ -408,3 +410,17 @@ def protocol_round(
                for b in servers]
     hook("server")
     return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def coded_draco_decode(transmitted: torch.Tensor, d: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """DRACO's majority-vote decode of a round's transmitted stack
+    (``coding.draco_decode``), under the reference's name."""
+    return draco_decode(transmitted, d, mask=mask)
+
+
+def lad_round(cfg: ProtocolConfig, params: torch.Tensor, subset_grad_fn: Callable[[torch.Tensor], torch.Tensor],
+              rand: RoundRandomness, *, device: torch.device | str | None = None) -> torch.Tensor:
+    """Every subset gradient at ``params`` (``subset_grad_fn(params) -> (N,
+    Q)``), then one ``protocol_round`` on them with the round's records
+    ``rand``."""
+    return protocol_round(cfg, subset_grad_fn(params), rand, device=device)

@@ -1,4 +1,8 @@
-"""The decoders of the round's codes.
+"""The round's codes: eq. (5)'s encode and the decoders.
+
+``encode_coded_gradient`` is eq. (5) on one device's pytree of stacked
+subset gradients (the round's lane-batched encode is the gather-combine
+kernel, ``kernels/ops.py::gather_combine``).
 
 ``cyclic_erasure_decode`` recovers the full-participation gradient mean from
 the reports of a round with erased devices: the cyclic assignment at load
@@ -21,7 +25,7 @@ from repro_torch.core.aggregators import coordinate_median
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.numerics import nan_last, stable_mean0, tree_sum
 
-__all__ = ["erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode", "flatten_pytree",
+__all__ = ["encode_coded_gradient", "erasure_margin", "coded_weights", "cyclic_erasure_decode", "draco_decode", "flatten_pytree",
            "unflatten_pytree", "tree_spec"]
 
 
@@ -35,6 +39,13 @@ def erasure_margin(d: int) -> int:
 def coded_weights(d: int, device: torch.device | str = "cpu") -> torch.Tensor:
     """The eq.-(5) encoding weights: ``1/d`` on each assigned subset."""
     return torch.full((d,), 1.0 / d, dtype=torch.float32, device=device)
+
+
+def encode_coded_gradient(subset_grads):
+    """eq. (5): ``g_i = (1/d) sum_k grad_k``, each leaf of the pytree
+    ``subset_grads`` averaged over its leading axis of size ``d`` (the
+    stacked gradients of the ``d`` subsets one device computed)."""
+    return pytree.map_tree(lambda g: torch.mean(g, dim=0), subset_grads)
 
 
 def cyclic_erasure_decode(messages: torch.Tensor, mask: torch.Tensor,

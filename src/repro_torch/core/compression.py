@@ -1,8 +1,9 @@
 """Com-LAD wire compression (Section V, Definition 2).
 
   * ``identity``;
-  * random sparsification, per device (``rand_sparse``) or with one mask
-    shared by every device (``rand_sparse_shared``): keeps ``q_hat``
+  * random sparsification (``random_sparsification``), per device
+    (``rand_sparse``) or with one mask shared by every device
+    (``rand_sparse_shared``, ``rand_k_shared_mask``): keeps ``q_hat``
     coordinates and scales them by ``Q / q_hat``. The kept coordinates come
     in as indices (``keep_idx``, one row per device) drawn outside the
     round;
@@ -25,19 +26,25 @@ from __future__ import annotations
 import dataclasses
 import math
 import struct
+from functools import partial
+from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
 
+Compressor = Callable[..., torch.Tensor]
+
 __all__ = [
     "CompressionSpec",
     "spec_from",
     "identity",
-    "rand_sparse",
+    "random_sparsification",
+    "rand_k_shared_mask",
     "stochastic_quantization",
     "top_k",
+    "make_compressor",
     "compress_rows",
     "sample_keep_idx",
     "sample_quant_u",
@@ -151,16 +158,40 @@ def spec_from(name: str, *, q_hat_frac: float = 0.3, levels: int = 16,
     return CompressionSpec(name=name, q_hat_frac=q_hat_frac, levels=levels, chunk=chunk)
 
 
-def identity(rows: torch.Tensor) -> torch.Tensor:
+def identity(rows: torch.Tensor, draws: torch.Tensor | None = None) -> torch.Tensor:
     return rows
 
 
-def rand_sparse(rows: torch.Tensor, keep_idx: torch.Tensor) -> torch.Tensor:
-    """Keep the coordinates ``keep_idx[..., i, :]`` of row ``i``, scaled by
-    ``Q / q_hat``. rows: (..., R, Q), keep_idx: (..., R, q_hat) -> (..., R, Q)."""
-    q, q_hat = rows.shape[-1], keep_idx.shape[-1]
-    mask = torch.zeros_like(rows).scatter_(-1, keep_idx.long(), 1.0)
-    return rows * mask * (q / q_hat)
+def _permutations(rows: int, q: int, generator: torch.Generator) -> torch.Tensor:
+    """``rows`` random permutations of ``[0, q)`` (the argsort of uniform
+    draws) from ``generator``, on its device."""
+    return torch.rand((rows, q), generator=generator, device=generator.device).argsort(dim=-1)
+
+
+def rand_k_shared_mask(perm: torch.Tensor | None, q: int, q_hat: int, *,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """The 0/1 float32 sparsity mask ``(..., Q)`` with ones at the first
+    ``q_hat`` entries of ``perm`` (``(..., >= q_hat)``: a permutation of Q,
+    or the kept indices themselves); with no ``perm``, one permutation drawn
+    from ``generator``. The round-shared mask of ``rand_sparse_shared``
+    comes from the round's one draw."""
+    if perm is None:
+        perm = _permutations(1, q, generator)[0]
+    idx = perm[..., :q_hat].long()
+    return torch.zeros(idx.shape[:-1] + (q,), dtype=torch.float32, device=idx.device).scatter_(-1, idx, 1.0)
+
+
+def random_sparsification(g: torch.Tensor, perm: torch.Tensor | None, q_hat: int, *,
+                          generator: torch.Generator | None = None) -> torch.Tensor:
+    """Keep ``q_hat`` coordinates of each row of ``g`` (``(..., Q)``), the
+    first ``q_hat`` entries of the row's ``perm`` (see
+    ``rand_k_shared_mask``), scaled by ``Q / q_hat``: unbiased, delta =
+    Q / q_hat - 1. With no ``perm``, one permutation a row drawn from
+    ``generator``."""
+    q = g.shape[-1]
+    if perm is None:
+        perm = _permutations(math.prod(g.shape[:-1]), q, generator).reshape(g.shape)
+    return g * rand_k_shared_mask(perm, q, q_hat).to(g.dtype) * (q / q_hat)
 
 
 def stochastic_quantization(g: torch.Tensor, u: torch.Tensor, levels: int = 16,
@@ -186,29 +217,45 @@ def top_k(rows: torch.Tensor, q_hat: int) -> torch.Tensor:
     return rows * mask
 
 
+def make_compressor(spec: CompressionSpec, q: int) -> Compressor:
+    """The per-row map ``(rows (..., R, Q), draws) -> (..., R, Q)`` of
+    ``spec`` at width ``q``. ``draws`` are the rows' kept indices (the
+    sparse compressors: each row its own, or the one shared row repeated),
+    their rounding uniforms (``quant``), or ``None``."""
+    if spec.name in ("none", "identity"):
+        return identity
+    if spec.name in SPARSE:
+        return partial(random_sparsification, q_hat=spec.kept(q))
+    if spec.name == "quant":
+        def quantize(rows: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+            # QSGD works row by row: the lanes fold into rows
+            return stochastic_quantization(rows.reshape(-1, q), u.reshape(-1, q), spec.levels,
+                                           spec.chunk).reshape(rows.shape)
+        return quantize
+    if spec.name == "top_k":
+        return lambda rows, draws=None: top_k(rows, spec.kept(q))
+    raise KeyError(f"unknown compressor {spec.name!r}")
+
+
 def compress_rows(spec: CompressionSpec, rows: torch.Tensor,
                   keep_idx: torch.Tensor | None = None,
                   quant_u: torch.Tensor | None = None) -> torch.Tensor:
-    """Apply ``spec`` to the (..., R, Q) coded rows of a round (leading
-    axes are lanes); ``keep_idx`` holds each row's kept coordinates for the
-    sparse compressors (the same row repeated for ``rand_sparse_shared``),
-    ``quant_u`` each row's rounding draws for ``quant``."""
+    """Apply ``spec`` (``make_compressor``) to the (..., R, Q) coded rows of
+    a round (leading axes are lanes); ``keep_idx`` holds each row's kept
+    coordinates for the sparse compressors (the same row repeated for
+    ``rand_sparse_shared``), ``quant_u`` each row's rounding draws for
+    ``quant``."""
     q = rows.shape[-1]
-    if spec.name in ("none", "identity"):
-        return identity(rows)
+    draws = None
     if spec.name in SPARSE:
         if keep_idx is None or keep_idx.shape != rows.shape[:-1] + (spec.kept(q),):
             raise ValueError(f"{spec.name} needs keep_idx of shape (..., R, q_hat)")
-        return rand_sparse(rows, keep_idx)
-    if spec.name == "quant":
+        draws = keep_idx
+    elif spec.name == "quant":
         if quant_u is None or quant_u.shape != rows.shape:
             raise ValueError("quant needs quant_u of the rows' shape (..., R, Q)")
-        # QSGD works row by row: the lanes fold into rows
-        folded = stochastic_quantization(rows.reshape(-1, q), quant_u.reshape(-1, q), spec.levels, spec.chunk)
-        return folded.reshape(rows.shape)
-    if spec.name == "top_k":
-        return top_k(rows, spec.kept(q))
-    raise KeyError(f"unknown compressor {spec.name!r}")
+        draws = quant_u
+    return make_compressor(spec, q)(rows, draws)
 
 
 def sample_keep_idx(spec: CompressionSpec, n: int, q: int,
@@ -220,8 +267,7 @@ def sample_keep_idx(spec: CompressionSpec, n: int, q: int,
     if spec.name not in SPARSE:
         return None
     rows = 1 if spec.name == "rand_sparse_shared" else n
-    u = torch.rand((rows, q), generator=generator, device=generator.device)
-    return u.argsort(dim=-1)[:, : spec.kept(q)].expand(n, -1).contiguous()
+    return _permutations(rows, q, generator)[:, : spec.kept(q)].expand(n, -1).contiguous()
 
 
 def sample_quant_u(spec: CompressionSpec, n: int, q: int,

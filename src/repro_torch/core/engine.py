@@ -77,7 +77,8 @@ from repro_torch.timing import block_time
 __all__ = ["TrajectoryResult", "GraphStats", "GridStats", "RandomnessProvider", "run_trajectory",
            "run_grid", "grid_launch_list", "protocol_rounds", "pad_lanes", "padded_lane_count",
            "last_grid_chunk_info",
-           "draw_rounds", "stack_rounds", "select_round", "SHARD_MODES", "engine_ranks", "gather_ranks"]
+           "draw_rounds", "stack_rounds", "select_round", "SHARD_MODES", "engine_ranks", "gather_ranks",
+           "register_program_cache", "program_cache_sizes", "clear_program_caches"]
 
 RandomnessProvider = Callable[[int], RoundRandomness]
 
@@ -1068,3 +1069,39 @@ def protocol_rounds(
     rand = stack_rounds(draw_rounds(cfg, q, rounds, randomness), dev)
     grads = subset_grads.to(dev).expand((rounds,) + tuple(subset_grads.shape)).contiguous()
     return protocol_round(cfg, grads, rand, device=dev)
+
+
+# --------------------------------------------------------------------------
+# Program caches. The engine keeps no program between calls (a graph-mode
+# run captures its round anew). The modules that do keep programs or the
+# state they pin on the card (launch.train's captured round and apply
+# programs, scenarios' lru-cached LM problems and configs) register them
+# here, so that one call releases them all without core importing launch.
+# --------------------------------------------------------------------------
+
+_PROGRAM_CACHES: dict[str, tuple[Callable[[], None], Callable[[], int]]] = {}
+
+
+def register_program_cache(name: str, clear_fn: Callable[[], None], size_fn: Callable[[], int]) -> None:
+    """Register a program cache (its clear and current-size callables)
+    under ``name`` for ``clear_program_caches`` and
+    ``program_cache_sizes``; registering a name again replaces it."""
+    _PROGRAM_CACHES[name] = (clear_fn, size_fn)
+
+
+def program_cache_sizes() -> dict[str, int]:
+    """The entry count of every registered program cache."""
+    return {name: size_fn() for name, (_, size_fn) in _PROGRAM_CACHES.items()}
+
+
+def clear_program_caches() -> dict[str, int]:
+    """Release every registered program cache (and the card memory its
+    captures pin); returns the entry counts dropped. After a clear the next
+    step of a configuration builds and captures its programs once again,
+    and the steps after it capture nothing. A benchmark calls this between
+    phases, so that one phase's programs do not inflate the next one's
+    footprint."""
+    dropped = program_cache_sizes()
+    for clear_fn, _ in _PROGRAM_CACHES.values():
+        clear_fn()
+    return dropped

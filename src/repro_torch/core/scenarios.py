@@ -959,6 +959,15 @@ def zoo_arch(family: str):
     raise ValueError(f"unknown zoo family {family!r} (have {ZOO_FAMILIES})")
 
 
+# The lru caches pin the LM problems' x0 and closures, and the configs they
+# key on, for the process: engine.clear_program_caches() releases them with
+# the train step's programs.
+for _cache in (lm_arch, _lm_fns, zoo_arch):
+    engine_lib.register_program_cache(f"scenarios.{_cache.__name__.lstrip('_')}", _cache.cache_clear,
+                                      lambda c=_cache: c.cache_info().currsize)
+del _cache
+
+
 def zoo_sweep(
     families: Sequence[str] = ZOO_FAMILIES,
     methods: Sequence[tuple[str, int]] = (("lad", 2), ("plain", 1)),

@@ -77,7 +77,7 @@ from repro_torch.models.module import _axis_size, logical_to_mesh
 from repro_torch.models.moe import expert_capacity
 from repro_torch.models.transformer import CE_CHUNK
 
-__all__ = ["skip_reason", "serve_collectives", "serve_weights_gather", "run_case", "main"]
+__all__ = ["skip_reason", "auto_microbatches", "serve_collectives", "serve_weights_gather", "run_case", "main"]
 
 DEVICE = roofline.H100
 OUT_DIR = "experiments/dryrun_torch"
@@ -87,6 +87,34 @@ def skip_reason(cfg: ArchConfig, shape: ShapeConfig) -> str | None:
     if shape.name == "long_500k" and cfg.long_context == "skip":
         return "enc-dec audio model: 500k decoder context is out of scope (DESIGN.md)"
     return None
+
+
+def auto_microbatches(cfg: ArchConfig, shape: ShapeConfig, n_data: int, d: int,
+                      budget_bytes: float = 2.5e9) -> int:
+    """The reference's microbatch count for ``microbatches=0`` ("auto"): the
+    local d-redundant batch split so that the period stack's residuals
+    (n_periods x seqs x seq x d_model x 4 B) fit ``budget_bytes`` a chip,
+    a power of two that divides the local batch."""
+    local_seqs = max(1, shape.global_batch // n_data) * d
+    per_seq = cfg.n_periods * shape.seq_len * cfg.d_model * 4.0
+    # inner-period recompute transients scale with period length
+    per_seq = max(per_seq, len(cfg.period) * shape.seq_len * cfg.d_model * 3 * 4.0)
+    m_min = max(1, int(-(-local_seqs * per_seq // budget_bytes)))
+    m = 1
+    while m < m_min and m < local_seqs:
+        m *= 2
+    while local_seqs % m != 0:  # must divide the local batch
+        m *= 2
+    return min(m, local_seqs)
+
+
+def _microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh, tcfg: TrainConfig) -> int:
+    """A step's microbatches: ``tcfg.microbatches``, with 0 on a train shape
+    resolved through ``auto_microbatches`` as the reference's ``build_case``
+    resolves it."""
+    if tcfg.microbatches == 0 and shape.kind == "train":
+        return auto_microbatches(cfg, shape, n_data_devices(mesh), tcfg.d)
+    return max(1, tcfg.microbatches)
 
 
 def _effective_cfg(cfg: ArchConfig, shape: ShapeConfig) -> ArchConfig:
@@ -149,7 +177,7 @@ def _train_wire(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh, tcfg: TrainConf
     """Wire bytes a rank of the protomath step sends a step, by collective
     kind (the module docstring)."""
     n, data = n_data_devices(mesh), mesh.world
-    m, n_local = max(1, tcfg.microbatches), n // mesh.world
+    m, n_local = _microbatches(cfg, shape, mesh, tcfg), n // mesh.world
     d = 1 if tcfg.protocol == "none" else tcfg.d
     rows = shape.global_batch // n * d * n_local  # a rank's sequences a step
     tokens = rows * shape.seq_len  # a rank's tokens a step
@@ -425,7 +453,7 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig, out
     n_act = roofline.active_params(cfg, shapes)
     d_red = tcfg.d if (shape.kind == "train" and tcfg.protocol != "none") else 1
     mf = roofline.model_flops(cfg, shape, n_active=n_act, d_redundancy=d_red)
-    m = max(1, tcfg.microbatches)
+    m = _microbatches(cfg, shape, mesh, tcfg)
     views = sum(t.numel() // _parts(mesh, pl, "model") * t.element_size() for _, t, pl in leaves)
     extra = {}
     if shape.kind == "train":
@@ -499,7 +527,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--aggregator", default="cwtm")
     ap.add_argument("--server", default="sharded", choices=["sharded", "gather"])
     ap.add_argument("--n-byz", type=int, default=2)
-    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=0, help="0 = auto-size to the memory budget")
     args = ap.parse_args(argv)
     tcfg = TrainConfig(protocol=args.protocol, d=args.d, aggregator=args.aggregator, server=args.server,
                        n_byz=args.n_byz, microbatches=args.microbatches)

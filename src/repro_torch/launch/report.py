@@ -30,6 +30,11 @@ def load(dir_: str, mesh: str) -> dict[tuple[str, str], dict]:
     return recs
 
 
+def fmt_s(x: float) -> str:
+    """Seconds as the tables print them."""
+    return f"{x:.2e}"
+
+
 def _gib(r: dict, key: str) -> str:
     return f"{r[key] / 2**30:.3f}" if key in r else ""
 
@@ -54,8 +59,8 @@ def roofline_table(recs: dict, archs: list[str], mesh: str) -> str:
                 wire += f" | {sum(calls.values())}" if calls is not None else " |"
                 sizes = " | ".join(_gib(r, k) for k in ("params_bytes_per_rank", "moments_bytes_per_rank",
                                                         "decode_state_bytes_per_rank", "exchange_transient_bytes"))
-                lines.append(f"| {arch} | {shape} | ok | {sizes} | {wire} | {ro['compute_s']:.2e} "
-                             f"| {ro['memory_s']:.2e} | {ro['collective_s']:.2e} | **{ro['dominant']}** |")
+                lines.append(f"| {arch} | {shape} | ok | {sizes} | {wire} | {fmt_s(ro['compute_s'])} "
+                             f"| {fmt_s(ro['memory_s'])} | {fmt_s(ro['collective_s'])} | **{ro['dominant']}** |")
     return "\n".join(lines)
 
 

@@ -289,6 +289,10 @@ def engine_program_cache_clear() -> None:
     _ENGINE_PROGRAMS.clear()
 
 
+# one release point for every program cache: engine.clear_program_caches()
+engine_lib.register_program_cache("train.engine_step", engine_program_cache_clear, lambda: len(_ENGINE_PROGRAMS))
+
+
 def _clone(tree: Any) -> Any:
     """``tree`` (dicts, lists, dataclasses of tensors) with every tensor cloned."""
     return pytree.with_paths(tree, {k: v.clone() for k, v in pytree.paths(tree)})
